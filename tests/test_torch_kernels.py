@@ -1,0 +1,121 @@
+"""Port kernels: the plain PyTorch versions of the paged decode and paged
+chunked-prefill attention against the reference's Pallas kernels (run in
+interpret mode on the CPU, as the reference's own tests run them), plus the
+``impl`` dispatch.  Inputs come from numpy seeds and go to both packages in
+fp32; tolerance atol 1e-5 (fp32 softmax attention, sums in another order)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode_attention as tdec
+from repro_torch.kernels import paged_prefill_attention as tpre
+
+ATOL = 1e-5
+
+
+def _pool_case(seed, b, h, kvh, hd, page, ncols, share=False):
+    """Random pool + shuffled block tables (one sentinel column).  With
+    ``share``, slot 1's first page is slot 0's first page (a radix-shared
+    prefix page)."""
+    rng = np.random.default_rng(seed)
+    pool_n = 1 + b * ncols
+    k_pool = rng.standard_normal((pool_n, page, kvh, hd)).astype(np.float32)
+    v_pool = rng.standard_normal((pool_n, page, kvh, hd)).astype(np.float32)
+    bt = rng.permutation(np.arange(1, pool_n)).reshape(b, ncols)
+    if share and b > 1:
+        bt[1, 0] = bt[0, 0]
+    bt = np.concatenate([bt, np.zeros((b, 1), np.int64)], axis=1).astype(np.int32)
+    return rng, k_pool, v_pool, bt
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+DECODE_CASES = [
+    # (seed, b, h, kvh, hd, page, ncols, lengths, share)
+    (0, 4, 4, 2, 16, 8, 3, [0, 1, 24, 13], True),
+    (1, 3, 4, 4, 16, 16, 2, [32, 0, 17], False),
+    (2, 2, 8, 2, 32, 8, 4, [9, 32], True),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: f"seed{c[0]}")
+def test_decode_plain_matches_pallas(case):
+    seed, b, h, kvh, hd, page, ncols, lengths, share = case
+    rng, k_pool, v_pool, bt = _pool_case(seed, b, h, kvh, hd, page, ncols, share)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    ref = jops.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(bt), jnp.asarray(lens), impl="pallas",
+    )
+    out = ops.paged_decode_attention(
+        _t(q), _t(k_pool), _t(v_pool), _t(bt), _t(lens), impl="torch"
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    assert not out[lens == 0].any()  # empty slots are exact zeros
+
+
+PREFILL_CASES = [
+    # (seed, b, c, h, kvh, hd, page, ncols, starts, chunk_lens, share)
+    (0, 4, 8, 4, 2, 16, 8, 4, [0, 8, 3, 16], [8, 0, 5, 8], True),
+    (1, 3, 16, 4, 4, 16, 8, 4, [8, 0, 10], [16, 3, 0], True),
+    (2, 2, 8, 4, 2, 16, 16, 2, [0, 17], [1, 8], False),
+]
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=lambda c: f"seed{c[0]}")
+def test_prefill_plain_matches_pallas(case):
+    seed, b, c, h, kvh, hd, page, ncols, starts, clens, share = case
+    rng, k_pool, v_pool, bt = _pool_case(seed, b, h, kvh, hd, page, ncols, share)
+    q = rng.standard_normal((b, c, h, hd)).astype(np.float32)
+    st = np.asarray(starts, np.int32)
+    cl = np.asarray(clens, np.int32)
+    ref = jops.paged_prefill_chunk_attention(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(bt), jnp.asarray(st), jnp.asarray(cl), impl="pallas",
+    )
+    out = ops.paged_prefill_chunk_attention(
+        _t(q), _t(k_pool), _t(v_pool), _t(bt), _t(st), _t(cl), impl="torch"
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    pad = np.arange(c)[None, :] >= cl[:, None]
+    assert not out.numpy()[pad].any()  # rows past chunk_lens are exact zeros
+
+
+def _small_decode_inputs():
+    _, k_pool, v_pool, bt = _pool_case(7, 2, 4, 2, 16, 8, 2)
+    q = np.ones((2, 4, 16), np.float32)
+    lens = np.asarray([5, 9], np.int32)
+    return [_t(a) for a in (q, k_pool, v_pool, bt, lens)]
+
+
+def test_auto_dispatch_runs_plain_version_on_cpu():
+    ops.reset_launch_counts()
+    args = _small_decode_inputs()
+    out_auto = ops.paged_decode_attention(*args, impl="auto")
+    out_plain = ops.paged_decode_attention(*args, impl="torch")
+    assert torch.equal(out_auto, out_plain)
+    counts = ops.launch_counts()["paged_decode_attention"]
+    assert counts == {"cuda": 0, "torch": 2}
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["paged_decode_attention"]["torch"] == 0
+
+
+def test_cuda_impl_raises_on_cpu_tensors():
+    args = _small_decode_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention(*args, impl="cuda")
+    q = torch.zeros((2, 8, 4, 16))
+    st = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_prefill_chunk_attention(
+            q, args[1], args[2], args[3], st, st, impl="cuda"
+        )
+    with pytest.raises(ValueError, match="unknown"):
+        ops.paged_decode_attention(*args, impl="pallas")
+    assert tdec.COUNTS["cuda"] == 0 and tpre.COUNTS["cuda"] == 0
