@@ -1,4 +1,4 @@
-"""Architecture registry, limited to the archs the port serves.
+"""Architecture registry, limited to the archs the port runs.
 
 Public ids use dashes (``--arch qwen3-1.7b``); modules use underscores.
 """
@@ -7,10 +7,11 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SpecInFConfig, TrainConfig
 
 _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1p7b",
+    "olmo-1b": "olmo_1b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -41,4 +42,11 @@ def smoke_config(arch: str) -> ModelConfig:
     return dataclasses.replace(full, **reduced)
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "smoke_config"]
+__all__ = [
+    "ARCH_IDS",
+    "ModelConfig",
+    "SpecInFConfig",
+    "TrainConfig",
+    "get_config",
+    "smoke_config",
+]

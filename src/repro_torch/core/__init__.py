@@ -1,0 +1,52 @@
+"""SpecInF core: the paper's control plane over the port's trainer and
+engine (counterpart of ``repro.core``).
+
+  * BubbleMonitor            -- sliding-window idle detection (§3.3)
+  * AdaptiveKernelScheduler  -- Algorithm 1 (conservative/incremental/stable)
+  * plan_collocation         -- Principles I & II (§3.2)
+  * IterationProfile         -- the training iteration's compute / bubble
+                                segments (dp / mp / pp shapes; a dp one
+                                measured on the device)
+  * SpecInFRuntime           -- speculative filling over real compute
+"""
+from repro_torch.core.bubble_monitor import BubbleMonitor
+from repro_torch.core.collocation import (
+    CollocationPlan,
+    InstanceProfile,
+    TrainingProfile,
+    plan_collocation,
+)
+from repro_torch.core.filling import FillingMetrics, SpecInFPolicy, SpecInFRuntime
+from repro_torch.core.profiles import (
+    IterationProfile,
+    dp_profile,
+    measure_dp_profile,
+    mp_profile,
+    pp_profile,
+)
+from repro_torch.core.scheduler import (
+    AdaptiveKernelScheduler,
+    Phase,
+    ScheduleDecision,
+    Status,
+)
+
+__all__ = [
+    "AdaptiveKernelScheduler",
+    "BubbleMonitor",
+    "CollocationPlan",
+    "FillingMetrics",
+    "InstanceProfile",
+    "IterationProfile",
+    "Phase",
+    "ScheduleDecision",
+    "SpecInFPolicy",
+    "SpecInFRuntime",
+    "Status",
+    "TrainingProfile",
+    "dp_profile",
+    "measure_dp_profile",
+    "mp_profile",
+    "plan_collocation",
+    "pp_profile",
+]

@@ -1,0 +1,61 @@
+"""Deterministic synthetic LM data (own copy of ``repro.data.pipeline``'s
+``SyntheticDataset``, numpy only): the same seed gives the same batches as
+the reference.
+
+A learnable, Zipf-distributed token stream with short-range structure (a
+token is followed by a fixed successor half the time), so training loss
+measurably drops.  Token inputs only (the dense family takes no embedding
+inputs), one host (the reference's host sharding and checkpointable state
+return with scale-out and checkpointing).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass
+class SyntheticDataset:
+    cfg: ModelConfig
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    _step: int = 0
+
+    def __post_init__(self):
+        v = self.cfg.vocab_size
+        rng = np.random.default_rng(self.seed)
+        # Zipf unigram table + a sticky successor table: token t is followed
+        # by succ[t] w.p. 0.5, else a fresh Zipf draw
+        ranks = np.arange(1, v + 1, dtype=np.float64)
+        self._unigram = (1.0 / ranks) / np.sum(1.0 / ranks)
+        self._succ = rng.integers(0, v, size=v, dtype=np.int64)
+
+    def _rng_for(self, step: int) -> np.random.Generator:
+        # the reference's seed formula for host 0 of 1
+        return np.random.default_rng((self.seed * 1_000_003 + step) * 4096)
+
+    def _sample_tokens(self, rng: np.random.Generator, batch: int) -> np.ndarray:
+        s = self.seq_len + 1
+        fresh = rng.choice(
+            self.cfg.vocab_size, size=(batch, s), p=self._unigram
+        ).astype(np.int64)
+        sticky = rng.random((batch, s)) < 0.5
+        toks = fresh.copy()
+        for t in range(1, s):
+            toks[:, t] = np.where(sticky[:, t], self._succ[toks[:, t - 1]], fresh[:, t])
+        return toks
+
+    def next_batch(self) -> dict:
+        """``{"inputs": [B, S] int32, "labels": [B, S] int32}``, labels the
+        inputs shifted by one."""
+        rng = self._rng_for(self._step)
+        self._step += 1
+        toks = self._sample_tokens(rng, self.global_batch)
+        return {
+            "inputs": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }

@@ -1,0 +1,24 @@
+"""The port's device rule: ``cuda`` unless the caller names a device."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def resolve_device(device: Optional[str | torch.device]) -> torch.device:
+    """``cuda`` unless the caller names a device; raises when CUDA is asked
+    for (explicitly or by default) and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU unless device='cpu' "
+            "is passed explicitly"
+        )
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -29,15 +29,17 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C entry point and argument types of each kernel library
+#: C entry points of each kernel library and their argument types
 SIGNATURES = {
     "paged_decode_attention": (
-        "paged_decode_attention_launch",
-        [_P] * 8 + [_I] * 10 + [_P],
+        ("paged_decode_attention_launch", [_P] * 8 + [_I] * 10 + [_P]),
     ),
     "paged_prefill_attention": (
-        "paged_prefill_attention_launch",
-        [_P] * 7 + [_I] * 10 + [_P],
+        ("paged_prefill_attention_launch", [_P] * 7 + [_I] * 10 + [_P]),
+    ),
+    "flash_attention": (
+        ("flash_attention_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
+        ("flash_attention_bwd_launch", [_P] * 10 + [_I] * 7 + [_P]),
     ),
 }
 KERNELS = tuple(SIGNATURES)
@@ -104,15 +106,15 @@ def build(names=KERNELS) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built first if needed, with its entry
-    point's ``argtypes`` / ``restype`` declared."""
+    points' ``argtypes`` / ``restype`` declared."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name]:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

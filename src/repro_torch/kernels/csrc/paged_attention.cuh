@@ -28,40 +28,15 @@
 // the tensor cores -- later work.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace paged {
 
 constexpr int kThreads = 128;
 
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
-
-// 16 bytes of T -> fp32 values.
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+using kern::load16;
+using kern::store1;
+using kern::Vec;
 
 // Dynamic shared memory of one block, in bytes (rows = rows_q * group).
 inline size_t smem_bytes(int rows, int hd, int page) {
@@ -260,22 +235,11 @@ __device__ void attend_block(const T* __restrict__ q,
   }
 }
 
-// Raise the block's dynamic shared-memory limit when it needs more than the
-// default 48 KB, then launch; returns the launch's error.
+// Launch with the paged kernels' block size (see kern::launch).
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream,
                    Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return cudaGetLastError();
+  return kern::launch(kernel, grid, kThreads, smem, stream, args...);
 }
 
 }  // namespace paged
-
-extern "C" const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

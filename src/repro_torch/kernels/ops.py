@@ -1,6 +1,7 @@
-"""Dispatch over the paged attention kernels.
+"""Dispatch over the attention kernels: full-sequence (training) attention
+and the paged decode / chunked-prefill cores.
 
-Same signatures and defined outputs as ``repro.kernels.ops``'s paged entry
+Same signatures and defined outputs as ``repro.kernels.ops``'s entry
 points.  ``impl``:
 
   * "auto"  -- the CUDA kernel for CUDA tensors, the plain PyTorch version
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _decode
 from repro_torch.kernels import paged_prefill_attention as _prefill
 
@@ -27,6 +29,41 @@ def _resolve(impl: str, q: torch.Tensor) -> str:
     if impl == "auto":
         return "cuda" if q.is_cuda else "torch"
     return impl
+
+
+def _repeat_kv(k: torch.Tensor, q_heads: int) -> torch.Tensor:
+    """[B, S, kvH, hd] -> [B, S, qH, hd] by group broadcast (autograd of the
+    expand sums each group's gradients back onto its kv head)."""
+    b, s, kvh, hd = k.shape
+    if kvh == q_heads:
+        return k
+    return k[:, :, :, None, :].expand(b, s, kvh, q_heads // kvh, hd).reshape(
+        b, s, q_heads, hd
+    )
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Full-sequence attention.  q: [B, Sq, H, hd]; k/v: [B, Sk, kvH, hd].
+    Returns [B, Sq, H, hd].  K/V are expanded to H heads first (as the
+    reference does before its flash kernel); under ``causal`` query t sees
+    ``kpos <= t`` and Sq must equal Sk.  Differentiable either way: the
+    kernel through its backward kernels, the plain version by autograd."""
+    h = q.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = _repeat_kv(k, h).transpose(1, 2).contiguous()
+    vt = _repeat_kv(v, h).transpose(1, 2).contiguous()
+    if _resolve(impl, q) == "cuda":
+        out = _flash.flash_attention(qt, kt, vt, causal=causal)
+    else:
+        out = _flash.flash_attention_torch(qt, kt, vt, causal=causal)
+    return out.transpose(1, 2)
 
 
 def paged_decode_attention(
@@ -84,10 +121,13 @@ def launch_counts() -> dict:
     return {
         "paged_decode_attention": dict(_decode.COUNTS),
         "paged_prefill_attention": dict(_prefill.COUNTS),
+        "flash_attention_fwd": dict(_flash.FWD_COUNTS),
+        "flash_attention_bwd": dict(_flash.BWD_COUNTS),
     }
 
 
 def reset_launch_counts() -> None:
-    for counts in (_decode.COUNTS, _prefill.COUNTS):
+    for counts in (_decode.COUNTS, _prefill.COUNTS, _flash.FWD_COUNTS,
+                   _flash.BWD_COUNTS):
         for key in counts:
             counts[key] = 0

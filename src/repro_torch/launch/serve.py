@@ -20,9 +20,10 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serving.core import Priority, SamplingParams
-from repro_torch.serving.engine import InferenceEngine, resolve_device
+from repro_torch.serving.engine import InferenceEngine
 
 
 def summarize(engine: InferenceEngine) -> list:

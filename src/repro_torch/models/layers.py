@@ -1,5 +1,6 @@
-"""Shared layers of the serving path: norms, RoPE, GQA projections, the paged
-KV write, the paged decode / chunked-prefill attention blocks, SwiGLU MLP.
+"""Shared layers: norms, RoPE, GQA projections, the full-sequence attention
+block of the training forward, the paged KV write, the paged decode /
+chunked-prefill attention blocks, SwiGLU MLP.
 
 Counterpart of ``repro.models.layers``: plain functions over explicit
 parameter dicts that keep the reference's names and layouts.  Where the
@@ -168,6 +169,19 @@ def _out_proj(
         out = out * mask[None, None, :, None]
     h, k, d = p["wo"].shape
     return out.reshape(*out.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+
+
+def attention_block(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, *, impl: str = "auto"
+) -> torch.Tensor:
+    """Full-sequence causal attention (train).  x: [B, S, d] at positions
+    0 .. S-1; the core is ``ops.attention`` (the flash kernel on CUDA);
+    padded head slots are zeroed (and so are their gradients)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    out = ops.attention(q, k, v, causal=True, impl=impl)
+    return _out_proj(cfg, p, out)
 
 
 def paged_kv_write(

@@ -1,17 +1,21 @@
-"""Decoder-only LM, dense family, on the paged serving path.
+"""Decoder-only LM, dense family: the training forward and loss, and the
+paged serving path.
 
-Counterpart of ``repro.models.transformer`` for what the serving engine runs:
-``init_params``, ``embed_tokens`` / ``unembed``, ``init_paged_cache``,
-``decode_step``, the fused ``decode_loop`` and ``prefill_chunks_into_slots``.
-The reference's ``lax.scan`` over stacked layer weights becomes a Python
-loop over the ``[L, ...]`` stacks; its donated caches become in-place
-updates of the cache dict's tensors (documented per function).
+Counterpart of ``repro.models.transformer`` for what the trainer and the
+serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
+``forward`` / ``lm_loss`` (with remat policies ``"none"`` and ``"full"``),
+``init_paged_cache``, ``decode_step``, the fused ``decode_loop`` and
+``prefill_chunks_into_slots``.  The reference's ``lax.scan`` over stacked
+layer weights becomes a Python loop over the ``[L, ...]`` stacks; its
+donated caches become in-place updates of the cache dict's tensors
+(documented per function).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -22,7 +26,7 @@ Params = Any
 def _require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise ValueError(
-            f"the port serves the dense family only, not {cfg.family!r}"
+            f"the port runs the dense family only, not {cfg.family!r}"
         )
 
 
@@ -104,6 +108,94 @@ def embed_tokens(
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / logits over the full sequence) and loss
+# ---------------------------------------------------------------------------
+
+#: remat policies the port runs ("dots" is not ported yet)
+REMAT_POLICIES = ("none", "full")
+
+
+def _unstack(stacked: Params) -> list:
+    """[L, ...] leaves -> one tree per layer, as views whose backward stacks
+    the layers' gradients once (``torch.unbind``)."""
+    if isinstance(stacked, dict):
+        per_key = {k: _unstack(v) for k, v in stacked.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(stacked, 0))
+
+
+def _dense_layer(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str
+) -> torch.Tensor:
+    h = L.norm(cfg, x, p.get("ln1"))
+    x = x + L.attention_block(cfg, p["attn"], h, impl=impl)
+    h = L.norm(cfg, x, p.get("ln2"))
+    return x + L.mlp_block(p["ffn"], h)
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Params,
+    inputs: torch.Tensor,
+    *,
+    impl: str = "auto",
+    remat_policy: str = "none",
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, dict]:
+    """inputs: int tokens [B, S].  Returns ``(logits [B, S, V], metrics)``.
+
+    fp32 weights with ``ndim > 1`` are cast to ``compute_dtype`` inside the
+    forward (differentiably, so their gradients arrive in fp32).
+    ``remat_policy="full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``) instead of keeping its activations."""
+    _require_dense(cfg)
+    if remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (save matmul outputs only) is not ported yet"
+        )
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    if inputs.is_floating_point():
+        raise ValueError(f"{cfg.name} takes int tokens, not embeddings")
+    x = embed_tokens(cfg, params, inputs, compute_dtype)
+    for lp in _unstack(cast_params(params["layers"], compute_dtype)):
+        if remat_policy == "full":
+            x = checkpoint(_dense_layer, cfg, lp, x, impl, use_reentrant=False)
+        else:
+            x = _dense_layer(cfg, lp, x, impl)
+    x = L.norm(cfg, x, params.get("final_norm"))
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(cfg, params, x), {"moe_aux": zero, "moe_dropped": zero}
+
+
+def lm_loss(
+    cfg: ModelConfig,
+    params: Params,
+    inputs: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    impl: str = "auto",
+    remat_policy: str = "none",
+    compute_dtype: torch.dtype = torch.bfloat16,
+    moe_aux_weight: float = 0.01,
+) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy over fp32 logits (plus the MoE aux
+    term, zero for the dense family).  Returns ``(loss, metrics)`` with
+    ``metrics`` holding ``ce``, ``loss``, ``moe_aux`` and ``moe_dropped``."""
+    logits, metrics = forward(
+        cfg, params, inputs, impl=impl, remat_policy=remat_policy,
+        compute_dtype=compute_dtype,
+    )
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    loss = ce + moe_aux_weight * metrics["moe_aux"]
+    return loss, dict(metrics, ce=ce, loss=loss)
 
 
 # ---------------------------------------------------------------------------

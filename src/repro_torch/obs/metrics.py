@@ -109,6 +109,17 @@ class StreamingHistogram:
         self._bins = self._bins.astype(np.int64)
         self._samples = None
 
+    def values(self) -> list:
+        """The exact samples, while ``exact``; past the cap they no longer
+        exist and this raises (query ``percentile`` / ``count`` / ``sum``)."""
+        if self._samples is None:
+            raise RuntimeError(
+                f"histogram {self.name!r} collapsed to bins after "
+                f"{self.EXACT_CAP} samples; exact values are gone -- query "
+                "percentile()/count/sum instead"
+            )
+        return list(self._samples)
+
     def percentile(self, q: float) -> float:
         """q-th percentile (0..100); NaN when empty."""
         if self.count == 0:

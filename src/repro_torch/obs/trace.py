@@ -38,6 +38,10 @@ class StepTracer:
         self.events: list = []
         self.dropped = 0
         self._seq = 0
+        #: bubble-monitor window state for the NEXT quantum event: a SpecInF
+        #: runtime sets it right before ``EngineCore.step`` and the core
+        #: folds it into the quantum record, then clears it
+        self.window_state: Optional[dict] = None
 
     def _emit(self, ev: dict) -> None:
         if not self.enabled:
@@ -72,6 +76,16 @@ class StepTracer:
             "type": "transition", "request_id": int(request_id),
             "frm": frm, "to": to, "t": float(t), "priority": priority,
         })
+
+    def restamp_arrival(self, request_id: int, t: float) -> None:
+        """Rewrite a request's WAITING (submission) transition timestamp:
+        ``SpecInFRuntime`` restamps earlier arrivals onto its virtual epoch,
+        and the trace follows, so both stay on one timebase."""
+        for ev in self.events:
+            if (ev["type"] == "transition"
+                    and ev["request_id"] == request_id
+                    and ev["to"] == "waiting"):
+                ev["t"] = float(t)
 
     def write_jsonl(self, path: str, **meta) -> None:
         head = {
@@ -139,8 +153,8 @@ def chrome_trace(events: list) -> dict:
 
 class Observability:
     """The per-engine bundle: ONE metrics registry + ONE step tracer, shared
-    by the engine, its core and the serve CLI."""
+    by the engine, its core, the serve CLI and the SpecInF runtime."""
 
-    def __init__(self):
+    def __init__(self, tracing: bool = True):
         self.metrics = MetricsRegistry()
-        self.tracer = StepTracer()
+        self.tracer = StepTracer(enabled=tracing)

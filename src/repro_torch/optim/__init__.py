@@ -1,0 +1,13 @@
+"""Optimizer pieces of the train step (counterparts of ``repro.optim``):
+AdamW with fp32 moments, global-norm clipping, learning-rate schedules."""
+from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.schedule import make_schedule
+
+__all__ = [
+    "adamw_init",
+    "adamw_update",
+    "clip_by_global_norm",
+    "global_norm",
+    "make_schedule",
+]

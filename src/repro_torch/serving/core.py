@@ -613,6 +613,7 @@ class EngineCore:
         for key, v in eng.pool.occupancy().items():
             m.gauge(f"engine/pool/{key}").set(v)
         tr = self.obs.tracer
+        window, tr.window_state = tr.window_state, None
         if not tr.enabled:
             return
         t0, t1 = g.now, eng.clock()
@@ -644,6 +645,7 @@ class EngineCore:
             prefill_tokens=out.prefill_tokens,
             admitted=list(out.admitted), preempted=list(out.preempted),
             finished=[cr.request_id for cr in out.finished],
+            window=window,
         )
 
     def _collect(self, cr: EngineRequest) -> list:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.obs import Observability
 from repro_torch.serving.kv_pool import PageAllocError, PagePool, RadixCache
@@ -48,18 +49,6 @@ DEFAULT_KV_PAGE_SIZE = 16
 
 #: Chunked-prefill width (tokens per slot per wave).
 DEFAULT_PREFILL_CHUNK = 32
-
-
-def resolve_device(device: Optional[str | torch.device]) -> torch.device:
-    """``cuda`` unless the caller names a device; raises when CUDA is asked
-    for (explicitly or by default) and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU unless device='cpu' "
-            "is passed explicitly"
-        )
-    return dev
 
 
 class RegistryCounterView:
@@ -92,6 +81,9 @@ class RegistryCounterView:
 class Request:
     prompt: np.ndarray  # [prompt_len] int32
     max_new_tokens: int
+    #: submission spec read by ``SpecInFRuntime(online_requests=...)``
+    arrival_time: float = 0.0
+    online: bool = False
     request_id: int = dataclasses.field(default_factory=lambda: next(_req_counter))
     # -- filled by the engine --
     generated: list = dataclasses.field(default_factory=list)

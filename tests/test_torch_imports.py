@@ -1,7 +1,7 @@
 """The port stands alone: no module under ``src/repro_torch/`` nor
 ``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the reference package
-``repro`` (``repro_torch`` is allowed), and importing the serving core pulls
-no JAX into a fresh interpreter."""
+``repro`` (``repro_torch`` is allowed), and importing the serving core, the
+filling runtime and the train step pulls no JAX into a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -43,6 +43,7 @@ def test_serving_core_import_pulls_no_jax():
     code = (
         "import sys; import repro_torch.serving.core; "
         "import repro_torch.launch.serve; "
+        "import repro_torch.core.filling; import repro_torch.runtime.step; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )

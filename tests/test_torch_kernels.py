@@ -1,7 +1,7 @@
-"""Port kernels: the plain PyTorch versions of the paged decode and paged
-chunked-prefill attention against the reference's Pallas kernels (run in
-interpret mode on the CPU, as the reference's own tests run them), plus the
-``impl`` dispatch.  Inputs come from numpy seeds and go to both packages in
+"""Port kernels: the plain PyTorch versions of the paged decode, paged
+chunked-prefill and flash attention against the reference's Pallas kernels
+(run in interpret mode on the CPU, as the reference's own tests run them),
+plus the ``impl`` dispatch.  Inputs come from numpy seeds and go to both packages in
 fp32; tolerance atol 1e-5 (fp32 softmax attention, sums in another order)."""
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as tdec
 from repro_torch.kernels import paged_prefill_attention as tpre
@@ -119,3 +120,70 @@ def test_cuda_impl_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="unknown"):
         ops.paged_decode_attention(*args, impl="pallas")
     assert tdec.COUNTS["cuda"] == 0 and tpre.COUNTS["cuda"] == 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training forward): the plain version against the Pallas
+# kernel in interpret mode, heads pre-expanded, fp32, atol 1e-5
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (seed, sq, sk, causal, block): S a multiple of the block, and ragged
+    (0, 128, 128, True, 32),
+    (1, 100, 100, True, 32),
+    (2, 64, 64, False, 32),
+    (3, 48, 80, False, 32),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: f"seed{c[0]}")
+def test_flash_plain_matches_pallas(case):
+    from repro.kernels.flash_attention import flash_attention as jflash
+
+    seed, sq, sk, causal, block = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, 2, sq, 16)).astype(np.float32)
+    k = rng.standard_normal((1, 2, sk, 16)).astype(np.float32)
+    v = rng.standard_normal((1, 2, sk, 16)).astype(np.float32)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                 block_q=block, block_k=block, interpret=True)
+    out = tflash.flash_attention_torch(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+def test_attention_dispatch_matches_reference_xla_with_gqa():
+    """``ops.attention`` ([B, S, H, hd] layout, kv heads expanded inside)
+    against the reference's ``ops.attention(impl="xla")``."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 24, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 24, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 24, 2, 16)).astype(np.float32)
+    ref = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=True, impl="xla")
+    out = ops.attention(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+def test_attention_auto_runs_plain_forward_and_autograd_backward_on_cpu():
+    ops.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 8, 2, 16), generator=g).requires_grad_() for _ in range(3))
+    out = ops.attention(q, k, v, causal=True, impl="auto")
+    out.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd"] == {"cuda": 0, "torch": 1}
+    assert counts["flash_attention_bwd"] == {"cuda": 0, "torch": 1}
+
+
+def test_flash_kernel_raises_on_cpu_and_bad_shapes():
+    q = torch.zeros((1, 2, 8, 16))
+    k = torch.zeros((1, 2, 12, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention_fwd(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(q, q, q, causal=True, impl="cuda")
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tflash.flash_attention_torch(q, k, k, causal=True)
+    assert tflash.flash_attention_torch(q, k, k, causal=False).shape == q.shape
+    assert tflash.FWD_COUNTS["cuda"] == 0 and tflash.BWD_COUNTS["cuda"] == 0
