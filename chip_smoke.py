@@ -13,19 +13,30 @@ Phases, each printing a line before the last:
                  its path's shapes, in bf16 and fp32, with times (CUDA events,
                  L2 flushed before every launch) beside the plain version's,
                  ``scaled_dot_product_attention``'s (a yardstick the port never
-                 calls) and the bound the card's memory rate and peak give
-                 for the same work: the paged decode / chunked-prefill
-                 kernels at the serving shapes, flash attention forward and
-                 backward at the training shape (plus a ragged and a
-                 non-causal case).
+                 calls; pages gathered first, an explicit boolean mask for
+                 verify and tree) and the bound the card's memory rate and
+                 peak give for the same work: the paged decode / chunked-
+                 prefill kernels at the serving shapes, flash attention
+                 forward and backward at the training shape (plus a ragged and
+                 a non-causal case), the dense decode / chunked prefill at the
+                 draft model's shapes (plus a GQA case), the paged verify for
+                 T = 2, 3, 5 and the paged tree verify for a chain (bit-equal
+                 to verify at T = 5), a branching and a 31-node tree.
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
-                 streams, and ``lm_loss`` with its gradients must agree.
+                 streams, speculating engines (draft-paired, n-gram, and the
+                 target as its own draft) whose streams must also equal the
+                 plain greedy engine's, and ``lm_loss`` with its gradients.
 5. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
                  through ``EngineCore.step()``; every request must finish and
                  both paged kernels must have launched (plain versions never).
-6. collocated -- qwen3-1.7b at full depth and width trains (fp32 params, bf16
+6. spec serve -- the same model and requests, paired with its 1-layer draft
+                 model and ``proposer="auto"``; every request must finish, the
+                 router must have run both proposers, and the dense decode,
+                 dense prefill, paged verify and paged tree verify kernels must
+                 have launched (plain versions never).
+7. collocated -- qwen3-1.7b at full depth and width trains (fp32 params, bf16
                  compute, batch 4 x seq 1024) under ``SpecInFRuntime``, whose
                  bubbles a bf16 engine on the initial weights fills with an
                  offline backlog and online requests.  The DP profile is sized
@@ -33,11 +44,15 @@ Phases, each printing a line before the last:
                  measured here (``measure_dp_profile``); Algorithm 1's cap is
                  one fixed setting, ``COLLOC_UPPER_LIMIT``.  Losses must be finite and
                  fall, offline tokens must be produced, online requests
-                 must finish, and all four kernels must have launched
-                 (plain versions never).
+                 must finish, and the paged and flash kernels must have
+                 launched (plain versions never).  Then the training goes on
+                 for ``SPEC_COLLOC_ITERS`` iterations with the speculating
+                 engine under the runtime's gamma controller: online requests
+                 must finish, and offline tokens and spec rounds be produced.
 
-Then one ``{"kernels": [...]}`` line (launches from the collocated run, the
-slice's main path) and, last, the ``{"ok": true, ...}`` line.  Any failed
+Then one ``{"kernels": [...]}`` line (launches from the run of each
+kernel's path: the speculative kernels' from the spec serve run, the
+others' from the collocated run) and, last, the ``{"ok": true, ...}`` line.  Any failed
 phase raises and the script exits non-zero.  It imports nothing of JAX or
 of the ``repro`` package.
 """
@@ -87,6 +102,14 @@ FLASH_CASES = (  # (B, H, Sq, Sk, causal)
     (2, H, 1000, 1000, True),
     (2, H, 512, 1000, False),
 )
+# speculative slice: the draft model's dense cache (qwen3-1.7b's draft has
+# 8 q / 8 kv heads of 128; max_seq 512) and the target's verify chunks over
+# the serving pool (T = gamma + 1 for gamma in GAMMA_BUCKETS)
+DRAFT_H, DENSE_S = 8, 512
+DENSE_LENGTHS = [0, 512, 300, 17, 1, 256, 511, 100]  # empty and full slots
+VERIFY_TS = (2, 3, 5)
+VERIFY_LENGTHS = [1, 300, 4, 0, 512, 17, 256, 100]  # slot 0: lengths < T
+SPEC_COLLOC_ITERS = 4
 COLLOC_ITERS = 8
 #: Algorithm 1's stable-phase token cap for the collocated phase, on every
 #: run.  A grant token is 1 ms of microstep; the port's full-depth
@@ -95,8 +118,24 @@ COLLOC_ITERS = 8
 COLLOC_UPPER_LIMIT = 256.0
 
 
+#: the kernels each path runs
+SERVE_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+SPEC_KERNELS = ("decode_attention", "prefill_attention", "paged_verify_attention",
+                "paged_tree_verify_attention")
+
+
 def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
+
+
+def _require_launches(phase, counts, kernels):
+    """Every kernel of the path launched in the phase's run, and no plain
+    version ran in it."""
+    for name, c in counts.items():
+        if c["torch"] != 0 or (name in kernels and c["cuda"] <= 0):
+            raise AssertionError(f"{phase}: {name} launches {c} (each of {kernels} "
+                                 f"must launch, no plain version may run)")
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +361,7 @@ def phase_kernels():
     })
     log(f"kernel paged_prefill_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-    return rows + _flash_rows()
+    return rows + _flash_rows() + _spec_rows()
 
 
 def _flash_inputs(dtype, b, h, sq, sk, seed=0):
@@ -431,6 +470,192 @@ def _flash_rows():
     return rows
 
 
+def _dense_inputs(dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn((B, DENSE_S, KVH, HD), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, DENSE_S, KVH, HD), generator=g, device="cuda").to(dtype)
+    return g, k, v
+
+
+def _row(name, src, replaces, errs, k_ms, p_ms, l_ms, bound, by):
+    log(f"kernel {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({by})")
+    return {
+        "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": replaces, "launches": 0, "max_abs_err": errs["bfloat16"],
+        "max_abs_err_fp32": errs["float32"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": l_ms,
+    }
+
+
+def _worst(*errs):
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def _spec_rows():
+    """Rows of the speculative slice's kernels: the dense decode / chunked
+    prefill (the draft model's) and the paged verify / tree verify (the
+    target's), each checked at its path's shapes in bf16 and fp32 and timed
+    in bf16 at the largest shape the path gives it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import paged_decode_attention as pdec
+    from repro_torch.kernels import paged_tree_verify_attention as ptv
+    from repro_torch.kernels import paged_verify_attention as pv
+    from repro_torch.kernels import prefill_attention as dp
+    from repro_torch.spec.tree import branching_tree, linear_chain, tree_ancestor_masks
+
+    rows, isz = [], 2
+
+    # ---- dense decode (#3): the draft's proposal step -------------------------
+    lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device="cuda")
+
+    def decode_inputs(h):
+        def make(dtype):
+            g, k, v = _dense_inputs(dtype, seed=2)
+            q = torch.randn((B, h, HD), generator=g, device="cuda").to(dtype)
+            return q, k, v, lengths
+        return make
+
+    errs = _worst(
+        _check_kernel("decode_attention", dd.decode_attention, dd.decode_attention_torch,
+                      decode_inputs(DRAFT_H)),
+        _check_kernel("decode_attention (GQA, H=16)", dd.decode_attention,
+                      dd.decode_attention_torch, decode_inputs(H)),
+    )
+    q, k, v, _ = decode_inputs(DRAFT_H)(torch.bfloat16)
+    k_ms = _time_ms(lambda: dd.decode_attention(q, k, v, lengths))
+    p_ms = _time_ms(lambda: dd.decode_attention_torch(q, k, v, lengths))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # kvH == H for the draft
+    mask = (torch.arange(DENSE_S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                           attn_mask=mask))
+    needed = [min(n, DENSE_S) for n in DENSE_LENGTHS]
+    nbytes = 2 * B * DRAFT_H * HD * isz + 2 * sum(needed) * KVH * HD * isz + B * 4
+    bound, by = _bound_ms(nbytes, 4 * HD * DRAFT_H * sum(needed), torch.bfloat16)
+    rows.append(_row("decode_attention", "decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms,
+                     bound, by))
+
+    # ---- dense chunked prefill (#4): the draft's chunk wave -------------------
+    starts = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device="cuda")
+    clens = torch.tensor(PREFILL_LENS, dtype=torch.int32, device="cuda")
+
+    def prefill_inputs(dtype):
+        g, k, v = _dense_inputs(dtype, seed=3)
+        q = torch.randn((B, CHUNK, DRAFT_H, HD), generator=g, device="cuda").to(dtype)
+        return q, k, v, starts, clens
+
+    errs = _check_kernel("prefill_attention", dp.prefill_attention,
+                         dp.prefill_attention_torch, prefill_inputs)
+    q, k, v, _, _ = prefill_inputs(torch.bfloat16)
+    k_ms = _time_ms(lambda: dp.prefill_attention(q, k, v, starts, clens))
+    p_ms = _time_ms(lambda: dp.prefill_attention_torch(q, k, v, starts, clens))
+    t = torch.arange(CHUNK, device="cuda")
+    kpos = torch.arange(DENSE_S, device="cuda")
+    mask = (kpos[None, None, :] <= (starts[:, None] + t[None, :])[:, :, None]) & (
+        t[None, :, None] < clens[:, None, None])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           attn_mask=mask[:, None]))
+    needed = [s + c if c else 0 for s, c in zip(PREFILL_STARTS, PREFILL_LENS)]
+    nbytes = (sum(PREFILL_LENS) * DRAFT_H * HD * isz + B * CHUNK * DRAFT_H * HD * isz
+              + 2 * sum(needed) * KVH * HD * isz + 2 * B * 4)
+    flops = sum(4 * HD * DRAFT_H * (s + j + 1)
+                for s, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
+    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    rows.append(_row("prefill_attention", "prefill_attention.cu",
+                     "src/repro/kernels/prefill_attention.py:144", errs, k_ms, p_ms, l_ms,
+                     bound, by))
+
+    # ---- paged verify (#7) and tree verify (#9): the target's verify pass ----
+    vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
+    cap = NCOLS * PAGE
+
+    def verify_inputs(t, anc=None):
+        def make(dtype):
+            g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=4)
+            q = torch.randn((B, t, H, HD), generator=g, device="cuda").to(dtype)
+            args = (q, k_pool, v_pool, bt, vlens)
+            return args if anc is None else args + (anc,)
+        return make
+
+    def anc_of(parents):
+        n = len(parents)
+        return torch.tensor(tree_ancestor_masks(parents), device="cuda").expand(
+            B, n).contiguous()
+
+    verr = [_check_kernel(f"paged_verify_attention (T={t})", pv.paged_verify_attention,
+                          pv.paged_verify_attention_torch, verify_inputs(t))
+            for t in VERIFY_TS]
+    trees = {"linear_chain(4)": linear_chain(4), "branching_tree(2, 2)": branching_tree(2, 2),
+             "branching_tree(3, 10), 31 nodes": branching_tree(3, 10)}
+    terr = [_check_kernel(f"paged_tree_verify_attention ({name})",
+                          ptv.paged_tree_verify_attention,
+                          ptv.paged_tree_verify_attention_torch,
+                          verify_inputs(len(par), anc_of(par)))
+            for name, par in trees.items()]
+    chain = anc_of(linear_chain(4))
+    for dtype in (torch.bfloat16, torch.float32):
+        args = verify_inputs(5)(dtype)
+        same = torch.equal(ptv.paged_tree_verify_attention(*args, chain),
+                           pv.paged_verify_attention(*args))
+        log(f"kernel paged_tree_verify_attention linear_chain(4) vs paged_verify_attention "
+            f"T=5 {dtype}: bit-equal {same}")
+        if not same:
+            raise AssertionError("tree verify over a chain differs from verify")
+
+    def verify_bound(visible_per_row, t):
+        needed = [min(max(n, 0), cap) for n in VERIFY_LENGTHS]
+        nbytes = (2 * B * t * H * HD * isz + 2 * _unique_kv_rows(bt, needed) * KVH * HD * isz
+                  + bt.numel() * 4 + B * 4)
+        return _bound_ms(nbytes, 4 * HD * H * sum(visible_per_row), torch.bfloat16)
+
+    q, k_pool, v_pool, bt, _ = verify_inputs(5)(torch.bfloat16)
+    kd = pdec.gather_pages(k_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
+    vd = pdec.gather_pages(v_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
+    qt = q.transpose(1, 2)
+    kpos = torch.arange(cap, device="cuda")
+    t = torch.arange(5, device="cuda")
+    vmask = kpos[None, None, :] <= (vlens[:, None] - 5 + t[None, :])[:, :, None]
+    k_ms = _time_ms(lambda: pv.paged_verify_attention(q, k_pool, v_pool, bt, vlens))
+    p_ms = _time_ms(lambda: pv.paged_verify_attention_torch(q, k_pool, v_pool, bt, vlens))
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd,
+                                                           attn_mask=vmask[:, None]))
+    visible = [min(max(n - 5 + j + 1, 0), cap) for n in VERIFY_LENGTHS for j in range(5)]
+    bound, by = verify_bound(visible, 5)
+    rows.append(_row("paged_verify_attention", "paged_verify_attention.cu",
+                     "src/repro/kernels/paged_verify_attention.py:45", _worst(*verr),
+                     k_ms, p_ms, l_ms, bound, by))
+
+    # the tree rows are timed at what the n-gram proposer sends: a chain of
+    # gamma = 4 candidates (N = 5)
+    anc_row = tree_ancestor_masks(linear_chain(4)).tolist()
+    tmask = torch.zeros((B, 5, cap), dtype=torch.bool, device="cuda")
+    visible = []
+    for b, n in enumerate(VERIFY_LENGTHS):
+        for j in range(5):
+            seen = [kp < n - 5 or (0 <= kp - (n - 5) < 5 and (anc_row[j] >> (kp - n + 5)) & 1)
+                    for kp in range(cap)]
+            tmask[b, j] = torch.tensor(seen, device="cuda")
+            visible.append(sum(seen))
+    k_ms = _time_ms(lambda: ptv.paged_tree_verify_attention(q, k_pool, v_pool, bt, vlens,
+                                                            chain))
+    p_ms = _time_ms(lambda: ptv.paged_tree_verify_attention_torch(q, k_pool, v_pool, bt,
+                                                                  vlens, chain))
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd,
+                                                           attn_mask=tmask[:, None]))
+    bound, by = verify_bound(visible, 5)
+    rows.append(_row("paged_tree_verify_attention", "paged_tree_verify_attention.cu",
+                     "src/repro/kernels/paged_tree_verify_attention.py:45", _worst(*terr),
+                     k_ms, p_ms, l_ms, bound, by))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # 4. parity
 # ---------------------------------------------------------------------------
@@ -453,9 +678,10 @@ def _prompts(rng, n, lo, hi, vocab, shared_prefix, shared_idx):
     return out
 
 
-def _serve(engine, prompts, max_new):
+def _serve(engine, prompts, max_new, steps=None):
     """Submit every prompt (ONLINE, arrival now) and step the core until all
-    finish; returns the requests and the wall seconds."""
+    finish; returns the requests and the wall seconds.  ``steps``, a list,
+    collects every step's ``StepOutputs``."""
     import torch
 
     from repro_torch.serving.core import Priority, SamplingParams
@@ -466,7 +692,9 @@ def _serve(engine, prompts, max_new):
     t0 = time.monotonic()
     guard = 0
     while core.has_unfinished:
-        core.step()
+        out = core.step()
+        if steps is not None:
+            steps.append(out)
         guard += 1
         if guard > 10_000:
             raise AssertionError("serve loop made no progress")
@@ -543,6 +771,7 @@ def phase_parity():
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("parity: EngineCore token streams differ (cuda vs torch)")
     log(f"parity engine: {len(streams['cuda'])} requests, token streams equal")
+    _spec_parity(cfg, params)
 
     # training: lm_loss and every gradient, flash kernels vs plain version
     from repro_torch.tree import tree_leaves
@@ -568,6 +797,65 @@ def phase_parity():
         f"{res['torch'][0].item():.6f}, |d| {loss_err:.2e} (tol 1e-5 relative); "
         f"gradients max err / max|g| {grad_err:.2e} (tol {GRAD_RTOL_FP32:g})")
     del params, res
+
+
+def _spec_parity(cfg, params):
+    """Speculating engines at 2 layers, full width, fp32: the draft-paired
+    engine, the n-gram engine and the target paired with itself as its draft
+    (acceptance 1.0: the all-accept branch) give the same token streams with
+    impl="cuda" as with impl="torch", and the plain greedy engine's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    dcfg = draft_config(cfg)
+    dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    pairings = {
+        "plain": {},
+        "draft": dict(draft_cfg=dcfg, draft_params=dparams,
+                      spec=SpecDecodeConfig(proposer="draft")),
+        "ngram": dict(spec=SpecDecodeConfig(proposer="ngram")),
+        "self-draft": dict(draft_cfg=cfg, draft_params=params,
+                           spec=SpecDecodeConfig(proposer="draft")),
+    }
+    prompts = _prompts(np.random.default_rng(1), 6, 24, 80, cfg.vocab_size,
+                       shared_prefix=32, shared_idx=(0, 5))
+    streams, stats, all_accepted = {}, {}, {}
+    for name, kw in pairings.items():
+        for impl in ("cuda", "torch") if name != "plain" else ("cuda",):
+            eng = InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                                  compute_dtype=torch.float32, decode_impl=impl, **kw)
+            steps = []
+            reqs, _ = _serve(eng, prompts, max_new=12, steps=steps)
+            streams[name, impl] = [list(r.output_tokens) for r in reqs]
+            stats[name, impl] = (eng.spec_rounds, eng.spec_accepted, eng.spec_drafted)
+            # steps whose every proposed draft token was accepted
+            all_accepted[name, impl] = sum(
+                0 < o.spec_proposed == o.spec_accepted for o in steps)
+    plain = streams["plain", "cuda"]
+    for name in ("draft", "ngram", "self-draft"):
+        if streams[name, "cuda"] != streams[name, "torch"]:
+            raise AssertionError(f"parity: {name} speculating streams differ (cuda vs torch)")
+        if streams[name, "cuda"] != plain:
+            raise AssertionError(f"parity: {name} speculating streams differ from plain greedy")
+        if stats[name, "cuda"] != stats[name, "torch"] or stats[name, "cuda"][0] <= 0:
+            raise AssertionError(f"parity: {name} spec counters {stats[name, 'cuda']} vs "
+                                 f"{stats[name, 'torch']}")
+    # the target as its own draft accepts every draft token whose target
+    # position lies inside the slot's pages: whole steps accept everything
+    # (a slot near the end of its budget also drafts past its last page,
+    # where the target reads the shared sentinel page, and those drafts are
+    # counted as proposed too)
+    if all_accepted["self-draft", "cuda"] == 0:
+        raise AssertionError(f"parity: self-draft never accepted a whole step "
+                             f"({stats['self-draft', 'cuda']})")
+    log("parity speculation (2 layers, full width, fp32): " + "; ".join(
+        f"{n} rounds/accepted/drafted {stats[n, 'cuda']}, steps accepting every draft "
+        f"{all_accepted[n, 'cuda']}" for n in ("draft", "ngram", "self-draft"))
+        + "; streams equal cuda vs torch and to plain greedy")
 
 
 # ---------------------------------------------------------------------------
@@ -610,11 +898,7 @@ def phase_serve():
                                  f"{r.finish_reason} with {len(r.output_tokens)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
             raise AssertionError("serve: token id out of the vocabulary")
-    for name, c in counts.items():
-        runs = name.startswith("paged_")  # the serving path's kernels
-        if (c["cuda"] > 0) != runs or c["torch"] != 0:
-            raise AssertionError(f"serve: {name} launches {c} (the paged kernels "
-                                 f"must run, no plain version ever)")
+    _require_launches("serve", counts, SERVE_KERNELS)
     tokens = sum(len(r.output_tokens) for r in reqs)
     ttft = m.histogram("core/online_ttft_s")
     lat = m.histogram("core/online_latency_s")
@@ -655,7 +939,7 @@ def _busy_and_top(prof):
     return busy / 1e6, len(spans), by_name
 
 
-def _profile_serve(engine, cfg):
+def _profile_serve(engine, cfg, label="serve"):
     """Where the time goes: a second, smaller serving round under
     ``torch.profiler`` -- the device's busy share of the wall time (union of
     kernel intervals) and the kernels that took it.  The profiler slows the
@@ -668,18 +952,100 @@ def _profile_serve(engine, cfg):
         reqs, secs = _serve(engine, prompts, 16)
     got = _busy_and_top(prof)
     if got is None:
-        log("serve profile: the profiler saw no device time (not measured)")
+        log(f"{label} profile: the profiler saw no device time (not measured)")
         return
     busy_s, n, by_name = got
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"serve profile ({len(reqs)} requests, {sum(len(r.output_tokens) for r in reqs)} "
+    log(f"{label} profile ({len(reqs)} requests, {sum(len(r.output_tokens) for r in reqs)} "
         f"tokens, profiler on): wall {secs:.3f}s, device busy {busy_s:.3f}s "
         f"({100 * busy_s / secs:.1f}%), {n} kernels; top: " + "; ".join(
             f"{name[:60]} {sec * 1e3:.1f}ms" for name, sec in top))
 
 
 # ---------------------------------------------------------------------------
-# 6. collocated
+# 6. spec serve
+# ---------------------------------------------------------------------------
+
+
+def _spec_engine(cfg, params, **kw):
+    """qwen3-1.7b paired with its draft model (seeded init, bf16), routing
+    between the draft and the n-gram lookup per quantum."""
+    import torch
+
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    spec = SpecDecodeConfig(proposer="auto")
+    dcfg = draft_config(cfg, spec)
+    dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1),
+                            dtype=torch.bfloat16)
+    return InferenceEngine(cfg, params, max_slots=8, max_seq=512, draft_cfg=dcfg,
+                           draft_params=dparams, spec=spec, **kw)
+
+
+def phase_spec_serve():
+    """qwen3-1.7b at full depth, bf16, paired with its 1-layer draft,
+    ``proposer="auto"``: the same 16 requests as the serve phase through
+    EngineCore.  Returns the kernel launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config("qwen3-1.7b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    t_start = time.monotonic()
+    engine = _spec_engine(cfg, params, clock=lambda: time.monotonic() - t_start)
+    prompts = _prompts(np.random.default_rng(2), 16, 24, 136, cfg.vocab_size,
+                       shared_prefix=64, shared_idx=(0, 13, 14, 15))
+    max_new = 32
+    ops.reset_launch_counts()
+    reqs, secs = _serve(engine, prompts, max_new)
+    counts = ops.launch_counts()
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.output_tokens) != max_new:
+            raise AssertionError(f"spec serve: request {r.request_id} ended "
+                                 f"{r.finish_reason} with {len(r.output_tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
+            raise AssertionError("spec serve: token id out of the vocabulary")
+    m = engine.obs.metrics
+    per = {}
+    for name in ("draft", "ngram"):
+        rounds = m.counter(f"spec/proposer/rounds/{name}").value
+        if rounds <= 0:
+            raise AssertionError(f"spec serve: the router ran no {name} round")
+        per[name] = (rounds, m.counter(f"spec/proposer/accepted/{name}").value,
+                     m.counter(f"spec/proposer/proposed/{name}").value)
+    _require_launches("spec serve", counts, SPEC_KERNELS + ("paged_prefill_attention",))
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    ttft = m.histogram("core/online_ttft_s")
+    lat = m.histogram("core/online_latency_s")
+    log(f"spec serve: {len(reqs)} requests, {tokens} new tokens in {secs:.3f}s = "
+        f"{tokens / secs:.1f} tok/s; TTFT p50 {ttft.percentile(50) * 1e3:.1f} ms p95 "
+        f"{ttft.percentile(95) * 1e3:.1f} ms; latency p50 {lat.percentile(50) * 1e3:.1f} ms "
+        f"p95 {lat.percentile(95) * 1e3:.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    fallbacks = m.counter("spec/proposer/no_match_fallbacks").value
+    log(f"spec serve: spec rounds {engine.spec_rounds} + {fallbacks} plain fallback steps "
+        f"(no n-gram match); tokens after the first per round or fallback step "
+        f"{(tokens - len(reqs)) / (engine.spec_rounds + fallbacks):.3f} (all slots); "
+        f"acceptance "
+        f"{engine.spec_acceptance_rate:.4f}; per proposer (rounds, accepted, proposed): "
+        f"{per}; router switches {m.counter('spec/proposer/router_switches').value}")
+    log(f"spec serve launches: {json.dumps(counts)}")
+    _profile_serve(engine, cfg, "spec serve")
+    return {name: c["cuda"] for name, c in counts.items()}
+
+
+# ---------------------------------------------------------------------------
+# 7. collocated
 # ---------------------------------------------------------------------------
 
 
@@ -766,10 +1132,7 @@ def phase_collocated():
     if m.online_served != len(online):
         raise AssertionError(f"collocated: {m.online_served} of {len(online)} online "
                              f"requests finished")
-    for name, c in counts.items():
-        if c["cuda"] <= 0 or c["torch"] != 0:
-            raise AssertionError(f"collocated: {name} launches {c} (kernel must run, "
-                                 f"plain version never)")
+    _require_launches("collocated", counts, SERVE_KERNELS + TRAIN_KERNELS)
     online_tokens = m.obs.metrics.counter("core/generated_tokens/online").value
     total = sum(m.phase_counts.values())
     shares = {k: round(v / total, 4) for k, v in sorted(m.phase_counts.items())}
@@ -788,7 +1151,65 @@ def phase_collocated():
         f"{k} {counts[k]['cuda'] / COLLOC_ITERS:.1f}"
         for k in ("flash_attention_fwd", "flash_attention_bwd")) + ")")
     _profile_train(step, state, ds)
+    eparams = engine.params  # the initial weights, bf16
+    del engine, rt
+    _spec_collocated(cfg, eparams, timed_step, state, batches, profile, microstep_s)
     return {name: c["cuda"] for name, c in counts.items()}
+
+
+def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
+    """The training run goes on for SPEC_COLLOC_ITERS iterations with a
+    speculating engine (the initial weights paired with the draft model)
+    filling its bubbles under SpecInFRuntime's gamma controller, at the same
+    Algorithm-1 cap."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SpecInFConfig
+    from repro_torch.core import SpecInFRuntime
+    from repro_torch.kernels import ops
+    from repro_torch.serving.core import Priority, SamplingParams
+    from repro_torch.serving.engine import Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = _spec_engine(cfg, params)
+    rng = np.random.default_rng(6)
+    for n in (24, 48, 80, 130):  # offline backlog
+        engine.core.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                           SamplingParams(max_new_tokens=256), priority=Priority.OFFLINE)
+    online = [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                      max_new_tokens=8, arrival_time=t, online=True)
+              for n, t in ((20, 0.0), (40, profile.iteration_s))]
+    rt = SpecInFRuntime(train_step=step, train_state=state, batch_iter=batches,
+                        profile=profile, engine=engine, online_requests=online,
+                        cfg=SpecInFConfig(upper_limit=COLLOC_UPPER_LIMIT),
+                        decode_microstep_s=microstep_s)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    m = rt.run(SPEC_COLLOC_ITERS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    if not np.isfinite(m.train_losses).all():
+        raise AssertionError(f"spec collocated: losses {m.train_losses}")
+    if m.online_served != len(online):
+        raise AssertionError(f"spec collocated: {m.online_served} of {len(online)} online "
+                             f"requests finished")
+    if m.offline_tokens_generated <= 0 or m.spec_rounds <= 0:
+        raise AssertionError(f"spec collocated: {m.offline_tokens_generated} offline "
+                             f"tokens, {m.spec_rounds} spec rounds")
+    _require_launches("spec collocated", counts, TRAIN_KERNELS)
+    total = sum(m.phase_counts.values())
+    shares = {k: round(v / total, 4) for k, v in sorted(m.phase_counts.items())}
+    log(f"spec collocated: {SPEC_COLLOC_ITERS} iterations in {wall:.2f}s wall; loss "
+        f"{m.train_losses[0]:.4f} -> {m.train_losses[-1]:.4f}; {m.spec_rounds} spec rounds "
+        f"(gamma controller acceptance {rt.gamma_ctrl.acceptance:.4f}), "
+        f"{m.offline_tokens_generated} offline tokens in {m.offline_microsteps} "
+        f"microsteps, {m.online_served} online requests (TTFT p95 "
+        f"{m.p95_ttft_s() * 1e3:.1f} ms virtual); virtual time {m.virtual_time_s:.3f}s; "
+        f"phase shares {shares}")
+    log(f"spec collocated launches: {json.dumps(counts)}")
 
 
 def _profile_train(step, state, ds):
@@ -844,11 +1265,17 @@ def main() -> int:
     rows = phase_kernels()
     phase_parity()
     serve_launches = phase_serve()
+    spec_launches = phase_spec_serve()
     launches = phase_collocated()
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        if serve_launches[row["name"]]:
-            row["launches_serve"] = serve_launches[row["name"]]
+        # each kernel's launches on the run of its path: the spec kernels in
+        # the spec serve run, the others in the collocated run
+        if row["name"] in SPEC_KERNELS:
+            row["launches"] = spec_launches[row["name"]]
+        else:
+            row["launches"] = launches[row["name"]]
+            if serve_launches[row["name"]]:
+                row["launches_serve"] = serve_launches[row["name"]]
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     import torch

@@ -7,7 +7,13 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig, SpecInFConfig, TrainConfig
+from repro_torch.configs.base import (
+    ModelConfig,
+    SpecDecodeConfig,
+    SpecInFConfig,
+    TrainConfig,
+    draft_config,
+)
 
 _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1p7b",
@@ -45,8 +51,10 @@ def smoke_config(arch: str) -> ModelConfig:
 __all__ = [
     "ARCH_IDS",
     "ModelConfig",
+    "SpecDecodeConfig",
     "SpecInFConfig",
     "TrainConfig",
+    "draft_config",
     "get_config",
     "smoke_config",
 ]

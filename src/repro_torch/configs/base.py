@@ -1,6 +1,6 @@
-"""Model, training and SpecInF configuration (own copies of
-``repro.configs.base``'s ``ModelConfig``, ``TrainConfig`` and
-``SpecInFConfig``).
+"""Model, training, speculative-decoding and SpecInF configuration (own
+copies of ``repro.configs.base``'s ``ModelConfig``, ``TrainConfig``,
+``SpecDecodeConfig`` / ``draft_config`` and ``SpecInFConfig``).
 
 Only the fields and derived properties of the ``dense`` family, the one
 family the port runs, are kept; the MoE, SSM, hybrid and frontend fields
@@ -113,3 +113,66 @@ class SpecInFConfig:
     #: profiled per-prefill-token step cost in microstep-equivalents; 0
     #: keeps prefill free in the cost model
     prefill_token_cost_steps: float = 0.0
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (draft / target pairing)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecDecodeConfig:
+    """Draft/target speculative-decoding pairing (``repro_torch.spec``).
+
+    The draft shares the target's family and vocabulary (verification is
+    token for token) but runs a fraction of its depth and width; acceptance
+    measures how well the draft tracks the target, while correctness comes
+    from the verify pass alone."""
+
+    draft_layers: int = 1  # draft depth
+    draft_width_factor: float = 0.5  # d_model / d_ff / head-count shrink
+    gamma_buckets: tuple[int, ...] = (1, 2, 4)  # draft lengths the engine runs
+    mode: str = "greedy"  # "greedy" | "sample" | "simulated"
+    sim_accept_p: float = 0.9  # Bernoulli acceptance of "simulated" mode
+    draft_cost_ratio: float = 0.25  # draft step cost / target step cost
+    accept_ewma: float = 0.5  # acceptance smoothing of the gamma controller
+
+    # --- pluggable proposers (repro_torch.spec.proposers) ---
+    #: "auto" registers the draft model and the n-gram lookup on a
+    #: draft-paired engine (nothing on a plain one) and routes per quantum;
+    #: "draft" / "ngram" pin one ("ngram" speculates without a draft model);
+    #: "none" disables routing (the draft pairing alone decides)
+    proposer: str = "auto"
+    ngram_order: int = 3  # trailing n-gram the lookup proposer matches
+    tree_width: int = 1  # candidate branches per host-proposed round
+    router_ewma: float = 0.5  # router acceptance smoothing
+    router_init_acceptance: float = 0.7  # optimistic seed: try every proposer
+
+
+def draft_config(
+    target: ModelConfig, spec: SpecDecodeConfig = SpecDecodeConfig()
+) -> ModelConfig:
+    """A cheap draft model derived from ``target``: same family, vocabulary
+    and head dim, ``spec.draft_layers`` layers, and d_model, d_ff and the
+    head counts scaled by ``spec.draft_width_factor`` (GQA grouping kept
+    exact).  For qwen3-1.7b: 1 layer, d_model 1024, 8 q / 8 kv heads of
+    128, d_ff 3072."""
+    changes: dict = {
+        "name": target.name + "-draft",
+        "num_layers": min(max(1, spec.draft_layers), target.num_layers),
+    }
+    wf = spec.draft_width_factor
+    if wf != 1.0:
+        hd = target.resolved_head_dim
+        heads = max(1, int(round(target.num_heads * wf)))
+        kv = max(1, min(target.num_kv_heads, heads))
+        while heads % kv:  # GQA grouping must stay exact
+            kv -= 1
+        changes.update(
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=hd,
+            d_model=max(hd, int(round(target.d_model * wf))),
+            d_ff=max(16, int(round(target.d_ff * wf))),
+        )
+    return dataclasses.replace(target, **changes)

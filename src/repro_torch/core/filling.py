@@ -11,9 +11,15 @@ advances the clock.  The device runs the train step and the quanta one
 after the other, so *timing* flows on the virtual clock, sized by the
 profile, while *compute* is real.
 
-Not in this slice: speculation (the gamma controller), fault injection,
-the request journal and revocable grants -- the port's engine has none of
-them yet -- and ``make_collocated_step``, the fused train + decode program.
+Speculating engines (a draft pairing, or host proposers) spend grants in
+*verified* tokens: the gamma controller (``spec.controller``) maps the
+Algorithm-1 phase and the observed acceptance to a draft length, and the
+quantum's k is sized by the expected verified tokens per round and priced
+by the routed proposer.
+
+Not in this slice: fault injection, the request journal and revocable
+grants -- the port's engine has none of them yet -- and
+``make_collocated_step``, the fused train + decode program.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from repro_torch.serving.core import (
     largest_bucket,
 )
 from repro_torch.serving.engine import InferenceEngine, Request
+from repro_torch.spec.controller import AdaptiveGammaController
 
 
 class FillingMetrics:
@@ -67,6 +74,7 @@ class FillingMetrics:
         self.train_iterations = 0
         self.train_losses: list = []
         self.offline_microsteps = 0
+        self.spec_rounds = 0
         self.virtual_time_s = 0.0
         self.phase_counts: dict = {}
 
@@ -118,7 +126,9 @@ class SpecInFPolicy(SchedulerPolicy):
       status and arrival time; when capacity blocks, admission preempts a
       RUNNING OFFLINE slot instead of queueing behind it.
     * OFFLINE quanta spend the Kernel-Barrier token grant, and run only
-      when the grant covers one whole microstep.
+      when the grant covers one whole quantum (speculating engines spend
+      grants in verified tokens, so the bar is the expected yield of one
+      round at the phase's draft length).
     * Online execution, once admitted, is never token-metered: only its
       admission is gated.
     """
@@ -127,13 +137,28 @@ class SpecInFPolicy(SchedulerPolicy):
         self,
         *,
         microstep_tokens: float = 1.0,
+        gamma_ctrl: Optional[AdaptiveGammaController] = None,
         prefill_token_cost_steps: float = 0.0,
     ):
         #: Kernel-Barrier token cost of one microstep (1 token per ms)
         self.microstep_tokens = microstep_tokens
+        self.gamma_ctrl = gamma_ctrl
         #: per-prefill-token step cost in microstep-equivalents: converts a
         #: bubble window into a prefill token budget (0 keeps prefill free)
         self.prefill_token_cost_steps = prefill_token_cost_steps
+
+    def _spec(self, core) -> bool:
+        return (
+            core.engine.spec_enabled or core.engine.host_spec_enabled
+        ) and self.gamma_ctrl is not None
+
+    def min_offline_grant(self, core, phase) -> float:
+        """Smallest grant that pays for one whole offline quantum."""
+        if self._spec(core):
+            return self.gamma_ctrl.expected_tokens_per_round(
+                self.gamma_ctrl.gamma_for(phase)
+            )
+        return self.microstep_tokens
 
     def plan(self, core, grant: Grant) -> StepPlan:
         admit = []
@@ -142,7 +167,7 @@ class SpecInFPolicy(SchedulerPolicy):
                 cr for cr in core.waiting[Priority.ONLINE]
                 if self.eligible(cr, grant)
             ]
-        offline_grant_ok = grant.tokens >= self.microstep_tokens
+        offline_grant_ok = grant.tokens >= self.min_offline_grant(core, grant.phase)
         if offline_grant_ok:
             admit += [
                 cr for cr in core.waiting[Priority.OFFLINE]
@@ -157,18 +182,48 @@ class SpecInFPolicy(SchedulerPolicy):
         if online:
             # dedicated quantum: sized by the online work's remaining budget
             want = max(max(cr.remaining_budget for cr in online), 1)
-            plan.k = largest_bucket(min(room, want))
-            plan.cost_steps = float(plan.k)
+            self._size_quantum(plan, core, grant, want)
         elif (core.slot_requests or admit) and offline_grant_ok:
             # offline quantum: the grant must cover it whole
-            steps = int(grant.tokens // self.microstep_tokens)
-            plan.k = largest_bucket(min(steps, room))
-            plan.cost_steps = float(plan.k)
+            if self._spec(core):
+                self._size_quantum(plan, core, grant, grant.tokens)
+            else:
+                steps = int(grant.tokens // self.microstep_tokens)
+                plan.k = largest_bucket(min(steps, room))
+                plan.cost_steps = float(plan.k)
         # clamp decode rounds to the grant's token budget, then spend what
         # remains (of the budget and the bubble room) on prefill chunks
         decode_tokens = self._clamp_k_to_budget(plan, core, grant)
         self.plan_prefill(core, grant, plan, decode_tokens)
         return plan
+
+    def _size_quantum(self, plan, core, grant, want_tokens: float) -> None:
+        """Pick k (and gamma) so the quantum's expected token yield stays
+        within ``want_tokens`` and its cost within the bubble room."""
+        if self._spec(core):
+            g = self.gamma_ctrl.gamma_for(grant.phase)
+            exp = self.gamma_ctrl.expected_tokens_per_round(g)
+            # the routed proposer prices the round: model-free host rounds
+            # spend ~1 step, draft rounds 1 + (gamma + 1) * cost ratio
+            plan.proposer = core.engine.route_proposer(g)
+            rc = (
+                core.engine.proposer_round_cost(plan.proposer, g)
+                if plan.proposer is not None
+                else self.gamma_ctrl.round_cost_steps(g)
+            )
+            afford = max(int(want_tokens / max(exp, 1e-9)), 1)
+            left = max(int(grant.max_cost_steps / rc), 1)
+            plan.k = largest_bucket(min(afford, left))
+            plan.gamma = g
+            plan.cost_steps = plan.k * rc
+        else:
+            room = max(int(grant.max_cost_steps), 1)
+            plan.k = largest_bucket(min(room, int(max(want_tokens, 1))))
+            plan.cost_steps = float(plan.k)
+
+    def observe(self, outputs: StepOutputs) -> None:
+        if self.gamma_ctrl is not None and outputs.spec_proposed:
+            self.gamma_ctrl.observe(outputs.spec_accepted, outputs.spec_proposed)
 
 
 class SpecInFRuntime:
@@ -186,6 +241,7 @@ class SpecInFRuntime:
         online_requests: Optional[list[Request]] = None,
         cfg: SpecInFConfig = SpecInFConfig(),
         decode_microstep_s: float = 0.005,
+        gamma_controller: Optional[AdaptiveGammaController] = None,
     ):
         self.train_step = train_step
         self.state = train_state
@@ -200,6 +256,15 @@ class SpecInFRuntime:
             obs=engine.obs if engine is not None else None
         )
         self.decode_microstep_s = decode_microstep_s
+        # speculating engines spend grants in verified tokens: the gamma
+        # controller sizes each round from the phase and the acceptance
+        self.gamma_ctrl = gamma_controller
+        if (
+            self.gamma_ctrl is None
+            and engine is not None
+            and (engine.spec_enabled or engine.host_spec_enabled)
+        ):
+            self.gamma_ctrl = AdaptiveGammaController.from_spec(engine.spec_cfg)
         self._window_s = cfg.window_ms / 1e3
         # every request timestamp comes from the runtime's virtual clock
         self._vnow = 0.0
@@ -210,6 +275,7 @@ class SpecInFRuntime:
             self.core = engine.core
             self.core.policy = SpecInFPolicy(
                 microstep_tokens=decode_microstep_s / 1e-3,
+                gamma_ctrl=self.gamma_ctrl,
                 prefill_token_cost_steps=cfg.prefill_token_cost_steps,
             )
             # requests queued or running before this point were stamped on
@@ -252,8 +318,9 @@ class SpecInFRuntime:
         """Fill a virtual bubble of ``bubble_s`` with real engine compute,
         one ``EngineCore.step()`` quantum at a time.  Each pass observes one
         monitor window, turns Algorithm 1's decision into a ``Grant``
-        (token grant, IDLE gate for online admission, the bubble's room as
-        ``max_cost_steps``) and lets ``SpecInFPolicy`` shape the quantum;
+        (token grant, IDLE gate for online admission, phase for the gamma
+        controller, the bubble's room as ``max_cost_steps``) and lets
+        ``SpecInFPolicy`` shape the quantum;
         its cost advances the virtual clock and the window count."""
         if self.engine is None:
             self.metrics.virtual_time_s += bubble_s
@@ -302,14 +369,16 @@ class SpecInFRuntime:
         self._vnow = self.metrics.virtual_time_s
 
     def _record_step(self, out: StepOutputs) -> None:
-        """Count a quantum's microsteps as offline work unless an online
-        request was active in it (engine-level quantities are recorded by
-        the core into the shared registry)."""
+        """Count a quantum's spec rounds, and its microsteps as offline work
+        unless an online request was active in it (engine-level quantities
+        are recorded by the core into the shared registry)."""
         online_active = any(
             ro.priority is Priority.ONLINE
             and (ro.new_tokens or ro.state is RequestState.RUNNING)
             for ro in out.outputs
         )
+        if out.gamma is not None:
+            self.metrics.spec_rounds += out.k
         if not online_active:
             self.metrics.offline_microsteps += out.k
 

@@ -37,6 +37,18 @@ SIGNATURES = {
     "paged_prefill_attention": (
         ("paged_prefill_attention_launch", [_P] * 7 + [_I] * 10 + [_P]),
     ),
+    "decode_attention": (
+        ("decode_attention_launch", [_P] * 7 + [_I] * 10 + [_P]),
+    ),
+    "prefill_attention": (
+        ("prefill_attention_launch", [_P] * 6 + [_I] * 10 + [_P]),
+    ),
+    "paged_verify_attention": (
+        ("paged_verify_attention_launch", [_P] * 8 + [_I] * 11 + [_P]),
+    ),
+    "paged_tree_verify_attention": (
+        ("paged_tree_verify_attention_launch", [_P] * 9 + [_I] * 11 + [_P]),
+    ),
     "flash_attention": (
         ("flash_attention_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
         ("flash_attention_bwd_launch", [_P] * 10 + [_I] * 7 + [_P]),

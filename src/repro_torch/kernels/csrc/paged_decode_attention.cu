@@ -9,8 +9,8 @@
 // Two kernels (split-K, "flash-decoding"): `paged_decode_partial` runs one
 // block per (kv head, slot, split of `pps` pages) over the split's pages up
 // to ceil(length / page) -- see paged_attention.cuh -- and writes each row's
-// unnormalised accumulator and (m, l); `combine_splits` merges the splits of
-// each (slot, q head) with the usual rescaling.  Bound on the card:
+// unnormalised accumulator and (m, l); `paged::combine_splits` merges the
+// splits of each (slot, q head) with the usual rescaling.  Bound on the card:
 // device-memory bytes, each needed K/V row read once.  A decode batch has
 // only B * kvH (slot, kv head) pairs, too few blocks to keep 132 SMs busy;
 // splitting the pages multiplies the blocks by up to 16.
@@ -30,43 +30,14 @@ __global__ void __launch_bounds__(paged::kThreads)
   const int head = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int splits = gridDim.z, group = H / kvh;
   const int len = lengths[b];
-  const size_t row0 = ((size_t)b * splits + s) * H + (size_t)head * group;
-  paged::Epilogue<T> epi{nullptr, part_acc + row0 * hd, part_ml + row0 * 2};
+  const paged::PagedKV kv{block_tables + (size_t)b * W, W - 1, (W - 1) * page};
+  const paged::Epilogue<T> epi = paged::split_epilogue<T>(
+      part_acc, part_ml, b, s, splits, kvh, head, group, hd);
   // the decode query sits at position len - 1 and sees kpos < len
-  paged::attend_block<T, 8, 1, 1>(q + (size_t)b * H * hd, k_pool, v_pool,
-                                  block_tables + (size_t)b * W, len - 1,
-                                  len > 0 ? 1 : 0, 0, 1, 1, H, kvh, head, group,
-                                  hd, page, W - 1, s * pps, (s + 1) * pps,
-                                  scale, epi);
-}
-
-// out[b, h] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the splits
-// that saw a key (l_s > 0); 0 when none did.
-template <typename T>
-__global__ void __launch_bounds__(paged::kThreads)
-    combine_splits(const float* __restrict__ part_acc,
-                   const float* __restrict__ part_ml, T* __restrict__ out,
-                   int H, int hd, int splits) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t base = (size_t)b * splits * H + h;  // row of split 0
-  float M = -INFINITY;
-  for (int s = 0; s < splits; ++s) {
-    const float* ml = part_ml + (base + (size_t)s * H) * 2;
-    if (ml[1] > 0.f) M = fmaxf(M, ml[0]);
-  }
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float L = 0.f, O = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const size_t row = base + (size_t)s * H;
-      const float* ml = part_ml + row * 2;
-      if (ml[1] > 0.f) {
-        const float w = expf(ml[0] - M);
-        L = fmaf(w, ml[1], L);
-        O = fmaf(w, part_acc[row * hd + d], O);
-      }
-    }
-    paged::store1(out + ((size_t)b * H + h) * hd + d, L > 0.f ? O / L : 0.f);
-  }
+  paged::attend_block<T, 8, 1, 1>(q + (size_t)b * H * hd, k_pool, v_pool, kv,
+                                  paged::Causal{}, len - 1, len > 0 ? 1 : 0, 0,
+                                  1, 1, H, kvh, head, group, hd, page, s * pps,
+                                  (s + 1) * pps, scale, epi);
 }
 
 template <typename T>
@@ -83,16 +54,14 @@ cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
       static_cast<float*>(part_ml), H, kvh, hd, page, W, pps,
       1.0f / sqrtf((float)hd));
   if (err != cudaSuccess) return err;
-  return paged::launch(combine_splits<T>, dim3(H, B), 0, stream,
-                       static_cast<const float*>(part_acc),
-                       static_cast<const float*>(part_ml),
-                       static_cast<T*>(out), H, hd, splits);
+  return paged::launch_combine<T>(part_acc, part_ml, out, B, 1, H, kvh, hd,
+                                  splits, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  part_acc / part_ml: float32 scratch of
-// [B, splits, H, hd] and [B, splits, H, 2].  Returns a cudaError_t code.
+// [B, splits, kvH, group, hd] and [B, splits, kvH, group, 2].  Returns a cudaError_t code.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* lengths, void* out, void* part_acc,

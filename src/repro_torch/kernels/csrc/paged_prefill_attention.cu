@@ -31,12 +31,12 @@ __global__ void __launch_bounds__(paged::kThreads)
   const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int clen = min(max(chunk_lens[b], 0), C);
   const size_t qoff = (size_t)b * C * H * hd;
+  const paged::PagedKV kv{block_tables + (size_t)b * W, W - 1, (W - 1) * page};
   paged::Epilogue<T> epi{out + qoff, nullptr, nullptr};
-  paged::attend_block<T, 1, 4, 4>(q + qoff, k_pool, v_pool,
-                                  block_tables + (size_t)b * W, starts[b], clen,
+  paged::attend_block<T, 1, 4, 4>(q + qoff, k_pool, v_pool, kv,
+                                  paged::Causal{}, starts[b], clen,
                                   qi * block_q, block_q, C, H, kvh, head,
-                                  H / kvh, hd, page, W - 1, 0, W - 1, scale,
-                                  epi);
+                                  H / kvh, hd, page, 0, W - 1, scale, epi);
 }
 
 template <typename T>

@@ -18,14 +18,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import decode_core, split_plan
 
 COUNTS = {"cuda": 0, "torch": 0}
-NEG_INF = -1e30
-#: pages per split (at least; raised so a slot never has more than
-#: MAX_SPLITS splits, which bounds the scratch).  2 pages give a 32-page
-#: slot 16 splits: 8 slots x 8 kv heads x 16 = 1024 blocks on 132 SMs
-PAGES_PER_SPLIT = 2
-MAX_SPLITS = 16
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -45,21 +40,14 @@ def paged_decode_attention_torch(
     block_tables: torch.Tensor,
     lengths: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain version: gather the pages dense, length-masked softmax in fp32,
-    zeros for ``lengths == 0``.  q: [B, H, hd] -> [B, H, hd]."""
+    """Plain version: gather the pages dense, then the dense decode's plain
+    math (length-masked softmax in fp32, zeros for ``lengths == 0``).
+    q: [B, H, hd] -> [B, H, hd]."""
     COUNTS["torch"] += 1
-    b, h, hd = q.shape
-    k = gather_pages(k_pool, block_tables).float()
-    v = gather_pages(v_pool, block_tables).float()
-    kvh = k.shape[2]
-    qf = q.float().reshape(b, kvh, h // kvh, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qf, k) * hd**-0.5
-    kpos = torch.arange(k.shape[1], device=q.device)
-    live = kpos[None, :] < lengths[:, None]  # [B, S]
-    s = torch.where(live[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    out = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), v)
-    out = torch.where((lengths > 0)[:, None, None, None], out, torch.zeros_like(out))
-    return out.reshape(b, h, hd).to(q.dtype)
+    return decode_core(
+        q, gather_pages(k_pool, block_tables), gather_pages(v_pool, block_tables),
+        lengths,
+    )
 
 
 def paged_decode_attention(
@@ -79,8 +67,7 @@ def paged_decode_attention(
     b, h, hd = q.shape
     _, page, kvh, _ = k_pool.shape
     ncols = block_tables.shape[1] - 1
-    pps = max(PAGES_PER_SPLIT, -(-ncols // MAX_SPLITS))
-    splits = -(-ncols // pps)
+    pps, splits = split_plan(ncols)
     out = torch.empty_like(q)
     part_acc = torch.empty((b, splits, h, hd), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32, device=q.device)

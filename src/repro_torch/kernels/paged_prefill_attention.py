@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_decode_attention import NEG_INF, gather_pages
+from repro_torch.kernels.paged_decode_attention import gather_pages
+from repro_torch.kernels.prefill_attention import prefill_core
 
 COUNTS = {"cuda": 0, "torch": 0}
 #: chunk rows per block (the TPU kernel's ``block_q`` is 32)
@@ -34,25 +35,15 @@ def paged_prefill_attention_torch(
     starts: torch.Tensor,
     chunk_lens: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain version: gather the pages dense, chunk-causal masked softmax in
-    fp32 (row t sees ``kpos <= starts + t``), zeros for rows
-    ``t >= chunk_lens``.  q: [B, C, H, hd] -> [B, C, H, hd]."""
+    """Plain version: gather the pages dense, then the dense prefill's plain
+    math (chunk-causal masked softmax in fp32, row t sees ``kpos <= starts +
+    t``, zeros for rows ``t >= chunk_lens``).  q: [B, C, H, hd] ->
+    [B, C, H, hd]."""
     COUNTS["torch"] += 1
-    b, c, h, hd = q.shape
-    k = gather_pages(k_pool, block_tables).float()
-    v = gather_pages(v_pool, block_tables).float()
-    kvh = k.shape[2]
-    qf = q.float().reshape(b, c, kvh, h // kvh, hd)
-    s = torch.einsum("bckgd,bskd->bkgcs", qf, k) * hd**-0.5
-    kpos = torch.arange(k.shape[1], device=q.device)
-    t = torch.arange(c, device=q.device)
-    bound = starts[:, None] + t[None, :]  # [B, C]
-    valid = t[None, :] < chunk_lens[:, None]  # [B, C]
-    seen = (kpos[None, None, :] <= bound[:, :, None]) & valid[:, :, None]
-    s = torch.where(seen[:, None, None], s, torch.full_like(s, NEG_INF))
-    out = torch.einsum("bkgcs,bskd->bckgd", torch.softmax(s, dim=-1), v)
-    out = torch.where(valid[:, :, None, None, None], out, torch.zeros_like(out))
-    return out.reshape(b, c, h, hd).to(q.dtype)
+    return prefill_core(
+        q, gather_pages(k_pool, block_tables), gather_pages(v_pool, block_tables),
+        starts, chunk_lens,
+    )
 
 
 def paged_prefill_attention(

@@ -2,11 +2,16 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --proposer ngram
 
 Counterpart of ``repro.launch.serve``: all requests are submitted up front
 (ONLINE priority, explicit arrival times) and the loop calls
 ``core.step()`` until every request finishes.  Weights come from the port's
-own seeded init.  The run is on ``cuda`` unless ``--device cpu`` is given;
+own seeded init (the draft model's from ``--seed + 1``).  ``--proposer``
+turns on speculation: ``ngram`` verifies host-proposed n-gram trees without
+a draft model, ``draft`` pairs the target with ``draft_config``'s draft
+model, ``auto`` registers both and routes per quantum.  The run is on
+``cuda`` unless ``--device cpu`` is given;
 without a CUDA device the default raises.  The end-of-run summary reads the
 metrics registry under the reference's stable names; ``--trace PREFIX``
 also writes the step trace as ``PREFIX.jsonl`` and ``PREFIX.chrome.json``.
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.configs import SpecDecodeConfig, draft_config
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serving.core import Priority, SamplingParams
@@ -59,6 +65,23 @@ def summarize(engine: InferenceEngine) -> list:
                 f"p95={h.percentile(95)*1e3:.1f}ms "
                 f"max={h.max*1e3:.1f}ms"
             )
+    # one row per proposer that ran
+    for prop in ("draft", "ngram", "suffix"):
+        rounds = m.counter(f"spec/proposer/rounds/{prop}").value
+        if rounds:
+            lines.append(
+                f"[serve] proposer {prop}: rounds={rounds} "
+                f"proposed={m.counter(f'spec/proposer/proposed/{prop}').value} "
+                f"accepted={m.counter(f'spec/proposer/accepted/{prop}').value} "
+                f"acceptance={m.gauge(f'spec/proposer/acceptance/{prop}').value:.3f}"
+            )
+    switches = m.counter("spec/proposer/router_switches").value
+    fallbacks = m.counter("spec/proposer/no_match_fallbacks").value
+    if switches or fallbacks:
+        lines.append(
+            f"[serve] proposer routing: switches={switches} "
+            f"no_match_fallbacks={fallbacks}"
+        )
     return lines
 
 
@@ -82,17 +105,32 @@ def main() -> None:
         "--trace", metavar="PREFIX", default=None,
         help="write the step trace to PREFIX.jsonl + PREFIX.chrome.json",
     )
+    ap.add_argument(
+        "--proposer", choices=("auto", "draft", "ngram", "none"), default="none",
+        help="speculation source: 'ngram' is host-only (no draft model); "
+        "'draft' / 'auto' also build a draft pairing; 'auto' routes between "
+        "them per quantum",
+    )
     args = ap.parse_args()
 
     device = resolve_device(args.device)
     cfg = configs.smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, dtype=torch.bfloat16)
+    spec_kw = {}
+    if args.proposer != "none":
+        spec = SpecDecodeConfig(proposer=args.proposer)
+        spec_kw["spec"] = spec
+        if args.proposer in ("auto", "draft"):
+            dcfg = draft_config(cfg, spec)
+            dgen = torch.Generator(device=device).manual_seed(args.seed + 1)
+            spec_kw["draft_cfg"] = dcfg
+            spec_kw["draft_params"] = T.init_params(dcfg, dgen, dtype=torch.bfloat16)
     t0 = time.monotonic()
     # single clock source: engine timestamps share the arrival timebase
     engine = InferenceEngine(
         cfg, params, max_slots=args.slots, max_seq=args.max_seq,
-        clock=lambda: time.monotonic() - t0, device=device,
+        clock=lambda: time.monotonic() - t0, device=device, **spec_kw,
     )
     engine.obs.tracer.enabled = args.trace is not None
     core = engine.core

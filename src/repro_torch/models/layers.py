@@ -1,11 +1,12 @@
 """Shared layers: norms, RoPE, GQA projections, the full-sequence attention
-block of the training forward, the paged KV write, the paged decode /
-chunked-prefill attention blocks, SwiGLU MLP.
+block of the training forward, the dense and paged KV writes, the dense and
+paged decode / chunked-prefill attention blocks, the paged chunk-verify and
+tree-verify block of speculative decoding, SwiGLU MLP.
 
 Counterpart of ``repro.models.layers``: plain functions over explicit
 parameter dicts that keep the reference's names and layouts.  Where the
-reference returns a new KV pool, these functions update the pool tensors
-IN PLACE (the reference's jit donates them) and return them.
+reference returns a new KV pool or cache, these functions update its
+tensors IN PLACE (the reference's jit donates them) and return them.
 """
 from __future__ import annotations
 
@@ -184,6 +185,34 @@ def attention_block(
     return _out_proj(cfg, p, out)
 
 
+def dense_kv_write_clamped(
+    cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    """Write one K/V row per slot into a dense cache, in place, with JAX's
+    ``dynamic_update_slice`` rule: the start clamps into [0, S - 1], so a
+    write past the end lands on the last row.  cache: [B, S, kvH, hd]; new:
+    [B, 1, kvH, hd]; positions: [B]."""
+    s = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, positions.long().clamp(0, s - 1)] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def dense_kv_write_dropped(
+    cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """Scatter chunk K/V rows into a dense cache, in place, with JAX's
+    ``mode="drop"`` rule: rows not ``valid`` and rows at positions past the
+    end are dropped, never clamped onto live entries.  cache: [B, S, kvH,
+    hd]; new: [B, C, kvH, hd]; positions / valid: [B, C].  The boolean
+    selection costs one device -> host sync."""
+    keep = valid & (positions < cache.shape[1])
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None].expand_as(keep)
+    cache[rows[keep], positions.long()[keep]] = new[keep].to(cache.dtype)
+    return cache
+
+
 def paged_kv_write(
     pool: torch.Tensor,
     new: torch.Tensor,
@@ -271,6 +300,111 @@ def attention_prefill_chunk_paged(
         q.contiguous(), k_pool, v_pool, block_tables, idx, chunk_lens,
         impl=impl,
     )
+    return _out_proj(cfg, p, out), (k_pool, v_pool)
+
+
+def attention_decode(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    kv_cache: tuple[torch.Tensor, torch.Tensor],
+    cache_index: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One-token decode against a dense cache.  x: [B, 1, d]; cache k/v:
+    [B, S, kvH, hd]; cache_index: [B] int32 per-slot lengths.  The token's
+    K/V is written in place at ``index`` clamped into [0, S - 1] (the
+    reference's ``dynamic_update_slice``), then ``ops.decode_attention``
+    attends ``index + 1`` keys (clamped to S by the kernel)."""
+    b = x.shape[0]
+    idx = cache_index.to(torch.int32).expand(b)
+    q, k_new, v_new = _project_qkv(cfg, p, x, idx[:, None])
+    k_cache, v_cache = kv_cache
+    dense_kv_write_clamped(k_cache, k_new, idx)
+    dense_kv_write_clamped(v_cache, v_new, idx)
+    out = ops.decode_attention(
+        q[:, 0].contiguous(), k_cache, v_cache, idx + 1, impl=impl
+    )[:, None]
+    return _out_proj(cfg, p, out), (k_cache, v_cache)
+
+
+def attention_prefill_chunk(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    kv_cache: tuple[torch.Tensor, torch.Tensor],
+    cache_index: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Chunked-prefill step against a dense cache.  x: [B, C, d]; cache
+    k/v: [B, S, kvH, hd].  The chunk's real K/V is written in place at
+    ``index .. index + chunk_lens - 1``; pad rows and rows past S are
+    dropped (the reference's ``mode="drop"``).  Then each real row attends
+    the prefix plus the chunk's causal triangle
+    (``ops.prefill_chunk_attention``)."""
+    b, c, _ = x.shape
+    idx = cache_index.to(torch.int32).expand(b)
+    steps = torch.arange(c, dtype=torch.int32, device=x.device)
+    positions = idx[:, None] + steps[None, :]  # [B, C]
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    k_cache, v_cache = kv_cache
+    valid = steps[None, :] < chunk_lens[:, None]
+    dense_kv_write_dropped(k_cache, k_new, positions, valid)
+    dense_kv_write_dropped(v_cache, v_new, positions, valid)
+    out = ops.prefill_chunk_attention(
+        q.contiguous(), k_cache, v_cache, idx, chunk_lens, impl=impl
+    )
+    return _out_proj(cfg, p, out), (k_cache, v_cache)
+
+
+def attention_verify_paged(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    kv_pool: tuple[torch.Tensor, torch.Tensor],
+    block_tables: torch.Tensor,
+    cache_index: torch.Tensor,
+    *,
+    impl: str = "auto",
+    anc: Optional[torch.Tensor] = None,
+    depths: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Chunk-verify decode against the paged KV pool: T tokens in one pass.
+
+    x: [B, T, d] chunk embeddings.  The chunk's K/V is written in place at
+    logical positions ``index .. index + T - 1`` (past the table width they
+    clamp onto the sentinel column), then each row attends the prefix plus
+    the chunk's causal triangle (``ops.paged_verify_attention``).  Rollback
+    after acceptance only rewinds ``index``.
+
+    Tree mode (``anc`` [B, T] int32 + ``depths`` [T] int32): node j's RoPE
+    position is ``index + depths[j]`` so siblings rotate alike, its K/V
+    still lands at node-index position ``index + j``, and the ancestor
+    bitmasks select what each node sees
+    (``ops.paged_tree_verify_attention``)."""
+    b, t, _ = x.shape
+    idx = cache_index.to(torch.int32).expand(b)
+    pos_w = idx[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
+    if depths is None:
+        positions = pos_w
+    else:
+        positions = idx[:, None] + depths.to(torch.int32)[None, :]
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    k_pool, v_pool = kv_pool
+    paged_kv_write(k_pool, k_new, block_tables, pos_w)
+    paged_kv_write(v_pool, v_new, block_tables, pos_w)
+    q = q.contiguous()
+    if anc is None:
+        out = ops.paged_verify_attention(
+            q, k_pool, v_pool, block_tables, idx + t, impl=impl
+        )
+    else:
+        out = ops.paged_tree_verify_attention(
+            q, k_pool, v_pool, block_tables, idx + t, anc, impl=impl
+        )
     return _out_proj(cfg, p, out), (k_pool, v_pool)
 
 

@@ -1,11 +1,13 @@
 """Decoder-only LM, dense family: the training forward and loss, and the
-paged serving path.
+serving path.
 
 Counterpart of ``repro.models.transformer`` for what the trainer and the
 serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
 ``forward`` / ``lm_loss`` (with remat policies ``"none"`` and ``"full"``),
-``init_paged_cache``, ``decode_step``, the fused ``decode_loop`` and
-``prefill_chunks_into_slots``.  The reference's ``lax.scan`` over stacked
+``init_paged_cache`` and ``init_cache`` (the dense layout a speculative
+engine's draft model keeps), ``decode_step``, the fused ``decode_loop`` and
+``prefill_chunks_into_slots`` on either layout, and ``decode_chunk``, the
+speculative target's chunk / tree verify pass on the paged layout.  The reference's ``lax.scan`` over stacked
 layer weights becomes a Python loop over the ``[L, ...]`` stacks; its
 donated caches become in-place updates of the cache dict's tensors
 (documented per function).
@@ -199,8 +201,31 @@ def lm_loss(
 
 
 # ---------------------------------------------------------------------------
-# Paged decode cache
+# Decode caches
 # ---------------------------------------------------------------------------
+
+
+def init_cache(
+    cfg: ModelConfig,
+    batch: int,
+    max_seq: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+) -> Params:
+    """Dense decode cache: ``layers.k/v`` are [L, B, S, kvH, hd] rows per
+    slot; ``index`` is [B] int32 (the reference starts from a scalar that
+    its engine replaces with a [B] vector)."""
+    _require_dense(cfg)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "layers": {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        },
+    }
+
 
 
 def init_paged_cache(
@@ -246,26 +271,100 @@ def decode_step(
     attn_impl: str = "auto",
 ) -> tuple[torch.Tensor, Params]:
     """tokens: [B] int32 (last generated).  Returns ``(logits [B, V],
-    cache)``: every layer writes the token's K/V into the pool in place, and
-    the returned cache is a new dict whose ``index`` is advanced by one."""
+    cache)``: every layer writes the token's K/V into the paged pool or the
+    dense cache in place, and the returned cache is a new dict whose
+    ``index`` is advanced by one."""
     _require_dense(cfg)
     x = embed_tokens(cfg, params, tokens, compute_dtype)[:, None, :]
     idx = cache["index"]
-    bt = cache["block_tables"]
+    bt = cache.get("block_tables")  # None: the dense layout
     layers = cast_params(params["layers"], compute_dtype)
     k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
     for i in range(cfg.num_layers):
         lp = _layer(layers, i)
         h = L.norm(cfg, x, lp.get("ln1"))
-        y, _ = L.attention_decode_paged(
-            cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx, impl=attn_impl
-        )
+        if bt is None:
+            y, _ = L.attention_decode(
+                cfg, lp["attn"], h, (k_all[i], v_all[i]), idx, impl=attn_impl
+            )
+        else:
+            y, _ = L.attention_decode_paged(
+                cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
+                impl=attn_impl,
+            )
         x = x + y
         h = L.norm(cfg, x, lp.get("ln2"))
         x = x + L.mlp_block(lp["ffn"], h)
     x = L.norm(cfg, x, params.get("final_norm"))
     logits = unembed(cfg, params, x)[:, 0]
     return logits, dict(cache, index=idx + 1)
+
+
+# ---------------------------------------------------------------------------
+# Chunk-verify decode (the speculative target pass)
+# ---------------------------------------------------------------------------
+
+
+def chunk_recurrent_states(cfg: ModelConfig, layers: Params) -> Optional[Params]:
+    """The rollback-relevant slice of a cache's ``layers``: ``None`` for the
+    dense family, whose rollback is an index rewind.  The recurrent families
+    are not ported."""
+    _require_dense(cfg)
+    return None
+
+
+def merge_recurrent_states(cfg: ModelConfig, layers: Params, states) -> Params:
+    """Inverse of ``chunk_recurrent_states``: the dense family's ``layers``
+    as they are."""
+    _require_dense(cfg)
+    return layers
+
+
+def decode_chunk(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    cache: Params,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    attn_impl: str = "auto",
+    anc: Optional[torch.Tensor] = None,
+    depths: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Params, None]:
+    """Score a T = gamma + 1 speculative chunk in ONE pass over the paged
+    cache.  tokens: [B, T] int32, the current token plus gamma draft tokens.
+    Returns ``(logits [B, T, V], cache, None)``: every layer writes the
+    chunk's K/V into the pool in place, the returned cache's ``index`` is
+    advanced by T, and the third item (the recurrent families' per-step
+    states) is ``None``.
+
+    Tree mode: ``anc`` [B, T] int32 ancestor bitmasks and ``depths`` [T]
+    int32 node depths turn the rows into packed-tree nodes (node 0 = the
+    current token) verified by the tree kernel.  The dense target layout
+    (the reference's ``attention_verify``) is not ported yet."""
+    _require_dense(cfg)
+    bt = cache.get("block_tables")
+    if bt is None:
+        raise NotImplementedError(
+            "decode_chunk over a dense target cache is not ported yet"
+        )
+    t = tokens.shape[1]
+    x = embed_tokens(cfg, params, tokens, compute_dtype)  # [B, T, d]
+    idx = cache["index"]
+    layers = cast_params(params["layers"], compute_dtype)
+    k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
+    for i in range(cfg.num_layers):
+        lp = _layer(layers, i)
+        h = L.norm(cfg, x, lp.get("ln1"))
+        y, _ = L.attention_verify_paged(
+            cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
+            impl=attn_impl, anc=anc, depths=depths,
+        )
+        x = x + y
+        h = L.norm(cfg, x, lp.get("ln2"))
+        x = x + L.mlp_block(lp["ffn"], h)
+    x = L.norm(cfg, x, params.get("final_norm"))
+    return unembed(cfg, params, x), dict(cache, index=idx + t), None
 
 
 def decode_loop(
@@ -342,37 +441,48 @@ def prefill_chunks_into_slots(
     *,
     compute_dtype: torch.dtype = torch.bfloat16,
     attn_impl: str = "auto",
+    need_logits: bool = True,
 ) -> tuple[torch.Tensor, Params]:
     """One chunked-prefill microstep over ALL slots.
 
     tokens: [B, C] int32, one prompt chunk per slot, zero-padded past
     ``chunk_lens``; chunk_lens: [B] int32 (0 freezes a slot: no K/V write,
-    no index advance); cache: the paged cache with ``index`` [B] holding
-    each slot's prefill progress.  Each layer writes the chunk's real K/V in
-    place and attends it to the slot's earlier pages plus the chunk's causal
-    triangle.
+    no index advance); cache: the paged or dense cache with ``index`` [B]
+    holding each slot's prefill progress.  Each layer writes the chunk's real
+    K/V in place and attends it to the slot's earlier keys plus the chunk's
+    causal triangle.
 
     Returns ``(next_tokens [B] int32, cache)`` with ``index`` advanced by
     ``chunk_lens``: ``next_tokens[b]`` is the argmax at chunk position
-    ``max(chunk_lens[b] - 1, 0)`` (frozen slots give a token nobody reads)."""
+    ``max(chunk_lens[b] - 1, 0)`` (frozen slots give a token nobody reads).
+    ``need_logits=False`` (the draft model's prefill, whose first-token
+    logits are never read) skips the vocab projection and returns zeros."""
     _require_dense(cfg)
     x = embed_tokens(cfg, params, tokens, compute_dtype)  # [B, C, d]
     idx = cache["index"]
     lens = chunk_lens.to(torch.int32)
-    bt = cache["block_tables"]
+    bt = cache.get("block_tables")  # None: the dense layout
     layers = cast_params(params["layers"], compute_dtype)
     k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
     for i in range(cfg.num_layers):
         lp = _layer(layers, i)
         h = L.norm(cfg, x, lp.get("ln1"))
-        y, _ = L.attention_prefill_chunk_paged(
-            cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx, lens,
-            impl=attn_impl,
-        )
+        if bt is None:
+            y, _ = L.attention_prefill_chunk(
+                cfg, lp["attn"], h, (k_all[i], v_all[i]), idx, lens,
+                impl=attn_impl,
+            )
+        else:
+            y, _ = L.attention_prefill_chunk_paged(
+                cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx, lens,
+                impl=attn_impl,
+            )
         x = x + y
         h = L.norm(cfg, x, lp.get("ln2"))
         x = x + L.mlp_block(lp["ffn"], h)
     new_cache = dict(cache, index=idx + lens)
+    if not need_logits:
+        return torch.zeros_like(lens), new_cache
     x = L.norm(cfg, x, params.get("final_norm"))
     pos = torch.clamp(lens - 1, min=0).long()
     last = x[torch.arange(x.shape[0], device=x.device), pos][:, None]  # [B, 1, d]

@@ -1,10 +1,11 @@
 r"""Request-lifecycle engine core (counterpart of ``repro.serving.core``).
 
 ``EngineCore.step()`` is ONE scheduling quantum: consult a
-``SchedulerPolicy`` (admit / preempt / pick the k bucket), stream the
-planned prefill chunk waves, drive the engine's fused decode loop, and
-return ``StepOutputs`` with per-request token deltas, TTFT stamps and
-finish reasons.  An ONLINE arrival may preempt a RUNNING OFFLINE slot.
+``SchedulerPolicy`` (admit / preempt / pick the k bucket, and on a
+speculating engine the draft length gamma and the proposer), stream the
+planned prefill chunk waves, drive the engine's fused decode or speculative
+loop, and return ``StepOutputs`` with per-request token deltas, TTFT stamps
+and finish reasons.  An ONLINE arrival may preempt a RUNNING OFFLINE slot.
 
 Lifecycle::
 
@@ -19,8 +20,8 @@ radix-cached) and re-queues the request at the FRONT of its class; resume
 re-prefills ``prompt + generated`` and continues greedy decode, so the
 resumed stream is byte-identical to an uninterrupted one.
 
-Speculation, fault containment, revocable grants, the overload ladder and
-the request journal of the reference core are not in this slice.
+Fault containment, revocable grants, the overload ladder and the request
+journal of the reference core are not in this slice.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import numpy as np
 
 from repro_torch.obs.trace import _num
 from repro_torch.serving.engine import DECODE_K_BUCKETS, InferenceEngine, Request
+from repro_torch.spec.controller import AdaptiveGammaController
 
 __all__ = [
     "EngineCore",
@@ -151,6 +153,10 @@ class StepPlan:
     preempt: list = dataclasses.field(default_factory=list)  # slot indices
     preempt_to_admit: bool = False  # may admission evict OFFLINE victims?
     k: int = 0
+    gamma: Optional[int] = None  # None -> plain decode loop
+    #: routed candidate source of a speculative quantum: None keeps the
+    #: draft pairing's fused loop; a name drives ``_drive_proposed_loop``
+    proposer: Optional[str] = None
     cost_steps: float = 0.0  # decode cost in microstep-equivalents
     #: prefill-token budget of the quantum (inf = drain all pending)
     prefill_tokens: float = math.inf
@@ -179,9 +185,16 @@ class StepOutputs:
     admitted: list = dataclasses.field(default_factory=list)  # request ids
     preempted: list = dataclasses.field(default_factory=list)  # request ids
     k: int = 0
+    gamma: Optional[int] = None
+    #: the candidate source of a speculative quantum (None for plain decode
+    #: or the un-routed draft loop)
+    proposer: Optional[str] = None
     cost_steps: float = 0.0
     #: prefill chunk tokens this step computed
     prefill_tokens: int = 0
+    #: draft tokens accepted / proposed by this step's speculative rounds
+    spec_accepted: int = 0
+    spec_proposed: int = 0
 
 
 def largest_bucket(n: int, buckets: tuple = DECODE_K_BUCKETS) -> int:
@@ -218,11 +231,12 @@ class SchedulerPolicy:
         self, plan: StepPlan, core: "EngineCore", grant: Grant
     ) -> float:
         """Clamp ``plan.k`` so the quantum's worst-case decode tokens (one
-        per slot, PREFILLING slots included: any may finish its prompt this
-        step) fit the grant's ``token_budget``; returns the decode-token
-        allowance consumed."""
+        per slot, or gamma + 1 per slot for spec rounds; PREFILLING slots
+        included: any may finish its prompt this step) fit the grant's
+        ``token_budget``; returns the decode-token allowance consumed."""
         eng = core.engine
-        per_k = min(max(eng.num_active + len(plan.admit), 1), eng.max_slots)
+        slots = min(max(eng.num_active + len(plan.admit), 1), eng.max_slots)
+        per_k = slots * (1 if plan.gamma is None else plan.gamma + 1)
         if math.isfinite(grant.token_budget) and plan.k > 0:
             max_k = int(grant.token_budget // per_k)
             if max_k < min(DECODE_K_BUCKETS):
@@ -271,12 +285,29 @@ class SchedulerPolicy:
                 best = (cost, slot)
         return None if best is None else best[1]
 
+    def observe(self, outputs: StepOutputs) -> None:
+        """Post-step feedback (the gamma controller's acceptance EWMA)."""
+
 
 class PriorityPolicy(SchedulerPolicy):
     """Priority-aware FCFS with preemption, the dedicated-serving default:
     every arrived ONLINE request first (evicting OFFLINE slots when capacity
     blocks), then arrived OFFLINE requests while the grant allows.  A small
-    k while requests wait, the largest useful bucket otherwise."""
+    k while requests wait, the largest useful bucket otherwise; on a
+    speculating engine k counts rounds of the controller's gamma, sized by
+    their expected verified tokens and priced by the routed proposer."""
+
+    def __init__(self):
+        #: gamma controller of a speculating engine, built from its
+        #: ``spec_cfg`` at the first plan
+        self.gamma_ctrl: Optional[AdaptiveGammaController] = None
+
+    def _gamma_ctrl_for(self, engine: InferenceEngine):
+        if self.gamma_ctrl is None and (
+            engine.spec_enabled or engine.host_spec_enabled
+        ):
+            self.gamma_ctrl = AdaptiveGammaController.from_spec(engine.spec_cfg)
+        return self.gamma_ctrl
 
     def plan(self, core: "EngineCore", grant: Grant) -> StepPlan:
         admit = []
@@ -299,11 +330,31 @@ class PriorityPolicy(SchedulerPolicy):
             return plan
         leftover = core.num_waiting > len(admit)
         steps = 1 if leftover else min(want, grant.max_cost_steps)
-        plan.k = largest_bucket(int(steps))
-        plan.cost_steps = float(plan.k)
+        eng = core.engine
+        ctrl = self._gamma_ctrl_for(eng)
+        if (eng.spec_enabled or eng.host_spec_enabled) and ctrl is not None:
+            g = ctrl.gamma_for(grant.phase if grant.phase is not None else "stable")
+            # the routed proposer prices the round: a model-free host round
+            # spends ~1 step, a draft-model round 1 + (gamma + 1) * ratio
+            plan.proposer = eng.route_proposer(g)
+            round_cost = (
+                eng.proposer_round_cost(plan.proposer, g)
+                if plan.proposer is not None else ctrl.round_cost_steps(g)
+            )
+            rounds = max(int(steps / ctrl.expected_tokens_per_round(g)), 1)
+            plan.k = largest_bucket(rounds)
+            plan.gamma = g
+            plan.cost_steps = plan.k * round_cost
+        else:
+            plan.k = largest_bucket(int(steps))
+            plan.cost_steps = float(plan.k)
         decode_tokens = self._clamp_k_to_budget(plan, core, grant)
         self.plan_prefill(core, grant, plan, decode_tokens)
         return plan
+
+    def observe(self, outputs: StepOutputs) -> None:
+        if self.gamma_ctrl is not None and outputs.spec_proposed:
+            self.gamma_ctrl.observe(outputs.spec_accepted, outputs.spec_proposed)
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +511,7 @@ class EngineCore:
                 _, pf_take, completing = eng._plan_prefill_waves(
                     plan.prefill_tokens
                 )
+        a0, p0 = eng.spec_accepted, eng.spec_drafted
         # prefill runs BEFORE the clock advances: a completing prompt's first
         # token stamps at quantum start (retirements stamp at quantum end)
         if pf_take > 0:
@@ -479,9 +531,18 @@ class EngineCore:
             g.advance_clock(cost)
         if k > 0:
             out.k = k
-            eng._drive_decode_loop(k)
+            if plan.gamma is not None and plan.proposer is not None:
+                out.gamma, out.proposer = plan.gamma, plan.proposer
+                eng._drive_proposed_loop(k, plan.gamma, plan.proposer)
+            elif plan.gamma is not None and eng.spec_enabled:
+                out.gamma = plan.gamma
+                eng._drive_spec_loop(k, plan.gamma)
+            else:
+                eng._drive_decode_loop(k)
         if out.k > 0 or out.prefill_tokens:
             out.cost_steps = cost
+        out.spec_accepted = eng.spec_accepted - a0
+        out.spec_proposed = eng.spec_drafted - p0
         for slot, cr in list(self.slot_requests.items()):
             if (cr.state is RequestState.PREFILLING
                     and not eng.slot_prefilling(slot)):
@@ -524,6 +585,7 @@ class EngineCore:
                 state=cr.state, finish_reason=cr.finish_reason, ttft_s=ttft,
             ))
         self._record_quantum(g, plan, out, ran_slots)
+        self.policy.observe(out)
         return out
 
     # ------------------------------------------------------------------
@@ -628,8 +690,12 @@ class EngineCore:
                     "prefill_chunk", f"slot{slot}", t0, t_mid, tokens=ntok,
                     request_id=None if cr is None else cr.request_id,
                 )
+        name = "spec_round" if out.gamma is not None else "decode"
         for slot, rid in ran_slots.items():
-            tr.span("decode", f"slot{slot}", t_mid, t1, k=out.k, request_id=rid)
+            tr.span(
+                name, f"slot{slot}", t_mid, t1, k=out.k, gamma=out.gamma,
+                proposer=out.proposer, request_id=rid,
+            )
         tr.quantum(
             t0, t1,
             grant={
@@ -641,10 +707,13 @@ class EngineCore:
                 "max_cost_steps": _num(g.max_cost_steps),
                 "token_budget": _num(g.token_budget),
             },
-            k=out.k, cost_steps=out.cost_steps,
+            k=out.k, gamma=out.gamma, proposer=out.proposer,
+            cost_steps=out.cost_steps,
             prefill_tokens=out.prefill_tokens,
             admitted=list(out.admitted), preempted=list(out.preempted),
             finished=[cr.request_id for cr in out.finished],
+            spec_accepted=out.spec_accepted,
+            spec_proposed=out.spec_proposed,
             window=window,
         )
 

@@ -1,7 +1,8 @@
 """The port stands alone: no module under ``src/repro_torch/`` nor
 ``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the reference package
 ``repro`` (``repro_torch`` is allowed), and importing the serving core, the
-filling runtime and the train step pulls no JAX into a fresh interpreter."""
+speculative decoding package, the filling runtime and the train step pulls
+no JAX into a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -28,6 +29,9 @@ def _imported_modules(path: Path) -> list[str]:
 def test_walk_covers_the_port():
     assert len(FILES) > 10
     assert ROOT / "src" / "repro_torch" / "serving" / "core.py" in FILES
+    for mod in ("spec/loop.py", "spec/tree.py", "spec/proposers/ngram.py",
+                "kernels/paged_tree_verify_attention.py", "kernels/decode_attention.py"):
+        assert ROOT / "src" / "repro_torch" / mod in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -43,6 +47,7 @@ def test_serving_core_import_pulls_no_jax():
     code = (
         "import sys; import repro_torch.serving.core; "
         "import repro_torch.launch.serve; "
+        "import repro_torch.spec; import repro_torch.spec.proposers; "
         "import repro_torch.core.filling; import repro_torch.runtime.step; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
