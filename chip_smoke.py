@@ -20,14 +20,23 @@ Phases, each printing a line before the last:
                  forward and backward at the training shape (plus a ragged and
                  a non-causal case), the dense decode / chunked prefill at the
                  draft model's shapes (plus a GQA case), the paged verify for
-                 T = 2, 3, 5 and the paged tree verify for a chain (bit-equal
-                 to verify at T = 5), a branching and a 31-node tree.
+                 T = 2, 3, 5 and at the suffix prefill's bucket sizes T = 64,
+                 128 (lengths up to and past the table), the paged tree
+                 verify for a chain (bit-equal to verify at T = 5), a
+                 branching and a 31-node tree; the same for the dense verify
+                 and tree verify over the target's dense rows; the Mamba1 scan chunk at falcon-mamba's widths (fp32,
+                 B = 1 and 8, two chained chunks against one 128-step scan).
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
                  streams, speculating engines (draft-paired, n-gram, and the
                  target as its own draft) whose streams must also equal the
-                 plain greedy engine's, and ``lm_loss`` with its gradients.
+                 plain greedy engine's, the dense target layout under chunked
+                 and monolithic prefill (plain, draft-paired, n-gram), the
+                 paged engine with monolithic prefill and radix hits (suffix
+                 prefill), and ``lm_loss`` with its gradients; a 2-layer,
+                 full-width falcon-mamba-7b engine gives equal streams and
+                 final states.
 5. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
                  through ``EngineCore.step()``; every request must finish and
                  both paged kernels must have launched (plain versions never).
@@ -36,7 +45,16 @@ Phases, each printing a line before the last:
                  router must have run both proposers, and the dense decode,
                  dense prefill, paged verify and paged tree verify kernels must
                  have launched (plain versions never).
-7. collocated -- qwen3-1.7b at full depth and width trains (fp32 params, bf16
+7. dense target serve -- the same on the dense target layout
+                 (``kv_page_size=0``): the dense decode, dense prefill, dense
+                 verify and dense tree verify kernels must launch; then a
+                 short run with monolithic prefill must launch the flash
+                 forward kernel.
+8. ssm serve  -- falcon-mamba-7b at full depth and width, bf16, serves 16
+                 requests (dense state rows, monolithic bucket prefill); every
+                 request must finish and the scan kernel must launch once per
+                 layer and 64-step chunk of each admission.
+9. collocated -- qwen3-1.7b at full depth and width trains (fp32 params, bf16
                  compute, batch 4 x seq 1024) under ``SpecInFRuntime``, whose
                  bubbles a bf16 engine on the initial weights fills with an
                  offline backlog and online requests.  The DP profile is sized
@@ -51,8 +69,10 @@ Phases, each printing a line before the last:
                  must finish, and offline tokens and spec rounds be produced.
 
 Then one ``{"kernels": [...]}`` line (launches from the run of each
-kernel's path: the speculative kernels' from the spec serve run, the
-others' from the collocated run) and, last, the ``{"ok": true, ...}`` line.  Any failed
+kernel's path: the speculative kernels' from the spec serve run, the dense
+verify and tree verify from the dense target serve run, the scan from the
+ssm serve run, the others' from the collocated run) and, last, the
+``{"ok": true, ...}`` line.  Any failed
 phase raises and the script exits non-zero.  It imports nothing of JAX or
 of the ``repro`` package.
 """
@@ -109,6 +129,21 @@ DRAFT_H, DENSE_S = 8, 512
 DENSE_LENGTHS = [0, 512, 300, 17, 1, 256, 511, 100]  # empty and full slots
 VERIFY_TS = (2, 3, 5)
 VERIFY_LENGTHS = [1, 300, 4, 0, 512, 17, 256, 100]  # slot 0: lengths < T
+# a suffix prefill after a radix hit verifies a whole bucket at once
+# (lengths = shared pages + bucket, unclamped): chunks past kVerifyRows = 32
+# rows spread over several row blocks; lengths < T, == the table and past it
+SUFFIX_LENGTHS = {
+    64: [64, 128, 160, 512, 544, 80, 3, 0],
+    128: [128, 256, 144, 512, 608, 640, 5, 0],
+}
+# dense target slice: the target's verify chunks over its dense rows (qwen3's
+# 16 q / 8 kv heads of 128, max_seq 512); the Mamba1 scan at falcon-mamba's
+# widths (d_inner 8192, ssm_state 16, 64-step chunks), B = 1 as one
+# admission runs it and B = 8
+SSM_Q, SSM_DI, SSM_DS = 64, 8192, 16
+SSM_BATCHES = (1, 8)
+#: fp32 scan kernel vs plain version: relative to max |y| (max |h|)
+SSM_RTOL = 1e-5
 SPEC_COLLOC_ITERS = 4
 COLLOC_ITERS = 8
 #: Algorithm 1's stable-phase token cap for the collocated phase, on every
@@ -123,6 +158,9 @@ SERVE_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 SPEC_KERNELS = ("decode_attention", "prefill_attention", "paged_verify_attention",
                 "paged_tree_verify_attention")
+DENSE_TARGET_KERNELS = ("decode_attention", "prefill_attention", "verify_attention",
+                        "tree_verify_attention")
+SSM_KERNELS = ("ssm_scan",)
 
 
 def log(msg: str) -> None:
@@ -361,7 +399,7 @@ def phase_kernels():
     })
     log(f"kernel paged_prefill_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-    return rows + _flash_rows() + _spec_rows()
+    return rows + _flash_rows() + _spec_rows() + _dense_target_rows() + _ssm_rows()
 
 
 def _flash_inputs(dtype, b, h, sq, sk, seed=0):
@@ -576,11 +614,11 @@ def _spec_rows():
     vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
     cap = NCOLS * PAGE
 
-    def verify_inputs(t, anc=None):
+    def verify_inputs(t, anc=None, lens=vlens):
         def make(dtype):
             g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=4)
             q = torch.randn((B, t, H, HD), generator=g, device="cuda").to(dtype)
-            args = (q, k_pool, v_pool, bt, vlens)
+            args = (q, k_pool, v_pool, bt, lens)
             return args if anc is None else args + (anc,)
         return make
 
@@ -592,6 +630,11 @@ def _spec_rows():
     verr = [_check_kernel(f"paged_verify_attention (T={t})", pv.paged_verify_attention,
                           pv.paged_verify_attention_torch, verify_inputs(t))
             for t in VERIFY_TS]
+    verr += [_check_kernel(f"paged_verify_attention (suffix prefill, T={t})",
+                           pv.paged_verify_attention, pv.paged_verify_attention_torch,
+                           verify_inputs(t, lens=torch.tensor(n, dtype=torch.int32,
+                                                              device="cuda")))
+             for t, n in SUFFIX_LENGTHS.items()]
     trees = {"linear_chain(4)": linear_chain(4), "branching_tree(2, 2)": branching_tree(2, 2),
              "branching_tree(3, 10), 31 nodes": branching_tree(3, 10)}
     terr = [_check_kernel(f"paged_tree_verify_attention ({name})",
@@ -654,6 +697,161 @@ def _spec_rows():
                      "src/repro/kernels/paged_tree_verify_attention.py:45", _worst(*terr),
                      k_ms, p_ms, l_ms, bound, by))
     return rows
+
+
+def _dense_target_rows():
+    """Rows of the dense target's verify (#6) and tree verify (#8) at the
+    target's shapes over dense rows (B=8, H=16, kvH=8, hd=128, S=512):
+    verify at T = 2, 3, 5 and 64, 128 (lengths up to and past S), tree at
+    a 5-node chain (bit-equal to verify at T = 5 in both types),
+    branching_tree(2, 2) and the 31-node branching_tree(3, 10); timed in bf16 at T = 5 / the chain, SDPA with
+    an explicit boolean mask as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import tree_verify_attention as tv
+    from repro_torch.kernels import verify_attention as va
+    from repro_torch.spec.tree import branching_tree, linear_chain, tree_ancestor_masks
+
+    isz, S = 2, DENSE_S
+    vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
+
+    def inputs(t, anc=None, lens=vlens):
+        def make(dtype):
+            g, k, v = _dense_inputs(dtype, seed=5)
+            q = torch.randn((B, t, H, HD), generator=g, device="cuda").to(dtype)
+            args = (q, k, v, lens)
+            return args if anc is None else args + (anc,)
+        return make
+
+    def anc_of(parents):
+        return torch.tensor(tree_ancestor_masks(parents), device="cuda").expand(
+            B, len(parents)).contiguous()
+
+    verr = [_check_kernel(f"verify_attention (T={t})", va.verify_attention,
+                          va.verify_attention_torch, inputs(t)) for t in VERIFY_TS]
+    verr += [_check_kernel(f"verify_attention (suffix-prefill size, T={t})",
+                           va.verify_attention, va.verify_attention_torch,
+                           inputs(t, lens=torch.tensor(n, dtype=torch.int32, device="cuda")))
+             for t, n in SUFFIX_LENGTHS.items()]
+    trees = {"linear_chain(4)": linear_chain(4), "branching_tree(2, 2)": branching_tree(2, 2),
+             "branching_tree(3, 10), 31 nodes": branching_tree(3, 10)}
+    terr = [_check_kernel(f"tree_verify_attention ({name})", tv.tree_verify_attention,
+                          tv.tree_verify_attention_torch, inputs(len(par), anc_of(par)))
+            for name, par in trees.items()]
+    chain = anc_of(linear_chain(4))
+    for dtype in (torch.bfloat16, torch.float32):
+        args = inputs(5)(dtype)
+        same = torch.equal(tv.tree_verify_attention(*args, chain), va.verify_attention(*args))
+        log(f"kernel tree_verify_attention linear_chain(4) vs verify_attention T=5 {dtype}: "
+            f"bit-equal {same}")
+        if not same:
+            raise AssertionError("dense tree verify over a chain differs from verify")
+
+    q, k, v, _ = inputs(5)(torch.bfloat16)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(H // KVH, 1)
+    vt = v.transpose(1, 2).repeat_interleave(H // KVH, 1)
+    kpos = torch.arange(S, device="cuda")
+    anc_row = tree_ancestor_masks(linear_chain(4)).tolist()
+    masks, visible = {}, {}
+    for name in ("verify", "tree"):
+        m = torch.zeros((B, 5, S), dtype=torch.bool, device="cuda")
+        vis = []
+        for b, n in enumerate(VERIFY_LENGTHS):
+            for j in range(5):
+                if name == "verify":
+                    seen = [kp <= n - 5 + j for kp in range(S)]
+                else:
+                    seen = [kp < n - 5 or (0 <= kp - (n - 5) < 5
+                                           and (anc_row[j] >> (kp - n + 5)) & 1)
+                            for kp in range(S)]
+                m[b, j] = torch.tensor(seen, device="cuda")
+                vis.append(sum(seen))
+        masks[name], visible[name] = m, vis
+    # bytes: q in and out once, the K/V rows the slots' windows need once
+    needed = sum(min(max(n, 0), S) for n in VERIFY_LENGTHS)
+    nbytes = 2 * B * 5 * H * HD * isz + 2 * needed * KVH * HD * isz + B * 4
+    rows = []
+    for name, kern, plain, extra, src, rep, errs in (
+        ("verify_attention", va.verify_attention, va.verify_attention_torch, (),
+         "verify_attention.cu", "src/repro/kernels/verify_attention.py:110", _worst(*verr)),
+        ("tree_verify_attention", tv.tree_verify_attention, tv.tree_verify_attention_torch,
+         (chain,), "verify_attention.cu",
+         "src/repro/kernels/tree_verify_attention.py:118", _worst(*terr)),
+    ):
+        mask = masks["verify" if name == "verify_attention" else "tree"][:, None]
+        k_ms = _time_ms(lambda: kern(q, k, v, vlens, *extra))
+        p_ms = _time_ms(lambda: plain(q, k, v, vlens, *extra))
+        l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        bound, by = _bound_ms(
+            nbytes + (B * 5 * 4 if extra else 0),
+            4 * HD * H * sum(visible["verify" if not extra else "tree"]), torch.bfloat16)
+        rows.append(_row(name, src, rep, errs, k_ms, p_ms, l_ms, bound, by))
+    return rows
+
+
+def _ssm_inputs(b, q, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xi = torch.randn((b, q, SSM_DI), generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, q, SSM_DI), generator=g, device="cuda") - 2)
+    bm = torch.randn((b, q, SSM_DS), generator=g, device="cuda")
+    cm = torch.randn((b, q, SSM_DS), generator=g, device="cuda")
+    a = -torch.arange(1, SSM_DS + 1, dtype=torch.float32, device="cuda").expand(
+        SSM_DI, SSM_DS).contiguous()
+    h0 = torch.randn((b, SSM_DI, SSM_DS), generator=g, device="cuda")
+    return xi, dt, bm, cm, a, h0
+
+
+def _ssm_rows():
+    """The Mamba1 scan chunk (#10), fp32 in and out: held to its plain
+    version at B = 1 and 8 (Q = 64, d_inner 8192, ssm_state 16) and across
+    two chained chunks (h carried from the first 64 steps into the next
+    equals one 128-step plain scan); timed at B = 1.  No single PyTorch call
+    computes the scan, so the row has no library time."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ss
+
+    rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()
+    err = 0.0
+    for b in SSM_BATCHES:
+        xi, dt, bm, cm, a, h0 = _ssm_inputs(b, 2 * SSM_Q, seed=6)
+        first = [t[:, :SSM_Q].contiguous() for t in (xi, dt, bm, cm)]
+        second = [t[:, SSM_Q:].contiguous() for t in (xi, dt, bm, cm)]
+        y1, h1 = ss.ssm_scan_chunk(*first, a, h0)
+        y2, h2 = ss.ssm_scan_chunk(*second, a, h1)
+        torch.cuda.synchronize()
+        ry1, rh1 = ss.ssm_scan_chunk_torch(*first, a, h0)
+        ry, rh = ss.ssm_scan_chunk_torch(xi, dt, bm, cm, a, h0)
+        errs = (rel(y1, ry1), rel(h1, rh1), rel(torch.cat([y1, y2], 1), ry), rel(h2, rh))
+        if not all(torch.isfinite(t).all() for t in (y1, y2, h1, h2)):
+            raise AssertionError(f"ssm_scan B={b}: non-finite output")
+        log(f"kernel ssm_scan B={b} fp32: max err / max|ref| y {errs[0]:.2e}, h "
+            f"{errs[1]:.2e}; two chained chunks vs one 128-step scan: y {errs[2]:.2e}, "
+            f"h {errs[3]:.2e} (tol {SSM_RTOL:g})")
+        if not max(errs) <= SSM_RTOL:
+            raise AssertionError(f"ssm_scan B={b}: errors {errs} > {SSM_RTOL}")
+        err = max(err, *errs)
+    args = _ssm_inputs(1, SSM_Q, seed=7)
+    k_ms = _time_ms(lambda: ss.ssm_scan_chunk(*args))
+    p_ms = _time_ms(lambda: ss.ssm_scan_chunk_torch(*args))
+    # bytes: xi, dt, y [Q, di] and B, C [Q, ds] once, A, h0 and h once; ops:
+    # per (step, row, state) dt*A, exp, *h, fma with dt*x*B, *C, the sum
+    elems = SSM_Q * SSM_DI * SSM_DS
+    nbytes = 4 * (3 * SSM_Q * SSM_DI + 2 * SSM_Q * SSM_DS + 3 * SSM_DI * SSM_DS)
+    bound, by = _bound_ms(nbytes, 7 * elems + SSM_Q * SSM_DI, torch.float32)
+    log(f"kernel ssm_scan (B=1, Q={SSM_Q}, di={SSM_DI}, ds={SSM_DS}, fp32): {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, library none, bound {bound:.4f} ms ({by})")
+    return [{
+        "name": "ssm_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:56", "launches": 0,
+        "max_abs_err": err, "err_kind": "relative to max|ref|, fp32",
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+    }]
 
 
 # ---------------------------------------------------------------------------
@@ -772,6 +970,8 @@ def phase_parity():
         raise AssertionError("parity: EngineCore token streams differ (cuda vs torch)")
     log(f"parity engine: {len(streams['cuda'])} requests, token streams equal")
     _spec_parity(cfg, params)
+    _dense_target_parity(cfg, params)
+    _ssm_parity()
 
     # training: lm_loss and every gradient, flash kernels vs plain version
     from repro_torch.tree import tree_leaves
@@ -856,6 +1056,97 @@ def _spec_parity(cfg, params):
         f"{n} rounds/accepted/drafted {stats[n, 'cuda']}, steps accepting every draft "
         f"{all_accepted[n, 'cuda']}" for n in ("draft", "ngram", "self-draft"))
         + "; streams equal cuda vs torch and to plain greedy")
+
+
+def _dense_target_parity(cfg, params):
+    """The dense target layout (kv_page_size=0) at 2 layers, full width,
+    fp32, under chunked and monolithic prefill, plain, draft-paired and
+    n-gram: equal streams and counters with impl="cuda" and "torch", the
+    speculating streams equal to the plain greedy ones; and the paged engine
+    with monolithic prefill, whose radix hits prefill only the suffix (the
+    paged verify kernel over a bucket of up to 64 rows)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    dcfg = draft_config(cfg)
+    dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    pairings = {
+        "plain": {},
+        "draft": dict(draft_cfg=dcfg, draft_params=dparams,
+                      spec=SpecDecodeConfig(proposer="draft")),
+        "ngram": dict(spec=SpecDecodeConfig(proposer="ngram")),
+    }
+    prompts = _prompts(np.random.default_rng(1), 6, 24, 80, cfg.vocab_size,
+                       shared_prefix=32, shared_idx=(0, 5))
+    report = []
+    for layout, kw in (("dense chunked", dict(kv_page_size=0)),
+                       ("dense monolithic", dict(kv_page_size=0, prefill_chunk=0)),
+                       ("paged monolithic", dict(prefill_chunk=0))):
+        for name, pkw in pairings.items():
+            if layout == "paged monolithic" and name != "plain":
+                continue
+            res = {}
+            for impl in ("cuda", "torch"):
+                eng = InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                                      compute_dtype=torch.float32, decode_impl=impl,
+                                      **kw, **pkw)
+                reqs, _ = _serve(eng, prompts, max_new=12)
+                res[impl] = ([list(r.output_tokens) for r in reqs],
+                             (eng.spec_rounds, eng.spec_accepted, eng.spec_drafted,
+                              eng.prefill_skipped_tokens))
+            if res["cuda"] != res["torch"]:
+                raise AssertionError(f"parity: {layout} {name} streams or counters differ "
+                                     f"(cuda vs torch): {res['cuda'][1]} vs {res['torch'][1]}")
+            if name == "plain":
+                plain = res["cuda"][0]
+            elif res["cuda"][0] != plain or res["cuda"][1][0] <= 0:
+                raise AssertionError(f"parity: {layout} {name} streams differ from plain "
+                                     f"greedy or no spec round ran ({res['cuda'][1]})")
+            report.append(f"{layout} {name} (rounds/accepted/drafted/prefix-skipped "
+                          f"{res['cuda'][1]})")
+    if not res["cuda"][1][3]:
+        raise AssertionError("parity: the paged monolithic engine had no radix hit")
+    log("parity dense target and monolithic prefill (2 layers, full width, fp32): "
+        + "; ".join(report) + "; streams equal cuda vs torch and to plain greedy")
+    del dparams
+
+
+def _ssm_parity():
+    """falcon-mamba-7b at 2 layers, full width, fp32: the engine (dense
+    state rows, monolithic dt-masked bucket prefill) gives equal streams
+    with impl="cuda" and "torch", and its final conv and SSM states agree
+    within SSM_RTOL of their largest value."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = dataclasses.replace(configs.get_config("falcon-mamba-7b"), num_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompts = _prompts(np.random.default_rng(1), 6, 24, 80, cfg.vocab_size, 0, ())
+    res = {}
+    for impl in ("cuda", "torch"):
+        eng = InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                              compute_dtype=torch.float32, decode_impl=impl)
+        reqs, _ = _serve(eng, prompts, max_new=12)
+        res[impl] = ([list(r.output_tokens) for r in reqs],
+                     {k: t.clone() for k, t in eng.cache["layers"].items()})
+    if res["cuda"][0] != res["torch"][0]:
+        raise AssertionError("parity: falcon-mamba streams differ (cuda vs torch)")
+    errs = {k: ((res["cuda"][1][k] - r).abs().max() / r.abs().max()).item()
+            for k, r in res["torch"][1].items()}
+    log(f"parity falcon-mamba (2 layers, full width, fp32): {len(prompts)} requests, streams "
+        f"equal; final state max err / max|state|: " + ", ".join(
+            f"{k} {e:.2e}" for k, e in errs.items()) + f" (tol {SSM_RTOL:g})")
+    if not max(errs.values()) <= SSM_RTOL:
+        raise AssertionError(f"parity: falcon-mamba states differ by {errs}")
+    del params, res
 
 
 # ---------------------------------------------------------------------------
@@ -1045,7 +1336,143 @@ def phase_spec_serve():
 
 
 # ---------------------------------------------------------------------------
-# 7. collocated
+# 7. dense target serve, 8. ssm serve
+# ---------------------------------------------------------------------------
+
+
+def phase_dense_target_serve():
+    """qwen3-1.7b at full depth, bf16, on the dense target layout
+    (``kv_page_size=0``), paired with its draft, ``proposer="auto"``: the
+    spec serve phase's 16 requests, which must launch the dense decode,
+    dense prefill, dense verify and dense tree verify kernels; then a short
+    run with ``prefill_chunk=0``, whose monolithic prefill must launch the
+    flash forward kernel.  Returns the kernel launch counts of the first
+    run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config("qwen3-1.7b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    t_start = time.monotonic()
+    engine = _spec_engine(cfg, params, clock=lambda: time.monotonic() - t_start,
+                          kv_page_size=0)
+    prompts = _prompts(np.random.default_rng(2), 16, 24, 136, cfg.vocab_size,
+                       shared_prefix=64, shared_idx=(0, 13, 14, 15))
+    max_new = 32
+    ops.reset_launch_counts()
+    reqs, secs = _serve(engine, prompts, max_new)
+    counts = ops.launch_counts()
+    _check_finished("dense target serve", reqs, max_new, cfg)
+    m = engine.obs.metrics
+    for name in ("draft", "ngram"):
+        if m.counter(f"spec/proposer/rounds/{name}").value <= 0:
+            raise AssertionError(f"dense target serve: the router ran no {name} round")
+    _require_launches("dense target serve", counts, DENSE_TARGET_KERNELS)
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    per = {n: tuple(m.counter(f"spec/proposer/{w}/{n}").value
+                    for w in ("rounds", "accepted", "proposed")) for n in ("draft", "ngram")}
+    log(f"dense target serve: {_serve_summary(m, reqs, tokens, secs)}; kv cache "
+        f"{engine.kv_cache_bytes() / 1e9:.3f} GB; spec rounds {engine.spec_rounds}; per "
+        f"proposer (rounds, accepted, proposed): {per}")
+    log(f"dense target serve launches: {json.dumps(counts)}")
+    _profile_serve(engine, cfg, "dense target serve")
+    del engine
+    gc.collect()
+    engine = _spec_engine(cfg, params, kv_page_size=0, prefill_chunk=0)
+    ops.reset_launch_counts()
+    reqs, secs = _serve(engine, prompts[:4], 8)
+    mono = ops.launch_counts()
+    _check_finished("dense target serve, monolithic prefill", reqs, 8, cfg)
+    _require_launches("dense target serve, monolithic prefill", mono,
+                      ("flash_attention_fwd",))
+    log(f"dense target serve, monolithic prefill: {len(reqs)} requests in {secs:.3f}s; "
+        f"launches {json.dumps({k: v['cuda'] for k, v in mono.items() if v['cuda']})}")
+    return {name: c["cuda"] for name, c in counts.items()}
+
+
+def _check_finished(phase, reqs, max_new, cfg):
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.output_tokens) != max_new:
+            raise AssertionError(f"{phase}: request {r.request_id} ended "
+                                 f"{r.finish_reason} with {len(r.output_tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
+            raise AssertionError(f"{phase}: token id out of the vocabulary")
+
+
+def _serve_summary(m, reqs, tokens, secs):
+    import torch
+
+    ttft = m.histogram("core/online_ttft_s")
+    lat = m.histogram("core/online_latency_s")
+    return (f"{len(reqs)} requests, {tokens} new tokens in {secs:.3f}s = "
+            f"{tokens / secs:.1f} tok/s; TTFT p50 {ttft.percentile(50) * 1e3:.1f} ms p95 "
+            f"{ttft.percentile(95) * 1e3:.1f} ms; latency p50 {lat.percentile(50) * 1e3:.1f} "
+            f"ms p95 {lat.percentile(95) * 1e3:.1f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def phase_ssm_serve():
+    """falcon-mamba-7b at full depth and width (64 layers, d_model 4096,
+    d_inner 8192), bf16 weights made straight on the card, 8 slots, max_seq
+    512: 16 ONLINE requests of 25-157 tokens, 32 new tokens each, through
+    EngineCore on dense state rows with monolithic bucket prefill.  Every
+    request must finish and the scan kernel must launch once per layer and
+    64-step chunk of each admission's bucket.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config("falcon-mamba-7b")
+    t0 = time.monotonic()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    t_start = time.monotonic()
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512,
+                             clock=lambda: time.monotonic() - t_start)
+    del params
+    torch.cuda.synchronize()
+    log(f"ssm serve: weights {sum(p.numel() for p in tree_leaves(engine.params)) / 1e9:.3f} "
+        f"B params bf16, state {engine.kv_cache_bytes() / 1e6:.1f} MB, set-up "
+        f"{time.monotonic() - t0:.1f}s")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(25, 158, 16)]
+    max_new = 32
+    expected = cfg.num_layers * sum(-(-engine._bucket_len(len(p)) // SSM_Q) for p in prompts)
+    ops.reset_launch_counts()
+    reqs, secs = _serve(engine, prompts, max_new)
+    counts = ops.launch_counts()
+    _check_finished("ssm serve", reqs, max_new, cfg)
+    _require_launches("ssm serve", counts, SSM_KERNELS)
+    if counts["ssm_scan"]["cuda"] != expected:
+        raise AssertionError(f"ssm serve: {counts['ssm_scan']['cuda']} scan launches, "
+                             f"{expected} expected (layers x 64-step chunks per bucket)")
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    log(f"ssm serve: prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens; "
+        f"{_serve_summary(engine.obs.metrics, reqs, tokens, secs)}; scan launches "
+        f"{counts['ssm_scan']['cuda']} (= {cfg.num_layers} layers x 64-step chunks)")
+    _profile_serve(engine, cfg, "ssm serve")
+    return {name: c["cuda"] for name, c in counts.items()}
+
+
+# ---------------------------------------------------------------------------
+# 9. collocated
 # ---------------------------------------------------------------------------
 
 
@@ -1194,8 +1621,10 @@ def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
     if not np.isfinite(m.train_losses).all():
         raise AssertionError(f"spec collocated: losses {m.train_losses}")
     if m.online_served != len(online):
-        raise AssertionError(f"spec collocated: {m.online_served} of {len(online)} online "
-                             f"requests finished")
+        raise AssertionError(
+            f"spec collocated: {m.online_served} of {len(online)} online requests "
+            f"finished (microstep {microstep_s * 1e3:.1f} ms, longest bubble "
+            f"{profile.max_bubble_s * 1e3:.1f} ms: see ROADMAP C4)")
     if m.offline_tokens_generated <= 0 or m.spec_rounds <= 0:
         raise AssertionError(f"spec collocated: {m.offline_tokens_generated} offline "
                              f"tokens, {m.spec_rounds} spec rounds")
@@ -1266,12 +1695,20 @@ def main() -> int:
     phase_parity()
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
+    dense_launches = phase_dense_target_serve()
+    ssm_launches = phase_ssm_serve()
     launches = phase_collocated()
     for row in rows:
         # each kernel's launches on the run of its path: the spec kernels in
-        # the spec serve run, the others in the collocated run
+        # the spec serve run, the dense verify / tree verify in the dense
+        # target serve run, the scan in the ssm serve run, the others in the
+        # collocated run
         if row["name"] in SPEC_KERNELS:
             row["launches"] = spec_launches[row["name"]]
+        elif row["name"] in ("verify_attention", "tree_verify_attention"):
+            row["launches"] = dense_launches[row["name"]]
+        elif row["name"] in SSM_KERNELS:
+            row["launches"] = ssm_launches[row["name"]]
         else:
             row["launches"] = launches[row["name"]]
             if serve_launches[row["name"]]:

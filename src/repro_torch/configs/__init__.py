@@ -18,6 +18,7 @@ from repro_torch.configs.base import (
 _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1p7b",
     "olmo-1b": "olmo_1b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -38,13 +39,17 @@ def smoke_config(arch: str) -> ModelConfig:
         name=full.name + "-smoke",
         num_layers=2,
         d_model=64,
-        d_ff=128,
+        d_ff=128 if full.d_ff else 0,
         vocab_size=256,
-        head_dim=16,
+        head_dim=16 if full.num_heads else 0,
         rope_theta=full.rope_theta,
-        num_heads=4,
-        num_kv_heads=4 if full.num_kv_heads == full.num_heads else 2,
     )
+    if full.num_heads:
+        reduced["num_heads"] = 4
+        reduced["num_kv_heads"] = 4 if full.num_kv_heads == full.num_heads else 2
+    if full.ssm_version:
+        reduced["ssm_state"] = 8
+        reduced["dt_rank"] = 8
     return dataclasses.replace(full, **reduced)
 
 

@@ -2,9 +2,10 @@
 copies of ``repro.configs.base``'s ``ModelConfig``, ``TrainConfig``,
 ``SpecDecodeConfig`` / ``draft_config`` and ``SpecInFConfig``).
 
-Only the fields and derived properties of the ``dense`` family, the one
-family the port runs, are kept; the MoE, SSM, hybrid and frontend fields
-return with the slices that run those families.  ``TrainConfig`` keeps the
+Only the fields and derived properties of the families the port runs are
+kept: the ``dense`` family's and the Mamba1 (``ssm``) family's; the MoE,
+Mamba2 / hybrid and frontend fields return with the slices that run those
+families.  ``TrainConfig`` keeps the
 reference's fields and defaults except the mesh layout (``zero1``,
 ``fsdp``, ``layout``), which returns with scale-out.  ``SpecInFConfig``
 keeps what the runtime and the collocation planner read (the simulator's
@@ -14,12 +15,14 @@ memory.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters for one decoder-style backbone of the
-    ``dense`` family (attention + MLP every layer)."""
+    """Architecture hyper-parameters for one decoder-style backbone:
+    ``dense`` (attention + MLP every layer) or ``ssm`` (a Mamba1 block every
+    layer, attention-free)."""
 
     name: str
     family: str
@@ -30,6 +33,13 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- SSM (Mamba1) ---
+    ssm_state: int = 0
+    ssm_version: int = 0  # 1 = Mamba1 (falcon-mamba)
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
     # --- attention options ---
     qkv_bias: bool = False
@@ -70,6 +80,17 @@ class ModelConfig:
         if self.num_heads == 0:
             return 0
         return self.d_model // self.num_heads
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        if self.dt_rank:
+            return self.dt_rank
+        return int(math.ceil(self.d_model / 16))
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.ssm_expand * self.d_model
 
 
 @dataclasses.dataclass(frozen=True)

@@ -49,6 +49,13 @@ SIGNATURES = {
     "paged_tree_verify_attention": (
         ("paged_tree_verify_attention_launch", [_P] * 9 + [_I] * 11 + [_P]),
     ),
+    "verify_attention": (
+        ("verify_attention_launch", [_P] * 7 + [_I] * 11 + [_P]),
+        ("tree_verify_attention_launch", [_P] * 8 + [_I] * 11 + [_P]),
+    ),
+    "ssm_scan": (
+        ("ssm_scan_chunk_launch", [_P] * 8 + [_I] * 5 + [_P]),
+    ),
     "flash_attention": (
         ("flash_attention_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
         ("flash_attention_bwd_launch", [_P] * 10 + [_I] * 7 + [_P]),

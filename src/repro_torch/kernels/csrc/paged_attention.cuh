@@ -1,5 +1,5 @@
 // Shared body of the attention kernels over a KV cache: paged and dense
-// decode, paged and dense chunked prefill, paged chunk-verify and paged
+// decode, paged and dense chunked prefill, paged and dense chunk-verify and
 // tree-verify.
 //
 // One thread block owns one (slot, kv head, block of chunk rows) and a range
@@ -25,7 +25,8 @@
 // zeros, as does a row that saw no key (l == 0): never the mean of V.
 //
 // Decode is the case C = 1, start = length - 1, clen = (length > 0); verify
-// is C = clen = T, start = length - T.
+// is C = clen = T, start = length - T (rows split over blocks of
+// kVerifyRows chunk rows).
 //
 // Bound: at serving batch sizes every variant is bound by device-memory
 // bytes (each K/V row read once per kv head feeds 2 * group * hd FMAs per
@@ -364,57 +365,90 @@ cudaError_t launch_combine(const void* part_acc, const void* part_ml,
 }
 
 // ---------------------------------------------------------------------------
-// Chunk-verify over paged KV (the body of paged verify and paged tree
-// verify): slot b's T chunk rows sit at positions lengths[b] - T + t, with
-// their K/V already in the slot's pages.  One block per (kv head, slot,
-// split of `pps` pages) holds all T * group rows; TREE swaps the causal
-// triangle for the ancestor bitmasks anc [B, T].  `lengths` is not clamped:
-// the tile walk stops at the W - 1 real columns, so table reads stay in
+// Chunk-verify (the body of paged and dense verify and tree verify): slot
+// b's T chunk rows sit at positions lengths[b] - T + t, with their K/V
+// already in the slot's pages (PagedKV) or rows (DenseKV).  One block per
+// (kv head, slot and block of chunk rows, split of `pps` tiles) holds up to
+// kVerifyRows * group rows; TREE swaps the causal triangle for the ancestor
+// bitmasks anc [B, T].  `lengths` is not clamped: the tile walk stops at
+// the real tiles (the W - 1 table columns, or S rows), so reads stay in
 // range whatever it holds.
 // ---------------------------------------------------------------------------
 
-template <typename T, bool TREE>
-__global__ void __launch_bounds__(kThreads)
-    verify_partial(const T* __restrict__ q, const T* __restrict__ k_pool,
-                   const T* __restrict__ v_pool,
-                   const int* __restrict__ block_tables,
-                   const int* __restrict__ lengths, const int* __restrict__ anc,
-                   float* __restrict__ part_acc, float* __restrict__ part_ml,
-                   int C, int H, int kvh, int hd, int page, int W, int pps,
-                   float scale) {
-  const int head = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
-  const int splits = gridDim.z, group = H / kvh;
-  const int start = lengths[b] - C;
-  const PagedKV kv{block_tables + (size_t)b * W, W - 1, (W - 1) * page};
-  const Epilogue<T> epi = split_epilogue<T>(part_acc, part_ml, b, s, splits,
-                                            kvh, head, C * group, hd);
-  const T* qb = q + (size_t)b * C * H * hd;
+// Chunk rows of one verify block.  A longer chunk (a suffix prefill's
+// bucket) spreads its rows over blocks; a row's sums do not depend on the
+// rows that share its block, so the split changes no result, and a chunk
+// of up to kVerifyRows rows (every draft chunk and tree) is one block.
+constexpr int kVerifyRows = 32;
+
+template <typename T, bool TREE, typename KV>
+__device__ void verify_rows(const T* qb, const T* k, const T* v, KV kv,
+                            const int* anc_b, int start, int C, int q0,
+                            int rows_q, int H, int kvh, int head, int hd,
+                            int page, int page_lo, int page_hi, float scale,
+                            Epilogue<T> epi) {
+  const int group = H / kvh;
   if constexpr (TREE) {
-    attend_block<T, 8, 1, 1>(qb, k_pool, v_pool, kv,
-                             TreeMask{anc + (size_t)b * C, C}, start, C, 0, C,
-                             C, H, kvh, head, group, hd, page, s * pps,
-                             (s + 1) * pps, scale, epi);
+    attend_block<T, 8, 1, 1>(qb, k, v, kv, TreeMask{anc_b, C}, start, C, q0,
+                             rows_q, C, H, kvh, head, group, hd, page, page_lo,
+                             page_hi, scale, epi);
   } else {
-    attend_block<T, 8, 1, 1>(qb, k_pool, v_pool, kv, Causal{}, start, C, 0, C,
-                             C, H, kvh, head, group, hd, page, s * pps,
-                             (s + 1) * pps, scale, epi);
+    attend_block<T, 8, 1, 1>(qb, k, v, kv, Causal{}, start, C, q0, rows_q, C,
+                             H, kvh, head, group, hd, page, page_lo, page_hi,
+                             scale, epi);
   }
 }
 
-template <typename T, bool TREE>
-cudaError_t run_verify(const void* q, const void* k_pool, const void* v_pool,
+// DENSE: k / v are [B, S, kvH, hd] caches cut into `page`-row tiles (W
+// unused); else [P, page, kvH, hd] pools named by block_tables [B, W] (S
+// unused).
+template <typename T, bool TREE, bool DENSE>
+__global__ void __launch_bounds__(kThreads)
+    verify_partial(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ block_tables,
+                   const int* __restrict__ lengths, const int* __restrict__ anc,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml,
+                   int C, int H, int kvh, int hd, int page, int W, int S,
+                   int pps, float scale) {
+  const int nrb = (C + kVerifyRows - 1) / kVerifyRows;
+  const int head = blockIdx.x, s = blockIdx.z;
+  const int b = blockIdx.y / nrb, q0 = (blockIdx.y % nrb) * kVerifyRows;
+  const int rows_q = min(kVerifyRows, C - q0);
+  const int splits = gridDim.z, group = H / kvh;
+  const int start = lengths[b] - C;
+  // this block's rows of the split's [kvH, C * group] partial state
+  const size_t row0 = (((size_t)b * splits + s) * kvh + head) * C * group +
+                      (size_t)q0 * group;
+  const Epilogue<T> epi{nullptr, part_acc + row0 * hd, part_ml + row0 * 2};
+  const T* qb = q + (size_t)b * C * H * hd;
+  const int* anc_b = TREE ? anc + (size_t)b * C : nullptr;
+  if constexpr (DENSE) {
+    const DenseKV kv{(size_t)b * S * kvh * hd, (S + page - 1) / page, S};
+    verify_rows<T, TREE>(qb, k, v, kv, anc_b, start, C, q0, rows_q, H, kvh,
+                         head, hd, page, s * pps, (s + 1) * pps, scale, epi);
+  } else {
+    const PagedKV kv{block_tables + (size_t)b * W, W - 1, (W - 1) * page};
+    verify_rows<T, TREE>(qb, k, v, kv, anc_b, start, C, q0, rows_q, H, kvh,
+                         head, hd, page, s * pps, (s + 1) * pps, scale, epi);
+  }
+}
+
+template <typename T, bool TREE, bool DENSE>
+cudaError_t run_verify(const void* q, const void* k, const void* v,
                        const void* block_tables, const void* lengths,
                        const void* anc, void* out, void* part_acc,
                        void* part_ml, int B, int C, int H, int kvh, int hd,
-                       int page, int W, int pps, int splits, void* stream) {
-  const size_t smem = smem_bytes(C * (H / kvh), hd, page);
+                       int page, int W, int S, int pps, int splits,
+                       void* stream) {
+  const int nrb = (C + kVerifyRows - 1) / kVerifyRows;
+  const size_t smem = smem_bytes(min(C, kVerifyRows) * (H / kvh), hd, page);
   cudaError_t err = launch(
-      verify_partial<T, TREE>, dim3(kvh, B, splits), smem, stream,
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(block_tables),
+      verify_partial<T, TREE, DENSE>, dim3(kvh, B * nrb, splits), smem, stream,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(block_tables),
       static_cast<const int*>(lengths), static_cast<const int*>(anc),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, H, kvh,
-      hd, page, W, pps, 1.0f / sqrtf((float)hd));
+      hd, page, W, S, pps, 1.0f / sqrtf((float)hd));
   if (err != cudaSuccess) return err;
   return launch_combine<T>(part_acc, part_ml, out, B, C, H, kvh, hd, splits,
                            stream);

@@ -31,12 +31,14 @@ extern "C" int paged_tree_verify_attention_launch(
   if (B == 0 || N == 0) return cudaSuccess;
   if (N > 31) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return paged::run_verify<float, true>(
+    return paged::run_verify<float, true, false>(
         q, k_pool, v_pool, block_tables, lengths, anc, out, part_acc,
-        part_ml, B, N, H, kvh, hd, page, W, pps, splits, stream);
+        part_ml, B, N, H, kvh, hd, page, W, 0, pps, splits,
+        stream);
   if (dtype == 1)
-    return paged::run_verify<__nv_bfloat16, true>(
+    return paged::run_verify<__nv_bfloat16, true, false>(
         q, k_pool, v_pool, block_tables, lengths, anc, out, part_acc,
-        part_ml, B, N, H, kvh, hd, page, W, pps, splits, stream);
+        part_ml, B, N, H, kvh, hd, page, W, 0, pps, splits,
+        stream);
   return cudaErrorInvalidValue;
 }

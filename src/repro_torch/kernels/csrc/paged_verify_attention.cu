@@ -14,7 +14,9 @@
 // The chunked-prefill body with start = lengths - T, clen = T (see
 // paged_attention.cuh, `paged::verify_partial`): one block per (kv head,
 // slot, split of `pps` pages) holds all T * group rows (<= 10 at T = 5,
-// group 2) and `paged::combine_splits` merges the splits, as decode does.
+// group 2; a chunk of more than 32 rows, a suffix prefill's, spreads over
+// blocks of 32) and `paged::combine_splits` merges the splits, as decode
+// does.
 // Bound on the card: device-memory bytes, each needed K/V row read once.
 #include "paged_attention.cuh"
 
@@ -29,12 +31,14 @@ extern "C" int paged_verify_attention_launch(
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0) return cudaSuccess;
   if (dtype == 0)
-    return paged::run_verify<float, false>(
+    return paged::run_verify<float, false, false>(
         q, k_pool, v_pool, block_tables, lengths, nullptr, out, part_acc,
-        part_ml, B, T, H, kvh, hd, page, W, pps, splits, stream);
+        part_ml, B, T, H, kvh, hd, page, W, 0, pps, splits,
+        stream);
   if (dtype == 1)
-    return paged::run_verify<__nv_bfloat16, false>(
+    return paged::run_verify<__nv_bfloat16, false, false>(
         q, k_pool, v_pool, block_tables, lengths, nullptr, out, part_acc,
-        part_ml, B, T, H, kvh, hd, page, W, pps, splits, stream);
+        part_ml, B, T, H, kvh, hd, page, W, 0, pps, splits,
+        stream);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-"""Dispatch over the attention kernels: full-sequence (training) attention,
-the dense and paged decode / chunked-prefill cores, and the paged
-chunk-verify / tree-verify cores of speculative decoding.
+"""Dispatch over the kernels: full-sequence (training and monolithic
+prefill) attention, the dense and paged decode / chunked-prefill cores, the
+dense and paged chunk-verify / tree-verify cores of speculative decoding,
+and the Mamba1 selective-scan chunk.
 
 Same signatures and defined outputs as ``repro.kernels.ops``'s entry
 points.  ``impl``:
@@ -24,6 +25,9 @@ from repro_torch.kernels import paged_prefill_attention as _prefill
 from repro_torch.kernels import paged_tree_verify_attention as _tree
 from repro_torch.kernels import paged_verify_attention as _verify
 from repro_torch.kernels import prefill_attention as _dense_prefill
+from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.kernels import tree_verify_attention as _dense_tree
+from repro_torch.kernels import verify_attention as _dense_verify
 
 IMPLS = ("auto", "torch", "cuda")
 
@@ -213,6 +217,58 @@ def paged_tree_verify_attention(
     )
 
 
+def verify_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Chunk-verify attention over a dense KV cache (speculative decoding).
+
+    q: [B, T, H, hd], the T = gamma + 1 chunk queries whose K/V is already at
+    rows ``lengths - T .. lengths - 1``; k/v_cache: [B, S, kvH, hd] of q's
+    dtype; lengths: [B] int32 including the chunk (not clamped).  Query t
+    attends ``kpos <= lengths - T + t``; rows with an empty causal window
+    (``lengths == 0`` included) are zeros.  Returns [B, T, H, hd]."""
+    if _resolve(impl, q) == "cuda":
+        return _dense_verify.verify_attention(q, k_cache, v_cache, lengths)
+    return _dense_verify.verify_attention_torch(q, k_cache, v_cache, lengths)
+
+
+def tree_verify_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    anc: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Tree-verify attention over a dense KV cache.
+
+    q: [B, N, H, hd], one query per packed-tree node, node j's K/V already at
+    row ``lengths - N + j``; anc: [B, N] int32 ancestor bitmasks (N <= 31).
+    Node t attends ``kpos < lengths - N`` plus the nodes whose bit is set in
+    ``anc[b, t]``; rows with an empty visibility set are zeros.  A linear
+    chain's masks give ``verify_attention``.  Returns [B, N, H, hd]."""
+    if _resolve(impl, q) == "cuda":
+        return _dense_tree.tree_verify_attention(q, k_cache, v_cache, lengths, anc)
+    return _dense_tree.tree_verify_attention_torch(q, k_cache, v_cache, lengths, anc)
+
+
+def ssm_scan_chunk(xi, dt, B_, C_, A, h0, *, impl: str = "auto"):
+    """One chunk of the Mamba1 selective scan, fp32 in and out (inputs are
+    cast): ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * xi_t) * B_t``,
+    ``y_t = h_t . C_t``.  xi/dt: [B, Q, di]; B_/C_: [B, Q, ds]; A: [di, ds];
+    h0: [B, di, ds].  Returns ``(y [B, Q, di], h [B, di, ds])``."""
+    args = [t.float().contiguous() for t in (xi, dt, B_, C_, A, h0)]
+    if _resolve(impl, args[0]) == "cuda":
+        return _ssm.ssm_scan_chunk(*args)
+    return _ssm.ssm_scan_chunk_torch(*args)
+
+
 #: launch counters by kernel name
 _COUNTS = {
     "paged_decode_attention": _decode.COUNTS,
@@ -221,6 +277,9 @@ _COUNTS = {
     "prefill_attention": _dense_prefill.COUNTS,
     "paged_verify_attention": _verify.COUNTS,
     "paged_tree_verify_attention": _tree.COUNTS,
+    "verify_attention": _dense_verify.COUNTS,
+    "tree_verify_attention": _dense_tree.COUNTS,
+    "ssm_scan": _ssm.COUNTS,
     "flash_attention_fwd": _flash.FWD_COUNTS,
     "flash_attention_bwd": _flash.BWD_COUNTS,
 }

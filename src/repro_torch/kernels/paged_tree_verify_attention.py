@@ -64,7 +64,7 @@ def paged_tree_verify_attention_torch(
     """Plain version: gather the pages dense, then ``tree_core``.
     q: [B, N, H, hd] -> [B, N, H, hd]."""
     COUNTS["torch"] += 1
-    _check_nodes(q)
+    check_nodes(q)
     return tree_core(
         q, gather_pages(k_pool, block_tables), gather_pages(v_pool, block_tables),
         lengths, anc,
@@ -85,7 +85,7 @@ def paged_tree_verify_attention(
     int32 including the N nodes; anc: [B, N] int32.  Returns a new
     [B, N, H, hd] tensor.  Raises for N > 31, on CPU tensors, or on
     arguments the kernel does not take."""
-    _check_nodes(q)
+    check_nodes(q)
     check_verify(q, k_pool, v_pool, block_tables, lengths,
                  "paged_tree_verify_attention")
     req = build.require
@@ -98,7 +98,7 @@ def paged_tree_verify_attention(
     return out
 
 
-def _check_nodes(q: torch.Tensor) -> None:
+def check_nodes(q: torch.Tensor) -> None:
     n = q.shape[1]
     build.require(1 <= n <= MAX_TREE_NODES,
                   f"tree has {n} nodes (1..{MAX_TREE_NODES} allowed)")

@@ -5,7 +5,9 @@ Replaces the TPU kernel ``repro/kernels/paged_verify_attention.py``
 (``paged_verify_attention``; body ``_verify_kernel``).  The kernel is
 ``csrc/paged_verify_attention.cu``: the chunked-prefill body with
 ``start = lengths - T`` and all ``T`` chunk rows in one block, split-K over
-the slot's pages with a combine kernel, as decode does.  ``lengths`` is NOT
+the slot's pages with a combine kernel, as decode does (a chunk of more
+than ``VERIFY_ROWS`` rows, a suffix prefill's, spreads its rows over
+blocks).  ``lengths`` is NOT
 clamped (suffix prefill relies on an unshifted causal bound); the tile walk
 stops at the W - 1 real table columns.  Rows whose causal window is empty
 give zeros.  On the serving path it is the target's verify pass of a
@@ -122,6 +124,8 @@ def paged_verify_attention(
 
 #: largest dynamic shared memory of one block on the H100 (bytes)
 MAX_SMEM = 232_448
+#: chunk rows of one verify block (``paged::kVerifyRows``)
+VERIFY_ROWS = 32
 
 
 def smem_bytes(rows: int, hd: int, page: int) -> int:
@@ -149,8 +153,8 @@ def check_verify(q, k_pool, v_pool, block_tables, lengths, name) -> None:
     req(kvh > 0 and h % kvh == 0, f"q heads {h} not a multiple of kv heads {kvh}")
     req(block_tables.shape[0] == b and lengths.shape[0] == b, "batch mismatch")
     req(block_tables.shape[1] >= 2, "block table needs a sentinel column")
-    req(smem_bytes(t * (h // kvh), hd, page) <= MAX_SMEM,
-        f"{t} chunk rows x group {h // kvh} exceed one block's shared memory")
+    req(smem_bytes(min(t, VERIFY_ROWS) * (h // kvh), hd, page) <= MAX_SMEM,
+        f"group {h // kvh} exceeds one verify block's shared memory")
     req(all(x.is_contiguous() for x in tensors), "tensors must be contiguous")
     req(all(x.data_ptr() % 16 == 0 for x in (q, k_pool, v_pool)),
         "q and the pools must be 16-byte aligned")

@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --proposer ngram
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cuda
 
 Counterpart of ``repro.launch.serve``: all requests are submitted up front
 (ONLINE priority, explicit arrival times) and the loop calls
@@ -10,7 +11,10 @@ Counterpart of ``repro.launch.serve``: all requests are submitted up front
 own seeded init (the draft model's from ``--seed + 1``).  ``--proposer``
 turns on speculation: ``ngram`` verifies host-proposed n-gram trees without
 a draft model, ``draft`` pairs the target with ``draft_config``'s draft
-model, ``auto`` registers both and routes per quantum.  The run is on
+model, ``auto`` registers both and routes per quantum.  An attention
+family serves on the paged KV layout with chunked prefill; falcon-mamba-7b
+(Mamba1) on dense state rows with monolithic bucket prefill, and without
+speculation (``--proposer`` other than ``none`` raises).  The run is on
 ``cuda`` unless ``--device cpu`` is given;
 without a CUDA device the default raises.  The end-of-run summary reads the
 metrics registry under the reference's stable names; ``--trace PREFIX``

@@ -1,7 +1,7 @@
 """Shared layers: norms, RoPE, GQA projections, the full-sequence attention
 block of the training forward, the dense and paged KV writes, the dense and
-paged decode / chunked-prefill attention blocks, the paged chunk-verify and
-tree-verify block of speculative decoding, SwiGLU MLP.
+paged decode / chunked-prefill attention blocks, the dense and paged
+chunk-verify and tree-verify blocks of speculative decoding, SwiGLU MLP.
 
 Counterpart of ``repro.models.layers``: plain functions over explicit
 parameter dicts that keep the reference's names and layouts.  Where the
@@ -186,15 +186,19 @@ def attention_block(
 
 
 def dense_kv_write_clamped(
-    cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor
+    cache: torch.Tensor, new: torch.Tensor, starts: torch.Tensor
 ) -> torch.Tensor:
-    """Write one K/V row per slot into a dense cache, in place, with JAX's
-    ``dynamic_update_slice`` rule: the start clamps into [0, S - 1], so a
-    write past the end lands on the last row.  cache: [B, S, kvH, hd]; new:
-    [B, 1, kvH, hd]; positions: [B]."""
+    """Write T consecutive K/V rows per slot into a dense cache, in place,
+    with JAX's ``dynamic_update_slice`` rule: the start clamps into
+    [0, S - T], so a write that would run past the end lands shifted back,
+    on the last T rows.  cache: [B, S, kvH, hd]; new: [B, T, kvH, hd];
+    starts: [B]."""
+    b, t = new.shape[:2]
     s = cache.shape[1]
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, positions.long().clamp(0, s - 1)] = new[:, 0].to(cache.dtype)
+    start = starts.long().clamp(0, s - t)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    pos = start[:, None] + torch.arange(t, device=cache.device)[None, :]
+    cache[rows, pos] = new.to(cache.dtype)
     return cache
 
 
@@ -357,6 +361,47 @@ def attention_prefill_chunk(
     out = ops.prefill_chunk_attention(
         q.contiguous(), k_cache, v_cache, idx, chunk_lens, impl=impl
     )
+    return _out_proj(cfg, p, out), (k_cache, v_cache)
+
+
+def attention_verify(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    kv_cache: tuple[torch.Tensor, torch.Tensor],
+    cache_index: torch.Tensor,
+    *,
+    impl: str = "auto",
+    anc: Optional[torch.Tensor] = None,
+    depths: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Chunk-verify decode against a dense cache: T tokens in one pass.
+
+    x: [B, T, d] chunk embeddings; cache k/v: [B, S, kvH, hd]; cache_index:
+    [B] int32 per-slot prefix lengths.  The chunk's K/V is written in place
+    at rows ``index .. index + T - 1`` with the start clamped into [0, S - T]
+    (the reference's ``dynamic_update_slice``), then each row attends the
+    prefix plus the chunk's causal triangle (``ops.verify_attention``, at
+    ``lengths = index + T``).  Rollback after acceptance only rewinds
+    ``index``.
+
+    Tree mode (``anc`` [B, T] int32 + ``depths`` [T] int32): node j's RoPE
+    position is ``index + depths[j]``, its K/V still lands at row
+    ``index + j``, and the ancestor bitmasks select what each node sees
+    (``ops.tree_verify_attention``)."""
+    b, t, _ = x.shape
+    idx = cache_index.to(torch.int32).expand(b)
+    offs = (torch.arange(t, dtype=torch.int32, device=x.device) if depths is None
+            else depths.to(torch.int32))
+    q, k_new, v_new = _project_qkv(cfg, p, x, idx[:, None] + offs[None, :])
+    k_cache, v_cache = kv_cache
+    dense_kv_write_clamped(k_cache, k_new, idx)
+    dense_kv_write_clamped(v_cache, v_new, idx)
+    q = q.contiguous()
+    if anc is None:
+        out = ops.verify_attention(q, k_cache, v_cache, idx + t, impl=impl)
+    else:
+        out = ops.tree_verify_attention(q, k_cache, v_cache, idx + t, anc, impl=impl)
     return _out_proj(cfg, p, out), (k_cache, v_cache)
 
 

@@ -1,16 +1,18 @@
-"""Decoder-only LM, dense family: the training forward and loss, and the
-serving path.
+"""Decoder-only LM, dense and Mamba1 (``ssm``) families: the training
+forward and loss (dense), and the serving path (both).
 
 Counterpart of ``repro.models.transformer`` for what the trainer and the
 serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
-``forward`` / ``lm_loss`` (with remat policies ``"none"`` and ``"full"``),
-``init_paged_cache`` and ``init_cache`` (the dense layout a speculative
-engine's draft model keeps), ``decode_step``, the fused ``decode_loop`` and
-``prefill_chunks_into_slots`` on either layout, and ``decode_chunk``, the
-speculative target's chunk / tree verify pass on the paged layout.  The reference's ``lax.scan`` over stacked
-layer weights becomes a Python loop over the ``[L, ...]`` stacks; its
-donated caches become in-place updates of the cache dict's tensors
-(documented per function).
+``forward`` / ``lm_loss`` (dense, with remat policies ``"none"`` and
+``"full"``), ``init_paged_cache`` and ``init_cache`` (dense rows, or the
+Mamba1 conv / SSM state), ``decode_step``, the fused ``decode_loop``,
+``prefill_chunks_into_slots`` on either KV layout, monolithic bucket
+prefill (``prefill``, ``prefill_into_slot``, ``prefill_into_slot_paged``,
+``prefill_suffix_into_slot``), and ``decode_chunk``, the speculative
+target's chunk / tree verify pass on either KV layout.  The reference's
+``lax.scan`` over stacked layer weights becomes a Python loop over the
+``[L, ...]`` stacks; its donated caches become in-place updates of the
+cache dict's tensors (documented per function).
 """
 from __future__ import annotations
 
@@ -20,16 +22,24 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = Any
 
 
+#: the families the port runs: attention + MLP, and Mamba1
+FAMILIES = ("dense", "ssm")
+
+
+def _require_family(cfg: ModelConfig, families: tuple = FAMILIES) -> None:
+    if cfg.family not in families:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} not in {families} here")
+
+
 def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise ValueError(
-            f"the port runs the dense family only, not {cfg.family!r}"
-        )
+    _require_family(cfg, ("dense",))
 
 
 # ---------------------------------------------------------------------------
@@ -44,7 +54,7 @@ def init_params(
     scales (``repro.models.transformer.init_params``).  The numbers come from
     the torch generator; tests that need the reference's weights go through
     ``repro_torch.bridge.params_from_numpy`` instead."""
-    _require_dense(cfg)
+    _require_family(cfg)
     dev = gen.device
     params: dict = {
         "embed": torch.randn(
@@ -52,17 +62,26 @@ def init_params(
             dtype=dtype,
         ) * cfg.d_model**-0.5
     }
-    per_layer = []
-    for _ in range(cfg.num_layers):
-        p = {
-            "attn": L.init_attention(cfg, gen, cfg.d_model, dtype),
-            "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
-        }
-        if cfg.parametric_norm:
-            p["ln1"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
-            p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
-        per_layer.append(p)
-    params["layers"] = _stack(per_layer)
+    stacked = None
+    for i in range(cfg.num_layers):
+        if cfg.family == "ssm":
+            p = {"mixer": SSM.init_mamba1(cfg, gen, dtype)}
+            if cfg.parametric_norm:
+                p["ln"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+        else:
+            p = {
+                "attn": L.init_attention(cfg, gen, cfg.d_model, dtype),
+                "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+            }
+            if cfg.parametric_norm:
+                p["ln1"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+                p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+        # one layer at a time into the [L, ...] stacks: the peak is the
+        # weights plus one layer, not twice the weights
+        if stacked is None:
+            stacked = _empty_stack(p, cfg.num_layers)
+        _set_layer(stacked, i, p)
+    params["layers"] = stacked
     if cfg.parametric_norm:
         params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
@@ -73,10 +92,18 @@ def init_params(
     return params
 
 
-def _stack(trees: list) -> Params:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _empty_stack(tree: Params, n: int) -> Params:
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    return torch.empty((n, *tree.shape), dtype=tree.dtype, device=tree.device)
+
+
+def _set_layer(stacked: Params, i: int, tree: Params) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _set_layer(stacked[k], i, v)
+        else:
+            stacked[k][i] = v
 
 
 def cast_params(params: Params, compute_dtype: torch.dtype) -> Params:
@@ -154,6 +181,10 @@ def forward(
     forward (differentiably, so their gradients arrive in fp32).
     ``remat_policy="full"`` recomputes each layer in the backward
     (``torch.utils.checkpoint``) instead of keeping its activations."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "Mamba1 training (a backward of the selective scan) is not ported yet"
+        )
     _require_dense(cfg)
     if remat_policy == "dots":
         raise NotImplementedError(
@@ -212,20 +243,26 @@ def init_cache(
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
 ) -> Params:
-    """Dense decode cache: ``layers.k/v`` are [L, B, S, kvH, hd] rows per
-    slot; ``index`` is [B] int32 (the reference starts from a scalar that
-    its engine replaces with a [B] vector)."""
-    _require_dense(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {
-        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "layers": {
+    """Dense decode cache with ``index`` [B] int32 (the reference starts from
+    a scalar that its engine replaces with a [B] vector).  Dense family:
+    ``layers.k/v`` are [L, B, S, kvH, hd] rows per slot.  Mamba1:
+    ``layers.conv`` [L, B, conv - 1, d_inner] in ``dtype`` and ``layers.h``
+    [L, B, d_inner, ssm_state] fp32 (``max_seq`` unused)."""
+    _require_family(cfg)
+    l = cfg.num_layers
+    if cfg.family == "ssm":
+        st = SSM.mamba1_init_state(cfg, batch, dtype, device)
+        layers = {k: v[None].expand(l, *v.shape).contiguous() for k, v in st.items()}
+    else:
+        shape = (l, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        layers = {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-        },
+        }
+    return {
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "layers": layers,
     }
-
 
 
 def init_paged_cache(
@@ -272,29 +309,41 @@ def decode_step(
 ) -> tuple[torch.Tensor, Params]:
     """tokens: [B] int32 (last generated).  Returns ``(logits [B, V],
     cache)``: every layer writes the token's K/V into the paged pool or the
-    dense cache in place, and the returned cache is a new dict whose
-    ``index`` is advanced by one."""
-    _require_dense(cfg)
+    dense cache (Mamba1: its new conv and SSM state) in place, and the
+    returned cache is a new dict whose ``index`` is advanced by one."""
+    _require_family(cfg)
     x = embed_tokens(cfg, params, tokens, compute_dtype)[:, None, :]
     idx = cache["index"]
-    bt = cache.get("block_tables")  # None: the dense layout
     layers = cast_params(params["layers"], compute_dtype)
-    k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
-    for i in range(cfg.num_layers):
-        lp = _layer(layers, i)
-        h = L.norm(cfg, x, lp.get("ln1"))
-        if bt is None:
-            y, _ = L.attention_decode(
-                cfg, lp["attn"], h, (k_all[i], v_all[i]), idx, impl=attn_impl
+    if cfg.family == "ssm":
+        conv_all, h_all = cache["layers"]["conv"], cache["layers"]["h"]
+        for i in range(cfg.num_layers):
+            lp = _layer(layers, i)
+            h = L.norm(cfg, x, lp.get("ln"))
+            y, st = SSM.mamba1_step(
+                cfg, lp["mixer"], h[:, 0], {"conv": conv_all[i], "h": h_all[i]}
             )
-        else:
-            y, _ = L.attention_decode_paged(
-                cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
-                impl=attn_impl,
-            )
-        x = x + y
-        h = L.norm(cfg, x, lp.get("ln2"))
-        x = x + L.mlp_block(lp["ffn"], h)
+            conv_all[i] = st["conv"]
+            h_all[i] = st["h"]
+            x = x + y[:, None]
+    else:
+        bt = cache.get("block_tables")  # None: the dense layout
+        k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
+        for i in range(cfg.num_layers):
+            lp = _layer(layers, i)
+            h = L.norm(cfg, x, lp.get("ln1"))
+            if bt is None:
+                y, _ = L.attention_decode(
+                    cfg, lp["attn"], h, (k_all[i], v_all[i]), idx, impl=attn_impl
+                )
+            else:
+                y, _ = L.attention_decode_paged(
+                    cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
+                    impl=attn_impl,
+                )
+            x = x + y
+            h = L.norm(cfg, x, lp.get("ln2"))
+            x = x + L.mlp_block(lp["ffn"], h)
     x = L.norm(cfg, x, params.get("final_norm"))
     logits = unembed(cfg, params, x)[:, 0]
     return logits, dict(cache, index=idx + 1)
@@ -306,18 +355,18 @@ def decode_step(
 
 
 def chunk_recurrent_states(cfg: ModelConfig, layers: Params) -> Optional[Params]:
-    """The rollback-relevant slice of a cache's ``layers``: ``None`` for the
-    dense family, whose rollback is an index rewind.  The recurrent families
-    are not ported."""
-    _require_dense(cfg)
-    return None
+    """The rollback-relevant slice of a cache's ``layers``: the conv and SSM
+    state of the Mamba1 family, ``None`` for the dense family, whose
+    rollback is an index rewind."""
+    _require_family(cfg)
+    return layers if cfg.family == "ssm" else None
 
 
 def merge_recurrent_states(cfg: ModelConfig, layers: Params, states) -> Params:
-    """Inverse of ``chunk_recurrent_states``: the dense family's ``layers``
-    as they are."""
-    _require_dense(cfg)
-    return layers
+    """Inverse of ``chunk_recurrent_states``: graft recurrent state back into
+    a cache's ``layers`` (the Mamba1 layers are that state)."""
+    _require_family(cfg)
+    return states if cfg.family == "ssm" else layers
 
 
 def decode_chunk(
@@ -328,42 +377,57 @@ def decode_chunk(
     *,
     compute_dtype: torch.dtype = torch.bfloat16,
     attn_impl: str = "auto",
+    logits_at: Optional[int] = None,
     anc: Optional[torch.Tensor] = None,
     depths: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, Params, None]:
-    """Score a T = gamma + 1 speculative chunk in ONE pass over the paged
-    cache.  tokens: [B, T] int32, the current token plus gamma draft tokens.
-    Returns ``(logits [B, T, V], cache, None)``: every layer writes the
-    chunk's K/V into the pool in place, the returned cache's ``index`` is
-    advanced by T, and the third item (the recurrent families' per-step
-    states) is ``None``.
+    """Score a T = gamma + 1 speculative chunk in ONE pass over the paged or
+    dense cache.  tokens: [B, T] int32, the current token plus gamma draft
+    tokens.  Returns ``(logits [B, T, V], cache, None)``: every layer writes
+    the chunk's K/V in place (paged: ``attention_verify_paged``; dense:
+    ``attention_verify``), the returned cache's ``index`` is advanced by T,
+    and the third item (the recurrent families' per-step states) is
+    ``None``.
+
+    ``logits_at`` (an int, clamped into [0, T - 1]) restricts the
+    unembedding to one chunk position: logits come back [B, 1, V] (the
+    suffix prefill needs only its last real position).
 
     Tree mode: ``anc`` [B, T] int32 ancestor bitmasks and ``depths`` [T]
     int32 node depths turn the rows into packed-tree nodes (node 0 = the
-    current token) verified by the tree kernel.  The dense target layout
-    (the reference's ``attention_verify``) is not ported yet."""
-    _require_dense(cfg)
-    bt = cache.get("block_tables")
-    if bt is None:
+    current token) verified by the tree kernel.  Speculation on a recurrent
+    (Mamba1) target is not ported."""
+    if cfg.family == "ssm":
         raise NotImplementedError(
-            "decode_chunk over a dense target cache is not ported yet"
+            "speculation on a recurrent (Mamba1) target is not ported yet"
         )
+    _require_dense(cfg)
     t = tokens.shape[1]
     x = embed_tokens(cfg, params, tokens, compute_dtype)  # [B, T, d]
     idx = cache["index"]
+    bt = cache.get("block_tables")  # None: the dense layout
     layers = cast_params(params["layers"], compute_dtype)
     k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
     for i in range(cfg.num_layers):
         lp = _layer(layers, i)
         h = L.norm(cfg, x, lp.get("ln1"))
-        y, _ = L.attention_verify_paged(
-            cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
-            impl=attn_impl, anc=anc, depths=depths,
-        )
+        if bt is None:
+            y, _ = L.attention_verify(
+                cfg, lp["attn"], h, (k_all[i], v_all[i]), idx,
+                impl=attn_impl, anc=anc, depths=depths,
+            )
+        else:
+            y, _ = L.attention_verify_paged(
+                cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
+                impl=attn_impl, anc=anc, depths=depths,
+            )
         x = x + y
         h = L.norm(cfg, x, lp.get("ln2"))
         x = x + L.mlp_block(lp["ffn"], h)
     x = L.norm(cfg, x, params.get("final_norm"))
+    if logits_at is not None:
+        j = min(max(int(logits_at), 0), t - 1)
+        x = x[:, j: j + 1]
     return unembed(cfg, params, x), dict(cache, index=idx + t), None
 
 
@@ -488,3 +552,221 @@ def prefill_chunks_into_slots(
     last = x[torch.arange(x.shape[0], device=x.device), pos][:, None]  # [B, 1, d]
     logits = unembed(cfg, params, last)[:, 0]
     return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Monolithic prefill: forward + cache construction
+# ---------------------------------------------------------------------------
+
+
+def prefill(
+    cfg: ModelConfig,
+    params: Params,
+    inputs: torch.Tensor,
+    max_seq: int,
+    *,
+    impl: str = "auto",
+    compute_dtype: torch.dtype = torch.bfloat16,
+    cache_dtype: Optional[torch.dtype] = None,
+    length: Optional[int] = None,
+) -> tuple[torch.Tensor, Params]:
+    """Full-sequence prefill.  inputs: [B, S] int tokens.  Returns
+    ``(last-position logits [B, V], cache)`` with the cache in
+    ``cache_dtype`` (default ``compute_dtype``): dense family, K/V
+    [L, B, max_seq, kvH, hd] zero-padded past S; Mamba1, the conv and SSM
+    state after the prompt.
+
+    ``length`` marks the true prompt length when ``inputs`` is zero-padded to
+    a bucket: logits are taken at ``length - 1`` and ``index`` is ``length``.
+    Dense pad positions only give K/V past the index, which decode overwrites
+    before reading; Mamba1 pad steps get dt = 0, so the state is exactly the
+    unpadded prompt's (``_ssm_dt_mask``).  The attention core is
+    ``ops.attention`` (the flash kernel on CUDA), the scan
+    ``ops.ssm_scan_chunk`` (the scan kernel on CUDA), under ``impl``."""
+    _require_family(cfg)
+    cache_dtype = cache_dtype or compute_dtype
+    b, s = inputs.shape
+    x = embed_tokens(cfg, params, inputs, compute_dtype)
+    layers = cast_params(params["layers"], compute_dtype)
+    if cfg.family == "ssm":
+        conv, hs = [], []
+        for i in range(cfg.num_layers):
+            lp = _layer(layers, i)
+            h = L.norm(cfg, x, lp.get("ln"))
+            y, st = _mamba1_with_state(cfg, lp["mixer"], h, impl, length=length)
+            x = x + y
+            conv.append(st["conv"])
+            hs.append(st["h"])
+        new_layers = {
+            "conv": torch.stack(conv).to(cache_dtype),
+            "h": torch.stack(hs).float(),
+        }
+    else:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            lp = _layer(layers, i)
+            h = L.norm(cfg, x, lp.get("ln1"))
+            q, k, v = L._project_qkv(cfg, lp["attn"], h, positions)
+            out = ops.attention(q, k, v, causal=True, impl=impl)
+            x = x + L._out_proj(cfg, lp["attn"], out)
+            h = L.norm(cfg, x, lp.get("ln2"))
+            x = x + L.mlp_block(lp["ffn"], h)
+            ks.append(k)
+            vs.append(v)
+
+        def pad_kv(t: list) -> torch.Tensor:
+            kv = torch.stack(t).to(cache_dtype)  # [L, B, S, kvH, hd]
+            return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, max_seq - s))
+
+        new_layers = {"k": pad_kv(ks), "v": pad_kv(vs)}
+    x = L.norm(cfg, x, params.get("final_norm"))
+    n = s if length is None else int(length)
+    j = min(max(n - 1, 0), s - 1)
+    logits = unembed(cfg, params, x[:, j: j + 1])[:, 0]
+    index = torch.tensor(n, dtype=torch.int32, device=x.device)
+    return logits, {"index": index, "layers": new_layers}
+
+
+def _ssm_tail_state(
+    x: torch.Tensor, length: Optional[int], n: int
+) -> torch.Tensor:
+    """The last ``n`` steps before ``length``, left zero-padded: the decode
+    conv state of a bucket-padded prompt of true ``length``."""
+    if length is None:
+        return x[:, -n:, :]
+    xp = torch.nn.functional.pad(x, (0, 0, n, 0))
+    return xp[:, int(length): int(length) + n, :]
+
+
+def _ssm_dt_mask(dt: torch.Tensor, length: Optional[int]) -> torch.Tensor:
+    """Zero the SSM step size at pad positions (>= ``length``): dt = 0 makes
+    the recurrence a no-op (decay exp(0) = 1, input term 0)."""
+    if length is None:
+        return dt
+    valid = torch.arange(dt.shape[1], device=dt.device) < int(length)
+    return dt * valid[None, :, None]
+
+
+def _mamba1_with_state(cfg, p, x, impl, length=None):
+    """The Mamba1 block over a sequence (x: [B, S, d]), also returning the
+    final conv and SSM state."""
+    b = x.shape[0]
+    di, ds, dtr = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+    xi_raw, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    conv_state = _ssm_tail_state(xi_raw, length, cfg.ssm_conv - 1)
+    xi = torch.nn.functional.silu(SSM.causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
+    dt_r, B_, C_ = torch.split(xi @ p["x_proj"], [dtr, ds, ds], dim=-1)
+    dt = torch.nn.functional.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float()
+    dt = _ssm_dt_mask(dt, length)
+    A = -torch.exp(p["A_log"])
+    h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    y, h_fin = SSM.selective_scan_chunked(
+        xi.float(), dt, B_.float(), C_.float(), A, h0, impl=impl,
+    )
+    y = y.to(x.dtype) + p["D"].to(x.dtype) * xi
+    y = y * torch.nn.functional.silu(z)
+    return y @ p["out_proj"], {"conv": conv_state, "h": h_fin}
+
+
+def prefill_into_slot(
+    cfg: ModelConfig,
+    params: Params,
+    inputs: torch.Tensor,
+    length: int,
+    slot: int,
+    cache: Params,
+    *,
+    max_seq: int,
+    impl: str = "auto",
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, Params]:
+    """Prefill one bucket-padded prompt and write its K/V (or Mamba1 state)
+    into the batch cache's row ``slot``, in place (the whole row, as the
+    reference's ``dynamic_update_index_in_dim``), and set ``index[slot] =
+    length``.  inputs: [1, S_bucket] int32.  Returns ``(first generated
+    token [] int32 on the device, cache)``."""
+    cache_dtype = next(iter(cache["layers"].values())).dtype
+    logits, new = prefill(
+        cfg, params, inputs, max_seq, impl=impl, compute_dtype=compute_dtype,
+        cache_dtype=cache_dtype, length=length,
+    )
+    tok = torch.argmax(logits[0]).to(torch.int32)
+    for name, leaf in cache["layers"].items():
+        leaf[:, slot] = new["layers"][name][:, 0].to(leaf.dtype)
+    cache["index"][slot] = int(length)
+    return tok, cache
+
+
+def prefill_into_slot_paged(
+    cfg: ModelConfig,
+    params: Params,
+    inputs: torch.Tensor,
+    length: int,
+    slot: int,
+    cache: Params,
+    *,
+    impl: str = "auto",
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, Params]:
+    """Cold-path prefill straight into the paged pool: ``prefill`` over the
+    [1, S_bucket] prompt against a bucket-sized cache, then the bucket's K/V
+    scattered page by page into the pages of the slot's block-table row, in
+    place.  The bucket must be page-aligned.  Pad positions past ``length``
+    land on the slot's last page past the index (overwritten before read) or
+    on unallocated table entries, which hold the sentinel page.  Returns
+    ``(first generated token [] int32 on the device, cache)``."""
+    _require_dense(cfg)
+    k_pool = cache["layers"]["k"]  # [L, P, page, kvH, hd]
+    l, _, page, kvh, hd = k_pool.shape
+    sb = inputs.shape[1]
+    if sb % page:
+        raise ValueError(f"prefill bucket {sb} not page-aligned ({page})")
+    nbp = sb // page
+    logits, new = prefill(
+        cfg, params, inputs, sb, impl=impl, compute_dtype=compute_dtype,
+        cache_dtype=k_pool.dtype, length=length,
+    )
+    tok = torch.argmax(logits[0]).to(torch.int32)
+    pages = cache["block_tables"][slot, :nbp].long()
+    for name in ("k", "v"):
+        pool = cache["layers"][name]
+        pool[:, pages] = new["layers"][name][:, 0].reshape(l, nbp, page, kvh, hd)
+    cache["index"][slot] = int(length)
+    return tok, cache
+
+
+def prefill_suffix_into_slot(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    suffix_len: int,
+    shared_len: int,
+    slot: int,
+    cache: Params,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    attn_impl: str = "auto",
+) -> tuple[torch.Tensor, Params]:
+    """Prefix-hit prefill: score only the prompt suffix against the shared
+    prefix pages already in the pool.  tokens: [1, T_bucket] int32, the
+    suffix zero-padded to a bucket; ``shared_len`` tokens (whole pages) come
+    from the radix cache; the slot's block-table row maps them and its
+    fresh suffix pages.  ``decode_chunk`` on a one-row view of the paged
+    cache does the work (the paged verify kernel, ``lengths = shared +
+    T_bucket`` unclamped), writing the suffix K/V into the slot's pages in
+    place; only row ``suffix_len - 1``'s logits are taken.  Returns
+    ``(first generated token [] int32 on the device, cache)``."""
+    view = {
+        "index": torch.full((1,), int(shared_len), dtype=torch.int32,
+                            device=tokens.device),
+        "block_tables": cache["block_tables"][slot: slot + 1],
+        "layers": cache["layers"],
+    }
+    logits, _, _ = decode_chunk(
+        cfg, params, tokens, view, compute_dtype=compute_dtype,
+        attn_impl=attn_impl, logits_at=int(suffix_len) - 1,
+    )
+    tok = torch.argmax(logits[0, 0]).to(torch.int32)
+    cache["index"][slot] = int(shared_len) + int(suffix_len)
+    return tok, cache

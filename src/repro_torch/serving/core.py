@@ -7,13 +7,13 @@ planned prefill chunk waves, drive the engine's fused decode or speculative
 loop, and return ``StepOutputs`` with per-request token deltas, TTFT stamps
 and finish reasons.  An ONLINE arrival may preempt a RUNNING OFFLINE slot.
 
-Lifecycle::
+Lifecycle (PREFILLING on chunked-prefill engines only)::
 
-    WAITING --admit--> PREFILLING --> RUNNING --budget--> FINISHED_LENGTH
-       ^                    |            |  \--stop-----> FINISHED_STOPPED
-       |                    |            |   \--abort()-> FINISHED_ABORTED
-       +------<--preempt----+------------+
-            (PREEMPTED)        WAITING past its deadline --> FINISHED_EXPIRED
+    WAITING --admit--> [PREFILLING] --> RUNNING --budget--> FINISHED_LENGTH
+       ^                     |            |  \--stop-----> FINISHED_STOPPED
+       |                     |            |   \--abort()-> FINISHED_ABORTED
+       +------<--preempt-----+------------+
+            (PREEMPTED)         WAITING past its deadline --> FINISHED_EXPIRED
 
 Preemption evicts the slot's pages (the prompt's full pages stay
 radix-cached) and re-queues the request at the FRONT of its class; resume
@@ -254,15 +254,20 @@ class SchedulerPolicy:
         plan: StepPlan,
         decode_tokens: float = 0.0,
     ) -> None:
-        """Budget the quantum's prefill stream: the grant's ``token_budget``
-        minus the planned decode tokens and one first-token slack per slot
-        that may complete its prompt, and at most what the remaining step
-        room pays for at ``prefill_token_cost_steps`` per token."""
+        """Budget the quantum's prefill stream (chunked engines): the grant's
+        ``token_budget`` minus the planned decode tokens and one first-token
+        slack per slot that may complete its prompt, and at most what the
+        remaining step room pays for at ``prefill_token_cost_steps`` per
+        token.  A monolithic engine streams nothing, but its admission-time
+        prefill is priced at the same per-token cost."""
         eng = core.engine
-        slack = eng.num_prefilling + len(plan.admit)
-        budget = grant.token_budget - decode_tokens - slack
         ptc = self.prefill_token_cost_steps
         plan.prefill_token_cost = ptc
+        if not eng.prefill_chunk:
+            plan.prefill_tokens = 0.0
+            return
+        slack = eng.num_prefilling + len(plan.admit)
+        budget = grant.token_budget - decode_tokens - slack
         if ptc > 0 and math.isfinite(grant.max_cost_steps):
             room = grant.max_cost_steps - plan.cost_steps
             budget = min(budget, room / ptc)
@@ -450,10 +455,11 @@ class EngineCore:
         """Run ONE scheduling quantum: plan -> preempt -> admit -> prefill
         chunk waves -> fused decode loop -> collect deltas and finishes.
 
-        Admissions only reserve their slot; the plan's ``prefill_tokens``
-        budget streams prompt chunks, and a slot whose prompt completes
-        mid-step decodes in the same quantum.  The mixed batch is priced
-        before any device work runs."""
+        On a chunked engine admissions only reserve their slot; the plan's
+        ``prefill_tokens`` budget streams prompt chunks, and a slot whose
+        prompt completes mid-step decodes in the same quantum.  A monolithic
+        engine prefills at admission, metered by the same per-token meter.
+        The mixed batch is priced before any device work runs."""
         g = grant if grant is not None else Grant()
         if g.now is None:
             g = dataclasses.replace(g, now=self.engine.clock())
@@ -488,7 +494,7 @@ class EngineCore:
             ):
                 out.admitted.append(cr.request_id)
         pf_take, completing = 0, []
-        if plan.prefill_tokens > 0:
+        if eng.prefill_chunk and plan.prefill_tokens > 0:
             # deterministic preview: price the chunk waves before driving
             _, pf_take, completing = eng._plan_prefill_waves(plan.prefill_tokens)
         still_prefilling = {
@@ -499,7 +505,7 @@ class EngineCore:
             if r is not None and i not in still_prefilling
         )
         k = plan.k if runnable > 0 else 0
-        if k == 0 and plan.k > 0:
+        if k == 0 and plan.k > 0 and eng.prefill_chunk:
             # the planned decode can't run (every slot still mid-prefill):
             # release its token reserve to the chunk stream.  plan.admit is
             # cleared first: those requests are admitted already (counted
@@ -672,8 +678,9 @@ class EngineCore:
         m.gauge("core/queue_depth/offline").set(len(self.waiting[Priority.OFFLINE]))
         m.gauge("engine/slots_active").set(eng.num_active)
         m.gauge("engine/slots_prefilling").set(eng.num_prefilling)
-        for key, v in eng.pool.occupancy().items():
-            m.gauge(f"engine/pool/{key}").set(v)
+        if eng.pool is not None:
+            for key, v in eng.pool.occupancy().items():
+                m.gauge(f"engine/pool/{key}").set(v)
         tr = self.obs.tracer
         window, tr.window_state = tr.window_state, None
         if not tr.enabled:
@@ -683,13 +690,20 @@ class EngineCore:
         dec_cost = plan.cost_steps if out.k > 0 else 0.0
         total = pf_cost + dec_cost
         t_mid = t0 + (t1 - t0) * (pf_cost / total if total > 0 else 0.0)
-        if out.prefill_tokens:
+        if out.prefill_tokens and eng.prefill_chunk:
             for slot, ntok in eng.last_prefill_slot_tokens.items():
                 cr = self.slot_requests.get(slot)
                 tr.span(
                     "prefill_chunk", f"slot{slot}", t0, t_mid, tokens=ntok,
                     request_id=None if cr is None else cr.request_id,
                 )
+        elif out.prefill_tokens:
+            # monolithic: each admission's whole prefill
+            for rid in out.admitted:
+                cr = self.requests.get(rid)
+                slot = None if cr is None else self.slot_of(cr)
+                if slot is not None:
+                    tr.span("prefill", f"slot{slot}", t0, t_mid, request_id=rid)
         name = "spec_round" if out.gamma is not None else "decode"
         for slot, rid in ran_slots.items():
             tr.span(
@@ -828,7 +842,14 @@ class EngineCore:
             pass  # externally managed request, not in a queue
         cr._internal = internal
         cr._consumed = 0
-        cr.state = RequestState.PREFILLING
+        # a chunked engine leaves the slot PREFILLING (the prompt streams in
+        # chunk waves); a monolithic one prefilled it already
+        cr.state = (
+            RequestState.PREFILLING if self.engine.slot_prefilling(slot)
+            else RequestState.RUNNING
+        )
+        if cr.first_token_time is None:
+            cr.first_token_time = internal.first_token_time
         self.obs.tracer.transition(
             cr.request_id, frm, cr.state.value, self.engine.clock(),
             priority=cr.priority.value,

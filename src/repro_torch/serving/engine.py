@@ -1,13 +1,19 @@
-"""Continuous-batching inference engine on the paged, chunked, greedy path,
-with speculative decoding.
+"""Continuous-batching greedy inference engine, with speculative decoding.
 
-Counterpart of ``repro.serving.engine.InferenceEngine`` in its default
-layout: KV lives in a shared pool of 16-token physical pages addressed
-through per-slot block tables (``serving/kv_pool.py``), admission reserves a
-slot's worst-case pages and streams the prompt as fixed 32-token chunks
-through ONE batched prefill program per wave, a radix tree serves shared
-page-aligned prefixes from cached pages, and decode runs ``k`` greedy
-microsteps per dispatch with a single device -> host fetch at the end.
+Counterpart of ``repro.serving.engine.InferenceEngine``.  Two KV layouts
+(``kv_page_size``): by default (attention families) KV lives in a shared
+pool of 16-token physical pages addressed through per-slot block tables
+(``serving/kv_pool.py``), admission reserves a slot's worst-case pages and a
+radix tree serves shared page-aligned prefixes from cached pages;
+``kv_page_size=0`` (always for the Mamba1 family) keeps dense ``[B, S_max]``
+rows per slot (Mamba1: its conv and SSM state).  Two prefill modes
+(``prefill_chunk``): by default (attention families) the prompt streams as
+fixed 32-token chunks through ONE batched prefill program per wave;
+``prefill_chunk=0`` (always for Mamba1) prefills the whole prompt at
+admission, zero-padded to a power-of-two bucket (``prefill_into_slot``; on
+a radix hit only the suffix, through the paged verify pass).  Decode runs
+``k`` greedy microsteps per dispatch with a single device -> host fetch at
+the end.
 
 Speculation (``spec``): a ``draft_cfg`` / ``draft_params`` pairing keeps the
 draft model in a dense cache (``T.init_cache``) whose prompt streams through
@@ -28,9 +34,10 @@ On CUDA the attention cores launch the hand-written kernels, on the CPU their
 plain PyTorch versions.  The KV pool, block tables, indices and token vector
 are updated in place (the reference's jit donates them).
 
-Not in this slice: the dense target layout and monolithic prefill, fault
-injection and NaN quarantine (a non-finite verify or decode logit raises
-``FloatingPointError``), and non-dense drafts.
+Not ported: fault injection and NaN quarantine (a non-finite verify or
+decode logit raises ``FloatingPointError``), speculation on a recurrent
+(Mamba1) target or draft (``NotImplementedError``), and the MoE, hybrid and
+frontend families.
 """
 from __future__ import annotations
 
@@ -68,6 +75,17 @@ DEFAULT_KV_PAGE_SIZE = 16
 
 #: Chunked-prefill width (tokens per slot per wave).
 DEFAULT_PREFILL_CHUNK = 32
+
+#: Smallest monolithic prefill bucket (rounded up to a page when paged).
+MIN_PREFILL_BUCKET = 8
+
+#: families whose layers hold attention (paged KV and chunked prefill apply)
+_ATTENTION_FAMILIES = ("dense",)
+
+_RECURRENT_SPEC = (
+    "speculation with a recurrent (Mamba1) target or draft is not ported yet "
+    "(ROADMAP: Mamba1 training and recurrent speculation)"
+)
 
 
 class RegistryCounterView:
@@ -137,9 +155,30 @@ class InferenceEngine:
         draft_cfg: Optional[ModelConfig] = None,
         draft_params: Any = None,
         spec: Optional[SpecDecodeConfig] = None,
+        kv_page_size: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
     ):
-        if cfg.family != "dense":
-            raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
+        """``kv_page_size``: None -> 16 for attention families, 0 (dense rows)
+        otherwise; ``prefill_chunk``: None -> 32 for attention families, 0
+        (monolithic bucket prefill) otherwise.
+
+        ``decode_impl`` picks the kernels of every pass ("auto" | "cuda" |
+        "torch", as ``kernels.ops``): decode, chunked and monolithic prefill
+        (attention and the SSM scan) and verify.  "auto" is the kernel for
+        CUDA tensors; the reference splits off a ``prefill_impl`` whose
+        default "xla" skips its prefill kernels, and its scan takes the
+        kernel only under "pallas"."""
+        if cfg.family not in T.FAMILIES:
+            raise ValueError(f"the port serves the {T.FAMILIES} families, not {cfg.family!r}")
+        attention = cfg.family in _ATTENTION_FAMILIES
+        if draft_params is not None and draft_cfg is None:
+            raise ValueError("draft_params without draft_cfg")
+        if draft_params is not None and not (
+            attention and draft_cfg.family in _ATTENTION_FAMILIES
+        ):
+            raise NotImplementedError(_RECURRENT_SPEC)
+        if not attention and spec is not None and spec.proposer == "ngram":
+            raise NotImplementedError(_RECURRENT_SPEC)
         # the counter views' cells live in ``self.obs.metrics``: build it first
         self.obs = Observability()
         self.device = resolve_device(device)
@@ -154,8 +193,13 @@ class InferenceEngine:
         )
         self.clock: Callable[[], float] = clock or time.monotonic
         self.attn_impl = decode_impl
-        self.prefill_chunk = DEFAULT_PREFILL_CHUNK
-        self.kv_page_size = DEFAULT_KV_PAGE_SIZE
+        self.min_prefill_bucket = MIN_PREFILL_BUCKET
+
+        if prefill_chunk is None:
+            prefill_chunk = DEFAULT_PREFILL_CHUNK if attention else 0
+        if prefill_chunk and not attention:
+            raise ValueError(f"chunked prefill needs an attention family, not {cfg.family!r}")
+        self.prefill_chunk = prefill_chunk
         #: per-slot prompt tokens still to stream while PREFILLING (target and
         #: draft progress differ under prefix hits: the draft has no prefix
         #: pool and always streams the whole prompt)
@@ -167,23 +211,41 @@ class InferenceEngine:
         #: slot -> metered tokens taken by the LAST _drive_prefill_chunks
         self.last_prefill_slot_tokens: dict[int, int] = {}
 
-        self.pages_per_slot = -(-max_seq // self.kv_page_size)
-        # dense-equivalent logical capacity plus the sentinel page
-        num_pages = max_slots * self.pages_per_slot + 1
-        self.pool = PagePool(num_pages, self.kv_page_size)
-        self.prefix_cache = RadixCache(self.pool)
-        self.cache = T.init_paged_cache(
-            cfg, max_slots, num_pages, self.kv_page_size, self.pages_per_slot,
-            compute_dtype, self.device,
-        )
+        # --- KV layout: paged pool (attention families) or dense rows ---
+        if kv_page_size is None:
+            kv_page_size = DEFAULT_KV_PAGE_SIZE if attention else 0
+        self.paged = kv_page_size > 0
+        self.kv_page_size = kv_page_size
+        self.pool: Optional[PagePool] = None
+        self.prefix_cache: Optional[RadixCache] = None
         self._slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
         self._slot_reserved = [0] * max_slots
         self._slot_idx = [0] * max_slots
         self._slot_horizon = [0] * max_slots
-        # host mirror of the device block tables: mutations land here and
-        # ship as ONE whole-table host -> device copy
-        self._bt_host = np.zeros((max_slots, self.pages_per_slot + 1), np.int32)
         self._bt_dirty = False
+        if self.paged:
+            if not attention:
+                raise ValueError(f"paged KV needs an attention family, not {cfg.family!r}")
+            if kv_page_size & (kv_page_size - 1):
+                raise ValueError("kv_page_size must be a power of two")
+            self.pages_per_slot = -(-max_seq // kv_page_size)
+            # dense-equivalent logical capacity plus the sentinel page
+            num_pages = max_slots * self.pages_per_slot + 1
+            self.pool = PagePool(num_pages, kv_page_size)
+            self.prefix_cache = RadixCache(self.pool)
+            self.cache = T.init_paged_cache(
+                cfg, max_slots, num_pages, kv_page_size, self.pages_per_slot,
+                compute_dtype, self.device,
+            )
+            # monolithic buckets stay page-aligned for the page scatter
+            self.min_prefill_bucket = kv_page_size * (
+                -(-MIN_PREFILL_BUCKET // kv_page_size)
+            )
+            # host mirror of the device block tables: mutations land here and
+            # ship as ONE whole-table host -> device copy
+            self._bt_host = np.zeros((max_slots, self.pages_per_slot + 1), np.int32)
+        else:
+            self.cache = T.init_cache(cfg, max_slots, max_seq, compute_dtype, self.device)
 
         self._core = None  # lazily-built EngineCore (the .core property)
         self.slots: list[Optional[Request]] = [None] * max_slots
@@ -206,8 +268,6 @@ class InferenceEngine:
         #: draws of the random speculative modes (spec loop and tree rounds)
         self._spec_gen = torch.Generator(device=self.device).manual_seed(0)
         if draft_params is not None:
-            if draft_cfg is None:
-                raise ValueError("draft_params without draft_cfg")
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocabulary")
             self.draft_params = T.cast_params(
@@ -257,7 +317,10 @@ class InferenceEngine:
 
     def register_proposer(self, proposer) -> None:
         """Attach another candidate source (e.g. a corpus-backed
-        ``StaticSuffixProposer``) and rebuild the router over the new set."""
+        ``StaticSuffixProposer``) and rebuild the router over the new set.
+        Host proposers need an attention family (tree verification)."""
+        if proposer.kind == "host" and self.cfg.family not in _ATTENTION_FAMILIES:
+            raise NotImplementedError(_RECURRENT_SPEC)
         self._proposers[proposer.name] = proposer
         self._rebuild_router()
 
@@ -348,15 +411,20 @@ class InferenceEngine:
         page need beyond the whole pool)."""
         if len(req.prompt) > self.max_seq:
             return False
+        if not self.paged:
+            return True
         total_pages, _ = self._page_need(req)
         return total_pages <= self.pool.num_pages - 1
 
     def can_admit(self, req: Request) -> bool:
-        """Capacity probe: a free slot exists AND the pool can cover the
-        request's worst-case page need, counting evictable cached prefixes
-        but never the pages the request itself would share.  Non-mutating."""
+        """Capacity probe: a free slot exists AND (paged) the pool can cover
+        the request's worst-case page need, counting evictable cached
+        prefixes but never the pages the request itself would share.
+        Non-mutating."""
         if not self.free_slots() or not self.request_fits(req):
             return False
+        if not self.paged:
+            return True
         total_pages, _ = self._page_need(req)
         prompt = np.asarray(req.prompt, np.int32)
         shared = self._shared_prefix(prompt, record=False)
@@ -408,10 +476,11 @@ class InferenceEngine:
         self._bt_dirty = True
 
     def evict_slot(self, i: int, sync: bool = True) -> Request:
-        """Release slot ``i`` -- pages back to the pool, both cache indices
-        reset -- WITHOUT finishing the request (the preempt/abort primitive; resume
-        re-prefills ``prompt + generated``, mostly from radix-cached pages).
-        ``sync=False`` defers the block-table upload to the caller."""
+        """Release slot ``i`` -- pages back to the pool (paged), both cache
+        indices reset -- WITHOUT finishing the request (the preempt/abort
+        primitive; resume re-prefills ``prompt + generated``, on the paged
+        layout mostly from radix-cached pages).  ``sync=False`` defers the
+        block-table upload to the caller."""
         req = self.slots[i]
         assert req is not None, f"evict of empty slot {i}"
         self.slots[i] = None
@@ -423,16 +492,17 @@ class InferenceEngine:
         self.cache["index"][i] = 0
         if self.spec_enabled:
             self.draft_cache["index"][i] = 0
-        self.pool.decref(self._slot_pages[i])
-        self.pool.unreserve(self._slot_reserved[i])
-        self._slot_pages[i] = []
-        self._slot_reserved[i] = 0
         self._slot_idx[i] = 0
-        self._slot_horizon[i] = 0
-        self._bt_host[i] = 0
-        self._bt_dirty = True
-        if sync:
-            self._sync_block_tables()
+        if self.paged:
+            self.pool.decref(self._slot_pages[i])
+            self.pool.unreserve(self._slot_reserved[i])
+            self._slot_pages[i] = []
+            self._slot_reserved[i] = 0
+            self._slot_horizon[i] = 0
+            self._bt_host[i] = 0
+            self._bt_dirty = True
+            if sync:
+                self._sync_block_tables()
         return req
 
     def _retire_slot(self, i: int, now: float) -> Request:
@@ -445,9 +515,10 @@ class InferenceEngine:
         return req
 
     def _paged_reserve(self, slot: int, req: Request) -> Optional[int]:
-        """Admission bookkeeping: match the radix prefix, make room (evicting
-        LRU cached prefixes if needed), allocate the prompt pages and reserve
-        the decode horizon.  Returns the shared token count, or None on
+        """Paged admission bookkeeping, shared by chunked and monolithic
+        prefill: match the radix prefix, make room (evicting LRU cached
+        prefixes if needed), allocate the prompt pages and reserve the
+        decode horizon.  Returns the shared token count, or None on
         capacity.  Leaves the block tables dirty for one batched upload."""
         n = len(req.prompt)
         prompt = np.asarray(req.prompt, np.int32)
@@ -484,15 +555,17 @@ class InferenceEngine:
     def _begin_chunked_admit(self, slot: int, req: Request) -> bool:
         """Reserve the slot's capacity (prompt pages + decode-horizon
         reservation, radix prefix matched and held) WITHOUT prefill compute;
-        the prompt then streams in ``_drive_prefill_chunks`` waves."""
-        res = self._paged_reserve(slot, req)
-        if res is None:
-            return False
-        shared = res
-        if shared:
-            # device progress starts past the radix-covered prefix, whose
-            # pages chunk attention reads directly
-            self.cache["index"][slot] = shared
+        the prompt then streams in ``_drive_prefill_chunks`` waves.  The
+        dense layout has nothing to reserve."""
+        shared = 0
+        if self.paged:
+            shared = self._paged_reserve(slot, req)
+            if shared is None:
+                return False
+            if shared:
+                # device progress starts past the radix-covered prefix, whose
+                # pages chunk attention reads directly
+                self.cache["index"][slot] = shared
         prompt = np.asarray(req.prompt, np.int32)
         self._prefill_left[slot] = prompt[shared:]
         if self.spec_enabled:
@@ -553,8 +626,10 @@ class InferenceEngine:
         a draft pairing, ONE batched draft dispatch.  Slots whose prompt
         completes on both sides get their first token from the wave that
         completed the target stream, fetched in ONE batched transfer at the
-        end.  Returns tokens consumed."""
+        end.  Returns tokens consumed (0 on a monolithic engine)."""
         self.last_prefill_slot_tokens = {}
+        if not self.prefill_chunk:
+            return 0
         waves, consumed, _ = self._plan_prefill_waves(budget)
         if not waves:
             return 0
@@ -624,7 +699,8 @@ class InferenceEngine:
 
     def _finish_prefill(self, i: int, tok: int, now: float) -> None:
         """PREFILLING -> RUNNING: deliver the first generated token, stamp
-        TTFT, and insert the prompt's full pages into the radix tree."""
+        TTFT, and (paged) insert the prompt's full pages into the radix
+        tree."""
         req = self.slots[i]
         self._prefill_left[i] = None
         self._draft_prefill_left[i] = None
@@ -634,10 +710,11 @@ class InferenceEngine:
         if req.first_token_time is None:
             req.first_token_time = now
         self.tokens[i] = tok
-        prompt = np.asarray(req.prompt, np.int32)
-        self.prefix_cache.insert(
-            prompt, self._slot_pages[i][: len(prompt) // self.kv_page_size]
-        )
+        if self.paged:
+            prompt = np.asarray(req.prompt, np.int32)
+            self.prefix_cache.insert(
+                prompt, self._slot_pages[i][: len(prompt) // self.kv_page_size]
+            )
 
     # ------------------------------------------------------------------
     @property
@@ -650,19 +727,130 @@ class InferenceEngine:
         return self._core
 
     def _admit_request(self, req: Request) -> bool:
-        """Reserve a free slot for ``req``; the slot stays PREFILLING until
-        ``_drive_prefill_chunks`` streams its last chunk.  False when no
-        slot is free or the pool cannot cover the worst-case page need even
-        after evicting unreferenced cached prefixes."""
+        """Admit ``req`` into a free slot.  A chunked engine only reserves the
+        slot, which stays PREFILLING until ``_drive_prefill_chunks`` streams
+        its last chunk; a monolithic engine prefills the whole prompt here
+        (one dispatch per model) and delivers the first token.  False when no
+        slot is free or (paged) the pool cannot cover the worst-case page
+        need even after evicting unreferenced cached prefixes."""
         free = self.free_slots()
         if not free:
             return False
+        slot = free[0]
         if len(req.prompt) > self.max_seq:
             raise ValueError(
                 f"prompt of {len(req.prompt)} tokens exceeds engine "
                 f"max_seq={self.max_seq}; refusing to truncate silently"
             )
-        return self._begin_chunked_admit(free[0], req)
+        if self.prefill_chunk:
+            return self._begin_chunked_admit(slot, req)
+        if self.paged:
+            tok = self._paged_admit(slot, req)
+            if tok is None:
+                return False
+        else:
+            tok = self._dense_admit(slot, req)
+        tok = int(tok)
+        req.generated.append(tok)
+        self.d2h_transfers += 1
+        self.generated_tokens_total += 1
+        if req.first_token_time is None:
+            req.first_token_time = self.clock()
+        self.tokens[slot] = tok
+        self.slots[slot] = req
+        self.steps_executed += 1
+        return True
+
+    # ------------------------------------------------------------------
+    # Monolithic prefill: power-of-two buckets, one dispatch per admission
+    # ------------------------------------------------------------------
+    def _bucket_len(self, n: int, page_aligned: Optional[bool] = None) -> int:
+        """Power-of-two bucket for a prompt of ``n`` tokens, from
+        ``MIN_PREFILL_BUCKET`` (a page when paged).  Page-aligned buckets (the paged default) cap
+        at ``max_seq`` rounded UP to a page multiple (positions past
+        ``max_seq`` are pad, scattered into the sentinel); dense consumers
+        (the dense layout, and a draft's dense cache on a paged engine) pass
+        ``page_aligned=False`` and cap at ``max_seq``."""
+        if page_aligned is None:
+            page_aligned = self.paged
+        b = self.min_prefill_bucket
+        while b < n:
+            b *= 2
+        if page_aligned:
+            return min(b, self.pages_per_slot * self.kv_page_size)
+        return min(b, self.max_seq)
+
+    def _bucket_buf(
+        self, tokens: np.ndarray, page_aligned: Optional[bool] = None
+    ) -> torch.Tensor:
+        """``tokens`` zero-padded to their bucket: a [1, S_bucket] int32
+        tensor on the device."""
+        buf = np.zeros((1, self._bucket_len(len(tokens), page_aligned)), np.int32)
+        buf[0, : len(tokens)] = tokens
+        return torch.tensor(buf, device=self.device)
+
+    def _draft_prefill(self, slot: int, prompt: np.ndarray) -> None:
+        """The draft's dense cache tracks the whole prompt (no prefix pool);
+        its first-token output is never fetched.  Its bucket caps at
+        ``max_seq``."""
+        _, self.draft_cache = T.prefill_into_slot(
+            self.draft_cfg, self.draft_params,
+            self._bucket_buf(prompt, page_aligned=False), len(prompt), slot,
+            self.draft_cache, max_seq=self.max_seq, impl=self.attn_impl,
+            compute_dtype=self.compute_dtype,
+        )
+
+    def _paged_admit(self, slot: int, req: Request) -> Optional[torch.Tensor]:
+        """Paged MONOLITHIC admission: reserve pages, then prefill in one
+        dispatch -- the whole prompt on a radix miss, only the suffix on a
+        hit (``prefill_suffix_into_slot``).  Returns the first token (on the
+        device), or None on capacity."""
+        shared = self._paged_reserve(slot, req)
+        if shared is None:
+            return None
+        self._sync_block_tables()  # the prefill dispatch reads the tables
+        n = len(req.prompt)
+        prompt = np.asarray(req.prompt, np.int32)
+        self._slot_idx[slot] = n
+        if shared:
+            suffix = prompt[shared:]
+            tok, self.cache = T.prefill_suffix_into_slot(
+                self.cfg, self.params, self._bucket_buf(suffix), len(suffix),
+                shared, slot, self.cache, compute_dtype=self.compute_dtype,
+                attn_impl=self.attn_impl,
+            )
+            self.prefill_skipped_tokens += shared
+        else:
+            tok, self.cache = T.prefill_into_slot_paged(
+                self.cfg, self.params, self._bucket_buf(prompt), n, slot,
+                self.cache, impl=self.attn_impl,
+                compute_dtype=self.compute_dtype,
+            )
+        self.prefill_prompt_tokens += n
+        self.prefill_metered_tokens += n if self.spec_enabled else n - shared
+        # cache the prompt's full pages for future admissions (the tree takes
+        # its own reference; they outlive this slot)
+        self.prefix_cache.insert(prompt, self._slot_pages[slot][: n // self.kv_page_size])
+        if self.spec_enabled:
+            self._draft_prefill(slot, prompt)
+        return tok
+
+    def _dense_admit(self, slot: int, req: Request) -> torch.Tensor:
+        """Dense-layout MONOLITHIC admission: one bucket prefill straight into
+        the slot's rows (Mamba1: its state).  Returns the first token (on the
+        device)."""
+        prompt = np.asarray(req.prompt, np.int32)
+        n = len(prompt)
+        tok, self.cache = T.prefill_into_slot(
+            self.cfg, self.params, self._bucket_buf(prompt), n, slot, self.cache,
+            max_seq=self.max_seq, impl=self.attn_impl,
+            compute_dtype=self.compute_dtype,
+        )
+        self.prefill_prompt_tokens += n
+        self.prefill_metered_tokens += n
+        if self.spec_enabled:
+            self._draft_prefill(slot, prompt)
+        return tok
 
     # ------------------------------------------------------------------
     def _remaining(self) -> np.ndarray:
@@ -682,7 +870,8 @@ class InferenceEngine:
             return []
         if self.num_active == self.num_prefilling:
             return []  # every slot is mid-prefill: nothing to decode
-        self._top_up_pages(k)
+        if self.paged:
+            self._top_up_pages(k)
         tokens, cache, rem, toks_seq, steps, bad = T.decode_loop(
             self.cfg, self.params, self.tokens, self.cache,
             torch.tensor(self._remaining(), device=self.device), k=k,
@@ -732,8 +921,9 @@ class InferenceEngine:
             return []
         if self.num_active == self.num_prefilling:
             return []  # every slot is mid-prefill: nothing to verify
-        # worst case every round accepts the whole chunk
-        self._top_up_pages(k * (gamma + 1))
+        if self.paged:
+            # worst case every round accepts the whole chunk
+            self._top_up_pages(k * (gamma + 1))
         (
             self.tokens, self.cache, self.draft_cache, rem,
             out_toks, n_out, accepted, proposed, bad,
@@ -777,7 +967,7 @@ class InferenceEngine:
             self._slot_idx[i] = int(idx_np[i])
             if rem_np[i] == 0 or idx_np[i] + gamma >= self.max_seq:
                 finished.append(self._retire_slot(i, now))
-            else:
+            elif self.paged:
                 # rollback freed the positions past the accepted prefix
                 self._trim_slot_pages(i)
         if self.num_prefilling:
@@ -871,9 +1061,10 @@ class InferenceEngine:
                     gamma: int, mode: str) -> list[Request]:
         """One tree-verify round over a host proposer's candidate tree."""
         n_nodes = len(tree.parents)
-        # worst case the round accepts a whole root-to-leaf path; node-index
-        # K/V slots need n_nodes positions regardless
-        self._top_up_pages(n_nodes)
+        if self.paged:
+            # worst case the round accepts a whole root-to-leaf path;
+            # node-index K/V slots need n_nodes positions regardless
+            self._top_up_pages(n_nodes)
         (
             self.tokens, self.cache, rem, out, n_out, accepted, proposed, bad,
         ) = spec_tree.tree_verify_round(
@@ -921,7 +1112,7 @@ class InferenceEngine:
                 self._router.observe(i, name, 0, gamma)
             if rem_np[i] == 0 or idx_np[i] + (n_nodes - 1) >= self.max_seq:
                 finished.append(self._retire_slot(i, now))
-            else:
+            elif self.paged:
                 # rejected siblings past the accepted path: release the pages
                 # the worst-case top-up provisioned beyond it
                 self._trim_slot_pages(i)
@@ -934,12 +1125,12 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV pools and block tables."""
-        layers = self.cache["layers"]
-        return sum(
-            t.numel() * t.element_size()
-            for t in (layers["k"], layers["v"], self.cache["block_tables"])
-        )
+        """Device bytes of the cache: the KV pools and block tables, or the
+        dense rows (Mamba1: the conv and SSM state)."""
+        tensors = list(self.cache["layers"].values())
+        if self.paged:
+            tensors.append(self.cache["block_tables"])
+        return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _to_device(params: Any, device: torch.device) -> Any:

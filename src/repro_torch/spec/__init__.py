@@ -2,11 +2,11 @@
 ``repro.spec``).
 
 A cheap draft model proposes ``gamma`` tokens per slot, the target scores
-all ``gamma + 1`` chunk positions in ONE pass (the paged chunk-verify
-kernel), and acceptance keeps the longest target-consistent prefix, rolling
+all ``gamma + 1`` chunk positions in ONE pass (the paged or dense
+chunk-verify kernel, after the target's KV layout), and acceptance keeps the longest target-consistent prefix, rolling
 each slot's cache index back past rejected tokens.  Host-side proposers
 (n-gram, static suffix) instead hand the target a packed candidate tree,
-verified in one pass by the paged tree-verify kernel.
+verified in one pass by the paged or dense tree-verify kernel.
 
 Modules:
   * ``draft``      -- draft-model proposer (greedy / seeded sampling)

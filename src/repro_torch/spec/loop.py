@@ -6,7 +6,7 @@ Round anatomy (per slot, ragged over the batch):
 
   1. the draft proposes ``gamma`` tokens (+1 catch-up step, ``spec.draft``)
   2. the target scores the ``gamma + 1`` chunk in one pass
-     (``transformer.decode_chunk`` -> the paged chunk-verify kernel)
+     (``transformer.decode_chunk`` -> the paged or dense chunk-verify kernel)
   3. acceptance keeps the longest admissible prefix (``spec.verify``)
   4. both caches rewind to ``index + accepted + 1`` (``spec.rollback``)
 

@@ -17,10 +17,8 @@ target argmax at the current node extends the path (first child wins on
 duplicate siblings).  The emitted tokens are the target argmaxes along the
 path plus the bonus / correction at its end -- identical to plain greedy
 decode, and to ``verify.greedy_accept`` on a chain.  The accepted path's
-K/V is then compacted to contiguous positions ``index .. index + a``.
-
-Only the paged target layout is ported: the dense one (``_compact_dense``)
-comes with the dense target slice.
+K/V is then compacted to contiguous positions ``index .. index + a``, on
+the paged or the dense target layout.
 """
 from __future__ import annotations
 
@@ -174,18 +172,34 @@ def _compact_paged(pool, block_tables, idx0, comp) -> None:
     pool[:, dst_pages, dst_offs] = vals
 
 
+def _compact_dense(kc, idx0, comp) -> None:
+    """Gather the accepted path's rows to contiguous rows, in place, over
+    every layer at once.  kc: [L, B, S, kvH, hd]; comp [B, N]: source node of
+    each destination slot.  As the reference: the source row
+    ``idx0 + comp`` clamps to S - 1, and the N destination rows start at
+    ``idx0`` clamped into [0, S - N] (``dynamic_update_slice``); the gather
+    is a copy taken before the scatter."""
+    b, n = comp.shape
+    s = kc.shape[2]
+    rows = torch.arange(b, device=comp.device)[:, None]
+    src = torch.clamp(idx0[:, None] + comp, max=s - 1).long()
+    vals = kc[:, rows, src]  # [L, B, N, kvH, hd]
+    start = idx0.long().clamp(0, s - n)
+    kc[:, rows, start[:, None] + torch.arange(n, device=comp.device)[None, :]] = vals
+
+
 def compact_accepted_path(cache, comp: torch.Tensor):
     """Rewrite every layer's chunk-region K/V so the accepted path is
     contiguous at ``index .. index + a`` (the index not yet advanced), in
-    place.  ``comp`` [B, N] maps destination slot -> source node; inactive
-    slots pass the identity map (a value-preserving rewrite)."""
+    place, on the paged or the dense layout.  ``comp`` [B, N] maps
+    destination slot -> source node; inactive slots pass the identity map
+    (a value-preserving rewrite)."""
     bt = cache.get("block_tables")
-    if bt is None:
-        raise NotImplementedError(
-            "path compaction on a dense target cache is not ported yet"
-        )
     for name in ("k", "v"):
-        _compact_paged(cache["layers"][name], bt, cache["index"], comp)
+        if bt is None:
+            _compact_dense(cache["layers"][name], cache["index"], comp)
+        else:
+            _compact_paged(cache["layers"][name], bt, cache["index"], comp)
     return cache
 
 

@@ -1,8 +1,9 @@
 """The port stands alone: no module under ``src/repro_torch/`` nor
 ``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the reference package
 ``repro`` (``repro_torch`` is allowed), and importing the serving core, the
-speculative decoding package, the filling runtime and the train step pulls
-no JAX into a fresh interpreter."""
+speculative decoding package, the filling runtime, the train step, the
+Mamba1 model and the dense verify / tree-verify / scan kernels pulls no JAX
+into a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -30,7 +31,10 @@ def test_walk_covers_the_port():
     assert len(FILES) > 10
     assert ROOT / "src" / "repro_torch" / "serving" / "core.py" in FILES
     for mod in ("spec/loop.py", "spec/tree.py", "spec/proposers/ngram.py",
-                "kernels/paged_tree_verify_attention.py", "kernels/decode_attention.py"):
+                "kernels/paged_tree_verify_attention.py", "kernels/decode_attention.py",
+                "models/ssm.py", "kernels/verify_attention.py",
+                "kernels/tree_verify_attention.py", "kernels/ssm_scan.py",
+                "configs/falcon_mamba_7b.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 
@@ -49,6 +53,10 @@ def test_serving_core_import_pulls_no_jax():
         "import repro_torch.launch.serve; "
         "import repro_torch.spec; import repro_torch.spec.proposers; "
         "import repro_torch.core.filling; import repro_torch.runtime.step; "
+        "import repro_torch.models.ssm; import repro_torch.kernels.ssm_scan; "
+        "import repro_torch.kernels.verify_attention; "
+        "import repro_torch.kernels.tree_verify_attention; "
+        "import repro_torch.configs.falcon_mamba_7b; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )

@@ -186,7 +186,7 @@ def test_spec_engine_matches_reference_and_plain_greedy(proposer, plain_streams)
 # ---------------------------------------------------------------------------
 
 
-def _runtime(pkg):
+def _runtime(pkg, microstep_s=0.004):
     rng = np.random.default_rng(3)
     offline = [rng.integers(0, CFG.vocab_size, n).astype(np.int32) for n in (8, 40)]
     online = [(rng.integers(0, CFG.vocab_size, n).astype(np.int32), 0.02 * i)
@@ -207,7 +207,7 @@ def _runtime(pkg):
         train_step=lambda s, b: (s, {"loss": 1.0}), train_state=None,
         batch_iter=iter(int, 1),
         profile=profiles.dp_profile("tiny", compute_s=0.05, comm_s=0.04),
-        engine=engine, online_requests=reqs, cfg=cfg, decode_microstep_s=0.004,
+        engine=engine, online_requests=reqs, cfg=cfg, decode_microstep_s=microstep_s,
     )
     m = rt.run(3)
     return {
@@ -232,3 +232,18 @@ def test_runtime_with_gamma_controller_matches_reference():
     assert t["virtual_time_s"] == pytest.approx(j["virtual_time_s"], rel=1e-12)
     assert t["acceptance"] == pytest.approx(j["acceptance"], rel=1e-12)
     assert t["offline_tokens"] > 0 and t["online_served"] == 3
+
+
+@pytest.mark.parametrize("microstep_s, served", [(0.0115, 3), (0.0118, 0)],
+                         ids=["below", "above"])
+def test_runtime_microstep_past_longest_bubble_matches_reference(microstep_s, served):
+    """The profile's longest bubble (its tail) is 11.76 ms.  A microstep just
+    below it fits two quanta there and every online request finishes; just
+    above it, one, and in the reference no online request finishes in three
+    iterations.  The port reproduces both sides."""
+    j, t = _runtime("jax", microstep_s), _runtime("torch", microstep_s)
+    assert t["phases"] == j["phases"]
+    for key in ("spec_rounds", "offline_microsteps", "offline_tokens", "online_served",
+                "streams"):
+        assert t[key] == j[key], key
+    assert t["online_served"] == served
