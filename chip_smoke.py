@@ -17,8 +17,12 @@ Phases, each printing a line before the last:
                  verify and tree) and the bound the card's memory rate and
                  peak give for the same work: the paged decode / chunked-
                  prefill kernels at the serving shapes, flash attention
-                 forward and backward at the training shape (plus a ragged and
-                 a non-causal case), the dense decode / chunked prefill at the
+                 forward and backward at the training shape (plus a ragged
+                 case, a non-causal case at hd 128 and 64, the smallest
+                 monolithic prefill bucket and a sequence shorter than one q
+                 tile; TFLOP/s and the share of the bound; the same at B=1,
+                 S=4096), the dense decode /
+                 chunked prefill at the
                  draft model's shapes (plus a GQA case), the paged verify for
                  T = 2, 3, 5 and at the suffix prefill's bucket sizes T = 64,
                  128 (lengths up to and past the table), the paged tree
@@ -37,38 +41,46 @@ Phases, each printing a line before the last:
                  prefill), and ``lm_loss`` with its gradients; a 2-layer,
                  full-width falcon-mamba-7b engine gives equal streams and
                  final states.
-5. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
-                 through ``EngineCore.step()``; every request must finish and
-                 both paged kernels must have launched (plain versions never).
-6. spec serve -- the same model and requests, paired with its 1-layer draft
-                 model and ``proposer="auto"``; every request must finish, the
-                 router must have run both proposers, and the dense decode,
-                 dense prefill, paged verify and paged tree verify kernels must
-                 have launched (plain versions never).
-7. dense target serve -- the same on the dense target layout
-                 (``kv_page_size=0``): the dense decode, dense prefill, dense
-                 verify and dense tree verify kernels must launch; then a
-                 short run with monolithic prefill must launch the flash
-                 forward kernel.
-8. ssm serve  -- falcon-mamba-7b at full depth and width, bf16, serves 16
-                 requests (dense state rows, monolithic bucket prefill); every
-                 request must finish and the scan kernel must launch once per
-                 layer and 64-step chunk of each admission.
-9. collocated -- qwen3-1.7b at full depth and width trains (fp32 params, bf16
+5. collocated -- qwen3-1.7b at full depth and width trains (fp32 params, bf16
                  compute, batch 4 x seq 1024) under ``SpecInFRuntime``, whose
                  bubbles a bf16 engine on the initial weights fills with an
                  offline backlog and online requests.  The DP profile is sized
                  from the train step's and the engine microstep's times
-                 measured here (``measure_dp_profile``); Algorithm 1's cap is
-                 one fixed setting, ``COLLOC_UPPER_LIMIT``.  Losses must be finite and
+                 measured here (``measure_dp_profile``); Algorithm 1 runs
+                 with its default settings.  Losses must be finite and
                  fall, offline tokens must be produced, online requests
                  must finish, and the paged and flash kernels must have
-                 launched (plain versions never).  Then the training goes on
-                 for ``SPEC_COLLOC_ITERS`` iterations with the speculating
-                 engine under the runtime's gamma controller: online requests
-                 must finish, and offline tokens and spec rounds be produced.
+                 launched (plain versions never).  One step under
+                 ``remat_policy="dots"`` must give the loss and gradient
+                 norm of ``"none"`` and launch the flash forward twice per
+                 layer.  Then the training goes on for ``SPEC_COLLOC_ITERS``
+                 iterations with the speculating engine under the runtime's
+                 gamma controller: online requests must finish, and offline
+                 tokens and spec rounds be produced.  This phase runs before
+                 any ``torch.profiler`` session: after one, every launch
+                 costs more on the host, and its times are host-paced.
+6. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
+                 through ``EngineCore.step()``; every request must finish and
+                 both paged kernels must have launched (plain versions never).
+7. spec serve -- the same model and requests, paired with its 1-layer draft
+                 model and ``proposer="auto"``; every request must finish, the
+                 router must have run both proposers, and the dense decode,
+                 dense prefill, paged verify and paged tree verify kernels must
+                 have launched (plain versions never).
+8. dense target serve -- the same on the dense target layout
+                 (``kv_page_size=0``): the dense decode, dense prefill, dense
+                 verify and dense tree verify kernels must launch; then a
+                 short run with monolithic prefill must launch the flash
+                 forward kernel.
+9. ssm serve  -- falcon-mamba-7b at full depth and width, bf16, serves 16
+                 requests (dense state rows, monolithic bucket prefill); every
+                 request must finish and the scan kernel must launch once per
+                 layer and 64-step chunk of each admission.
 
-Then one ``{"kernels": [...]}`` line (launches from the run of each
+Then, under ``torch.profiler``, one train step of phase 5's model (the
+device's busy share and the flash kernels' share of device time)
+and the flash backward's three kernels one by one; one
+``{"kernels": [...]}`` line (launches from the run of each
 kernel's path: the speculative kernels' from the spec serve run, the dense
 verify and tree verify from the dense target serve run, the scan from the
 ssm serve run, the others' from the collocated run) and, last, the
@@ -106,6 +118,10 @@ GRAD_RTOL_FP32 = 1e-4
 #: bf16 gradients: each dQ / dK / dV is rounded to bf16 once (relative 2^-9)
 #: on top of D = rowsum(dO * O) taken from the bf16 output
 GRAD_RTOL_BF16 = 2e-2
+#: a full-depth bf16 train step's loss and gradient norm, remat "dots" vs
+#: "none": the same kernels on the same inputs, sums possibly in another
+#: order; one bf16 rounding step (2^-8) relative
+LOSS_RTOL_BF16 = 2.0**-8
 
 # kernel-phase shapes: the serving path's (qwen3-1.7b attention, 16-token
 # pages, 32 table columns + sentinel = max_seq 512, 8 slots, 32-token chunks)
@@ -115,12 +131,17 @@ PREFILL_STARTS = [0, 64, 100, 480, 0, 33, 256, 16]
 PREFILL_LENS = [32, 0, 17, 32, 1, 5, 32, 20]
 SHARED_PAGES = 4  # slot 1's first pages are slot 0's (a radix-shared prefix)
 # flash attention: the training shape (batch 4 x seq 1024, qwen3's 16 heads
-# of 128 after the GQA expand), plus a ragged and a non-causal case
+# of 128 after the GQA expand), plus a ragged case, a non-causal case at
+# both head dims, the smallest monolithic prefill bucket and a sequence
+# shorter than one 128-row q tile
 TRAIN_B, TRAIN_S = 4, 1024
-FLASH_CASES = (  # (B, H, Sq, Sk, causal)
-    (TRAIN_B, H, TRAIN_S, TRAIN_S, True),
-    (2, H, 1000, 1000, True),
-    (2, H, 512, 1000, False),
+FLASH_CASES = (  # (B, H, Sq, Sk, causal, hd)
+    (TRAIN_B, H, TRAIN_S, TRAIN_S, True, HD),
+    (2, H, 1000, 1000, True, HD),
+    (2, H, 512, 1000, False, HD),
+    (2, H, 512, 1000, False, 64),
+    (4, H, 8, 8, True, HD),
+    (8, H, 64, 64, True, HD),
 )
 # speculative slice: the draft model's dense cache (qwen3-1.7b's draft has
 # 8 q / 8 kv heads of 128; max_seq 512) and the target's verify chunks over
@@ -146,11 +167,6 @@ SSM_BATCHES = (1, 8)
 SSM_RTOL = 1e-5
 SPEC_COLLOC_ITERS = 4
 COLLOC_ITERS = 8
-#: Algorithm 1's stable-phase token cap for the collocated phase, on every
-#: run.  A grant token is 1 ms of microstep; the port's full-depth
-#: microstep is host-bound near 60 ms (ROADMAP Queue C), so the default cap
-#: of 64 tokens would never cover one.  256 tokens covers up to 4.
-COLLOC_UPPER_LIMIT = 256.0
 
 
 #: the kernels each path runs
@@ -402,14 +418,14 @@ def phase_kernels():
     return rows + _flash_rows() + _spec_rows() + _dense_target_rows() + _ssm_rows()
 
 
-def _flash_inputs(dtype, b, h, sq, sk, seed=0):
+def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, h, sq, HD), generator=g, device="cuda").to(dtype)
-    k = torch.randn((b, h, sk, HD), generator=g, device="cuda").to(dtype)
-    v = torch.randn((b, h, sk, HD), generator=g, device="cuda").to(dtype)
-    do = torch.randn((b, h, sq, HD), generator=g, device="cuda").to(dtype)
+    q = torch.randn((b, h, sq, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, h, sk, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, h, sk, hd), generator=g, device="cuda").to(dtype)
+    do = torch.randn((b, h, sq, hd), generator=g, device="cuda").to(dtype)
     return q, k, v, do
 
 
@@ -424,9 +440,9 @@ def _check_flash():
 
     worst = {}
     for case in FLASH_CASES:
-        b, h, sq, sk, causal = case
+        b, h, sq, sk, causal, hd = case
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = _flash_inputs(dtype, b, h, sq, sk)
+            q, k, v, do = _flash_inputs(dtype, b, h, sq, sk, hd)
             out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
             grads = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
             torch.cuda.synchronize()
@@ -482,16 +498,20 @@ def _flash_rows():
     # (q, k) pairs this shape has, 2 products forward and 5 backward
     elems, isz = b * h * s * HD, 2
     pairs = b * h * s * (s + 1) // 2
-    fwd_bound, fwd_by = _bound_ms(4 * elems * isz + b * h * s * 4, 4 * pairs * HD,
+    fwd_flops, bwd_flops = 4 * pairs * HD, 10 * pairs * HD
+    fwd_bound, fwd_by = _bound_ms(4 * elems * isz + b * h * s * 4, fwd_flops,
                                   torch.bfloat16)
-    bwd_bound, bwd_by = _bound_ms(8 * elems * isz + b * h * s * 4, 10 * pairs * HD,
+    bwd_bound, bwd_by = _bound_ms(8 * elems * isz + b * h * s * 4, bwd_flops,
                                   torch.bfloat16)
     src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     rows = []
-    for name, ms, plain_ms, lib_ms, bound, by, i in (
-        ("flash_attention_fwd", fwd_ms, plain_fwd_ms, sdpa_fwd_ms, fwd_bound, fwd_by, 0),
-        ("flash_attention_bwd", bwd_ms, plain_bwd_ms, sdpa_bwd_ms, bwd_bound, bwd_by, 1),
+    for name, ms, plain_ms, lib_ms, bound, by, flops, i in (
+        ("flash_attention_fwd", fwd_ms, plain_fwd_ms, sdpa_fwd_ms, fwd_bound, fwd_by,
+         fwd_flops, 0),
+        ("flash_attention_bwd", bwd_ms, plain_bwd_ms, sdpa_bwd_ms, bwd_bound, bwd_by,
+         bwd_flops, 1),
     ):
+        tflops = flops / (ms * 1e-3) / 1e12
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": "src/repro/kernels/flash_attention.py:92",
@@ -499,13 +519,98 @@ def _flash_rows():
             "max_abs_err_fp32": errs["float32"][i],
             "err_kind": "absolute" if i == 0 else "relative to max|g|",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "tflops": tflops, "bound_share": bound / ms,
         })
-        log(f"kernel {name} (B={b}, H={h}, S={s}, hd={HD}, causal, bf16): {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        log(f"kernel {name} (B={b}, H={h}, S={s}, hd={HD}, causal, bf16): {ms:.4f} ms "
+            f"= {tflops:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} ms "
+            f"({by}); plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+            f"({ms / lib_ms:.2f}x sdpa's time)")
     log(f"sdpa forward+backward {sdpa_fwd_ms + sdpa_bwd_ms:.4f} ms; flash kernels "
         f"forward+backward {fwd_ms + bwd_ms:.4f} ms")
+    _flash_long_rows()
     return rows
+
+
+def _flash_long_rows():
+    """The same kernels and SDPA at one long sequence (B=1, H=16, S=4096,
+    causal, bf16), where each CTA walks many more tiles: separates the
+    kernels' per-tile rate from the fixed cost of each CTA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, s = 1, H, 4 * TRAIN_S
+    q, k, v, do = _flash_inputs(torch.bfloat16, b, h, s, s, seed=2)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    times = {
+        "forward": (_time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+                    _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+                    4),
+        "backward": (_time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                                             causal=True)),
+                     _time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, do,
+                                                          retain_graph=True)),
+                     10),
+    }
+    pairs = b * h * s * (s + 1) // 2
+    log(f"flash attention at B={b}, H={h}, S={s}, causal, bf16: " + "; ".join(
+        f"{name} {ms:.4f} ms = {per_pair * pairs * HD / (ms * 1e-3) / 1e12:.1f} TFLOP/s "
+        f"(sdpa {lib:.4f} ms = {per_pair * pairs * HD / (lib * 1e-3) / 1e12:.1f})"
+        for name, (ms, lib, per_pair) in times.items()))
+
+
+def _flash_bwd_by_kernel(row):
+    """The flash backward's three kernels one by one at the training shape
+    (bf16), from ``torch.profiler`` with the L2 flushed before each call:
+    delta reads O and dO and writes D; dkdv runs 4 products, dq 3 (it
+    recomputes S and dP).  Runs after every other phase, since a profiler
+    session leaves each later launch slower on the host."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, s = TRAIN_B, H, TRAIN_S
+    q, k, v, do = _flash_inputs(torch.bfloat16, b, h, s, s, seed=1)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    parts = _kernel_ms_by_name(
+        lambda: fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True),
+        ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+    elems, pairs = b * h * s * HD, b * h * s * (s + 1) // 2
+    work = {"flash_bwd_delta": ("GB/s", (4 * elems + b * h * s * 4) / 1e9),
+            "flash_bwd_dkdv": ("TFLOP/s", 8 * pairs * HD / 1e12),
+            "flash_bwd_dq": ("TFLOP/s", 6 * pairs * HD / 1e12)}
+    row["kernels_ms"] = parts
+    log("kernel flash_attention_bwd by kernel (median of 30, profiler): " + ", ".join(
+        f"{n.split('_')[-1]} {t:.4f} ms = {work[n][1] / (t * 1e-3):.1f} {work[n][0]}"
+        if t is not None else f"{n.split('_')[-1]} not measured" for n, t in parts.items()))
+
+
+def _kernel_ms_by_name(fn, names, reps: int = 30) -> dict:
+    """Median device time of the kernels whose names contain each of
+    ``names``, over ``reps`` calls of ``fn`` each after the L2-flushing
+    write of ``_time_ms``, read from ``torch.profiler``; None where the
+    profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    times[n].append((e.time_range.end - e.time_range.start) / 1e3)
+    return {n: sorted(t)[len(t) // 2] if t else None for n, t in times.items()}
 
 
 def _dense_inputs(dtype, seed):
@@ -1166,6 +1271,9 @@ def phase_serve():
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.tree import tree_leaves
 
+    gc.collect()  # the collocated phase's training state and engines
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     cfg = configs.get_config("qwen3-1.7b")
     t0 = time.monotonic()
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1516,7 +1624,7 @@ def phase_collocated():
     batches = (ds.next_batch() for _ in iter(int, 1))
     profile, microstep_s = measure_dp_profile(cfg.name, step, state, batches, engine)
     compute_s = profile.compute_s
-    spec_cfg = SpecInFConfig(upper_limit=COLLOC_UPPER_LIMIT)
+    spec_cfg = SpecInFConfig()
     log(f"collocated: train step {compute_s * 1e3:.1f} ms (B={TRAIN_B} x S={TRAIN_S} = "
         f"{TRAIN_B * TRAIN_S / compute_s:.0f} tokens/s), engine microstep "
         f"{microstep_s * 1e3:.1f} ms (4 slots; Algorithm-1 cap {spec_cfg.upper_limit:g} "
@@ -1567,7 +1675,10 @@ def phase_collocated():
     log(f"collocated: {COLLOC_ITERS} iterations in {wall:.2f}s wall "
         f"({sum(train_ms) / 1e3:.2f}s training, {wall - sum(train_ms) / 1e3:.2f}s filling "
         f"and control); loss {losses[0]:.4f} -> {losses[-1]:.4f}; train step "
-        f"{step_ms:.1f} ms mean = {TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} training tokens/s")
+        f"{step_ms:.1f} ms mean = {TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} training tokens/s "
+        f"(steps {', '.join(f'{t:.1f}' for t in train_ms)} ms; allocator retries "
+        f"{torch.cuda.memory_stats().get('num_alloc_retries', 0)}, reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB)")
     log(f"collocated: filled {m.offline_tokens_generated} offline tokens in "
         f"{m.offline_microsteps} microsteps and {online_tokens} online tokens "
         f"({m.online_served} requests, TTFT p95 {m.p95_ttft_s() * 1e3:.1f} ms, latency "
@@ -1577,7 +1688,7 @@ def phase_collocated():
     log(f"collocated launches: {json.dumps(counts)} (per train step: " + ", ".join(
         f"{k} {counts[k]['cuda'] / COLLOC_ITERS:.1f}"
         for k in ("flash_attention_fwd", "flash_attention_bwd")) + ")")
-    _profile_train(step, state, ds)
+    _dots_step(cfg, tcfg, state, ds)
     eparams = engine.params  # the initial weights, bf16
     del engine, rt
     _spec_collocated(cfg, eparams, timed_step, state, batches, profile, microstep_s)
@@ -1610,7 +1721,7 @@ def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
               for n, t in ((20, 0.0), (40, profile.iteration_s))]
     rt = SpecInFRuntime(train_step=step, train_state=state, batch_iter=batches,
                         profile=profile, engine=engine, online_requests=online,
-                        cfg=SpecInFConfig(upper_limit=COLLOC_UPPER_LIMIT),
+                        cfg=SpecInFConfig(),
                         decode_microstep_s=microstep_s)
     ops.reset_launch_counts()
     t0 = time.monotonic()
@@ -1641,13 +1752,85 @@ def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
     log(f"spec collocated launches: {json.dumps(counts)}")
 
 
-def _profile_train(step, state, ds):
-    """Where the train step's time goes: one more step under
-    ``torch.profiler`` -- device busy share of its wall time, the flash
-    kernels' share of the device time, and the top kernels."""
+def _dots_step(cfg, tcfg, state, ds):
+    """One more full-depth train step under ``remat_policy="dots"``: its
+    loss and gradient norm must equal those of ``"none"`` on the same
+    weights and batch (within LOSS_RTOL_BF16), and each layer's flash
+    forward must launch twice (again in the backward's recompute)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    batch = ds.next_batch()
+    params = state["params"]
+    inputs = torch.as_tensor(batch["inputs"], device="cuda")
+    labels = torch.as_tensor(batch["labels"], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = T.lm_loss(cfg, params, inputs, labels, remat_policy="none",
+                        compute_dtype=getattr(torch, tcfg.compute_dtype))
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    ref_loss = loss.item()
+    ref_gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads)).item()
+    none_peak = torch.cuda.max_memory_allocated() / 1e9
+    del loss, grads
+    step = make_train_step(cfg, dataclasses.replace(tcfg, remat_policy="dots"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.monotonic()  # a second step: the first may pay one-time costs
+    step(state, ds.next_batch())
+    torch.cuda.synchronize()
+    secs2 = time.monotonic() - t0
+    loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+    fwd, bwd = counts["flash_attention_fwd"]["cuda"], counts["flash_attention_bwd"]["cuda"]
+    log(f"dots train step: {secs * 1e3:.1f} ms (a second one {secs2 * 1e3:.1f} ms; "
+        f"allocator retries {torch.cuda.memory_stats().get('num_alloc_retries', 0)}), loss "
+        f"{loss:.6f} vs none {ref_loss:.6f}, grad norm {gnorm:.6f} vs none {ref_gnorm:.6f} "
+        f"(rtol {LOSS_RTOL_BF16:g}); flash forward {fwd}, backward {bwd} launches; peak "
+        f"device memory {peak:.2f} GB (none, loss and gradients only: {none_peak:.2f} GB)")
+    _require_launches("dots train step", counts, TRAIN_KERNELS)
+    layers = cfg.num_layers
+    if (fwd, bwd) != (2 * layers, layers):
+        raise AssertionError(f"dots train step: flash launches {fwd} / {bwd}, expected "
+                             f"{2 * layers} / {layers}")
+    for name, got, ref in (("loss", loss, ref_loss), ("grad norm", gnorm, ref_gnorm)):
+        if not abs(got - ref) <= LOSS_RTOL_BF16 * abs(ref):
+            raise AssertionError(f"dots train step: {name} {got} vs {ref} under 'none'")
+
+
+def _profile_train():
+    """Where the train step's time goes: phase 5's model and step, on fresh
+    weights after one warm-up step, for one step under ``torch.profiler``
+    -- device busy share of its wall time, the flash kernels' share of the
+    device time, and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("qwen3-1.7b")
+    tcfg = TrainConfig(warmup_steps=2, total_steps=COLLOC_ITERS + 2)
+    state = init_train_state(T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0),
+        dtype=getattr(torch, tcfg.param_dtype)))
+    step = make_train_step(cfg, tcfg)
+    ds = SyntheticDataset(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    step(state, ds.next_batch())
+    torch.cuda.synchronize()
     batch = ds.next_batch()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -1693,11 +1876,14 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_parity()
+    launches = phase_collocated()
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()
     ssm_launches = phase_ssm_serve()
-    launches = phase_collocated()
+    # the profiler sessions last: after one, every launch costs more on the host
+    _profile_train()
+    _flash_bwd_by_kernel(next(r for r in rows if r["name"] == "flash_attention_bwd"))
     for row in rows:
         # each kernel's launches on the run of its path: the spec kernels in
         # the spec serve run, the dense verify / tree verify in the dense

@@ -106,7 +106,7 @@ class TrainConfig:
     schedule: str = "cosine"  # "cosine" | "linear" | "constant"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat_policy: str = "none"  # "none" | "full" ("dots" is not ported yet)
+    remat_policy: str = "none"  # "none" | "dots" | "full"
     grad_compression: str = "none"  # "none" ("int8_ef" is not ported yet)
     microbatches: int = 1  # gradient accumulation
     seed: int = 0

@@ -153,8 +153,9 @@ def measure_dp_profile(
     ``comm_s = compute_s / 2``, the reference example's ratio.  The
     microstep is the wall time of one decode-only quantum of the largest
     fused size with ``probe_slots`` offline requests running, over its
-    size.  The probe's requests run to their end and leave the engine's
-    core empty.  Returns ``(profile, microstep_s)``."""
+    size, after one untimed quantum of that size (on CUDA it captures the
+    quantum's graph).  The probe's requests run to their end and leave the
+    engine's core empty.  Returns ``(profile, microstep_s)``."""
     device = engine.device
     for _ in range(2):
         t0 = time.monotonic()
@@ -167,10 +168,11 @@ def measure_dp_profile(
         raise ValueError("the microstep probe needs an engine with no requests")
     rng = np.random.default_rng(0)
     reqs = [core.submit(rng.integers(0, engine.cfg.vocab_size, 24).astype(np.int32),
-                        SamplingParams(max_new_tokens=1 + 2 * k),
+                        SamplingParams(max_new_tokens=1 + 3 * k),
                         priority=Priority.OFFLINE)
             for _ in range(probe_slots)]
     core.step()  # admits and prefills every probe request
+    core.step()  # the untimed quantum
     synchronize(device)
     t0 = time.monotonic()
     out = core.step()
@@ -180,7 +182,7 @@ def measure_dp_profile(
         core.step()
     decoded = sum(len(o.new_tokens) for o in out.outputs)
     if out.k != k or out.prefill_tokens or decoded != k * probe_slots or any(
-            len(r.output_tokens) != 1 + 2 * k for r in reqs):
+            len(r.output_tokens) != 1 + 3 * k for r in reqs):
         raise RuntimeError(
             f"microstep probe: quantum k={out.k}, prefill {out.prefill_tokens}, "
             f"{decoded} tokens decoded (expected k={k} over {probe_slots} slots)")

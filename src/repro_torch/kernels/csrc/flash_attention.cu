@@ -9,28 +9,67 @@
 // O = softmax(Q K^T * hd^-0.5, masked) V with the mask of the TPU kernel:
 // kpos < Sk, and under `causal` kpos <= qpos (top-left aligned; the caller
 // only passes causal with Sq == Sk).  KV tiles strictly above the diagonal
-// are never visited.  All math is fp32; inputs and outputs are T.
+// are never visited.  The forward also writes the row log-sum-exp LSE =
+// m + log(l) [BH, Sq] fp32, which the backward reads; a row that sees no
+// key gives zeros and LSE = -inf.  The backward is three kernels on the
+// stream and no atomics, so its result is deterministic: delta (D =
+// rowsum(dO * O), one warp per row), dkdv (one block per kv tile walks the
+// q tiles from the diagonal down) and dq (one block per q tile walks the
+// kv tiles up to the diagonal).  dq recomputes S and dP, 7 products in all
+// against the 5 of a single pass with atomic dQ; the two passes were kept
+// for determinism and because they need no fp32 dQ scratch or convert pass.
 //
-// Forward: one block per (q tile of BQ rows, bh) walks the KV tiles with
-// the online softmax (m, l in shared memory, the output accumulator in
-// registers) and writes O and the row log-sum-exp LSE = m + log(l) [BH, Sq]
-// fp32.  Backward, three kernels on the stream, no atomics (deterministic):
-//   delta  -- D = rowsum(dO * O), one warp per row;
-//   dkdv   -- one block per (kv tile, bh) walks the q tiles from the
-//             diagonal down, recomputes P = exp(S - LSE), and accumulates
-//             dV += P^T dO and dK += dS^T Q in registers, dS = P (dP - D);
-//   dq     -- one block per (q tile, bh) walks the kv tiles up to the
-//             diagonal and accumulates dQ += dS K in registers.
+// What bounds it on the card: at the training shape (B = 4, H = 16, S =
+// 1024, hd = 128, causal) the work is 17 GFLOP forward and 43 backward
+// against 67 and 134 MB of inputs and outputs: operations and bytes bound
+// it about equally, so the products must run on the tensor cores and the
+// loads must overlap them.  Two sets of kernels, chosen by dtype in the
+// entry points:
 //
-// Bound on the card: at the training shape (S = 1024, hd = 128) the work is
-// operations (S^2 hd per head against S hd bytes).  This first version runs
-// the products as fp32 FMAs on the CUDA cores from padded shared-memory
-// tiles (each thread a 4 x hd/16 or 4 x 4 register patch), with one block
-// per SM for want of shared memory; tensor-core tiles (mma.sync / wgmma)
-// and a cp.async / TMA ring are later work.
+// * bfloat16 (`tc::` below): the tensor cores, in CTAs of three
+//   warpgroups.  A producer warpgroup (registers lowered by setmaxnreg) has
+//   one thread issue TMA loads through 3-D tensor maps over [BH, S, hd]
+//   (the hardware zero-fills past each head's S) into tiles with the
+//   128-byte swizzle the wgmma descriptors read, through 2-stage rings with
+//   full / empty mbarriers; two consumer warpgroups of 64 rows each run
+//   wgmma with fp32 accumulators in registers and never touch global memory
+//   except in their epilogue, which stages the result in shared memory and
+//   stores 16 bytes per thread.
+//   - Forward: persistent CTAs, one per SM, walk the (128 q rows, bh)
+//     tiles heaviest first, so a tile's Q and first K / V load while the
+//     previous tile finishes.  S = Q K^T is wgmma m64n128k16 from shared
+//     memory; the online softmax runs in registers (quad shuffles, exp2
+//     with log2(e) folded into the scale, the mask only on diagonal and
+//     ragged tiles); O += P V takes P rounded to bf16 in registers as the A
+//     operand and V through an MN-major descriptor.
+//   - Backward: dkdv gives each consumer warpgroup 64 keys of a 128-key
+//     tile and streams 64-row Q / dO tiles (the producer's second warp
+//     writes their LSE / D rows): S^T = K Q^T and dP^T = V dO^T come out
+//     transposed, so P^T and dS^T, rounded to bf16 once, are the register
+//     A operands of dV += P^T dO and dK += dS^T Q.  dq gives each consumer
+//     warpgroup 64 rows of a 128-row q tile and streams 64-row K / V tiles:
+//     S, dP, then dQ += dS K with dS from registers.
+//   At the training shape neither pass comes near the 989 TFLOP/s peak: a
+//   CTA walks only 1-16 tiles, so its first loads, the diagonal tile's
+//   masked half and its epilogue weigh on it, and the first touch of every
+//   input comes from device memory.  At S = 4096 the same kernels do
+//   markedly more per second (`chip_smoke.py` times both shapes; PERF.md
+//   has the numbers).
+// * float32: the first version's FMA kernels, kept unchanged: each product
+//   an fp32 FMA on the CUDA cores from padded fp32 shared tiles.  The fp32
+//   parity checks hold them to 1e-4 of the plain version, which TF32 tensor
+//   cores (10-bit mantissa) would not meet, so fp32 does not take the
+//   tensor-core kernels.
+#include <algorithm>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: FMA kernels
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;  // a 16 x 16 thread grid
 constexpr int BQ = 64;         // query rows per tile
@@ -433,6 +472,646 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---- forward: TMA + wgmma, warp-specialised --------------------------------
+
+constexpr int FQ = 128;            // q rows per CTA: two consumer warpgroups of 64
+constexpr int FK = 128;            // kv rows per tile
+constexpr int kWsThreads = 384;   // producer warpgroup + 2 consumer warpgroups
+constexpr int kProducerRegs = 40;  // 128 * 40 + 256 * 232 <= 65536
+constexpr int kConsumerRegs = 232;
+
+// Shared layout (byte offsets from a 1024-aligned base): Q [FQ, hd], a
+// 2-stage ring of K and of V tiles [FK, hd], each tile stored as hd / 64
+// halves of [rows, 64] bf16 (128-byte rows, swizzled in 1024-byte atoms, as
+// the TMA writes them and the wgmma descriptors read them), the O tile
+// [FQ, hd] the epilogue stages (same layout), then the mbarriers: Q full,
+// Q empty, K full x2, V full x2, empty x2.  hd = 128 takes 192 KB.
+template <int HD>
+struct FwdSmem {
+  static constexpr int kQBytes = FQ * HD * 2;
+  static constexpr int kTileBytes = FK * HD * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + 2 * kTileBytes;
+  static constexpr int kO = kV + 2 * kTileBytes;
+  static constexpr int kBar = kO + kQBytes;
+  static constexpr int kBytes = kBar + 8 * 8 + 1024;  // + alignment slack
+};
+
+// The forward's CTAs are persistent: one per SM walks the (q tile, bh)
+// tiles, so that a tile's Q and first K / V load while the previous tile
+// finishes.  Tiles are numbered heaviest first (the last q tile of every
+// bh, then the one before, ...) and dealt out in rounds of gridDim.x, every
+// other round in reverse, so that the CTAs' sums of causal work come out
+// about even.  Returns the number of this CTA's n-th tile, or -1 past its
+// last.
+__device__ __forceinline__ int fwd_tile(int n, int tiles) {
+  const int g = gridDim.x, b = blockIdx.x;
+  const int i = n * g + (n & 1 ? g - 1 - b : b);
+  return i < tiles ? i : -1;
+}
+
+// An m64nN fp32 accumulator (wgmma layout) rounded to bf16 as the register
+// A operand of N / 16 k-steps: the accumulator layout of columns 16 kk ..
+// 16 kk + 15 is the register-A layout of k-step kk.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&acc)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = hop::pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+}
+
+// d (64 x HD) += a (64 x 16, registers) b (16 x HD, MN-major in shared memory).
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (HD == 128) {
+    hop::wgmma_rs_m64n128k16(d, a, desc_b, 1);
+  } else {
+    hop::wgmma_rs_m64n64k16(d, a, desc_b, 1);
+  }
+}
+
+// Epilogue of one warpgroup: its 64 x HD accumulator (wgmma layout; the
+// thread's first row times ma, its second times mb) goes as bf16 into rows
+// row0 .. row0 + 63 of a swizzled shared tile of `rows` rows (the layout
+// the TMA wrote), then out with 16-byte stores to rows grow0 .. of dst
+// ([nrows, HD]) below nrows.  `bar` names the warpgroup's barrier.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], float ma, float mb,
+                                           uint8_t* tile, int rows, int row0,
+                                           bf16* __restrict__ dst, int grow0, int nrows,
+                                           int bar) {
+  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r = row0 + 16 * (t / 32) + lane / 4;  // r + 8 has the same swizzle phase
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int byte =
+        (i / 8) * rows * 128 + r * 128 + (((i % 8) ^ (r & 7)) << 4) + 4 * (lane % 4);
+    *reinterpret_cast<uint32_t*>(tile + byte) =
+        hop::pack_bf16(acc[4 * i] * ma, acc[4 * i + 1] * ma);
+    *reinterpret_cast<uint32_t*>(tile + byte + 8 * 128) =
+        hop::pack_bf16(acc[4 * i + 2] * mb, acc[4 * i + 3] * mb);
+  }
+  hop::named_sync(bar, 128);
+  for (int idx = t; idx < 64 * CH; idx += 128) {
+    const int row = row0 + idx / CH, ch = idx % CH, g = grow0 + idx / CH;
+    if (g < nrows)
+      *reinterpret_cast<uint4*>(dst + (size_t)g * HD + ch * 8) = *reinterpret_cast<const uint4*>(
+          tile + (ch / 8) * rows * 128 + row * 128 + (((ch % 8) ^ (row & 7)) << 4));
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        bf16* __restrict__ out, float* __restrict__ lse, int BH, int Sq,
+                        int Sk, int causal, float scale) {
+  using L = FwdSmem<HD>;
+  constexpr int NH = HD / 64;       // 64-column halves of a row
+  constexpr int QHALF = FQ * 128;   // bytes of one half of the Q tile
+  constexpr int KHALF = FK * 128;   // bytes of one half of a K / V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hop::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  // mbarriers (+ 8 * stage for the ring): q_full counts the Q bytes, q_empty
+  // the 256 consumer threads done with a Q tile (after its last S), k / v
+  // the bytes of a ring stage, e the consumer threads done with a stage
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
+  const uint32_t bar_k = q_full + 16, bar_v = q_full + 32, bar_e = q_full + 48;
+
+  const int nq = (Sq + FQ - 1) / FQ, tiles = nq * BH;
+  const int nk_all = (Sk + FK - 1) / FK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    hop::mbar_init(q_empty, 256);
+    for (int s = 0; s < 2; ++s) {
+      hop::mbar_init(bar_k + 8 * s, 1);
+      hop::mbar_init(bar_v + 8 * s, 1);
+      hop::mbar_init(bar_e + 8 * s, 256);  // every consumer thread releases
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps Q and the ring full, tile after tile ----
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int j_all = 0;  // kv tiles loaded so far, over all of this CTA's tiles
+      for (int n = 0, i; (i = fwd_tile(n, tiles)) >= 0; ++n) {
+        const int bh = i % BH, q0 = (nq - 1 - i / BH) * FQ;
+        const int nk = causal ? min(nk_all, (q0 + FQ - 1) / FK + 1) : nk_all;
+        hop::mbar_wait(q_empty, (n & 1) ^ 1);  // the previous tile's last S is done
+        hop::mbar_arrive_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          hop::tma_load_3d(sQ + h * QHALF, &tm_q, q_full, 64 * h, q0, bh);
+        for (int j = 0; j < nk; ++j, ++j_all) {
+          const int s = j_all & 1;
+          hop::mbar_wait(bar_e + 8 * s, ((j_all >> 1) & 1) ^ 1);  // round 0 passes at once
+          const uint32_t dk = sK + s * L::kTileBytes, dv = sV + s * L::kTileBytes;
+          hop::mbar_arrive_expect_tx(bar_k + 8 * s, L::kTileBytes);
+#pragma unroll
+          for (int h = 0; h < NH; ++h)
+            hop::tma_load_3d(dk + h * KHALF, &tm_k, bar_k + 8 * s, 64 * h, j * FK, bh);
+          hop::mbar_arrive_expect_tx(bar_v + 8 * s, L::kTileBytes);
+#pragma unroll
+          for (int h = 0; h < NH; ++h)
+            hop::tma_load_3d(dv + h * KHALF, &tm_v, bar_v + 8 * s, 64 * h, j * FK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns rows c * 64 .. c * 64 + 63 of each tile ----
+  hop::setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1, t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;  // this thread's rows r0, r0 + 8 (of 64)
+  const float sl2 = scale * kLog2e;
+  int j_all = 0;
+  for (int n = 0, i; (i = fwd_tile(n, tiles)) >= 0; ++n) {
+    const int bh = i % BH, q0 = (nq - 1 - i / BH) * FQ;
+    const int nk = causal ? min(nk_all, (q0 + FQ - 1) / FK + 1) : nk_all;
+    const int qa = q0 + 64 * c + r0, qb = qa + 8;
+    // wgmma accumulator layout: register 4 i + e holds row r0 + 8 (e / 2),
+    // column 8 i + 2 (lane % 4) + e % 2
+    float o[HD / 2];
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    hop::mbar_wait(q_full, n & 1);
+    for (int j = 0; j < nk; ++j, ++j_all) {
+      const int s = j_all & 1, k0 = j * FK;
+      const uint32_t par = (j_all >> 1) & 1;
+      const uint32_t tk = sK + s * L::kTileBytes, tv = sV + s * L::kTileBytes;
+
+      // S = Q K^T (64 x 128 per warpgroup), both operands K-major in shared memory
+      float sc[FK / 2];
+      hop::mbar_wait(bar_k + 8 * s, par);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t koff = (kk % 4) * 32;  // k16 steps inside a 128-byte row
+        const uint64_t da = hop::make_desc(sQ + (kk / 4) * QHALF + c * 64 * 128 + koff, 16, 1024);
+        const uint64_t db = hop::make_desc(tk + (kk / 4) * KHALF + koff, 16, 1024);
+        hop::wgmma_ss_m64n128k16(sc, da, db, kk > 0);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      if (j == nk - 1) hop::mbar_arrive(q_empty);  // the next tile's Q may load
+
+      // the mask, only where a tile crosses Sk or (causal) this warpgroup's diagonal
+      if (k0 + FK > Sk || (causal && k0 + FK - 1 > q0 + 64 * c)) {
+#pragma unroll
+        for (int x = 0; x < FK / 8; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * x + 2 * (lane % 4) + (e & 1);
+            const int qpos = e < 2 ? qa : qb;
+            if (kpos >= Sk || (causal && kpos > qpos)) sc[4 * x + e] = -INFINITY;
+          }
+      }
+
+      // online softmax in registers: a row lives in the 4 threads of a quad
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int x = 0; x < FK / 8; ++x) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * x], sc[4 * x + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * x + 2], sc[4 * x + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // a row that has seen no key keeps m = -inf: subtract 0, not -inf (no NaN)
+      const float b0 = mx0 == -INFINITY ? 0.f : mx0 * sl2;
+      const float b1 = mx1 == -INFINITY ? 0.f : mx1 * sl2;
+      const float c0 = exp2f(m0 * sl2 - b0), c1 = exp2f(m1 * sl2 - b1);
+      m0 = mx0;
+      m1 = mx1;
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int x = 0; x < FK / 8; ++x) {
+        sc[4 * x] = exp2f(fmaf(sc[4 * x], sl2, -b0));
+        sc[4 * x + 1] = exp2f(fmaf(sc[4 * x + 1], sl2, -b0));
+        sc[4 * x + 2] = exp2f(fmaf(sc[4 * x + 2], sl2, -b1));
+        sc[4 * x + 3] = exp2f(fmaf(sc[4 * x + 3], sl2, -b1));
+        ls0 += sc[4 * x] + sc[4 * x + 1];
+        ls1 += sc[4 * x + 2] + sc[4 * x + 3];
+      }
+      l0 = l0 * c0 + ls0;  // per-thread partial sums; the quad adds them at the end
+      l1 = l1 * c1 + ls1;
+#pragma unroll
+      for (int x = 0; x < HD / 8; ++x) {
+        o[4 * x] *= c0;
+        o[4 * x + 1] *= c0;
+        o[4 * x + 2] *= c1;
+        o[4 * x + 3] *= c1;
+      }
+      uint32_t pa[FK / 16][4];  // P, rounded to bf16, as the A operand
+      pack_a<FK>(sc, pa);
+
+      // O += P V: V [keys, hd] is MN-major for this product
+      hop::mbar_wait(bar_v + 8 * s, par);
+      hop::fence_regs(o);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FK / 16; ++kk)
+        wgmma_rs_hd<HD>(o, pa[kk], hop::make_desc(tv + kk * 16 * 128, KHALF, 1024));
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(o);
+      hop::mbar_arrive(bar_e + 8 * s);  // this thread is done with stage s
+    }
+
+    // ---- epilogue: O / l as bf16 via this warpgroup's rows of the O tile ----
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float i0 = l0 > 0.f ? 1.f / l0 : 0.f, i1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    store_rows<HD>(o, i0, i1, gbase + L::kO, FQ, 64 * c, out + (size_t)bh * Sq * HD,
+                   q0 + 64 * c, Sq, 1 + c);
+    hop::named_sync(1 + c, 128);  // every row is out before the next tile's O lands
+    if (lane % 4 == 0) {
+      if (qa < Sq) lse[(size_t)bh * Sq + qa] = l0 > 0.f ? m0 * scale + logf(l0) : -INFINITY;
+      if (qb < Sq) lse[(size_t)bh * Sq + qb] = l1 > 0.f ? m1 * scale + logf(l1) : -INFINITY;
+    }
+  }
+}
+
+// ---- backward: TMA + wgmma, warp-specialised --------------------------------
+
+constexpr int BKN = 128;        // dkdv: key rows per CTA, two consumer warpgroups of 64
+constexpr int BQM = 64;         // dkdv: q rows per step
+constexpr int DQM = 128;        // dq: q rows per CTA, two consumer warpgroups of 64
+constexpr int DKN = 64;         // dq: key rows per step
+constexpr int kBwdProducerRegs = 24;   // 128 * 24 + 256 * 240 <= 65536
+constexpr int kBwdConsumerRegs = 240;
+
+// LSE in log2 units; +inf for a padding row or one that saw no key, so that
+// exp2(s - l2) = 0 there.
+__device__ __forceinline__ float lse_log2(float lse, bool valid) {
+  return valid && lse != -INFINITY ? lse * kLog2e : INFINITY;
+}
+
+// Shared layout of dkdv (byte offsets from a 1024-aligned base): the K and V
+// tiles [BKN, hd], a 2-stage ring of Q and of dO tiles [BQM, hd] (all as
+// hd / 64 swizzled halves, as in the forward), the ring's LSE (log2 units)
+// and D rows [2][BQM] fp32, then the mbarriers: K/V, full x2, empty x2.
+template <int HD>
+struct DkdvSmem {
+  static constexpr int kKVBytes = BKN * HD * 2;
+  static constexpr int kStepBytes = BQM * HD * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKVBytes;
+  static constexpr int kQ = kV + kKVBytes;
+  static constexpr int kG = kQ + 2 * kStepBytes;
+  static constexpr int kL = kG + 2 * kStepBytes;
+  static constexpr int kD = kL + 2 * BQM * 4;
+  static constexpr int kBar = kD + 2 * BQM * 4;
+  static constexpr int kBytes = kBar + 5 * 8 + 1024;  // + alignment slack
+};
+
+// One CTA per (kv tile of BKN rows, bh): consumer warpgroup c owns keys
+// c * 64 .. c * 64 + 63 and walks the q tiles from the diagonal down,
+// accumulating dV += P^T dO and dK += dS^T Q in registers.  S^T = K Q^T and
+// dP^T = V dO^T are computed transposed (keys as rows), so P^T and dS^T,
+// rounded to bf16 once, are the register A operands of the two products.
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, int Sq, int Sk, int causal,
+                             float scale) {
+  using L = DkdvSmem<HD>;
+  constexpr int NH = HD / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hop::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sK = base + L::kK, sV = base + L::kV, sQ = base + L::kQ, sG = base + L::kG;
+  float* sL = reinterpret_cast<float*>(gbase + L::kL);
+  float* sD = reinterpret_cast<float*>(gbase + L::kD);
+  // mbarriers (+ 8 * stage): full counts the TMA bytes and the 32 threads
+  // that write LSE / D, empty the 256 consumer threads done with a stage
+  const uint32_t bar_kv = base + L::kBar, full = bar_kv + 8, empty = bar_kv + 24;
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * BKN;  // kv tile 0 (the heaviest) first
+  const int nq = (Sq + BQM - 1) / BQM;
+  const int qt0 = causal ? k0 / BQM : 0;
+  const int nsteps = max(nq - qt0, 0);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(bar_kv, 1);
+    for (int s = 0; s < 2; ++s) {
+      hop::mbar_init(full + 8 * s, 1 + 32);
+      hop::mbar_init(empty + 8 * s, 256);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: thread 0 issues the TMA loads, warp 1 the LSE / D rows ----
+    hop::setmaxnreg_dec<kBwdProducerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      hop::mbar_arrive_expect_tx(bar_kv, 2 * L::kKVBytes);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        hop::tma_load_3d(sK + h * BKN * 128, &tm_k, bar_kv, 64 * h, k0, bh);
+        hop::tma_load_3d(sV + h * BKN * 128, &tm_v, bar_kv, 64 * h, k0, bh);
+      }
+      for (int it = 0; it < nsteps; ++it) {
+        const int s = it & 1, q0 = (qt0 + it) * BQM;
+        hop::mbar_wait(empty + 8 * s, ((it >> 1) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(full + 8 * s, 2 * L::kStepBytes);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          hop::tma_load_3d(sQ + s * L::kStepBytes + h * BQM * 128, &tm_q, full + 8 * s,
+                           64 * h, q0, bh);
+          hop::tma_load_3d(sG + s * L::kStepBytes + h * BQM * 128, &tm_g, full + 8 * s,
+                           64 * h, q0, bh);
+        }
+      }
+    } else if (warp == 1) {
+      const float* lb = lse + (size_t)bh * Sq;
+      const float* db = delta + (size_t)bh * Sq;
+      for (int it = 0; it < nsteps; ++it) {
+        const int s = it & 1, q0 = (qt0 + it) * BQM;
+        hop::mbar_wait(empty + 8 * s, ((it >> 1) & 1) ^ 1);
+        for (int r = lane; r < BQM; r += 32) {
+          const int q = q0 + r;
+          sL[s * BQM + r] = lse_log2(q < Sq ? lb[q] : 0.f, q < Sq);
+          sD[s * BQM + r] = q < Sq ? db[q] : 0.f;
+        }
+        hop::mbar_arrive(full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  hop::setmaxnreg_inc<kBwdConsumerRegs>();
+  const int c = wg - 1, t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;  // this thread's key rows r0, r0 + 8 (of 64)
+  const int ka = k0 + 64 * c + r0;
+  const float sl2 = scale * kLog2e;
+  const uint32_t krows = sK + c * 64 * 128, vrows = sV + c * 64 * 128;
+  float adk[HD / 2], adv[HD / 2];  // wgmma layout, rows = keys
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.f;
+
+  hop::mbar_wait(bar_kv, 0);
+  for (int it = 0; it < nsteps; ++it) {
+    const int s = it & 1, q0 = (qt0 + it) * BQM;
+    const uint32_t tq = sQ + s * L::kStepBytes, tg = sG + s * L::kStepBytes;
+    hop::mbar_wait(full + 8 * s, (it >> 1) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x BQM queries), K-major operands
+    float st[BQM / 2], dpt[BQM / 2];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t a = (kk / 4) * BKN * 128 + (kk % 4) * 32;
+      const uint32_t b = (kk / 4) * BQM * 128 + (kk % 4) * 32;
+      hop::wgmma_ss_m64n64k16(st, hop::make_desc(krows + a, 16, 1024),
+                              hop::make_desc(tq + b, 16, 1024), kk > 0);
+      hop::wgmma_ss_m64n64k16(dpt, hop::make_desc(vrows + a, 16, 1024),
+                              hop::make_desc(tg + b, 16, 1024), kk > 0);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(st);
+    hop::fence_regs(dpt);
+
+    // P^T = exp(S^T scale - LSE), dS^T = P^T (dP^T - D); the causal mask only
+    // where this warpgroup's last key lies past the step's first query
+    const bool diag = causal && k0 + 64 * c + 63 > q0;
+    const float* l2s = sL + s * BQM;
+    const float* dds = sD + s * BQM;
+#pragma unroll
+    for (int i = 0; i < BQM / 8; ++i)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int qc = 8 * i + 2 * (lane % 4) + e2;
+        const float l2 = l2s[qc], dd = dds[qc];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * i + 2 * h + e2;
+          float p = exp2f(fmaf(st[e], sl2, -l2));
+          if (diag && ka + 8 * h > q0 + qc) p = 0.f;
+          st[e] = p;
+          dpt[e] = p * (dpt[e] - dd);
+        }
+      }
+    uint32_t pa[BQM / 16][4], da[BQM / 16][4];
+    pack_a<BQM>(st, pa);
+    pack_a<BQM>(dpt, da);
+
+    // dV += P^T dO and dK += dS^T Q: dO and Q [q, hd] are MN-major B operands
+    hop::fence_regs(adv);
+    hop::fence_regs(adk);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQM / 16; ++kk) {
+      wgmma_rs_hd<HD>(adv, pa[kk], hop::make_desc(tg + kk * 16 * 128, BQM * 128, 1024));
+      wgmma_rs_hd<HD>(adk, da[kk], hop::make_desc(tq + kk * 16 * 128, BQM * 128, 1024));
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(adv);
+    hop::fence_regs(adk);
+    hop::mbar_arrive(empty + 8 * s);
+  }
+
+  // each warpgroup's rows of the K and V tiles stage its dK and dV
+  const size_t off = (size_t)bh * Sk * HD;
+  store_rows<HD>(adk, scale, scale, gbase + L::kK, BKN, 64 * c, dk + off, k0 + 64 * c, Sk,
+                 1 + c);
+  store_rows<HD>(adv, 1.f, 1.f, gbase + L::kV, BKN, 64 * c, dv + off, k0 + 64 * c, Sk, 1 + c);
+}
+
+// Shared layout of dq: the Q and dO tiles [DQM, hd], a 2-stage ring of K
+// and of V tiles [DKN, hd], then the mbarriers: Q / dO, full x2, empty x2.
+template <int HD>
+struct DqSmem {
+  static constexpr int kQBytes = DQM * HD * 2;
+  static constexpr int kStepBytes = DKN * HD * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kG = kQ + kQBytes;
+  static constexpr int kK = kG + kQBytes;
+  static constexpr int kV = kK + 2 * kStepBytes;
+  static constexpr int kBar = kV + 2 * kStepBytes;
+  static constexpr int kBytes = kBar + 5 * 8 + 1024;  // + alignment slack
+};
+
+// One CTA per (q tile of DQM rows, bh): consumer warpgroup c owns rows c * 64
+// .. c * 64 + 63 and walks the kv tiles up to the diagonal, recomputing S =
+// Q K^T and dP = dO V^T and accumulating dQ += dS K in registers.
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_g,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ dq,
+                           int Sq, int Sk, int causal, float scale) {
+  using L = DqSmem<HD>;
+  constexpr int NH = HD / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hop::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base + L::kQ, sG = base + L::kG, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar, full = bar_q + 8, empty = bar_q + 24;
+
+  const int nqt = (Sq + DQM - 1) / DQM;
+  const int bh = blockIdx.x, q0 = (nqt - 1 - (int)blockIdx.y) * DQM;  // heaviest first
+  const int nk_all = (Sk + DKN - 1) / DKN;
+  const int nk = causal ? min(nk_all, (q0 + DQM - 1) / DKN + 1) : nk_all;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      hop::mbar_init(full + 8 * s, 1);
+      hop::mbar_init(empty + 8 * s, 256);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hop::setmaxnreg_dec<kBwdProducerRegs>();
+    if (threadIdx.x == 0) {
+      hop::mbar_arrive_expect_tx(bar_q, 2 * L::kQBytes);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        hop::tma_load_3d(sQ + h * DQM * 128, &tm_q, bar_q, 64 * h, q0, bh);
+        hop::tma_load_3d(sG + h * DQM * 128, &tm_g, bar_q, 64 * h, q0, bh);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int s = j & 1;
+        hop::mbar_wait(empty + 8 * s, ((j >> 1) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(full + 8 * s, 2 * L::kStepBytes);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          hop::tma_load_3d(sK + s * L::kStepBytes + h * DKN * 128, &tm_k, full + 8 * s,
+                           64 * h, j * DKN, bh);
+          hop::tma_load_3d(sV + s * L::kStepBytes + h * DKN * 128, &tm_v, full + 8 * s,
+                           64 * h, j * DKN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<kBwdConsumerRegs>();
+  const int c = wg - 1, t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;
+  const int qa = q0 + 64 * c + r0;  // this thread's rows qa, qa + 8
+  const float sl2 = scale * kLog2e;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = qa + 8 * h;
+    l2[h] = lse_log2(q < Sq ? lse[(size_t)bh * Sq + q] : 0.f, q < Sq);
+    dd[h] = q < Sq ? delta[(size_t)bh * Sq + q] : 0.f;
+  }
+  const uint32_t qrows = sQ + c * 64 * 128, grows = sG + c * 64 * 128;
+  float adq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) adq[i] = 0.f;
+
+  hop::mbar_wait(bar_q, 0);
+  for (int j = 0; j < nk; ++j) {
+    const int s = j & 1, k0 = j * DKN;
+    const uint32_t tk = sK + s * L::kStepBytes, tv = sV + s * L::kStepBytes;
+    hop::mbar_wait(full + 8 * s, (j >> 1) & 1);
+
+    // S = Q K^T and dP = dO V^T (64 rows x DKN keys), K-major operands
+    float sc[DKN / 2], dp[DKN / 2];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t a = (kk / 4) * DQM * 128 + (kk % 4) * 32;
+      const uint32_t b = (kk / 4) * DKN * 128 + (kk % 4) * 32;
+      hop::wgmma_ss_m64n64k16(sc, hop::make_desc(qrows + a, 16, 1024),
+                              hop::make_desc(tk + b, 16, 1024), kk > 0);
+      hop::wgmma_ss_m64n64k16(dp, hop::make_desc(grows + a, 16, 1024),
+                              hop::make_desc(tv + b, 16, 1024), kk > 0);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+
+    // dS = P (dP - D), P = exp(S scale - LSE); keys past Sk are zero rows of
+    // K and V, so they add nothing to dQ
+    const bool diag = causal && k0 + DKN - 1 > q0 + 64 * c;
+#pragma unroll
+    for (int i = 0; i < DKN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, kpos = k0 + 8 * i + 2 * (lane % 4) + (e & 1);
+        float p = exp2f(fmaf(sc[4 * i + e], sl2, -l2[h]));
+        if (diag && kpos > qa + 8 * h) p = 0.f;
+        sc[4 * i + e] = p * (dp[4 * i + e] - dd[h]);
+      }
+    uint32_t da[DKN / 16][4];
+    pack_a<DKN>(sc, da);
+
+    // dQ += dS K: K [keys, hd] is an MN-major B operand
+    hop::fence_regs(adq);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DKN / 16; ++kk)
+      wgmma_rs_hd<HD>(adq, da[kk], hop::make_desc(tk + kk * 16 * 128, DKN * 128, 1024));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(adq);
+    hop::mbar_arrive(empty + 8 * s);
+  }
+
+  store_rows<HD>(adq, scale, scale, gbase + L::kQ, DQM, 64 * c, dq + (size_t)bh * Sq * HD,
+                 q0 + 64 * c, Sq, 1 + c);
+}
+
+}  // namespace tc
+
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -476,10 +1155,67 @@ cudaError_t run_bwd(const void* q, const void* k, const void* v,
                       static_cast<T*>(dq), Sq, Sk, causal, scale);
 }
 
+template <int HD>
+cudaError_t run_fwd_tc(const void* q, const void* k, const void* v, void* out,
+                       void* lse, int BH, int Sq, int Sk, int causal, void* stream) {
+  // tensor maps over [BH, S, hd]: encoded per call, since they hold the pointers
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = hop::make_map_3d(&mq, q, HD, Sq, BH, 64, tc::FQ);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HD, Sk, BH, 64, tc::FK);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HD, Sk, BH, 64, tc::FK);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;  // one persistent CTA per SM
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = BH * ((Sq + tc::FQ - 1) / tc::FQ);
+  return kern::launch(tc::flash_fwd_tc_kernel<HD>, dim3(std::min(tiles, sms)),
+                      tc::kWsThreads, (size_t)tc::FwdSmem<HD>::kBytes, stream, mq, mk, mv,
+                      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), BH, Sq,
+                      Sk, causal, 1.0f / sqrtf((float)HD));
+}
+
+template <int HD>
+cudaError_t run_bwd_tc(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const void* lse,
+                       void* delta, void* dq, void* dk, void* dv, int BH, int Sq,
+                       int Sk, int causal, void* stream) {
+  using bf16 = __nv_bfloat16;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const float* tl = static_cast<const float*>(lse);
+  float* td = static_cast<float*>(delta);
+  const int rows = BH * Sq, warps = kThreads / 32;
+  cudaError_t err = kern::launch(
+      flash_bwd_delta_kernel<bf16, HD>, dim3((rows + warps - 1) / warps), kThreads, 0,
+      stream, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), td, rows);
+  if (err != cudaSuccess) return err;
+  // dkdv streams q / dO tiles of BQM rows past kv tiles of BKN; dq the reverse
+  CUtensorMap mq, mk, mv, mg;
+  err = hop::make_map_3d(&mq, q, HD, Sq, BH, 64, tc::BQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mg, dout, HD, Sq, BH, 64, tc::BQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HD, Sk, BH, 64, tc::BKN);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HD, Sk, BH, 64, tc::BKN);
+  if (err != cudaSuccess) return err;
+  err = kern::launch(tc::flash_bwd_dkdv_tc_kernel<HD>, dim3(BH, (Sk + tc::BKN - 1) / tc::BKN),
+                     tc::kWsThreads, (size_t)tc::DkdvSmem<HD>::kBytes, stream, mq, mk, mv,
+                     mg, tl, (const float*)td, static_cast<bf16*>(dk),
+                     static_cast<bf16*>(dv), Sq, Sk, causal, scale);
+  if (err != cudaSuccess) return err;
+  err = hop::make_map_3d(&mq, q, HD, Sq, BH, 64, tc::DQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mg, dout, HD, Sq, BH, 64, tc::DQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HD, Sk, BH, 64, tc::DKN);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HD, Sk, BH, 64, tc::DKN);
+  if (err != cudaSuccess) return err;
+  return kern::launch(tc::flash_bwd_dq_tc_kernel<HD>, dim3(BH, (Sq + tc::DQM - 1) / tc::DQM),
+                      tc::kWsThreads, (size_t)tc::DqSmem<HD>::kBytes, stream, mq, mk, mv,
+                      mg, tl, (const float*)td, static_cast<bf16*>(dq), Sq, Sk, causal,
+                      scale);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128; Sq, Sk >= 1.
-// Returns a cudaError_t code.
+// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels); hd:
+// 64 or 128; Sq, Sk >= 1.  Returns a cudaError_t code.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out, void* lse,
                                           int BH, int Sq, int Sk, int hd,
@@ -494,9 +1230,9 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   if (dtype == 0 && hd == 128)
     return run_fwd<float, 128>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
   if (dtype == 1 && hd == 64)
-    return run_fwd<__nv_bfloat16, 64>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
+    return run_fwd_tc<64>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
   if (dtype == 1 && hd == 128)
-    return run_fwd<__nv_bfloat16, 128>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
+    return run_fwd_tc<128>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -517,10 +1253,10 @@ extern "C" int flash_attention_bwd_launch(
     return run_bwd<float, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH,
                                Sq, Sk, causal, stream);
   if (dtype == 1 && hd == 64)
-    return run_bwd<__nv_bfloat16, 64>(q, k, v, out, dout, lse, delta, dq, dk,
-                                      dv, BH, Sq, Sk, causal, stream);
+    return run_bwd_tc<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Sq,
+                          Sk, causal, stream);
   if (dtype == 1 && hd == 128)
-    return run_bwd<__nv_bfloat16, 128>(q, k, v, out, dout, lse, delta, dq, dk,
-                                       dv, BH, Sq, Sk, causal, stream);
+    return run_bwd_tc<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Sq,
+                           Sk, causal, stream);
   return cudaErrorInvalidValue;
 }

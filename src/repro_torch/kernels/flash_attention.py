@@ -4,12 +4,23 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``; body ``_flash_kernel``), which has no backward.  The
 kernels are ``csrc/flash_attention.cu``: the forward walks the KV tiles of
-one 64-row q tile with the online softmax and also writes the row
-log-sum-exp; the backward recomputes the probabilities from it (dK/dV per
-kv tile, dQ per q tile, no atomics).  Layout q/k/v [B, H, S, hd] with the
-heads already expanded for GQA; the causal mask is top-left (``kpos <=
-qpos``), so ``causal=True`` needs Sq == Sk.  On the card the work is bound
-by operations at the training shape (S = 1024, hd = 128).
+a q tile with the online softmax and also writes the row log-sum-exp; the
+backward recomputes the probabilities from it (D = rowsum(dO * O), then
+dK/dV per kv tile and dQ per q tile: no atomics, deterministic).  Layout
+q/k/v [B, H, S, hd] with the heads already expanded for GQA; the causal
+mask is top-left (``kpos <= qpos``), so ``causal=True`` needs Sq == Sk.
+
+On the card, operations and bytes bound the work about equally at the
+training shape (S = 1024, hd = 128), so the products belong on the tensor
+cores with the loads overlapping them.  bfloat16 runs the tensor-core
+kernels: warp-specialised CTAs in which one producer thread keeps TMA
+loads in flight through mbarrier rings while two consumer warpgroups run
+``wgmma`` (the forward persistent, its softmax in registers; the backward
+recomputing P from the log-sum-exp).  float32 runs the first version's
+FMA kernels on the CUDA cores, since the fp32 parity checks hold it to
+1e-4, which TF32 products would not meet.  Either way a CUDA tensor
+launches a kernel or raises; the plain version runs only for CPU
+tensors.
 
 ``FWD_COUNTS`` / ``BWD_COUNTS``: ``"cuda"`` counts kernel launches,
 ``"torch"`` calls of the plain version's forward and of its backward (an

@@ -291,6 +291,13 @@ def launch_counts() -> dict:
     return {name: dict(counts) for name, counts in _COUNTS.items()}
 
 
+def add_launch_counts(launches: dict) -> None:
+    """Add kernel launches made without a wrapper call, by kernel name: a
+    CUDA graph's replay launches again what its capture recorded."""
+    for name, n in launches.items():
+        _COUNTS[name]["cuda"] += n
+
+
 def reset_launch_counts() -> None:
     for counts in _COUNTS.values():
         for key in counts:

@@ -3,12 +3,13 @@ forward and loss (dense), and the serving path (both).
 
 Counterpart of ``repro.models.transformer`` for what the trainer and the
 serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
-``forward`` / ``lm_loss`` (dense, with remat policies ``"none"`` and
-``"full"``), ``init_paged_cache`` and ``init_cache`` (dense rows, or the
-Mamba1 conv / SSM state), ``decode_step``, the fused ``decode_loop``,
-``prefill_chunks_into_slots`` on either KV layout, monolithic bucket
-prefill (``prefill``, ``prefill_into_slot``, ``prefill_into_slot_paged``,
-``prefill_suffix_into_slot``), and ``decode_chunk``, the speculative
+``forward`` / ``lm_loss`` (dense, with remat policies ``"none"``,
+``"dots"`` and ``"full"``), ``init_paged_cache`` and ``init_cache`` (dense
+rows, or the Mamba1 conv / SSM state), ``decode_step``, the fused
+``decode_loop``, ``prefill_chunks_into_slots`` on either KV layout,
+monolithic bucket prefill (``prefill``, ``prefill_into_slot``,
+``prefill_into_slot_paged``, ``prefill_suffix_into_slot``), and
+``decode_chunk``, the speculative
 target's chunk / tree verify pass on either KV layout.  The reference's
 ``lax.scan`` over stacked layer weights becomes a Python loop over the
 ``[L, ...]`` stacks; its donated caches become in-place updates of the
@@ -19,7 +20,11 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -143,8 +148,21 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 # Forward (train / logits over the full sequence) and loss
 # ---------------------------------------------------------------------------
 
-#: remat policies the port runs ("dots" is not ported yet)
-REMAT_POLICIES = ("none", "full")
+#: remat policies: keep every activation, save only the projection
+#: matmuls' outputs, or recompute each layer in the backward
+REMAT_POLICIES = ("none", "dots", "full")
+#: the ops whose outputs "dots" saves: matrix products with no batch dims
+#: (the projections; attention's batched products and kernels are recomputed),
+#: as ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def _unstack(stacked: Params) -> list:
@@ -180,16 +198,14 @@ def forward(
     fp32 weights with ``ndim > 1`` are cast to ``compute_dtype`` inside the
     forward (differentiably, so their gradients arrive in fp32).
     ``remat_policy="full"`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``) instead of keeping its activations."""
+    (``torch.utils.checkpoint``) instead of keeping its activations;
+    ``"dots"`` keeps only the outputs of its projection matmuls and
+    recomputes the rest (norms, RoPE, attention, activations)."""
     if cfg.family == "ssm":
         raise NotImplementedError(
             "Mamba1 training (a backward of the selective scan) is not ported yet"
         )
     _require_dense(cfg)
-    if remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (save matmul outputs only) is not ported yet"
-        )
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if inputs.is_floating_point():
@@ -198,6 +214,9 @@ def forward(
     for lp in _unstack(cast_params(params["layers"], compute_dtype)):
         if remat_policy == "full":
             x = checkpoint(_dense_layer, cfg, lp, x, impl, use_reentrant=False)
+        elif remat_policy == "dots":
+            x = checkpoint(_dense_layer, cfg, lp, x, impl, use_reentrant=False,
+                           context_fn=_dots_context)
         else:
             x = _dense_layer(cfg, lp, x, impl)
     x = L.norm(cfg, x, params.get("final_norm"))

@@ -13,7 +13,9 @@ fixed 32-token chunks through ONE batched prefill program per wave;
 admission, zero-padded to a power-of-two bucket (``prefill_into_slot``; on
 a radix hit only the suffix, through the paged verify pass).  Decode runs
 ``k`` greedy microsteps per dispatch with a single device -> host fetch at
-the end.
+the end; on CUDA the paged layout's plain decode loop is captured once per
+``k`` as a CUDA graph and replayed (``DecodeGraph``), since its eager form
+is paced by the host's launches of some 2,000 small ops per microstep.
 
 Speculation (``spec``): a ``draft_cfg`` / ``draft_params`` pairing keeps the
 draft model in a dense cache (``T.init_cache``) whose prompt streams through
@@ -52,6 +54,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, SpecDecodeConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.obs import Observability
 from repro_torch.serving.kv_pool import PageAllocError, PagePool, RadixCache
@@ -86,6 +89,57 @@ _RECURRENT_SPEC = (
     "speculation with a recurrent (Mamba1) target or draft is not ported yet "
     "(ROADMAP: Mamba1 training and recurrent speculation)"
 )
+
+
+class DecodeGraph:
+    """``T.decode_loop`` over every slot for one ``k``, captured as a CUDA
+    graph and replayed on the current stream.
+
+    The capture reads static copies of the token vector, the index, the
+    budgets and the block tables, which ``replay`` refills first; the
+    weights and the KV pools are read and written where they live.  A
+    warm-up run on a side stream precedes the capture (lazy library set-up);
+    like an eager dispatch it writes each slot's K/V at its current index,
+    which the slot's next real step writes again.  The kernel launches the
+    capture records are counted at each replay, not at the capture, which
+    launches nothing."""
+
+    def __init__(self, engine: "InferenceEngine", k: int):
+        self.pool_ptrs = engine._pool_ptrs()
+        self.tokens = engine.tokens.clone()
+        self.remaining = torch.zeros_like(self.tokens)
+        self.cache = dict(engine.cache, index=engine.cache["index"].clone(),
+                          block_tables=engine.cache["block_tables"].clone())
+        kw = dict(k=k, max_seq=engine.max_seq, compute_dtype=engine.compute_dtype,
+                  attn_impl=engine.attn_impl)
+        cfg, params = engine.cfg, engine.params
+        stream = torch.cuda.current_stream(engine.device)
+        side = torch.cuda.Stream(engine.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            T.decode_loop(cfg, params, self.tokens, self.cache, self.remaining, **kw)
+        stream.wait_stream(side)
+        before = ops.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = T.decode_loop(cfg, params, self.tokens, self.cache, self.remaining, **kw)
+        after = ops.launch_counts()
+        self.launches = {n: after[n]["cuda"] - before[n]["cuda"] for n in after}
+        ops.add_launch_counts({n: -c for n, c in self.launches.items()})
+
+    def replay(self, tokens, cache, remaining):
+        """``T.decode_loop``'s outputs for these inputs; the token vector
+        and the index come back as new tensors, the rest stay the graph's
+        (read them before the next replay)."""
+        self.tokens.copy_(tokens)
+        self.remaining.copy_(remaining)
+        self.cache["index"].copy_(cache["index"])
+        self.cache["block_tables"].copy_(cache["block_tables"])
+        self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        tokens, new_cache, rem, toks_seq, steps, bad = self.out
+        return (tokens.clone(), dict(cache, index=new_cache["index"].clone()), rem,
+                toks_seq, steps, bad)
 
 
 class RegistryCounterView:
@@ -193,6 +247,9 @@ class InferenceEngine:
         )
         self.clock: Callable[[], float] = clock or time.monotonic
         self.attn_impl = decode_impl
+        # {k: DecodeGraph}, built for every size at the first plain decode
+        # dispatch
+        self._decode_graphs: dict = {}
         self.min_prefill_bucket = MIN_PREFILL_BUCKET
 
         if prefill_chunk is None:
@@ -853,6 +910,15 @@ class InferenceEngine:
         return tok
 
     # ------------------------------------------------------------------
+    @property
+    def decode_graphs(self) -> bool:
+        """Whether the plain decode loop replays CUDA graphs: on CUDA, on the
+        paged layout, with the kernels (``decode_impl`` not "torch")."""
+        return self.device.type == "cuda" and self.paged and self.attn_impl != "torch"
+
+    def _pool_ptrs(self) -> tuple:
+        return tuple(t.data_ptr() for t in self.cache["layers"].values())
+
     def _remaining(self) -> np.ndarray:
         """[B] token budgets of the RUNNING slots (0 elsewhere)."""
         remaining = np.zeros((self.max_slots,), np.int32)
@@ -872,12 +938,23 @@ class InferenceEngine:
             return []  # every slot is mid-prefill: nothing to decode
         if self.paged:
             self._top_up_pages(k)
-        tokens, cache, rem, toks_seq, steps, bad = T.decode_loop(
-            self.cfg, self.params, self.tokens, self.cache,
-            torch.tensor(self._remaining(), device=self.device), k=k,
-            max_seq=self.max_seq, compute_dtype=self.compute_dtype,
-            attn_impl=self.attn_impl,
-        )
+        remaining = torch.tensor(self._remaining(), device=self.device)
+        if self.decode_graphs:
+            graph = self._decode_graphs.get(k)
+            if graph is None or graph.pool_ptrs != self._pool_ptrs():
+                # every size at once: a capture grows the allocator's pools,
+                # which should not land between later (training) steps
+                self._decode_graphs = {
+                    n: DecodeGraph(self, n) for n in sorted({*DECODE_K_BUCKETS, k})}
+                graph = self._decode_graphs[k]
+            tokens, cache, rem, toks_seq, steps, bad = graph.replay(
+                self.tokens, self.cache, remaining)
+        else:
+            tokens, cache, rem, toks_seq, steps, bad = T.decode_loop(
+                self.cfg, self.params, self.tokens, self.cache, remaining, k=k,
+                max_seq=self.max_seq, compute_dtype=self.compute_dtype,
+                attn_impl=self.attn_impl,
+            )
         self.tokens, self.cache = tokens, cache
         b = self.max_slots
         fetched = torch.cat([

@@ -188,3 +188,20 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         TEngine(CFG, params_from_numpy(NP_PARAMS, device="cpu"))
+
+
+def test_decode_graphs_only_on_cuda_and_replays_count_launches():
+    """The CPU never captures decode graphs (they need the kernels on a
+    card); a replay's launches land in the counters through
+    ``ops.add_launch_counts``."""
+    from repro_torch.kernels import ops
+
+    engine = TEngine(CFG, params_from_numpy(NP_PARAMS, device="cpu"), max_slots=2,
+                     max_seq=64, device="cpu")
+    assert engine.paged and not engine.decode_graphs
+    ops.reset_launch_counts()
+    ops.add_launch_counts({"paged_decode_attention": 3, "flash_attention_fwd": 0})
+    counts = ops.launch_counts()
+    assert counts["paged_decode_attention"] == {"cuda": 3, "torch": 0}
+    assert counts["flash_attention_fwd"] == {"cuda": 0, "torch": 0}
+    ops.reset_launch_counts()

@@ -202,7 +202,9 @@ def test_measured_dp_profile_leaves_the_engine_empty():
     assert int(state["opt"]["step"]) == 2
     assert not torch.equal(state["params"]["embed"], embed0)
     assert not engine.core.has_unfinished
-    assert sum(len(r.output_tokens) for r in engine.core.requests.values()) == 4 * 17
+    # four probe requests of 1 + 3 k tokens: prefill, an untimed and a timed
+    # k = 8 quantum, then the rest
+    assert sum(len(r.output_tokens) for r in engine.core.requests.values()) == 4 * 25
 
 
 # ---------------------------------------------------------------------------

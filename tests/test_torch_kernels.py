@@ -128,11 +128,15 @@ def test_cuda_impl_raises_on_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 FLASH_CASES = [
-    # (seed, sq, sk, causal, block): S a multiple of the block, and ragged
-    (0, 128, 128, True, 32),
-    (1, 100, 100, True, 32),
-    (2, 64, 64, False, 32),
-    (3, 48, 80, False, 32),
+    # (seed, sq, sk, causal, block, hd): S a multiple of the block, ragged,
+    # shorter than a block (the smallest monolithic prefill bucket), and a
+    # wider head
+    (0, 128, 128, True, 32, 16),
+    (1, 100, 100, True, 32, 16),
+    (2, 64, 64, False, 32, 16),
+    (3, 48, 80, False, 32, 16),
+    (4, 8, 8, True, 32, 16),
+    (5, 40, 72, False, 32, 64),
 ]
 
 
@@ -140,11 +144,11 @@ FLASH_CASES = [
 def test_flash_plain_matches_pallas(case):
     from repro.kernels.flash_attention import flash_attention as jflash
 
-    seed, sq, sk, causal, block = case
+    seed, sq, sk, causal, block, hd = case
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((1, 2, sq, 16)).astype(np.float32)
-    k = rng.standard_normal((1, 2, sk, 16)).astype(np.float32)
-    v = rng.standard_normal((1, 2, sk, 16)).astype(np.float32)
+    q = rng.standard_normal((1, 2, sq, hd)).astype(np.float32)
+    k = rng.standard_normal((1, 2, sk, hd)).astype(np.float32)
+    v = rng.standard_normal((1, 2, sk, hd)).astype(np.float32)
     ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
                  block_q=block, block_k=block, interpret=True)
     out = tflash.flash_attention_torch(_t(q), _t(k), _t(v), causal=causal)

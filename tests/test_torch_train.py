@@ -70,14 +70,16 @@ def _batch(vocab, seed=1):
     return toks[:, :-1], toks[:, 1:]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_lm_loss_and_grads_match_reference(arch):
+def _check_loss_and_grads(arch, remat_policy):
+    """The port's ``lm_loss`` and gradients against ``jax.value_and_grad`` of
+    the reference's, both under ``remat_policy``."""
     jcfg, cfg, np_params = _setup(arch)
     inputs, labels = _batch(cfg.vocab_size)
 
     def jloss(p):
         return JT.lm_loss(jcfg, p, jnp.asarray(inputs), jnp.asarray(labels),
-                          impl="xla", compute_dtype=jnp.float32)
+                          impl="xla", remat_policy=remat_policy,
+                          compute_dtype=jnp.float32)
 
     (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)(
         jax.tree.map(jnp.asarray, np_params)
@@ -86,7 +88,8 @@ def test_lm_loss_and_grads_match_reference(arch):
     for p in tree_leaves(params):
         p.requires_grad_(True)
     loss, metrics = T.lm_loss(cfg, params, torch.from_numpy(inputs),
-                              torch.from_numpy(labels), compute_dtype=torch.float32)
+                              torch.from_numpy(labels), remat_policy=remat_policy,
+                              compute_dtype=torch.float32)
     grads = torch.autograd.grad(loss, tree_leaves(params))
     assert abs(loss.item() - float(jl)) <= 1e-5
     assert abs(metrics["ce"].item() - float(jm["ce"])) <= 1e-5
@@ -97,6 +100,15 @@ def test_lm_loss_and_grads_match_reference(arch):
         scale = float(np.abs(ref).max())
         err = float(np.abs(tg[name] - ref).max())
         assert err <= 1e-4 * max(scale, 1e-12), (name, err, scale)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_loss_and_grads_match_reference(arch):
+    _check_loss_and_grads(arch, "none")
+
+
+def test_dots_remat_loss_and_grads_match_reference():
+    _check_loss_and_grads("qwen3-1.7b", "dots")
 
 
 def test_forward_logits_match_reference():
@@ -110,23 +122,24 @@ def test_forward_logits_match_reference():
     assert float(metrics["moe_aux"]) == 0.0
 
 
-def test_full_remat_matches_no_remat_and_dots_raises():
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_matches_no_remat(policy):
     _, cfg, np_params = _setup("qwen3-1.7b")
     inputs, labels = (torch.from_numpy(a) for a in _batch(cfg.vocab_size))
     out = {}
-    for policy in ("none", "full"):
+    for name in ("none", policy):
         params = params_from_numpy(np_params, device="cpu")
         for p in tree_leaves(params):
             p.requires_grad_(True)
-        loss, _ = T.lm_loss(cfg, params, inputs, labels, remat_policy=policy,
+        loss, _ = T.lm_loss(cfg, params, inputs, labels, remat_policy=name,
                             compute_dtype=torch.float32)
-        out[policy] = (loss, torch.autograd.grad(loss, tree_leaves(params)))
-    assert torch.equal(out["none"][0], out["full"][0])
-    for a, b in zip(out["none"][1], out["full"][1]):
+        out[name] = (loss, torch.autograd.grad(loss, tree_leaves(params)))
+    assert torch.equal(out["none"][0], out[policy][0])
+    for a, b in zip(out["none"][1], out[policy][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="dots"):
+    with pytest.raises(ValueError, match="remat_policy"):
         T.forward(cfg, params_from_numpy(np_params, device="cpu"), inputs,
-                  remat_policy="dots")
+                  remat_policy="offload")
 
 
 # ---------------------------------------------------------------------------
