@@ -16,14 +16,17 @@ Phases, each printing a line before the last:
                  calls; pages gathered first, an explicit boolean mask for
                  verify and tree) and the bound the card's memory rate and
                  peak give for the same work: the paged decode / chunked-
-                 prefill kernels at the serving shapes, flash attention
+                 prefill kernels at the serving shapes (the prefill also
+                 checked at GQA group 7, hd 64 and C = 64), flash attention
                  forward and backward at the training shape (plus a ragged
                  case, a non-causal case at hd 128 and 64, the smallest
                  monolithic prefill bucket and a sequence shorter than one q
                  tile; TFLOP/s and the share of the bound; the same at B=1,
                  S=4096), the dense decode /
                  chunked prefill at the
-                 draft model's shapes (plus a GQA case), the paged verify for
+                 draft model's shapes (plus a GQA case; the prefill also at
+                 the dense target's H = 16, timed there too, and at group 7,
+                 hd 64 and C = 64 with chunks past S), the paged verify for
                  T = 2, 3, 5 and at the suffix prefill's bucket sizes T = 64,
                  128 (lengths up to and past the table), the paged tree
                  verify for a chain (bit-equal to verify at T = 5), a
@@ -50,7 +53,8 @@ Phases, each printing a line before the last:
                  with its default settings.  Losses must be finite and
                  fall, offline tokens must be produced, online requests
                  must finish, and the paged and flash kernels must have
-                 launched (plain versions never).  One step under
+                 launched (plain versions never), every chunked prefill
+                 through the tensor-core body.  One step under
                  ``remat_policy="dots"`` must give the loss and gradient
                  norm of ``"none"`` and launch the flash forward twice per
                  layer.  Then the training goes on for ``SPEC_COLLOC_ITERS``
@@ -61,7 +65,9 @@ Phases, each printing a line before the last:
                  costs more on the host, and its times are host-paced.
 6. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
                  through ``EngineCore.step()``; every request must finish and
-                 both paged kernels must have launched (plain versions never).
+                 both paged kernels must have launched (plain versions never),
+                 each bf16 chunked prefill through the tensor-core body (as in
+                 phases 5, 7 and 8).
 7. spec serve -- the same model and requests, paired with its 1-layer draft
                  model and ``proposer="auto"``; every request must finish, the
                  router must have run both proposers, and the dense decode,
@@ -81,7 +87,8 @@ Then, under ``torch.profiler``, one train step of phase 5's model (the
 device's busy share and the flash kernels' share of device time)
 and the flash backward's three kernels one by one; one
 ``{"kernels": [...]}`` line (launches from the run of each
-kernel's path: the speculative kernels' from the spec serve run, the dense
+kernel's path: the speculative kernels' from the spec serve run -- the
+dense prefill's also from the dense target serve run --, the dense
 verify and tree verify from the dense target serve run, the scan from the
 ssm serve run, the others' from the collocated run) and, last, the
 ``{"ok": true, ...}`` line.  Any failed
@@ -130,6 +137,11 @@ DECODE_LENGTHS = [512, 300, 0, 17, 1, 256, 511, 100]
 PREFILL_STARTS = [0, 64, 100, 480, 0, 33, 256, 16]
 PREFILL_LENS = [32, 0, 17, 32, 1, 5, 32, 20]
 SHARED_PAGES = 4  # slot 1's first pages are slot 0's (a radix-shared prefix)
+# chunked prefill at C = 64 (two q tiles of 64 rows at group 2); on the
+# dense cache slots 3 and 7 run past S
+PREFILL_STARTS_C64 = [0, 64, 100, 448, 0, 33, 256, 16]
+PREFILL_STARTS_C64_DENSE = [0, 64, 100, 480, 0, 33, 256, 490]
+PREFILL_LENS_C64 = [64, 0, 17, 64, 1, 5, 63, 40]
 # flash attention: the training shape (batch 4 x seq 1024, qwen3's 16 heads
 # of 128 after the GQA expand), plus a ragged case, a non-causal case at
 # both head dims, the smallest monolithic prefill bucket and a sequence
@@ -190,6 +202,20 @@ def _require_launches(phase, counts, kernels):
         if c["torch"] != 0 or (name in kernels and c["cuda"] <= 0):
             raise AssertionError(f"{phase}: {name} launches {c} (each of {kernels} "
                                  f"must launch, no plain version may run)")
+
+
+def _require_tc_prefill(phase, counts):
+    """Every chunked-prefill launch of the phase's bf16 run took the
+    tensor-core body (``ops.body_counts``, read with ``counts``).  Returns
+    the body counts for the phase's log line."""
+    from repro_torch.kernels import ops
+
+    bodies = ops.body_counts()
+    for name, by in bodies.items():
+        if by["fma"] != 0 or by["tc"] != counts[name]["cuda"]:
+            raise AssertionError(f"{phase}: {name} bodies {by} for {counts[name]['cuda']} "
+                                 f"launches (bf16 at hd 128 must take the tensor-core body)")
+    return bodies
 
 
 # ---------------------------------------------------------------------------
@@ -260,13 +286,13 @@ def _time_ms(fn, reps: int = 30) -> float:
     return times[len(times) // 2]
 
 
-def _pool_inputs(dtype, seed: int = 0):
+def _pool_inputs(dtype, seed: int = 0, hd: int = HD):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     pool_n = 1 + B * NCOLS
-    k_pool = torch.randn((pool_n, PAGE, KVH, HD), generator=g, device="cuda").to(dtype)
-    v_pool = torch.randn((pool_n, PAGE, KVH, HD), generator=g, device="cuda").to(dtype)
+    k_pool = torch.randn((pool_n, PAGE, KVH, hd), generator=g, device="cuda").to(dtype)
+    v_pool = torch.randn((pool_n, PAGE, KVH, hd), generator=g, device="cuda").to(dtype)
     perm = torch.randperm(pool_n - 1, generator=g, device="cuda") + 1
     bt = perm.reshape(B, NCOLS).to(torch.int32)
     bt[1, :SHARED_PAGES] = bt[0, :SHARED_PAGES]
@@ -291,6 +317,21 @@ def _bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     peak = PEAK_FLOPS_BF16 if dtype == torch.bfloat16 else PEAK_FLOPS_FP32
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _prefill_cases(dense=False):
+    """(label, keyword arguments of a prefill ``make_inputs`` factory): the
+    chunked-prefill kernels' extra check shapes -- GQA group 7 (H = 56 over
+    kvH = 8: 224 rows, 3.5 tiles of 64), hd 64, and C = 64 (two q tiles at
+    group 2; on the dense cache two chunks also run past S)."""
+    import torch
+
+    def i32(xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    c64_starts = PREFILL_STARTS_C64_DENSE if dense else PREFILL_STARTS_C64
+    return (("", {}), (" (group 7, H=56)", {"h": 56}), (" (hd 64)", {"hd": 64}),
+            (" (C=64)", {"c": 64, "st": i32(c64_starts), "cl": i32(PREFILL_LENS_C64)}))
 
 
 def _check_kernel(name, kernel, plain, make_inputs):
@@ -368,20 +409,23 @@ def phase_kernels():
     log(f"kernel paged_decode_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
 
-    # ---- paged chunked prefill ---------------------------------------------
+    # ---- paged chunked prefill: the serving shape, then the shapes the
+    # tensor-core body must also take (group 7, hd 64, two q tiles) ----------
     starts = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device="cuda")
     clens = torch.tensor(PREFILL_LENS, dtype=torch.int32, device="cuda")
 
-    def prefill_inputs(dtype):
-        g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=1)
-        q = torch.randn((B, CHUNK, H, HD), generator=g, device="cuda").to(dtype)
-        return q, k_pool, v_pool, bt, starts, clens
+    def prefill_inputs(h=H, hd=HD, c=CHUNK, st=starts, cl=clens):
+        def make(dtype):
+            g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=1, hd=hd)
+            q = torch.randn((B, c, h, hd), generator=g, device="cuda").to(dtype)
+            return q, k_pool, v_pool, bt, st, cl
+        return make
 
-    errs = _check_kernel(
-        "paged_prefill_attention", pre.paged_prefill_attention,
-        pre.paged_prefill_attention_torch, prefill_inputs,
-    )
-    q, k_pool, v_pool, bt, _, _ = prefill_inputs(torch.bfloat16)
+    errs = _worst(*[
+        _check_kernel(f"paged_prefill_attention{label}", pre.paged_prefill_attention,
+                      pre.paged_prefill_attention_torch, prefill_inputs(**kw))
+        for label, kw in _prefill_cases()])
+    q, k_pool, v_pool, bt, _, _ = prefill_inputs()(torch.bfloat16)
     k_ms = _time_ms(lambda: pre.paged_prefill_attention(q, k_pool, v_pool, bt, starts, clens))
     p_ms = _time_ms(
         lambda: pre.paged_prefill_attention_torch(q, k_pool, v_pool, bt, starts, clens)
@@ -404,6 +448,15 @@ def phase_kernels():
     flops = sum(4 * HD * H * (s + j + 1)
                 for s, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
     bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    # what paces the launch: the same chunks with every slot's prefix cut
+    # to its first 64-key tile, and the longest slot alone
+    zeros = torch.zeros_like(starts)
+    longest = int(torch.argmax(starts + clens))
+    alone = torch.where(torch.arange(B, device="cuda") == longest, clens, zeros)
+    one_tile_ms = _time_ms(lambda: pre.paged_prefill_attention(q, k_pool, v_pool, bt, zeros,
+                                                               clens))
+    alone_ms = _time_ms(lambda: pre.paged_prefill_attention(q, k_pool, v_pool, bt, starts,
+                                                            alone))
     rows.append({
         "name": "paged_prefill_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
@@ -411,10 +464,12 @@ def phase_kernels():
         "launches": 0, "max_abs_err": errs["bfloat16"],
         "max_abs_err_fp32": errs["float32"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": l_ms,
+        "library_ms": l_ms, "ms_one_tile_prefixes": one_tile_ms,
+        "ms_longest_slot_alone": alone_ms,
     })
     log(f"kernel paged_prefill_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by}); every prefix cut to one "
+        f"tile {one_tile_ms:.4f} ms, slot {longest} alone {alone_ms:.4f} ms")
     return rows + _flash_rows() + _spec_rows() + _dense_target_rows() + _ssm_rows()
 
 
@@ -613,12 +668,12 @@ def _kernel_ms_by_name(fn, names, reps: int = 30) -> dict:
     return {n: sorted(t)[len(t) // 2] if t else None for n, t in times.items()}
 
 
-def _dense_inputs(dtype, seed):
+def _dense_inputs(dtype, seed, hd=HD):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k = torch.randn((B, DENSE_S, KVH, HD), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, DENSE_S, KVH, HD), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, DENSE_S, KVH, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, DENSE_S, KVH, hd), generator=g, device="cuda").to(dtype)
     return g, k, v
 
 
@@ -684,36 +739,52 @@ def _spec_rows():
                      "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms,
                      bound, by))
 
-    # ---- dense chunked prefill (#4): the draft's chunk wave -------------------
+    # ---- dense chunked prefill (#4): the draft's chunk wave (H = 8) and, on
+    # the dense target layout, the target's (H = 16), plus the shapes the
+    # tensor-core body must also take -----------------------------------------
     starts = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device="cuda")
     clens = torch.tensor(PREFILL_LENS, dtype=torch.int32, device="cuda")
 
-    def prefill_inputs(dtype):
-        g, k, v = _dense_inputs(dtype, seed=3)
-        q = torch.randn((B, CHUNK, DRAFT_H, HD), generator=g, device="cuda").to(dtype)
-        return q, k, v, starts, clens
+    def prefill_inputs(h=DRAFT_H, hd=HD, c=CHUNK, st=starts, cl=clens):
+        def make(dtype):
+            g, k, v = _dense_inputs(dtype, seed=3, hd=hd)
+            q = torch.randn((B, c, h, hd), generator=g, device="cuda").to(dtype)
+            return q, k, v, st, cl
+        return make
 
-    errs = _check_kernel("prefill_attention", dp.prefill_attention,
-                         dp.prefill_attention_torch, prefill_inputs)
-    q, k, v, _, _ = prefill_inputs(torch.bfloat16)
-    k_ms = _time_ms(lambda: dp.prefill_attention(q, k, v, starts, clens))
-    p_ms = _time_ms(lambda: dp.prefill_attention_torch(q, k, v, starts, clens))
+    cases = [("", {}), (" (dense target, H=16)", {"h": H})] + [
+        (label, {"h": H, **kw}) for label, kw in _prefill_cases(dense=True)[1:]]
+    errs = _worst(*[_check_kernel(f"prefill_attention{label}", dp.prefill_attention,
+                                  dp.prefill_attention_torch, prefill_inputs(**kw))
+                    for label, kw in cases])
     t = torch.arange(CHUNK, device="cuda")
     kpos = torch.arange(DENSE_S, device="cuda")
     mask = (kpos[None, None, :] <= (starts[:, None] + t[None, :])[:, :, None]) & (
         t[None, :, None] < clens[:, None, None])
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           attn_mask=mask[:, None]))
     needed = [s + c if c else 0 for s, c in zip(PREFILL_STARTS, PREFILL_LENS)]
-    nbytes = (sum(PREFILL_LENS) * DRAFT_H * HD * isz + B * CHUNK * DRAFT_H * HD * isz
-              + 2 * sum(needed) * KVH * HD * isz + 2 * B * 4)
-    flops = sum(4 * HD * DRAFT_H * (s + j + 1)
-                for s, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
-    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
-    rows.append(_row("prefill_attention", "prefill_attention.cu",
-                     "src/repro/kernels/prefill_attention.py:144", errs, k_ms, p_ms, l_ms,
-                     bound, by))
+    timed = {}
+    for h in (DRAFT_H, H):  # the draft's heads, then the dense target's
+        q, k, v, _, _ = prefill_inputs(h=h)(torch.bfloat16)
+        k_ms = _time_ms(lambda: dp.prefill_attention(q, k, v, starts, clens))
+        p_ms = _time_ms(lambda: dp.prefill_attention_torch(q, k, v, starts, clens))
+        qt = q.transpose(1, 2)
+        kt = k.transpose(1, 2).repeat_interleave(h // KVH, 1)
+        vt = v.transpose(1, 2).repeat_interleave(h // KVH, 1)
+        l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                               attn_mask=mask[:, None]))
+        nbytes = (sum(PREFILL_LENS) * h * HD * isz + B * CHUNK * h * HD * isz
+                  + 2 * sum(needed) * KVH * HD * isz + 2 * B * 4)
+        flops = sum(4 * HD * h * (s + j + 1)
+                    for s, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
+        timed[h] = (k_ms, p_ms, l_ms, *_bound_ms(nbytes, flops, torch.bfloat16))
+    row = _row("prefill_attention", "prefill_attention.cu",
+               "src/repro/kernels/prefill_attention.py:144", errs, *timed[DRAFT_H])
+    k_ms, p_ms, l_ms, bound, by = timed[H]
+    log(f"kernel prefill_attention (dense target, H={H}): {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    row.update(ms_target=k_ms, plain_ms_target=p_ms, library_ms_target=l_ms,
+               bound_ms_target=bound)
+    rows.append(row)
 
     # ---- paged verify (#7) and tree verify (#9): the target's verify pass ----
     vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
@@ -1298,6 +1369,7 @@ def phase_serve():
         if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
             raise AssertionError("serve: token id out of the vocabulary")
     _require_launches("serve", counts, SERVE_KERNELS)
+    bodies = _require_tc_prefill("serve", counts)
     tokens = sum(len(r.output_tokens) for r in reqs)
     ttft = m.histogram("core/online_ttft_s")
     lat = m.histogram("core/online_latency_s")
@@ -1310,7 +1382,8 @@ def phase_serve():
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"serve launches: {json.dumps(counts)} "
         f"(per generated token: " + ", ".join(
-            f"{k} {v['cuda'] / tokens:.2f}" for k, v in counts.items()) + ")")
+            f"{k} {v['cuda'] / tokens:.2f}" for k, v in counts.items()) + "); "
+        f"prefill bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg)
     return {name: c["cuda"] for name, c in counts.items()}
 
@@ -1423,6 +1496,7 @@ def phase_spec_serve():
         per[name] = (rounds, m.counter(f"spec/proposer/accepted/{name}").value,
                      m.counter(f"spec/proposer/proposed/{name}").value)
     _require_launches("spec serve", counts, SPEC_KERNELS + ("paged_prefill_attention",))
+    bodies = _require_tc_prefill("spec serve", counts)
     tokens = sum(len(r.output_tokens) for r in reqs)
     ttft = m.histogram("core/online_ttft_s")
     lat = m.histogram("core/online_latency_s")
@@ -1438,7 +1512,7 @@ def phase_spec_serve():
         f"acceptance "
         f"{engine.spec_acceptance_rate:.4f}; per proposer (rounds, accepted, proposed): "
         f"{per}; router switches {m.counter('spec/proposer/router_switches').value}")
-    log(f"spec serve launches: {json.dumps(counts)}")
+    log(f"spec serve launches: {json.dumps(counts)}; prefill bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg, "spec serve")
     return {name: c["cuda"] for name, c in counts.items()}
 
@@ -1484,13 +1558,15 @@ def phase_dense_target_serve():
         if m.counter(f"spec/proposer/rounds/{name}").value <= 0:
             raise AssertionError(f"dense target serve: the router ran no {name} round")
     _require_launches("dense target serve", counts, DENSE_TARGET_KERNELS)
+    bodies = _require_tc_prefill("dense target serve", counts)
     tokens = sum(len(r.output_tokens) for r in reqs)
     per = {n: tuple(m.counter(f"spec/proposer/{w}/{n}").value
                     for w in ("rounds", "accepted", "proposed")) for n in ("draft", "ngram")}
     log(f"dense target serve: {_serve_summary(m, reqs, tokens, secs)}; kv cache "
         f"{engine.kv_cache_bytes() / 1e9:.3f} GB; spec rounds {engine.spec_rounds}; per "
         f"proposer (rounds, accepted, proposed): {per}")
-    log(f"dense target serve launches: {json.dumps(counts)}")
+    log(f"dense target serve launches: {json.dumps(counts)}; prefill bodies "
+        f"{json.dumps(bodies)}")
     _profile_serve(engine, cfg, "dense target serve")
     del engine
     gc.collect()
@@ -1501,6 +1577,7 @@ def phase_dense_target_serve():
     _check_finished("dense target serve, monolithic prefill", reqs, 8, cfg)
     _require_launches("dense target serve, monolithic prefill", mono,
                       ("flash_attention_fwd",))
+    _require_tc_prefill("dense target serve, monolithic prefill", mono)
     log(f"dense target serve, monolithic prefill: {len(reqs)} requests in {secs:.3f}s; "
         f"launches {json.dumps({k: v['cuda'] for k, v in mono.items() if v['cuda']})}")
     return {name: c["cuda"] for name, c in counts.items()}
@@ -1668,6 +1745,7 @@ def phase_collocated():
         raise AssertionError(f"collocated: {m.online_served} of {len(online)} online "
                              f"requests finished")
     _require_launches("collocated", counts, SERVE_KERNELS + TRAIN_KERNELS)
+    bodies = _require_tc_prefill("collocated", counts)
     online_tokens = m.obs.metrics.counter("core/generated_tokens/online").value
     total = sum(m.phase_counts.values())
     shares = {k: round(v / total, 4) for k, v in sorted(m.phase_counts.items())}
@@ -1687,7 +1765,8 @@ def phase_collocated():
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"collocated launches: {json.dumps(counts)} (per train step: " + ", ".join(
         f"{k} {counts[k]['cuda'] / COLLOC_ITERS:.1f}"
-        for k in ("flash_attention_fwd", "flash_attention_bwd")) + ")")
+        for k in ("flash_attention_fwd", "flash_attention_bwd")) + "); prefill bodies "
+        f"{json.dumps(bodies)}")
     _dots_step(cfg, tcfg, state, ds)
     eparams = engine.params  # the initial weights, bf16
     del engine, rt
@@ -1740,6 +1819,7 @@ def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
         raise AssertionError(f"spec collocated: {m.offline_tokens_generated} offline "
                              f"tokens, {m.spec_rounds} spec rounds")
     _require_launches("spec collocated", counts, TRAIN_KERNELS)
+    _require_tc_prefill("spec collocated", counts)
     total = sum(m.phase_counts.values())
     shares = {k: round(v / total, 4) for k, v in sorted(m.phase_counts.items())}
     log(f"spec collocated: {SPEC_COLLOC_ITERS} iterations in {wall:.2f}s wall; loss "
@@ -1891,6 +1971,8 @@ def main() -> int:
         # collocated run
         if row["name"] in SPEC_KERNELS:
             row["launches"] = spec_launches[row["name"]]
+            if row["name"] == "prefill_attention":
+                row["launches_dense_target"] = dense_launches[row["name"]]
         elif row["name"] in ("verify_attention", "tree_verify_attention"):
             row["launches"] = dense_launches[row["name"]]
         elif row["name"] in SSM_KERNELS:

@@ -35,13 +35,13 @@ SIGNATURES = {
         ("paged_decode_attention_launch", [_P] * 8 + [_I] * 10 + [_P]),
     ),
     "paged_prefill_attention": (
-        ("paged_prefill_attention_launch", [_P] * 7 + [_I] * 10 + [_P]),
+        ("paged_prefill_attention_launch", [_P] * 7 + [_I] * 11 + [_P]),
     ),
     "decode_attention": (
         ("decode_attention_launch", [_P] * 7 + [_I] * 10 + [_P]),
     ),
     "prefill_attention": (
-        ("prefill_attention_launch", [_P] * 6 + [_I] * 10 + [_P]),
+        ("prefill_attention_launch", [_P] * 6 + [_I] * 11 + [_P]),
     ),
     "paged_verify_attention": (
         ("paged_verify_attention_launch", [_P] * 8 + [_I] * 11 + [_P]),

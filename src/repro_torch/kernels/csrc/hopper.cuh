@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the kernels that run
 // on the tensor cores: mbarriers, TMA tile loads and the tensor map they
-// read, warpgroup MMA (`wgmma`) with its shared-memory descriptors and
-// register fences, `setmaxnreg` and named barriers.  Only the
-// flash-attention library includes it today.
+// read, `cp.async` copies with zero-fill and the proxy fence that hands
+// their data to `wgmma`, warpgroup MMA (`wgmma`) with its shared-memory
+// descriptors and register fences, `setmaxnreg` and named barriers.  The
+// flash-attention library and the chunked-prefill libraries include it.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
@@ -111,6 +112,31 @@ inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, uint64_t d0,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- cp.async ----------------------------------------------------------------
+
+// 16 bytes from global to shared memory; the bytes past `src_bytes` (0 or
+// 16) arrive as zeros (src must still be a valid global address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory (cp.async,
+// st.shared) visible to the async proxy that `wgmma` reads through; a
+// barrier after it publishes them to the warpgroup.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- warpgroup MMA ---------------------------------------------------------

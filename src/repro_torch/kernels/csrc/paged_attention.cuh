@@ -30,12 +30,16 @@
 //
 // Bound: at serving batch sizes every variant is bound by device-memory
 // bytes (each K/V row read once per kv head feeds 2 * group * hd FMAs per
-// chunk row).  The design reads each needed tile once per block with 16-byte
+// chunk row).  This body reads each needed tile once per block with 16-byte
 // vector loads, stops at the last useful tile, and spreads the work over
 // enough blocks to fill the SMs (decode and verify: tiles split over blocks;
-// prefill: 8 chunk rows per block).  It does not overlap the next tile's
-// loads with the current tile's math (no cp.async / TMA ring) and uses fp32
-// FMAs, not the tensor cores -- later work.
+// prefill: block_q = 8 chunk rows per block).  It does not overlap the next
+// tile's loads with the current tile's math and uses fp32 FMAs on the CUDA
+// cores.  Decode, verify and tree verify run it in every dtype; the chunked
+// prefill runs it only in fp32 (held to 1e-4, which TF32 products would not
+// meet) and at head dims other than 64 / 128.  The bf16 chunked prefill
+// runs the tensor-core body of prefill_tc.cuh instead: 64-row `wgmma`
+// tiles, the softmax in registers, a `cp.async` ring over 64-key tiles.
 #pragma once
 
 #include "common.cuh"
@@ -56,6 +60,18 @@ struct PagedKV {
   __device__ size_t base(int pi, int page, size_t row_stride) const {
     return (size_t)table[pi] * page * row_stride;
   }
+  // element offset of key position kpos (< kend)
+  __device__ size_t row(int kpos, int page, size_t row_stride) const {
+    return ((size_t)table[kpos / page] * page + kpos % page) * row_stride;
+  }
+  // The block's threads copy the table entries of key positions below kmax
+  // to shared memory `dst`, which row() reads from then on; a barrier must
+  // follow.
+  __device__ void stage(int* dst, int kmax, int page) {
+    for (int i = threadIdx.x; i < (kmax + page - 1) / page; i += blockDim.x)
+      dst[i] = __ldg(table + i);
+    table = dst;
+  }
 };
 
 // K/V of a slot in a dense [B, S, kvH, hd] cache: tile `pi` is rows
@@ -67,6 +83,10 @@ struct DenseKV {
   __device__ size_t base(int pi, int page, size_t row_stride) const {
     return slot_base + (size_t)pi * page * row_stride;
   }
+  __device__ size_t row(int kpos, int, size_t row_stride) const {
+    return slot_base + (size_t)kpos * row_stride;
+  }
+  __device__ void stage(int*, int, int) {}  // nothing to stage
 };
 
 // Chunk row t sees kpos <= start + t.

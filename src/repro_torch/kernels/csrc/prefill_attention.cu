@@ -4,17 +4,24 @@
 // `prefill_attention` (Pallas body `_prefill_kernel`): chunk query t of slot
 // b attends kpos <= starts[b] + t over the slot's rows of a dense
 // [B, S, kvH, hd] cache (kpos < S); rows t >= chunk_lens give zeros;
-// chunk_lens is clamped to C; tiles past a q block's causal bound
-// starts + min((qi + 1) * block_q, chunk_lens) are never read.  On the
-// serving path it is the draft model's chunk prefill.
+// chunk_lens is clamped to C; rows past a q tile's causal bound
+// starts + min(last row + 1, chunk_lens) are never read.  On the serving
+// path it is the draft model's chunk prefill and, on the dense target
+// layout, the target's.
 //
-// The paged prefill kernel's body over another KV address
-// (`paged::DenseKV`: a tile is 16 consecutive cache rows, the last one cut
-// at S) -- see paged_attention.cuh.  Grid (q blocks, kv heads, slots); one
-// block per (slot, kv head, block_q chunk rows).  Bound on the card:
-// device-memory bytes (each needed K/V row read once); the blocks of one
-// slot re-read its rows, mostly from L2.  fp32 FMAs on CUDA cores.
-#include "paged_attention.cuh"
+// The paged prefill kernel's two bodies over another KV address
+// (`paged::DenseKV`: key kpos is row kpos of the slot's cache, cut at S).
+// Bound on the card: device-memory bytes (each needed K/V row read once per
+// kv head) and the latency of walking the longest slot's rows.  The caller
+// picks the body from dtype and head dim (`body`):
+//   * bf16 at hd 64 / 128: the tensor-core body of prefill_tc.cuh -- one
+//     warpgroup per (64 q rows, kv head, slot), `wgmma` products, the
+//     softmax in registers, 64-row KV tiles by `cp.async` into a 2-stage
+//     ring;
+//   * fp32 or another head dim: the FMA body of paged_attention.cuh over
+//     16-row tiles (block_q chunk rows per block), which the fp32 parity
+//     checks hold to 1e-4.
+#include "prefill_tc.cuh"
 
 namespace {
 
@@ -37,6 +44,23 @@ __global__ void __launch_bounds__(paged::kThreads)
                                   scale, epi);
 }
 
+template <int HD>
+__global__ void __launch_bounds__(prefill_tc::kThreads)
+    dense_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const int* __restrict__ starts,
+                            const int* __restrict__ chunk_lens,
+                            __nv_bfloat16* __restrict__ out, int C, int H,
+                            int kvh, int S, float scale) {
+  const int qt = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int clen = min(max(chunk_lens[b], 0), C);
+  const size_t qoff = (size_t)b * C * H * HD;
+  const paged::DenseKV kv{(size_t)b * S * kvh * HD, 0, S};
+  prefill_tc::attend_tile<HD>(q + qoff, k, v, kv, 0, starts[b], clen, C, H,
+                              kvh, head, qt, scale, out + qoff);
+}
+
 template <typename T>
 cudaError_t run(const void* q, const void* k, const void* v,
                 const void* starts, const void* chunk_lens, void* out, int B,
@@ -52,20 +76,40 @@ cudaError_t run(const void* q, const void* k, const void* v,
       hd, S, tile, block_q, 1.0f / sqrtf((float)hd));
 }
 
+template <int HD>
+cudaError_t run_tc(const void* q, const void* k, const void* v,
+                   const void* starts, const void* chunk_lens, void* out,
+                   int B, int C, int H, int kvh, int S, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return kern::launch(
+      dense_prefill_tc_kernel<HD>,
+      dim3(prefill_tc::q_tiles(C, H / kvh), kvh, B), prefill_tc::kThreads,
+      prefill_tc::smem_bytes<HD>(0), stream, static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(starts), static_cast<const int*>(chunk_lens),
+      static_cast<bf16*>(out), C, H, kvh, S, 1.0f / sqrtf((float)HD));
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  tile must be a multiple of 4.
-// Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16.  body: 0 = the FMA body (any dtype;
+// tile a multiple of 4), 1 = the tensor-core body (bfloat16, hd 64 or 128;
+// tile unused).  Returns a cudaError_t code.
 extern "C" int prefill_attention_launch(const void* q, const void* k,
                                         const void* v, const void* starts,
                                         const void* chunk_lens, void* out,
                                         int B, int C, int H, int kvh, int hd,
                                         int S, int tile, int block_q,
-                                        int dtype, int device, void* stream) {
+                                        int dtype, int body, int device,
+                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || C == 0) return cudaSuccess;
-  if (tile % 4 != 0) return cudaErrorInvalidValue;
+  if (body == 1 && dtype == 1 && hd == 64)
+    return run_tc<64>(q, k, v, starts, chunk_lens, out, B, C, H, kvh, S, stream);
+  if (body == 1 && dtype == 1 && hd == 128)
+    return run_tc<128>(q, k, v, starts, chunk_lens, out, B, C, H, kvh, S, stream);
+  if (body != 0 || tile % 4 != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return run<float>(q, k, v, starts, chunk_lens, out, B, C, H, kvh, hd, S,
                       tile, block_q, stream);

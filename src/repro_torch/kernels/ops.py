@@ -285,10 +285,24 @@ _COUNTS = {
 }
 
 
+#: launch counters by kernel body, for the kernels with more than one
+_BODY_COUNTS = {
+    "paged_prefill_attention": _prefill.BODY_COUNTS,
+    "prefill_attention": _dense_prefill.BODY_COUNTS,
+}
+
+
 def launch_counts() -> dict:
     """Kernel launches and plain-version calls since the last reset, by
     kernel name."""
     return {name: dict(counts) for name, counts in _COUNTS.items()}
+
+
+def body_counts() -> dict:
+    """Kernel launches since the last reset by kernel name and body
+    (``"tc"``: tensor cores, ``"fma"``: CUDA cores), for the chunked-prefill
+    kernels, which pick their body from dtype and head dim."""
+    return {name: dict(counts) for name, counts in _BODY_COUNTS.items()}
 
 
 def add_launch_counts(launches: dict) -> None:
@@ -299,6 +313,6 @@ def add_launch_counts(launches: dict) -> None:
 
 
 def reset_launch_counts() -> None:
-    for counts in _COUNTS.values():
+    for counts in (*_COUNTS.values(), *_BODY_COUNTS.values()):
         for key in counts:
             counts[key] = 0

@@ -3,16 +3,21 @@ plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/paged_prefill_attention.py``
 (``paged_prefill_attention``; body ``_prefill_kernel``).  The kernel is
-``csrc/paged_prefill_attention.cu``: one block per (slot, kv head, block of
-``BLOCK_Q`` chunk rows) walks the slot's pages up to the block's causal
-bound ``starts + min((qi + 1) * BLOCK_Q, chunk_lens)``, with the fp32
-online-softmax state of its ``BLOCK_Q * group`` rows in shared memory.
-``BLOCK_Q`` is 8, against the TPU kernel's 32, so a 32-token chunk wave
-spreads over 4x the blocks.  On the card it is bound by the bytes of the
-K/V pages it must read.
+``csrc/paged_prefill_attention.cu``: the slot's pages are read through its
+block-table row up to a q tile's causal bound
+``starts + min(last row + 1, chunk_lens)``.  On the card it is bound by
+the bytes of the K/V pages it must read and by the latency of walking the
+longest slot's pages.  The body comes from dtype and head dim alone
+(``prefill_attention.prefill_body``): bfloat16 at hd 64 or 128 runs the
+tensor-core body (one warpgroup per 64 query rows of a kv head, ``wgmma``
+products, 64-key tiles of four 16-row pages gathered by ``cp.async`` into
+a 2-stage ring); float32 and other head dims run the FMA body (``BLOCK_Q``
+chunk rows per block, fp32 state in shared memory), which the fp32 parity
+checks hold to 1e-4.
 
 ``COUNTS["cuda"]`` counts kernel launches, ``COUNTS["torch"]`` calls of the
 plain version; ``repro_torch.kernels.ops`` reads and resets them.
+``BODY_COUNTS`` splits the launches by body.
 """
 from __future__ import annotations
 
@@ -20,10 +25,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode_attention import gather_pages
-from repro_torch.kernels.prefill_attention import prefill_core
+from repro_torch.kernels.prefill_attention import BODY_CODES, prefill_body, prefill_core
 
 COUNTS = {"cuda": 0, "torch": 0}
-#: chunk rows per block (the TPU kernel's ``block_q`` is 32)
+#: kernel launches by body ("tc": tensor cores, "fma": CUDA cores)
+BODY_COUNTS = {"tc": 0, "fma": 0}
+#: chunk rows per block of the FMA body (the TPU kernel's ``block_q`` is 32)
 BLOCK_Q = 8
 
 
@@ -62,17 +69,19 @@ def paged_prefill_attention(
     _check(q, k_pool, v_pool, block_tables, starts, chunk_lens)
     b, c, h, hd = q.shape
     _, page, kvh, _ = k_pool.shape
+    body = prefill_body(q.dtype, hd)
     out = torch.empty_like(q)
     lib = build.load("paged_prefill_attention")
     err = lib.paged_prefill_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), starts.data_ptr(), chunk_lens.data_ptr(),
         out.data_ptr(), b, c, h, kvh, hd, page, block_tables.shape[1],
-        min(BLOCK_Q, c), build.DTYPE_CODES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        min(BLOCK_Q, c), build.DTYPE_CODES[q.dtype], BODY_CODES[body],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch(lib, err, "paged_prefill_attention")
     COUNTS["cuda"] += 1
+    BODY_COUNTS[body] += 1
     return out
 
 

@@ -3,18 +3,29 @@ plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/prefill_attention.py``
 (``prefill_attention``; body ``_prefill_kernel``).  The kernel is
-``csrc/prefill_attention.cu``: the paged chunked-prefill kernel's body over a
-dense ``[B, S, kvH, hd]`` cache -- one block per (slot, kv head, block of
-``BLOCK_Q`` chunk rows) walks the slot's 16-row tiles up to the block's
-causal bound ``starts + min((qi + 1) * BLOCK_Q, chunk_lens)``, with the fp32
-online-softmax state of its ``BLOCK_Q * group`` rows in shared memory.  On
-the serving path it is the draft model's chunk prefill.  On the card it is
-bound by the bytes of the K/V rows it must read.
+``csrc/prefill_attention.cu``, the paged chunked-prefill kernel's bodies
+over a dense ``[B, S, kvH, hd]`` cache.  On the serving path it is the
+draft model's chunk prefill and, on the dense target layout, the target's.
+On the card it is bound by the bytes of the K/V rows it must read and by
+the latency of walking the longest slot's prefix.  ``prefill_body`` picks
+one of two bodies from dtype and head dim alone:
+
+* ``"tc"`` (bfloat16 at hd 64 or 128; ``csrc/prefill_tc.cuh``): one
+  warpgroup per (64 query rows, kv head, slot) -- the ``C * group`` rows of
+  a kv head fill ``ceil(C * group / 64)`` tiles -- runs S = Q K^T and P V
+  on the tensor cores (``wgmma``) with the online softmax in registers,
+  walking 64-key tiles up to the tile's causal bound through a 2-stage
+  ``cp.async`` ring;
+* ``"fma"`` (float32, or another head dim): one block per (slot, kv head,
+  ``BLOCK_Q`` chunk rows) with the fp32 online-softmax state of its
+  ``BLOCK_Q * group`` rows in shared memory and fp32 FMAs on the CUDA
+  cores, which the fp32 parity checks hold to 1e-4 (TF32 products would
+  not meet it).
 
 ``prefill_core`` is the plain math, shared with the paged prefill's plain
 version.  ``COUNTS["cuda"]`` counts kernel launches, ``COUNTS["torch"]``
 calls of the plain version; ``repro_torch.kernels.ops`` reads and resets
-them.
+them.  ``BODY_COUNTS`` splits the launches by body.
 """
 from __future__ import annotations
 
@@ -24,8 +35,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import NEG_INF, TILE
 
 COUNTS = {"cuda": 0, "torch": 0}
-#: chunk rows per block (the TPU kernel's ``block_q`` is 32)
+#: kernel launches by body ("tc": tensor cores, "fma": CUDA cores)
+BODY_COUNTS = {"tc": 0, "fma": 0}
+#: chunk rows per block of the FMA body (the TPU kernel's ``block_q`` is 32)
 BLOCK_Q = 8
+#: head dims the tensor-core body is built for
+TC_HEAD_DIMS = (64, 128)
+#: the C entry points' ``body`` codes
+BODY_CODES = {"fma": 0, "tc": 1}
+
+
+def prefill_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The body a launch of either chunked-prefill kernel takes, from dtype
+    and head dim alone: ``"tc"`` for bfloat16 at hd 64 or 128, else
+    ``"fma"``."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "fma"
 
 
 def prefill_core(
@@ -79,16 +103,18 @@ def prefill_attention(
     _check(q, k, v, starts, chunk_lens)
     b, c, h, hd = q.shape
     _, s, kvh, _ = k.shape
+    body = prefill_body(q.dtype, hd)
     out = torch.empty_like(q)
     lib = build.load("prefill_attention")
     err = lib.prefill_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
         chunk_lens.data_ptr(), out.data_ptr(), b, c, h, kvh, hd, s, TILE,
-        min(BLOCK_Q, c), build.DTYPE_CODES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        min(BLOCK_Q, c), build.DTYPE_CODES[q.dtype], BODY_CODES[body],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch(lib, err, "prefill_attention")
     COUNTS["cuda"] += 1
+    BODY_COUNTS[body] += 1
     return out
 
 

@@ -1,18 +1,20 @@
 """Port kernels: the plain PyTorch versions of the paged decode, paged
 chunked-prefill and flash attention against the reference's Pallas kernels
 (run in interpret mode on the CPU, as the reference's own tests run them),
-plus the ``impl`` dispatch.  Inputs come from numpy seeds and go to both packages in
+plus the ``impl`` dispatch and the chunked prefill's choice of kernel body.  Inputs come from numpy seeds and go to both packages in
 fp32; tolerance atol 1e-5 (fp32 softmax attention, sums in another order)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as tdec
 from repro_torch.kernels import paged_prefill_attention as tpre
+from repro_torch.kernels import prefill_attention as tdp
 
 ATOL = 1e-5
 
@@ -66,6 +68,11 @@ PREFILL_CASES = [
     (0, 4, 8, 4, 2, 16, 8, 4, [0, 8, 3, 16], [8, 0, 5, 8], True),
     (1, 3, 16, 4, 4, 16, 8, 4, [8, 0, 10], [16, 3, 0], True),
     (2, 2, 8, 4, 2, 16, 16, 2, [0, 17], [1, 8], False),
+    # GQA group 7 (qwen2-7b, deepseek-coder-33b): C * group = 112 rows, more
+    # than one 64-row tile of the tensor-core body
+    (3, 2, 16, 14, 2, 16, 8, 4, [0, 9], [16, 11], True),
+    # hd 64 (musicgen-large)
+    (4, 2, 8, 4, 2, 64, 16, 2, [3, 20], [8, 5], False),
 ]
 
 
@@ -86,6 +93,42 @@ def test_prefill_plain_matches_pallas(case):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
     pad = np.arange(c)[None, :] >= cl[:, None]
     assert not out.numpy()[pad].any()  # rows past chunk_lens are exact zeros
+
+
+@pytest.mark.parametrize("dtype,hd,body", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 80, "fma"),
+    (torch.bfloat16, 96, "fma"), (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+])
+def test_prefill_body_route(dtype, hd, body):
+    """Both chunked-prefill kernels pick their body from dtype and head dim
+    alone: the tensor cores for bf16 at hd 64 / 128, the FMA body else."""
+    assert tdp.prefill_body(dtype, hd) == body
+
+
+@pytest.mark.parametrize(
+    "arch", [a for a in jconfigs.ARCH_IDS if jconfigs.get_config(a).num_heads])
+def test_prefill_body_of_reference_configs(arch):
+    """bf16 prefill of every attention config of the reference takes the
+    tensor-core body but zamba2's shared attention (hd 80); fp32 never does."""
+    hd = jconfigs.get_config(arch).head_dim
+    expected = "fma" if arch == "zamba2-2.7b" else "tc"
+    assert tdp.prefill_body(torch.bfloat16, hd) == expected
+    assert tdp.prefill_body(torch.float32, hd) == "fma"
+
+
+def test_body_counts_reset_and_untouched_by_plain_versions():
+    ops.reset_launch_counts()
+    tpre.BODY_COUNTS["tc"] = 3
+    case = PREFILL_CASES[0]
+    _, k_pool, v_pool, bt = _pool_case(case[0], 4, 4, 2, 16, 8, 4)
+    q = torch.zeros((4, 8, 4, 16))
+    st = torch.zeros((4,), dtype=torch.int32)
+    ops.paged_prefill_chunk_attention(q, _t(k_pool), _t(v_pool), _t(bt), st, st + 8)
+    assert ops.body_counts()["paged_prefill_attention"] == {"tc": 3, "fma": 0}
+    assert ops.launch_counts()["paged_prefill_attention"] == {"cuda": 0, "torch": 1}
+    ops.reset_launch_counts()
+    assert all(c == {"tc": 0, "fma": 0} for c in ops.body_counts().values())
+    assert set(ops.body_counts()) == {"paged_prefill_attention", "prefill_attention"}
 
 
 def _small_decode_inputs():

@@ -76,7 +76,8 @@ def test_dense_decode_plain_matches_reference(case, impl):
 
 
 # ---------------------------------------------------------------------------
-# dense chunked prefill (#4): ragged starts / chunk_lens, a frozen slot
+# dense chunked prefill (#4): ragged starts / chunk_lens, a frozen slot,
+# GQA group 7, hd 64, chunks past S
 # ---------------------------------------------------------------------------
 
 DENSE_PREFILL_CASES = [
@@ -84,6 +85,12 @@ DENSE_PREFILL_CASES = [
     (0, 4, 8, 4, 2, 16, 32, [0, 8, 3, 24], [8, 0, 5, 8]),
     (1, 3, 16, 4, 4, 16, 64, [16, 0, 40], [16, 3, 0]),
     (2, 2, 8, 8, 8, 32, 48, [0, 40], [1, 8]),
+    # GQA group 7: C * group = 112 rows, more than one 64-row tile
+    (3, 2, 16, 14, 2, 16, 40, [0, 20], [16, 11]),
+    # hd 64
+    (4, 2, 8, 4, 2, 64, 32, [3, 20], [8, 5]),
+    # chunks that run past S (keys stop at S)
+    (5, 3, 8, 4, 2, 16, 40, [36, 38, 0], [8, 8, 3]),
 ]
 
 
