@@ -30,7 +30,10 @@ Phases, each printing a line before the last:
                  T = 2, 3, 5 and at the suffix prefill's bucket sizes T = 64,
                  128 (lengths up to and past the table), the paged tree
                  verify for a chain (bit-equal to verify at T = 5), a
-                 branching and a 31-node tree; the same for the dense verify
+                 branching and a 31-node tree (both also at GQA group 7,
+                 hd 64; timed also with every slot cut to one 64-key tile,
+                 the longest slot alone, the 31-node tree, and at one tile
+                 per split of the tensor-core body); the same for the dense verify
                  and tree verify over the target's dense rows; the Mamba1 scan chunk at falcon-mamba's widths (fp32,
                  B = 1 and 8, two chained chunks against one 128-step scan).
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
@@ -72,7 +75,9 @@ Phases, each printing a line before the last:
                  model and ``proposer="auto"``; every request must finish, the
                  router must have run both proposers, and the dense decode,
                  dense prefill, paged verify and paged tree verify kernels must
-                 have launched (plain versions never).
+                 have launched (plain versions never), each bf16 launch of a
+                 prefill or paged verify kernel through the tensor-core body
+                 (``ops.body_counts``; also in phases 5, 6 and 8).
 8. dense target serve -- the same on the dense target layout
                  (``kv_page_size=0``): the dense decode, dense prefill, dense
                  verify and dense tree verify kernels must launch; then a
@@ -84,8 +89,9 @@ Phases, each printing a line before the last:
                  layer and 64-step chunk of each admission.
 
 Then, under ``torch.profiler``, one train step of phase 5's model (the
-device's busy share and the flash kernels' share of device time)
-and the flash backward's three kernels one by one; one
+device's busy share and the flash kernels' share of device time),
+the flash backward's three kernels one by one, and the paged verify's and
+tree verify's split pass and combine apart; one
 ``{"kernels": [...]}`` line (launches from the run of each
 kernel's path: the speculative kernels' from the spec serve run -- the
 dense prefill's also from the dense target serve run --, the dense
@@ -204,10 +210,11 @@ def _require_launches(phase, counts, kernels):
                                  f"must launch, no plain version may run)")
 
 
-def _require_tc_prefill(phase, counts):
-    """Every chunked-prefill launch of the phase's bf16 run took the
-    tensor-core body (``ops.body_counts``, read with ``counts``).  Returns
-    the body counts for the phase's log line."""
+def _require_tc_bodies(phase, counts):
+    """Every launch of a body-counted kernel (the chunked prefill, paged and
+    dense, and the paged verify and tree verify) in the phase's bf16 run
+    took the tensor-core body (``ops.body_counts``, read with ``counts``).
+    Returns the body counts for the phase's log line."""
     from repro_torch.kernels import ops
 
     bodies = ops.body_counts()
@@ -286,13 +293,13 @@ def _time_ms(fn, reps: int = 30) -> float:
     return times[len(times) // 2]
 
 
-def _pool_inputs(dtype, seed: int = 0, hd: int = HD):
+def _pool_inputs(dtype, seed: int = 0, hd: int = HD, kvh: int = KVH):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     pool_n = 1 + B * NCOLS
-    k_pool = torch.randn((pool_n, PAGE, KVH, hd), generator=g, device="cuda").to(dtype)
-    v_pool = torch.randn((pool_n, PAGE, KVH, hd), generator=g, device="cuda").to(dtype)
+    k_pool = torch.randn((pool_n, PAGE, kvh, hd), generator=g, device="cuda").to(dtype)
+    v_pool = torch.randn((pool_n, PAGE, kvh, hd), generator=g, device="cuda").to(dtype)
     perm = torch.randperm(pool_n - 1, generator=g, device="cuda") + 1
     bt = perm.reshape(B, NCOLS).to(torch.int32)
     bt[1, :SHARED_PAGES] = bt[0, :SHARED_PAGES]
@@ -786,14 +793,17 @@ def _spec_rows():
                bound_ms_target=bound)
     rows.append(row)
 
-    # ---- paged verify (#7) and tree verify (#9): the target's verify pass ----
+    # ---- paged verify (#7) and tree verify (#9): the target's verify pass,
+    # bf16 on the tensor-core body, fp32 on the FMA body; also at qwen2-7b's
+    # GQA group 7 (28 / 4 heads) and hd 64, where a suffix bucket (T = 64:
+    # 448 rows) and the 31-node tree (217 rows) take several 64-row q tiles --
     vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
     cap = NCOLS * PAGE
 
-    def verify_inputs(t, anc=None, lens=vlens):
+    def verify_inputs(t, anc=None, lens=vlens, h=H, kvh=KVH, hd=HD):
         def make(dtype):
-            g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=4)
-            q = torch.randn((B, t, H, HD), generator=g, device="cuda").to(dtype)
+            g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=4, hd=hd, kvh=kvh)
+            q = torch.randn((B, t, h, hd), generator=g, device="cuda").to(dtype)
             args = (q, k_pool, v_pool, bt, lens)
             return args if anc is None else args + (anc,)
         return make
@@ -803,36 +813,59 @@ def _spec_rows():
         return torch.tensor(tree_ancestor_masks(parents), device="cuda").expand(
             B, n).contiguous()
 
-    verr = [_check_kernel(f"paged_verify_attention (T={t})", pv.paged_verify_attention,
-                          pv.paged_verify_attention_torch, verify_inputs(t))
-            for t in VERIFY_TS]
-    verr += [_check_kernel(f"paged_verify_attention (suffix prefill, T={t})",
-                           pv.paged_verify_attention, pv.paged_verify_attention_torch,
-                           verify_inputs(t, lens=torch.tensor(n, dtype=torch.int32,
-                                                              device="cuda")))
-             for t, n in SUFFIX_LENGTHS.items()]
+    suffix = {t: torch.tensor(n, dtype=torch.int32, device="cuda")
+              for t, n in SUFFIX_LENGTHS.items()}
+    g7 = {"h": 28, "kvh": 4, "hd": 64}
+    vcases = [(f"T={t}", t, {}) for t in VERIFY_TS]
+    vcases += [(f"suffix prefill, T={t}", t, {"lens": n}) for t, n in suffix.items()]
+    vcases += [("group 7, hd 64, T=5", 5, g7),
+               ("group 7, hd 64, suffix prefill, T=64", 64, {**g7, "lens": suffix[64]})]
+    verr = [_check_kernel(f"paged_verify_attention ({label})", pv.paged_verify_attention,
+                          pv.paged_verify_attention_torch, verify_inputs(t, **kw))
+            for label, t, kw in vcases]
     trees = {"linear_chain(4)": linear_chain(4), "branching_tree(2, 2)": branching_tree(2, 2),
              "branching_tree(3, 10), 31 nodes": branching_tree(3, 10)}
+    tcases = [(name, par, {}) for name, par in trees.items()]
+    tcases += [(f"group 7, hd 64, {name}", trees[name], g7)
+               for name in ("linear_chain(4)", "branching_tree(3, 10), 31 nodes")]
     terr = [_check_kernel(f"paged_tree_verify_attention ({name})",
                           ptv.paged_tree_verify_attention,
                           ptv.paged_tree_verify_attention_torch,
-                          verify_inputs(len(par), anc_of(par)))
-            for name, par in trees.items()]
+                          verify_inputs(len(par), anc_of(par), **kw))
+            for name, par, kw in tcases]
     chain = anc_of(linear_chain(4))
-    for dtype in (torch.bfloat16, torch.float32):
-        args = verify_inputs(5)(dtype)
-        same = torch.equal(ptv.paged_tree_verify_attention(*args, chain),
-                           pv.paged_verify_attention(*args))
-        log(f"kernel paged_tree_verify_attention linear_chain(4) vs paged_verify_attention "
-            f"T=5 {dtype}: bit-equal {same}")
-        if not same:
-            raise AssertionError("tree verify over a chain differs from verify")
+    for label, kw in (("", {}), (" (group 7, hd 64)", g7)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = verify_inputs(5, **kw)(dtype)
+            same = torch.equal(ptv.paged_tree_verify_attention(*args, chain),
+                               pv.paged_verify_attention(*args))
+            log(f"kernel paged_tree_verify_attention linear_chain(4) vs paged_verify_attention "
+                f"T=5{label} {dtype}: bit-equal {same}")
+            if not same:
+                raise AssertionError("tree verify over a chain differs from verify")
 
-    def verify_bound(visible_per_row, t):
+    def verify_bound(seen, t):
         needed = [min(max(n, 0), cap) for n in VERIFY_LENGTHS]
         nbytes = (2 * B * t * H * HD * isz + 2 * _unique_kv_rows(bt, needed) * KVH * HD * isz
                   + bt.numel() * 4 + B * 4)
-        return _bound_ms(nbytes, 4 * HD * H * sum(visible_per_row), torch.bfloat16)
+        return _bound_ms(nbytes, 4 * HD * H * int(seen.sum()), torch.bfloat16)
+
+    def one_tile_per_split_ms(fn):
+        """``fn``'s time with the tensor-core body's split plan at one 64-key
+        tile per split (the default is TC_TILES_PER_SPLIT)."""
+        default, pv.TC_TILES_PER_SPLIT = pv.TC_TILES_PER_SPLIT, 1
+        try:
+            return _time_ms(fn)
+        finally:
+            pv.TC_TILES_PER_SPLIT = default
+
+    def tree_seen(anc, n):
+        """[B, n, cap]: node t sees kpos < lengths - n and the nodes of anc[:, t]."""
+        kpos = torch.arange(cap, device="cuda")
+        base = (vlens - n)[:, None, None]
+        j = kpos[None, None, :] - base
+        bits = (anc[:, :, None] >> j.clamp(0, 31)) & 1
+        return (kpos < base) | ((j >= 0) & (j < n) & (bits == 1))
 
     q, k_pool, v_pool, bt, _ = verify_inputs(5)(torch.bfloat16)
     kd = pdec.gather_pages(k_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
@@ -845,34 +878,88 @@ def _spec_rows():
     p_ms = _time_ms(lambda: pv.paged_verify_attention_torch(q, k_pool, v_pool, bt, vlens))
     l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd,
                                                            attn_mask=vmask[:, None]))
-    visible = [min(max(n - 5 + j + 1, 0), cap) for n in VERIFY_LENGTHS for j in range(5)]
-    bound, by = verify_bound(visible, 5)
-    rows.append(_row("paged_verify_attention", "paged_verify_attention.cu",
-                     "src/repro/kernels/paged_verify_attention.py:45", _worst(*verr),
-                     k_ms, p_ms, l_ms, bound, by))
+    bound, by = verify_bound(vmask, 5)
+    # what paces the launch: every slot cut to its first 64-key tile, and
+    # the longest slot alone (the others empty)
+    one_tile = vlens.clamp(max=64)
+    longest = int(torch.argmax(vlens))
+    alone = torch.where(torch.arange(B, device="cuda") == longest, vlens,
+                        torch.zeros_like(vlens))
+    one_tile_ms = _time_ms(lambda: pv.paged_verify_attention(q, k_pool, v_pool, bt, one_tile))
+    alone_ms = _time_ms(lambda: pv.paged_verify_attention(q, k_pool, v_pool, bt, alone))
+    split1_ms = one_tile_per_split_ms(
+        lambda: pv.paged_verify_attention(q, k_pool, v_pool, bt, vlens))
+    row = _row("paged_verify_attention", "paged_verify_attention.cu",
+               "src/repro/kernels/paged_verify_attention.py:45", _worst(*verr),
+               k_ms, p_ms, l_ms, bound, by)
+    row.update(ms_one_tile_slots=one_tile_ms, ms_longest_slot_alone=alone_ms,
+               ms_1_tile_per_split=split1_ms)
+    log(f"kernel paged_verify_attention: every slot cut to one tile {one_tile_ms:.4f} ms, "
+        f"slot {longest} alone {alone_ms:.4f} ms; at 1 tile per split {split1_ms:.4f} ms")
+    rows.append(row)
 
     # the tree rows are timed at what the n-gram proposer sends: a chain of
-    # gamma = 4 candidates (N = 5)
-    anc_row = tree_ancestor_masks(linear_chain(4)).tolist()
-    tmask = torch.zeros((B, 5, cap), dtype=torch.bool, device="cuda")
-    visible = []
-    for b, n in enumerate(VERIFY_LENGTHS):
-        for j in range(5):
-            seen = [kp < n - 5 or (0 <= kp - (n - 5) < 5 and (anc_row[j] >> (kp - n + 5)) & 1)
-                    for kp in range(cap)]
-            tmask[b, j] = torch.tensor(seen, device="cuda")
-            visible.append(sum(seen))
+    # gamma = 4 candidates (N = 5); and at the 31-node branching_tree(3, 10)
+    tmask = tree_seen(chain, 5)
     k_ms = _time_ms(lambda: ptv.paged_tree_verify_attention(q, k_pool, v_pool, bt, vlens,
                                                             chain))
     p_ms = _time_ms(lambda: ptv.paged_tree_verify_attention_torch(q, k_pool, v_pool, bt,
                                                                   vlens, chain))
     l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd,
                                                            attn_mask=tmask[:, None]))
-    bound, by = verify_bound(visible, 5)
-    rows.append(_row("paged_tree_verify_attention", "paged_tree_verify_attention.cu",
-                     "src/repro/kernels/paged_tree_verify_attention.py:45", _worst(*terr),
-                     k_ms, p_ms, l_ms, bound, by))
+    bound, by = verify_bound(tmask, 5)
+    row = _row("paged_tree_verify_attention", "paged_tree_verify_attention.cu",
+               "src/repro/kernels/paged_tree_verify_attention.py:45", _worst(*terr),
+               k_ms, p_ms, l_ms, bound, by)
+    anc31 = anc_of(trees["branching_tree(3, 10), 31 nodes"])
+    q31 = verify_inputs(31)(torch.bfloat16)[0]  # the same pool, 31 queries
+    mask31 = tree_seen(anc31, 31)
+    n31_ms = _time_ms(lambda: ptv.paged_tree_verify_attention(q31, k_pool, v_pool, bt, vlens,
+                                                              anc31))
+    l31_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q31.transpose(1, 2), kd, vd, attn_mask=mask31[:, None]))
+    bound31, _ = verify_bound(mask31, 31)
+    split1_ms = one_tile_per_split_ms(
+        lambda: ptv.paged_tree_verify_attention(q, k_pool, v_pool, bt, vlens, chain))
+    row.update(ms_31_nodes=n31_ms, library_ms_31_nodes=l31_ms, bound_ms_31_nodes=bound31,
+               ms_1_tile_per_split=split1_ms)
+    log(f"kernel paged_tree_verify_attention (31 nodes): {n31_ms:.4f} ms, sdpa "
+        f"{l31_ms:.4f} ms, bound {bound31:.4f} ms; chain at 1 tile per split "
+        f"{split1_ms:.4f} ms")
+    rows.append(row)
     return rows
+
+
+def _verify_by_kernel(rows):
+    """The paged verify's and tree verify's two launches apart at the table's
+    shape (bf16, T = 5 / the 5-node chain): the tensor-core split pass and
+    ``combine_splits``, from ``torch.profiler`` with the L2 flushed before
+    each call.  Runs after every other phase, as ``_flash_bwd_by_kernel``
+    does."""
+    import torch
+
+    from repro_torch.kernels import paged_tree_verify_attention as ptv
+    from repro_torch.kernels import paged_verify_attention as pv
+    from repro_torch.spec.tree import linear_chain, tree_ancestor_masks
+
+    vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
+    g, k_pool, v_pool, bt = _pool_inputs(torch.bfloat16, seed=4)  # _spec_rows' inputs
+    q = torch.randn((B, 5, H, HD), generator=g, device="cuda").to(torch.bfloat16)
+    chain = torch.tensor(tree_ancestor_masks(linear_chain(4)), device="cuda").expand(
+        B, 5).contiguous()
+    names = ("paged_verify_tc_kernel", "combine_splits")
+    for name, fn in (
+        ("paged_verify_attention", lambda: pv.paged_verify_attention(q, k_pool, v_pool, bt,
+                                                                     vlens)),
+        ("paged_tree_verify_attention", lambda: ptv.paged_tree_verify_attention(
+            q, k_pool, v_pool, bt, vlens, chain)),
+    ):
+        parts = _kernel_ms_by_name(fn, names)
+        row = next(r for r in rows if r["name"] == name)
+        row["kernels_ms"] = {"partial": parts[names[0]], "combine": parts[names[1]]}
+        log(f"kernel {name} by kernel (median of 30, profiler): " + ", ".join(
+            f"{part} {t:.4f} ms" if t is not None else f"{part} not measured"
+            for part, t in row["kernels_ms"].items()))
 
 
 def _dense_target_rows():
@@ -1369,7 +1456,7 @@ def phase_serve():
         if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
             raise AssertionError("serve: token id out of the vocabulary")
     _require_launches("serve", counts, SERVE_KERNELS)
-    bodies = _require_tc_prefill("serve", counts)
+    bodies = _require_tc_bodies("serve", counts)
     tokens = sum(len(r.output_tokens) for r in reqs)
     ttft = m.histogram("core/online_ttft_s")
     lat = m.histogram("core/online_latency_s")
@@ -1383,7 +1470,7 @@ def phase_serve():
     log(f"serve launches: {json.dumps(counts)} "
         f"(per generated token: " + ", ".join(
             f"{k} {v['cuda'] / tokens:.2f}" for k, v in counts.items()) + "); "
-        f"prefill bodies {json.dumps(bodies)}")
+        f"bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg)
     return {name: c["cuda"] for name, c in counts.items()}
 
@@ -1496,7 +1583,7 @@ def phase_spec_serve():
         per[name] = (rounds, m.counter(f"spec/proposer/accepted/{name}").value,
                      m.counter(f"spec/proposer/proposed/{name}").value)
     _require_launches("spec serve", counts, SPEC_KERNELS + ("paged_prefill_attention",))
-    bodies = _require_tc_prefill("spec serve", counts)
+    bodies = _require_tc_bodies("spec serve", counts)
     tokens = sum(len(r.output_tokens) for r in reqs)
     ttft = m.histogram("core/online_ttft_s")
     lat = m.histogram("core/online_latency_s")
@@ -1512,7 +1599,7 @@ def phase_spec_serve():
         f"acceptance "
         f"{engine.spec_acceptance_rate:.4f}; per proposer (rounds, accepted, proposed): "
         f"{per}; router switches {m.counter('spec/proposer/router_switches').value}")
-    log(f"spec serve launches: {json.dumps(counts)}; prefill bodies {json.dumps(bodies)}")
+    log(f"spec serve launches: {json.dumps(counts)}; bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg, "spec serve")
     return {name: c["cuda"] for name, c in counts.items()}
 
@@ -1558,15 +1645,14 @@ def phase_dense_target_serve():
         if m.counter(f"spec/proposer/rounds/{name}").value <= 0:
             raise AssertionError(f"dense target serve: the router ran no {name} round")
     _require_launches("dense target serve", counts, DENSE_TARGET_KERNELS)
-    bodies = _require_tc_prefill("dense target serve", counts)
+    bodies = _require_tc_bodies("dense target serve", counts)
     tokens = sum(len(r.output_tokens) for r in reqs)
     per = {n: tuple(m.counter(f"spec/proposer/{w}/{n}").value
                     for w in ("rounds", "accepted", "proposed")) for n in ("draft", "ngram")}
     log(f"dense target serve: {_serve_summary(m, reqs, tokens, secs)}; kv cache "
         f"{engine.kv_cache_bytes() / 1e9:.3f} GB; spec rounds {engine.spec_rounds}; per "
         f"proposer (rounds, accepted, proposed): {per}")
-    log(f"dense target serve launches: {json.dumps(counts)}; prefill bodies "
-        f"{json.dumps(bodies)}")
+    log(f"dense target serve launches: {json.dumps(counts)}; bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg, "dense target serve")
     del engine
     gc.collect()
@@ -1577,7 +1663,7 @@ def phase_dense_target_serve():
     _check_finished("dense target serve, monolithic prefill", reqs, 8, cfg)
     _require_launches("dense target serve, monolithic prefill", mono,
                       ("flash_attention_fwd",))
-    _require_tc_prefill("dense target serve, monolithic prefill", mono)
+    _require_tc_bodies("dense target serve, monolithic prefill", mono)
     log(f"dense target serve, monolithic prefill: {len(reqs)} requests in {secs:.3f}s; "
         f"launches {json.dumps({k: v['cuda'] for k, v in mono.items() if v['cuda']})}")
     return {name: c["cuda"] for name, c in counts.items()}
@@ -1745,7 +1831,7 @@ def phase_collocated():
         raise AssertionError(f"collocated: {m.online_served} of {len(online)} online "
                              f"requests finished")
     _require_launches("collocated", counts, SERVE_KERNELS + TRAIN_KERNELS)
-    bodies = _require_tc_prefill("collocated", counts)
+    bodies = _require_tc_bodies("collocated", counts)
     online_tokens = m.obs.metrics.counter("core/generated_tokens/online").value
     total = sum(m.phase_counts.values())
     shares = {k: round(v / total, 4) for k, v in sorted(m.phase_counts.items())}
@@ -1765,7 +1851,7 @@ def phase_collocated():
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"collocated launches: {json.dumps(counts)} (per train step: " + ", ".join(
         f"{k} {counts[k]['cuda'] / COLLOC_ITERS:.1f}"
-        for k in ("flash_attention_fwd", "flash_attention_bwd")) + "); prefill bodies "
+        for k in ("flash_attention_fwd", "flash_attention_bwd")) + "); bodies "
         f"{json.dumps(bodies)}")
     _dots_step(cfg, tcfg, state, ds)
     eparams = engine.params  # the initial weights, bf16
@@ -1819,7 +1905,7 @@ def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
         raise AssertionError(f"spec collocated: {m.offline_tokens_generated} offline "
                              f"tokens, {m.spec_rounds} spec rounds")
     _require_launches("spec collocated", counts, TRAIN_KERNELS)
-    _require_tc_prefill("spec collocated", counts)
+    bodies = _require_tc_bodies("spec collocated", counts)
     total = sum(m.phase_counts.values())
     shares = {k: round(v / total, 4) for k, v in sorted(m.phase_counts.items())}
     log(f"spec collocated: {SPEC_COLLOC_ITERS} iterations in {wall:.2f}s wall; loss "
@@ -1829,7 +1915,7 @@ def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
         f"microsteps, {m.online_served} online requests (TTFT p95 "
         f"{m.p95_ttft_s() * 1e3:.1f} ms virtual); virtual time {m.virtual_time_s:.3f}s; "
         f"phase shares {shares}")
-    log(f"spec collocated launches: {json.dumps(counts)}")
+    log(f"spec collocated launches: {json.dumps(counts)}; bodies {json.dumps(bodies)}")
 
 
 def _dots_step(cfg, tcfg, state, ds):
@@ -1964,6 +2050,7 @@ def main() -> int:
     # the profiler sessions last: after one, every launch costs more on the host
     _profile_train()
     _flash_bwd_by_kernel(next(r for r in rows if r["name"] == "flash_attention_bwd"))
+    _verify_by_kernel(rows)
     for row in rows:
         # each kernel's launches on the run of its path: the spec kernels in
         # the spec serve run, the dense verify / tree verify in the dense

@@ -44,10 +44,10 @@ SIGNATURES = {
         ("prefill_attention_launch", [_P] * 6 + [_I] * 11 + [_P]),
     ),
     "paged_verify_attention": (
-        ("paged_verify_attention_launch", [_P] * 8 + [_I] * 11 + [_P]),
+        ("paged_verify_attention_launch", [_P] * 8 + [_I] * 12 + [_P]),
     ),
     "paged_tree_verify_attention": (
-        ("paged_tree_verify_attention_launch", [_P] * 9 + [_I] * 11 + [_P]),
+        ("paged_tree_verify_attention_launch", [_P] * 9 + [_I] * 12 + [_P]),
     ),
     "verify_attention": (
         ("verify_attention_launch", [_P] * 7 + [_I] * 11 + [_P]),

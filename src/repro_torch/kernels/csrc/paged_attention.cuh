@@ -34,12 +34,15 @@
 // vector loads, stops at the last useful tile, and spreads the work over
 // enough blocks to fill the SMs (decode and verify: tiles split over blocks;
 // prefill: block_q = 8 chunk rows per block).  It does not overlap the next
-// tile's loads with the current tile's math and uses fp32 FMAs on the CUDA
-// cores.  Decode, verify and tree verify run it in every dtype; the chunked
-// prefill runs it only in fp32 (held to 1e-4, which TF32 products would not
-// meet) and at head dims other than 64 / 128.  The bf16 chunked prefill
-// runs the tensor-core body of prefill_tc.cuh instead: 64-row `wgmma`
-// tiles, the softmax in registers, a `cp.async` ring over 64-key tiles.
+// tile's loads with the current tile's math, uses fp32 FMAs on the CUDA
+// cores, and runs the rows' softmax one thread per row.  Decode (paged and
+// dense) and the dense verify and tree verify run it in every dtype; the
+// chunked prefill and the paged verify and tree verify run it only in fp32
+// (held to 1e-4, which TF32 products would not meet) and at head dims other
+// than 64 / 128.  In bf16 at hd 64 / 128 those take the tensor-core body of
+// prefill_tc.cuh instead (64-row `wgmma` tiles, the softmax in registers, a
+// `cp.async` ring over 64-key tiles; verify split over the tiles through
+// verify_tc.cuh and this file's `combine_splits`).
 #pragma once
 
 #include "common.cuh"
@@ -64,13 +67,14 @@ struct PagedKV {
   __device__ size_t row(int kpos, int page, size_t row_stride) const {
     return ((size_t)table[kpos / page] * page + kpos % page) * row_stride;
   }
-  // The block's threads copy the table entries of key positions below kmax
-  // to shared memory `dst`, which row() reads from then on; a barrier must
-  // follow.
-  __device__ void stage(int* dst, int kmax, int page) {
-    for (int i = threadIdx.x; i < (kmax + page - 1) / page; i += blockDim.x)
-      dst[i] = __ldg(table + i);
-    table = dst;
+  // The block's threads copy the table entries of key positions k0 .. k1 - 1
+  // to shared memory `dst`, which row() reads from then on (for those
+  // positions only); a barrier must follow.
+  __device__ void stage(int* dst, int k0, int k1, int page) {
+    const int first = k0 / page;
+    for (int i = first + threadIdx.x; i < (k1 + page - 1) / page; i += blockDim.x)
+      dst[i - first] = __ldg(table + i);
+    table = dst - first;
   }
 };
 
@@ -86,7 +90,7 @@ struct DenseKV {
   __device__ size_t row(int kpos, int, size_t row_stride) const {
     return slot_base + (size_t)kpos * row_stride;
   }
-  __device__ void stage(int*, int, int) {}  // nothing to stage
+  __device__ void stage(int*, int, int, int) {}  // nothing to stage
 };
 
 // Chunk row t sees kpos <= start + t.

@@ -57,8 +57,9 @@ __global__ void __launch_bounds__(prefill_tc::kThreads)
   const int clen = min(max(chunk_lens[b], 0), C);
   const size_t qoff = (size_t)b * C * H * HD;
   const paged::PagedKV kv{block_tables + (size_t)b * W, W - 1, (W - 1) * page};
-  prefill_tc::attend_tile<HD>(q + qoff, k_pool, v_pool, kv, page, starts[b],
-                              clen, C, H, kvh, head, qt, scale, out + qoff);
+  prefill_tc::attend_tile<HD>(
+      q + qoff, k_pool, v_pool, kv, prefill_tc::CausalVis{}, page, starts[b], clen, C, H,
+      kvh, head, qt, 0, prefill_tc::kAllTiles, scale, prefill_tc::RowsOut{out + qoff});
 }
 
 template <typename T>

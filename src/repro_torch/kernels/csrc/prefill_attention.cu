@@ -57,8 +57,9 @@ __global__ void __launch_bounds__(prefill_tc::kThreads)
   const int clen = min(max(chunk_lens[b], 0), C);
   const size_t qoff = (size_t)b * C * H * HD;
   const paged::DenseKV kv{(size_t)b * S * kvh * HD, 0, S};
-  prefill_tc::attend_tile<HD>(q + qoff, k, v, kv, 0, starts[b], clen, C, H,
-                              kvh, head, qt, scale, out + qoff);
+  prefill_tc::attend_tile<HD>(
+      q + qoff, k, v, kv, prefill_tc::CausalVis{}, 0, starts[b], clen, C, H, kvh, head, qt,
+      0, prefill_tc::kAllTiles, scale, prefill_tc::RowsOut{out + qoff});
 }
 
 template <typename T>

@@ -1,44 +1,56 @@
-// Tensor-core body of the paged and dense chunked-prefill kernels (bf16,
-// hd 64 or 128) for Hopper (sm_90a).
+// Tensor-core attention body (bf16, hd 64 or 128) for Hopper (sm_90a): the
+// paged and dense chunked-prefill kernels and the paged chunk-verify and
+// tree-verify kernels.
 //
 // Replaces, with the FMA body of paged_attention.cuh that fp32 and other
 // head dims keep, the TPU kernels repro/kernels/prefill_attention.py
 // `prefill_attention` and repro/kernels/paged_prefill_attention.py
-// `paged_prefill_attention` (one Pallas body, `_prefill_kernel`).  Chunk row
-// t of slot b attends kpos <= start + t, kpos < kend; rows t >= clen and
-// rows that see no key give exact zeros, never the mean of V.
+// `paged_prefill_attention` (one Pallas body, `_prefill_kernel`), and
+// repro/kernels/paged_verify_attention.py `paged_verify_attention` and
+// repro/kernels/paged_tree_verify_attention.py `paged_tree_verify_attention`
+// (see verify_tc.cuh).  Chunk row t of slot b attends the keys its
+// visibility policy shows it (`CausalVis`: kpos <= start + t; `TreeVis`:
+// the prefix kpos < start and the tree nodes of its ancestor mask), cut at
+// kend; rows t >= clen and rows that see no key give exact zeros, never the
+// mean of V.
 //
 // One CTA, one warpgroup of 128 threads, per (q tile of 64 rows, kv head,
-// slot).  The C * group rows of a kv head are numbered as in attend_block:
-// row R is chunk row t = R / group of q head head * group + R % group, so
-// a tile holds 64 / group chunk rows of every query head of the group
-// (C = 32 at group 2 is one tile; group 7 needs ceil(7 C / 64)).  Rows
-// t >= clen load zero Q and store zeros; rows past C * group are never
-// stored.
+// slot) -- and, for verify, per split of the slot's KV tiles.  The C * group
+// rows of a kv head are numbered as in attend_block: row R is chunk row
+// t = R / group of q head head * group + R % group, so a tile holds
+// 64 / group chunk rows of every query head of the group (C = 32 at group 2
+// is one tile; group 7 needs ceil(7 C / 64)).  Rows t >= clen load zero Q
+// and store zeros; rows past C * group are never stored.
 //
 // What bounds it: at serving chunk sizes the bytes of the K / V rows a
 // tile needs (each row read once per CTA; 64 rows of a kv head share it),
-// and the latency of fetching them, since one CTA walks a slot's prefix
-// tile after tile.  The design:
+// and the latency of fetching them, since one CTA walks its tiles one after
+// another.  The design:
 //   * S = Q K^T and O += P V on the tensor cores (`wgmma` m64n64k16 from
 //     shared memory; P rounded to bf16 as the register A operand of
 //     m64n{hd}k16), fp32 accumulators and the online softmax in registers
 //     (quad shuffles, exp2 with log2(e) folded into the scale);
 //   * 64-key tiles (four 16-row pages, or 64 dense rows) up to the tile's
-//     causal bound start + min(t_last + 1, clen), cut at kend, gathered row
-//     by row through the address policy with 16-byte `cp.async` copies into
-//     the 128-byte swizzled layout the `wgmma` descriptors read; rows past
-//     the bound are zero-filled, not read.  `paged::PagedKV` first stages
-//     the slot's block-table entries in shared memory, so no dependent
-//     global load stands between a tile and its copies;
+//     visibility bound, cut at kend, gathered row by row through the
+//     address policy with 16-byte `cp.async` copies into the 128-byte
+//     swizzled layout the `wgmma` descriptors read; rows past the bound are
+//     zero-filled, not read.  `paged::PagedKV` first stages the CTA's
+//     block-table entries in shared memory, so no dependent global load
+//     stands between a tile and its copies;
 //   * a kStages-deep ring: each tile's copies are issued before the math of
-//     the tile ahead of it, so one tile's fetch overlaps another's math.
-// No split over KV tiles: the longest slot paces the launch, but at serving
-// chunk sizes (8 tiles at max_seq 512) a split's second launch and fp32
-// partials would cost about what it saves.  No TMA: a page is 16 rows
-// behind a table entry, and tensor maps would be encoded on the host per
-// call.
+//     the tile ahead of it, so one tile's fetch overlaps another's math;
+//   * two epilogues: normalised bf16 rows (`RowsOut`, the chunked prefill,
+//     which walks every tile of its slot in one CTA) or a split's
+//     unnormalised fp32 state for `paged::combine_splits` (`SplitOut`,
+//     verify, whose CTAs each take a range of the slot's tiles).
+// The chunked prefill does not split: the longest slot paces its launch, but
+// at serving chunk sizes (8 tiles at max_seq 512) a split's second launch
+// and fp32 partials would cost about what it saves.  No TMA: a page is 16
+// rows behind a table entry, and tensor maps would be encoded on the host
+// per call.
 #pragma once
+
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "paged_attention.cuh"
@@ -50,10 +62,11 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kRows = 64;      // q rows per CTA: one wgmma m64 tile
 constexpr int kKeys = 64;      // keys per KV tile
 constexpr int kStages = 2;     // depth of the K / V ring
+constexpr int kAllTiles = 1 << 30;  // a tile range's end that cuts nothing
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared layout (byte offsets from a 1024-aligned base): the Q tile,
-// kStages K tiles and kStages V tiles, then the slot's block-table entries
+// kStages K tiles and kStages V tiles, then the CTA's block-table entries
 // (PagedKV; `table_bytes` of them).  A [64, HD] tile is HD / 64 halves of
 // [64, 64] bf16: 128-byte rows, swizzled in 1024-byte atoms of 8 rows
 // (16-byte chunk c of row r at chunk c ^ (r & 7)).  The epilogue stages the
@@ -87,14 +100,72 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2], const uint32_t (&a)
   }
 }
 
-// One CTA's q tile qt of kv head `head` for one slot: q and out are the
+// Visibility policies.  Each names the end of a q tile's walk (one past the
+// last key a real row t_first .. t_last of it sees), the first key at which
+// some row of the tile needs the mask, and -- per thread, for its two rows
+// t0 / t1 of the wgmma accumulator layout -- which keys are hidden.
+
+// Chunk row t sees kpos <= start + t.
+struct CausalVis {
+  int lim[2];  // the thread's two rows see kpos < lim
+  __device__ int end(int start, int t_last, int clen, int kend) const {
+    return min(start + min(t_last + 1, clen), kend);
+  }
+  __device__ int mask_from(int start, int t_first, int kend) const {
+    return min(start + t_first + 1, kend);
+  }
+  __device__ void rows(int start, int t0, int t1, int, int kend) {
+    lim[0] = min(start + t0 + 1, kend);
+    lim[1] = min(start + t1 + 1, kend);
+  }
+  __device__ bool hidden(int h, int kpos) const { return kpos >= lim[h]; }
+};
+
+// Row t (a packed-tree node; clen = N <= 31) sees the committed prefix
+// kpos < start and node j = kpos - start (0 <= j < N) when bit j of anc[t]
+// is set.  A chain's masks show each row the keys CausalVis shows it.
+struct TreeVis {
+  const int* anc;  // the slot's [N] ancestor bitmasks
+  int start, end_;
+  uint32_t bits[2];  // the thread's two rows' masks (0 for padding rows)
+  __device__ int end(int s, int, int clen, int kend) const { return min(s + clen, kend); }
+  __device__ int mask_from(int s, int, int kend) const { return min(s, kend); }
+  __device__ void rows(int s, int t0, int t1, int clen, int kend) {
+    start = s;
+    end_ = min(s + clen, kend);
+    bits[0] = t0 < clen ? (uint32_t)__ldg(anc + t0) : 0u;
+    bits[1] = t1 < clen ? (uint32_t)__ldg(anc + t1) : 0u;
+  }
+  __device__ bool hidden(int h, int kpos) const {
+    const int j = kpos - start;  // < N <= 31 wherever kpos < end_
+    return kpos >= end_ || (j >= 0 && !((bits[h] >> min(j, 31)) & 1u));
+  }
+};
+
+// Output policies.  RowsOut: the normalised bf16 rows into the slot's
+// [C, H, HD] output.  SplitOut: one split's unnormalised state in the layout
+// `paged::combine_splits` reads -- row R of this (slot, split, kv head) at
+// acc + R * HD (fp32 O) and ml + 2 R (m in units of the scaled score, as
+// the FMA body writes it, and l).
+struct RowsOut {
+  bf16* out;
+};
+struct SplitOut {
+  float* acc;
+  float* ml;
+};
+
+// One CTA's q tile qt of kv head `head` for one slot, over the slot's KV
+// tiles tile_lo .. tile_hi - 1 that its visibility bound reaches: q is the
 // slot's [C, H, HD]; kv names the slot's K / V rows (`page` is the pool's
-// page size, unused by DenseKV).
-template <int HD, typename KV>
+// page size, unused by DenseKV).  A SplitOut CTA whose range holds no such tile writes (m, l) = (-inf, 0) for
+// its rows and loads nothing.
+template <int HD, typename KV, typename Vis, typename Out>
 __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
-                            const bf16* __restrict__ v_pool, KV kv, int page, int start,
-                            int clen, int C, int H, int kvh, int head, int qt, float scale,
-                            bf16* __restrict__ out) {
+                            const bf16* __restrict__ v_pool, KV kv, Vis vis, int page,
+                            int start, int clen, int C, int H, int kvh, int head, int qt,
+                            int tile_lo, int tile_hi, float scale, Out out) {
+  constexpr bool kSplit = std::is_same<Out, SplitOut>::value;
   using L = Smem<HD>;
   constexpr int CH = HD / 8;  // 16-byte chunks of a row
   extern __shared__ uint8_t smem_raw[];
@@ -107,13 +178,23 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
   const int R0 = qt * kRows;
   const int t_first = R0 / group, t_last = (min(R0 + kRows, rows) - 1) / group;
   // one past the last key a real row of the tile sees
-  const int kmax = t_first < clen ? min(start + min(t_last + 1, clen), kv.kend) : 0;
+  const int kmax = t_first < clen ? vis.end(start, t_last, clen, kv.kend) : 0;
   const int nk = kmax > 0 ? (kmax + kKeys - 1) / kKeys : 0;
+  const int j_lo = tile_lo, j_hi = min(tile_hi, nk);  // this CTA's tiles
+  if constexpr (kSplit) {
+    if (j_lo >= j_hi) {
+      for (int R = R0 + tid; R < min(R0 + kRows, rows); R += kThreads) {
+        out.ml[2 * R] = -INFINITY;
+        out.ml[2 * R + 1] = 0.f;
+      }
+      return;
+    }
+  }
   // keys at or past this need the mask in some row of the tile
-  const int lim_first = min(start + t_first + 1, kv.kend);
+  const int mask_from = vis.mask_from(start, t_first, kv.kend);
   const size_t row_stride = (size_t)kvh * HD;
 
-  if (nk > 0) {  // the tile's real Q rows; padding rows are zeros
+  if (j_lo < j_hi) {  // the tile's real Q rows; padding rows are zeros
     for (int i = tid; i < kRows * CH; i += kThreads) {
       const int r = i / CH, ch = i % CH, R = R0 + r, t = R / group;
       const bool real = t < clen;
@@ -123,7 +204,8 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
   }
   // the block-table entries the walk reads, once, while Q lands: a table
   // load per tile would sit between the tile's copies and their issue
-  kv.stage(reinterpret_cast<int*>(gbase + L::kTable), kmax, page);
+  kv.stage(reinterpret_cast<int*>(gbase + L::kTable), j_lo * kKeys,
+           min(j_hi * kKeys, kmax), page);
   __syncthreads();
   // K / V rows j * 64 .. j * 64 + 63 of this kv head into stage s; rows
   // past kmax are zeros.  A thread copies 16-byte chunk kc of NR rows,
@@ -150,26 +232,24 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
       hop::cp_async16(dv + swz(r, kc), v_pool + off[n], bytes);
     }
   };
-  for (int j = 0; j < kStages - 1; ++j) {  // group j: tile j (group 0 also Q)
-    if (j < nk) load_kv(j, j);
+  for (int i = 0; i < kStages - 1; ++i) {  // group i: tile j_lo + i (group 0 also Q)
+    if (j_lo + i < j_hi) load_kv(j_lo + i, i);
     hop::cp_async_commit();
   }
 
   // wgmma accumulator layout: register 4 i + e holds row r0 + 8 (e / 2),
   // column 8 i + 2 (lane % 4) + e % 2
   const int r0 = 16 * (tid / 32) + lane / 4;
-  int lim[2];  // the thread's two rows see kpos < lim
-#pragma unroll
-  for (int h = 0; h < 2; ++h) lim[h] = min(start + (R0 + r0 + 8 * h) / group + 1, kv.kend);
+  vis.rows(start, (R0 + r0) / group, (R0 + r0 + 8) / group, clen, kv.kend);
   const float sl2 = scale * kLog2e;
   float o[HD / 2];
 #pragma unroll
   for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int j = 0; j < nk; ++j) {
-    const int s = j % kStages, jn = j + kStages - 1, k0 = j * kKeys;
-    if (jn < nk) load_kv(jn, jn % kStages);
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int s = (j - j_lo) % kStages, jn = j + kStages - 1, k0 = j * kKeys;
+    if (jn < j_hi) load_kv(jn, (jn - j_lo) % kStages);
     hop::cp_async_commit();
     hop::cp_async_wait<kStages - 1>();  // tile j (and Q) landed for this thread
     hop::fence_proxy_async();
@@ -189,14 +269,14 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
     hop::wgmma_wait<0>();
     hop::fence_regs(sc);
 
-    // the mask, only on tiles that cross some row's bound (zero-filled
-    // keys past kmax lie past every real row's bound)
-    if (k0 + kKeys > lim_first) {
+    // the mask, only on tiles that reach some row's first hidden key
+    // (zero-filled keys past kmax are hidden from every real row)
+    if (k0 + kKeys > mask_from) {
 #pragma unroll
       for (int x = 0; x < kKeys / 8; ++x)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * x + 2 * (lane % 4) + (e & 1) >= lim[e / 2]) sc[4 * x + e] = -INFINITY;
+          if (vis.hidden(e / 2, k0 + 8 * x + 2 * (lane % 4) + (e & 1))) sc[4 * x + e] = -INFINITY;
     }
 
     // online softmax in registers: a row lives in the 4 threads of a quad
@@ -257,29 +337,54 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
     __syncthreads();  // stage s is free for the copies of tile j + kStages
   }
 
-  // ---- epilogue: O / l as bf16 through the Q tile's space, 16-byte stores ----
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  const bool real0 = (R0 + r0) / group < clen, real1 = (R0 + r0 + 8) / group < clen;
-  const float i0 = real0 && l0 > 0.f ? 1.f / l0 : 0.f;
-  const float i1 = real1 && l1 > 0.f ? 1.f / l1 : 0.f;
+  if constexpr (kSplit) {
+    // ---- epilogue: the split's O, m and l of the real rows, fp32 ----
+    const int Ra = R0 + r0, Rb = Ra + 8;
+    const int c = 2 * (lane % 4);
 #pragma unroll
-  for (int i = 0; i < CH; ++i) {
-    uint8_t* p = gbase + L::kQ + swz(r0, i) + 4 * (lane % 4);  // r0 + 8: the same phase
-    *reinterpret_cast<uint32_t*>(p) = hop::pack_bf16(o[4 * i] * i0, o[4 * i + 1] * i0);
-    *reinterpret_cast<uint32_t*>(p + 8 * 128) =
-        hop::pack_bf16(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
-  }
-  __syncthreads();
-  for (int i = tid; i < kRows * CH; i += kThreads) {
-    const int r = i / CH, ch = i % CH, R = R0 + r;
-    if (R >= rows) break;  // rows past C * group: padding, never stored
-    const int t = R / group;
-    *reinterpret_cast<uint4*>(out + ((size_t)t * H + head * group + R % group) * HD + ch * 8) =
-        *reinterpret_cast<const uint4*>(gbase + L::kQ + swz(r, ch));
+    for (int i = 0; i < HD / 8; ++i) {
+      if (Ra < rows)
+        *reinterpret_cast<float2*>(out.acc + (size_t)Ra * HD + 8 * i + c) =
+            make_float2(o[4 * i], o[4 * i + 1]);
+      if (Rb < rows)
+        *reinterpret_cast<float2*>(out.acc + (size_t)Rb * HD + 8 * i + c) =
+            make_float2(o[4 * i + 2], o[4 * i + 3]);
+    }
+    if (lane % 4 == 0) {  // m in raw scores here; combine_splits weighs e^(m scale - M)
+      if (Ra < rows) {
+        out.ml[2 * Ra] = m0 * scale;
+        out.ml[2 * Ra + 1] = l0;
+      }
+      if (Rb < rows) {
+        out.ml[2 * Rb] = m1 * scale;
+        out.ml[2 * Rb + 1] = l1;
+      }
+    }
+  } else {
+    // ---- epilogue: O / l as bf16 through the Q tile's space, 16-byte stores ----
+    const bool real0 = (R0 + r0) / group < clen, real1 = (R0 + r0 + 8) / group < clen;
+    const float i0 = real0 && l0 > 0.f ? 1.f / l0 : 0.f;
+    const float i1 = real1 && l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      uint8_t* p = gbase + L::kQ + swz(r0, i) + 4 * (lane % 4);  // r0 + 8: the same phase
+      *reinterpret_cast<uint32_t*>(p) = hop::pack_bf16(o[4 * i] * i0, o[4 * i + 1] * i0);
+      *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+          hop::pack_bf16(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
+    }
+    __syncthreads();
+    for (int i = tid; i < kRows * CH; i += kThreads) {
+      const int r = i / CH, ch = i % CH, R = R0 + r;
+      if (R >= rows) break;  // rows past C * group: padding, never stored
+      const int t = R / group;
+      *reinterpret_cast<uint4*>(out.out + ((size_t)t * H + head * group + R % group) * HD +
+                                ch * 8) = *reinterpret_cast<const uint4*>(gbase + L::kQ + swz(r, ch));
+    }
   }
 }
 

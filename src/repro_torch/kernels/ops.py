@@ -289,6 +289,8 @@ _COUNTS = {
 _BODY_COUNTS = {
     "paged_prefill_attention": _prefill.BODY_COUNTS,
     "prefill_attention": _dense_prefill.BODY_COUNTS,
+    "paged_verify_attention": _verify.BODY_COUNTS,
+    "paged_tree_verify_attention": _tree.BODY_COUNTS,
 }
 
 
@@ -300,8 +302,9 @@ def launch_counts() -> dict:
 
 def body_counts() -> dict:
     """Kernel launches since the last reset by kernel name and body
-    (``"tc"``: tensor cores, ``"fma"``: CUDA cores), for the chunked-prefill
-    kernels, which pick their body from dtype and head dim."""
+    (``"tc"``: tensor cores, ``"fma"``: CUDA cores), for the kernels that
+    pick their body from dtype and head dim: the chunked prefill (paged and
+    dense) and the paged verify and tree verify."""
     return {name: dict(counts) for name, counts in _BODY_COUNTS.items()}
 
 

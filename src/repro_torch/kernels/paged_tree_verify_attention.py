@@ -1,19 +1,24 @@
 """Paged tree-verify attention: the CUDA kernel's wrapper and its plain
 PyTorch version.
 
-Replaces the TPU kernel ``repro/kernels/paged_tree_verify_attention.py``
-(``paged_tree_verify_attention``; body ``_tree_verify_kernel``).  The kernel
-is ``csrc/paged_tree_verify_attention.cu``: the paged verify kernel with the
+Replaces the TPU kernel ``repro/kernels/paged_tree_verify_attention.py:45``
+(``paged_tree_verify_attention``, ``pallas_call`` at ``:103``; body
+``_tree_verify_kernel``).  The kernel is
+``csrc/paged_tree_verify_attention.cu``: the paged verify kernel with the
 causal triangle replaced by int32 ancestor bitmasks -- node t of a packed
 tree of N <= 31 nodes sees the committed prefix ``kpos < lengths - N`` and
-the nodes ``j`` whose bit is set in ``anc[b, t]``.  Same template, split and
-accumulation order as the paged verify kernel, so a linear chain's masks
-give its output bit for bit.  On the serving path it is the target's verify
-pass of an n-gram / suffix-proposed tree.  On the card it is bound by the
-bytes of the K/V pages it must read.
+the nodes ``j`` whose bit is set in ``anc[b, t]``.  It takes the paged
+verify kernel's body (``paged_verify_attention.verify_body``: bfloat16 at hd 64 / 128 on the
+tensor cores, split over 64-key tiles; float32 and other head dims on the
+FMA body), split plan, tile order and accumulation order, so a linear
+chain's masks give its output bit for bit.  On the serving path it is the
+target's verify pass of an n-gram / suffix-proposed tree.  On the card it
+is bound by the bytes of the K/V pages it must read, and at serving sizes
+by the latency and fixed costs of short walks.
 
 ``COUNTS["cuda"]`` counts kernel launches, ``COUNTS["torch"]`` calls of the
 plain version; ``repro_torch.kernels.ops`` reads and resets them.
+``BODY_COUNTS`` splits the launches by body.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from repro_torch.kernels.paged_verify_attention import (
 )
 
 COUNTS = {"cuda": 0, "torch": 0}
+#: kernel launches by body ("tc": tensor cores, "fma": CUDA cores)
+BODY_COUNTS = {"tc": 0, "fma": 0}
 #: int32 ancestor bitmasks bound the packed tree size
 MAX_TREE_NODES = 31
 
@@ -92,9 +99,10 @@ def paged_tree_verify_attention(
     req(anc.is_cuda and anc.device == q.device, "anc must be on q's device")
     req(anc.dtype == torch.int32 and anc.shape == q.shape[:2] and anc.is_contiguous(),
         "anc must be a contiguous [B, N] int32 tensor")
-    out = launch_verify("paged_tree_verify_attention", q, k_pool, v_pool,
-                        block_tables, lengths, anc)
+    out, body = launch_verify("paged_tree_verify_attention", q, k_pool, v_pool,
+                              block_tables, lengths, anc)
     COUNTS["cuda"] += 1
+    BODY_COUNTS[body] += 1
     return out
 
 

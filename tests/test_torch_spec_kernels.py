@@ -203,6 +203,54 @@ def test_tree_rejects_more_than_31_nodes():
 
 
 # ---------------------------------------------------------------------------
+# the paged verify / tree verify's body route and the tensor-core split plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,hd,body", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 80, "fma"),
+    (torch.bfloat16, 96, "fma"), (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+])
+def test_verify_body_route(dtype, hd, body):
+    """Both paged verify kernels launch through ``launch_verify``, which picks
+    the body from dtype and head dim alone: the tensor cores for bf16 at hd
+    64 / 128, the FMA body else."""
+    assert tver.verify_body(dtype, hd) == body
+    assert ttree.launch_verify is tver.launch_verify
+
+
+@pytest.mark.parametrize("page", [4, 8, 16, 32, 128])
+def test_verify_split_plan_covers_every_tile_once(page):
+    """For 1..64 table columns, the splits cover every 64-key tile of the
+    slot exactly once, none is empty, there are at most TC_MAX_SPLITS of
+    them, and one split's tensor-core CTA fits the card's shared memory."""
+    for n_cols in range(1, 65):
+        n_tiles = -(-n_cols * page // tver.TC_KEYS)
+        per, splits = tver.verify_split_plan(n_cols, page)
+        covered = [j for s in range(splits) for j in range(s * per, min((s + 1) * per, n_tiles))]
+        assert covered == list(range(n_tiles)), (n_cols, per, splits)
+        assert 1 <= splits <= tver.TC_MAX_SPLITS and (splits - 1) * per < n_tiles
+        assert per == max(tver.TC_TILES_PER_SPLIT, -(-n_tiles // tver.TC_MAX_SPLITS))
+        assert tver.tc_smem_bytes(128, per, page, n_cols) <= tver.MAX_SMEM
+    # the serving pool's 32 columns of 16: two tiles per split, 4 splits
+    assert tver.verify_split_plan(32, 16) == (2, 4)
+
+
+def test_verify_plain_versions_leave_body_counts_at_zero():
+    ops.reset_launch_counts()
+    q, k_pool, v_pool, bt, lens = (_t(a) for a in _verify_inputs(VERIFY_CASES[0]))
+    anc = _t(_anc(jtree.linear_chain(q.shape[1] - 1), q.shape[0]))
+    for impl in ("auto", "torch"):
+        ops.paged_verify_attention(q, k_pool, v_pool, bt, lens, impl=impl)
+        ops.paged_tree_verify_attention(q, k_pool, v_pool, bt, lens, anc, impl=impl)
+    assert ops.launch_counts()["paged_verify_attention"] == {"cuda": 0, "torch": 2}
+    assert ops.launch_counts()["paged_tree_verify_attention"] == {"cuda": 0, "torch": 2}
+    for name in ("paged_verify_attention", "paged_tree_verify_attention"):
+        assert ops.body_counts()[name] == {"tc": 0, "fma": 0}
+    ops.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
 # dispatch: the plain versions run for CPU tensors; the kernels raise there
 # ---------------------------------------------------------------------------
 
