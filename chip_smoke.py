@@ -33,9 +33,12 @@ Phases, each printing a line before the last:
                  branching and a 31-node tree (both also at GQA group 7,
                  hd 64; timed also with every slot cut to one 64-key tile,
                  the longest slot alone, the 31-node tree, and at one tile
-                 per split of the tensor-core body); the same for the dense verify
-                 and tree verify over the target's dense rows; the Mamba1 scan chunk at falcon-mamba's widths (fp32,
-                 B = 1 and 8, two chained chunks against one 128-step scan).
+                 per split of the tensor-core body); the same for the dense
+                 verify and tree verify over the target's dense rows (their
+                 bf16 cluster kernel also beside the paged verify's
+                 two-launch split over the same rows); the Mamba1 scan chunk
+                 at falcon-mamba's widths (fp32, B = 1 and 8, two chained
+                 chunks against one 128-step scan).
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -80,9 +83,10 @@ Phases, each printing a line before the last:
                  (``ops.body_counts``; also in phases 5, 6 and 8).
 8. dense target serve -- the same on the dense target layout
                  (``kv_page_size=0``): the dense decode, dense prefill, dense
-                 verify and dense tree verify kernels must launch; then a
-                 short run with monolithic prefill must launch the flash
-                 forward kernel.
+                 verify and dense tree verify kernels must launch, each bf16
+                 launch of a prefill or verify kernel through the
+                 tensor-core body; then a short run with monolithic prefill
+                 must launch the flash forward kernel, under the same rule.
 9. ssm serve  -- falcon-mamba-7b at full depth and width, bf16, serves 16
                  requests (dense state rows, monolithic bucket prefill); every
                  request must finish and the scan kernel must launch once per
@@ -90,8 +94,9 @@ Phases, each printing a line before the last:
 
 Then, under ``torch.profiler``, one train step of phase 5's model (the
 device's busy share and the flash kernels' share of device time),
-the flash backward's three kernels one by one, and the paged verify's and
-tree verify's split pass and combine apart; one
+the flash backward's three kernels one by one, the paged verify's and
+tree verify's split pass and combine apart, and the dense verify's and
+tree verify's one cluster kernel; one
 ``{"kernels": [...]}`` line (launches from the run of each
 kernel's path: the speculative kernels' from the spec serve run -- the
 dense prefill's also from the dense target serve run --, the dense
@@ -211,8 +216,8 @@ def _require_launches(phase, counts, kernels):
 
 
 def _require_tc_bodies(phase, counts):
-    """Every launch of a body-counted kernel (the chunked prefill, paged and
-    dense, and the paged verify and tree verify) in the phase's bf16 run
+    """Every launch of a body-counted kernel (the chunked prefill, the verify
+    and the tree verify, each paged and dense) in the phase's bf16 run
     took the tensor-core body (``ops.body_counts``, read with ``counts``).
     Returns the body counts for the phase's log line."""
     from repro_torch.kernels import ops
@@ -675,12 +680,12 @@ def _kernel_ms_by_name(fn, names, reps: int = 30) -> dict:
     return {n: sorted(t)[len(t) // 2] if t else None for n, t in times.items()}
 
 
-def _dense_inputs(dtype, seed, hd=HD):
+def _dense_inputs(dtype, seed, hd=HD, kvh=KVH):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k = torch.randn((B, DENSE_S, KVH, hd), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, DENSE_S, KVH, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, DENSE_S, kvh, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, DENSE_S, kvh, hd), generator=g, device="cuda").to(dtype)
     return g, k, v
 
 
@@ -933,13 +938,17 @@ def _spec_rows():
 def _verify_by_kernel(rows):
     """The paged verify's and tree verify's two launches apart at the table's
     shape (bf16, T = 5 / the 5-node chain): the tensor-core split pass and
-    ``combine_splits``, from ``torch.profiler`` with the L2 flushed before
-    each call.  Runs after every other phase, as ``_flash_bwd_by_kernel``
-    does."""
+    ``combine_splits``; and the dense verify's and tree verify's one launch
+    (the cluster kernel, whose span against the row's CUDA-event time shows
+    what the launch costs outside the kernel).  From ``torch.profiler`` with
+    the L2 flushed before each call.  Runs after every other phase, as
+    ``_flash_bwd_by_kernel`` does."""
     import torch
 
     from repro_torch.kernels import paged_tree_verify_attention as ptv
     from repro_torch.kernels import paged_verify_attention as pv
+    from repro_torch.kernels import tree_verify_attention as tv
+    from repro_torch.kernels import verify_attention as va
     from repro_torch.spec.tree import linear_chain, tree_ancestor_masks
 
     vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
@@ -960,18 +969,37 @@ def _verify_by_kernel(rows):
         log(f"kernel {name} by kernel (median of 30, profiler): " + ", ".join(
             f"{part} {t:.4f} ms" if t is not None else f"{part} not measured"
             for part, t in row["kernels_ms"].items()))
+    g, k, v = _dense_inputs(torch.bfloat16, seed=5)  # _dense_target_rows' inputs
+    q = torch.randn((B, 5, H, HD), generator=g, device="cuda").to(torch.bfloat16)
+    for name, fn in (
+        ("verify_attention", lambda: va.verify_attention(q, k, v, vlens)),
+        ("tree_verify_attention", lambda: tv.tree_verify_attention(q, k, v, vlens, chain)),
+    ):
+        t = _kernel_ms_by_name(fn, ("dense_verify_tc_kernel",))["dense_verify_tc_kernel"]
+        row = next(r for r in rows if r["name"] == name)
+        row["kernels_ms"] = {"cluster kernel": t}
+        log(f"kernel {name} by kernel (median of 30, profiler): cluster kernel "
+            + (f"{t:.4f} ms, the launch outside it {row['ms'] - t:.4f} ms (CUDA events "
+               f"{row['ms']:.4f} ms)" if t is not None else "not measured"))
 
 
 def _dense_target_rows():
-    """Rows of the dense target's verify (#6) and tree verify (#8) at the
-    target's shapes over dense rows (B=8, H=16, kvH=8, hd=128, S=512):
-    verify at T = 2, 3, 5 and 64, 128 (lengths up to and past S), tree at
-    a 5-node chain (bit-equal to verify at T = 5 in both types),
-    branching_tree(2, 2) and the 31-node branching_tree(3, 10); timed in bf16 at T = 5 / the chain, SDPA with
-    an explicit boolean mask as the yardstick."""
+    """Rows of the dense target's verify (#6) and tree verify (#8) over dense
+    rows at the target's shapes (B=8, H=16, kvH=8, hd=128, S=512): verify at
+    T = 2, 3, 5 and the suffix-prefill sizes T = 64, 128 (lengths up to and
+    past S), tree at a 5-node chain, branching_tree(2, 2) and the 31-node
+    branching_tree(3, 10); both also at GQA group 7, hd 64 (T = 5, T = 64,
+    the chain, the 31-node tree).  A chain's tree verify must equal verify
+    bit for bit in both types at both groups.  Timed in bf16 at T = 5 / the
+    chain, SDPA with an explicit boolean mask as the yardstick; #6 also with
+    every slot cut to one 64-key tile, with the longest slot alone, at 1 and
+    8 tiles a CTA of the cluster plan, and beside the paged verify's
+    two-launch split (#7) over the same rows seen as 16-row pages; #8 also
+    at the 31-node tree."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import paged_verify_attention as pv
     from repro_torch.kernels import tree_verify_attention as tv
     from repro_torch.kernels import verify_attention as va
     from repro_torch.spec.tree import branching_tree, linear_chain, tree_ancestor_masks
@@ -979,10 +1007,10 @@ def _dense_target_rows():
     isz, S = 2, DENSE_S
     vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
 
-    def inputs(t, anc=None, lens=vlens):
+    def inputs(t, anc=None, lens=vlens, h=H, kvh=KVH, hd=HD):
         def make(dtype):
-            g, k, v = _dense_inputs(dtype, seed=5)
-            q = torch.randn((B, t, H, HD), generator=g, device="cuda").to(dtype)
+            g, k, v = _dense_inputs(dtype, seed=5, hd=hd, kvh=kvh)
+            q = torch.randn((B, t, h, hd), generator=g, device="cuda").to(dtype)
             args = (q, k, v, lens)
             return args if anc is None else args + (anc,)
         return make
@@ -991,66 +1019,116 @@ def _dense_target_rows():
         return torch.tensor(tree_ancestor_masks(parents), device="cuda").expand(
             B, len(parents)).contiguous()
 
-    verr = [_check_kernel(f"verify_attention (T={t})", va.verify_attention,
-                          va.verify_attention_torch, inputs(t)) for t in VERIFY_TS]
-    verr += [_check_kernel(f"verify_attention (suffix-prefill size, T={t})",
-                           va.verify_attention, va.verify_attention_torch,
-                           inputs(t, lens=torch.tensor(n, dtype=torch.int32, device="cuda")))
-             for t, n in SUFFIX_LENGTHS.items()]
+    suffix = {t: torch.tensor(n, dtype=torch.int32, device="cuda")
+              for t, n in SUFFIX_LENGTHS.items()}
+    g7 = {"h": 28, "kvh": 4, "hd": 64}
+    vcases = [(f"T={t}", t, {}) for t in VERIFY_TS]
+    vcases += [(f"suffix-prefill size, T={t}", t, {"lens": n}) for t, n in suffix.items()]
+    vcases += [("group 7, hd 64, T=5", 5, g7),
+               ("group 7, hd 64, suffix-prefill size, T=64", 64, {**g7, "lens": suffix[64]})]
+    verr = [_check_kernel(f"verify_attention ({label})", va.verify_attention,
+                          va.verify_attention_torch, inputs(t, **kw))
+            for label, t, kw in vcases]
     trees = {"linear_chain(4)": linear_chain(4), "branching_tree(2, 2)": branching_tree(2, 2),
              "branching_tree(3, 10), 31 nodes": branching_tree(3, 10)}
+    tcases = [(name, par, {}) for name, par in trees.items()]
+    tcases += [(f"group 7, hd 64, {name}", trees[name], g7)
+               for name in ("linear_chain(4)", "branching_tree(3, 10), 31 nodes")]
     terr = [_check_kernel(f"tree_verify_attention ({name})", tv.tree_verify_attention,
-                          tv.tree_verify_attention_torch, inputs(len(par), anc_of(par)))
-            for name, par in trees.items()]
+                          tv.tree_verify_attention_torch, inputs(len(par), anc_of(par), **kw))
+            for name, par, kw in tcases]
     chain = anc_of(linear_chain(4))
-    for dtype in (torch.bfloat16, torch.float32):
-        args = inputs(5)(dtype)
-        same = torch.equal(tv.tree_verify_attention(*args, chain), va.verify_attention(*args))
-        log(f"kernel tree_verify_attention linear_chain(4) vs verify_attention T=5 {dtype}: "
-            f"bit-equal {same}")
-        if not same:
-            raise AssertionError("dense tree verify over a chain differs from verify")
+    for label, kw in (("", {}), (" (group 7, hd 64)", g7)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = inputs(5, **kw)(dtype)
+            same = torch.equal(tv.tree_verify_attention(*args, chain),
+                               va.verify_attention(*args))
+            log(f"kernel tree_verify_attention linear_chain(4) vs verify_attention "
+                f"T=5{label} {dtype}: bit-equal {same}")
+            if not same:
+                raise AssertionError("dense tree verify over a chain differs from verify")
+
+    def tree_seen(anc, n):
+        """[B, n, S]: node t sees kpos < lengths - n and the nodes of anc[:, t]."""
+        kpos = torch.arange(S, device="cuda")
+        base = (vlens - n)[:, None, None]
+        j = kpos[None, None, :] - base
+        bits = (anc[:, :, None] >> j.clamp(0, 31)) & 1
+        return (kpos < base) | ((j >= 0) & (j < n) & (bits == 1))
+
+    def bound(seen, tree):
+        """bytes: q in and out once, the K/V rows the slots' windows need
+        once, lengths (and the tree's masks); operations: QK^T and PV over
+        the keys each row sees."""
+        n = seen.shape[1]
+        needed = sum(min(max(x, 0), S) for x in VERIFY_LENGTHS)
+        nbytes = (2 * B * n * H * HD * isz + 2 * needed * KVH * HD * isz + B * 4
+                  + (B * n * 4 if tree else 0))
+        return _bound_ms(nbytes, 4 * HD * H * int(seen.sum()), torch.bfloat16)
 
     q, k, v, _ = inputs(5)(torch.bfloat16)
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).repeat_interleave(H // KVH, 1)
     vt = v.transpose(1, 2).repeat_interleave(H // KVH, 1)
     kpos = torch.arange(S, device="cuda")
-    anc_row = tree_ancestor_masks(linear_chain(4)).tolist()
-    masks, visible = {}, {}
-    for name in ("verify", "tree"):
-        m = torch.zeros((B, 5, S), dtype=torch.bool, device="cuda")
-        vis = []
-        for b, n in enumerate(VERIFY_LENGTHS):
-            for j in range(5):
-                if name == "verify":
-                    seen = [kp <= n - 5 + j for kp in range(S)]
-                else:
-                    seen = [kp < n - 5 or (0 <= kp - (n - 5) < 5
-                                           and (anc_row[j] >> (kp - n + 5)) & 1)
-                            for kp in range(S)]
-                m[b, j] = torch.tensor(seen, device="cuda")
-                vis.append(sum(seen))
-        masks[name], visible[name] = m, vis
-    # bytes: q in and out once, the K/V rows the slots' windows need once
-    needed = sum(min(max(n, 0), S) for n in VERIFY_LENGTHS)
-    nbytes = 2 * B * 5 * H * HD * isz + 2 * needed * KVH * HD * isz + B * 4
+    t5 = torch.arange(5, device="cuda")
+    vmask = kpos[None, None, :] <= (vlens[:, None] - 5 + t5[None, :])[:, :, None]
+    tmask = tree_seen(chain, 5)
     rows = []
-    for name, kern, plain, extra, src, rep, errs in (
-        ("verify_attention", va.verify_attention, va.verify_attention_torch, (),
-         "verify_attention.cu", "src/repro/kernels/verify_attention.py:110", _worst(*verr)),
+    for name, kern, plain, extra, seen, rep, errs in (
+        ("verify_attention", va.verify_attention, va.verify_attention_torch, (), vmask,
+         "src/repro/kernels/verify_attention.py:110", _worst(*verr)),
         ("tree_verify_attention", tv.tree_verify_attention, tv.tree_verify_attention_torch,
-         (chain,), "verify_attention.cu",
-         "src/repro/kernels/tree_verify_attention.py:118", _worst(*terr)),
+         (chain,), tmask, "src/repro/kernels/tree_verify_attention.py:118", _worst(*terr)),
     ):
-        mask = masks["verify" if name == "verify_attention" else "tree"][:, None]
         k_ms = _time_ms(lambda: kern(q, k, v, vlens, *extra))
         p_ms = _time_ms(lambda: plain(q, k, v, vlens, *extra))
-        l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-        bound, by = _bound_ms(
-            nbytes + (B * 5 * 4 if extra else 0),
-            4 * HD * H * sum(visible["verify" if not extra else "tree"]), torch.bfloat16)
-        rows.append(_row(name, src, rep, errs, k_ms, p_ms, l_ms, bound, by))
+        l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                               attn_mask=seen[:, None]))
+        rows.append(_row(name, "verify_attention.cu", rep, errs, k_ms, p_ms, l_ms,
+                         *bound(seen, bool(extra))))
+    # what paces #6: every slot cut to its first 64-key tile, the longest slot
+    # alone (the others empty), and the paged verify's two-launch split pass
+    # + combine over the same rows seen as 16-row pages (identity table)
+    one_tile = vlens.clamp(max=64)
+    longest = int(torch.argmax(vlens))
+    alone = torch.where(torch.arange(B, device="cuda") == longest, vlens,
+                        torch.zeros_like(vlens))
+    one_tile_ms = _time_ms(lambda: va.verify_attention(q, k, v, one_tile))
+    alone_ms = _time_ms(lambda: va.verify_attention(q, k, v, alone))
+
+    def plan_ms(per):
+        """#6's time with the cluster plan at ``per`` 64-key tiles a CTA (the
+        default is TC_TILES_PER_SPLIT): 1 gives clusters of 8, 8 one CTA a
+        slot (a cluster of 1, no peer to read)."""
+        default, va.TC_TILES_PER_SPLIT = va.TC_TILES_PER_SPLIT, per
+        try:
+            return _time_ms(lambda: va.verify_attention(q, k, v, vlens))
+        finally:
+            va.TC_TILES_PER_SPLIT = default
+
+    plans = {f"ms_{per}_tiles_per_cta": plan_ms(per) for per in (1, 8)}
+    cols = S // PAGE
+    bt = torch.cat([torch.arange(B * cols, dtype=torch.int32, device="cuda").view(B, cols),
+                    torch.zeros((B, 1), dtype=torch.int32, device="cuda")], 1)
+    k_pages, v_pages = (x.view(B * cols, PAGE, KVH, HD) for x in (k, v))
+    two_ms = _time_ms(lambda: pv.paged_verify_attention(q, k_pages, v_pages, bt, vlens))
+    rows[0].update(ms_one_tile_slots=one_tile_ms, ms_longest_slot_alone=alone_ms,
+                   ms_two_launch_paged_split=two_ms, **plans)
+    log(f"kernel verify_attention: every slot cut to one tile {one_tile_ms:.4f} ms, slot "
+        f"{longest} alone {alone_ms:.4f} ms; the paged two-launch split over the same rows "
+        f"{two_ms:.4f} ms; at 1 tile a CTA (clusters of 8) {plans['ms_1_tiles_per_cta']:.4f} "
+        f"ms, at 8 (one CTA a slot) {plans['ms_8_tiles_per_cta']:.4f} ms")
+    anc31 = anc_of(trees["branching_tree(3, 10), 31 nodes"])
+    q31 = inputs(31)(torch.bfloat16)[0]  # the same rows, 31 queries
+    mask31 = tree_seen(anc31, 31)
+    n31_ms = _time_ms(lambda: tv.tree_verify_attention(q31, k, v, vlens, anc31))
+    l31_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q31.transpose(1, 2), kt, vt, attn_mask=mask31[:, None]))
+    bound31, _ = bound(mask31, True)
+    rows[1].update(ms_31_nodes=n31_ms, library_ms_31_nodes=l31_ms, bound_ms_31_nodes=bound31)
+    log(f"kernel tree_verify_attention (31 nodes): {n31_ms:.4f} ms, sdpa {l31_ms:.4f} ms, "
+        f"bound {bound31:.4f} ms")
     return rows
 
 

@@ -50,8 +50,8 @@ SIGNATURES = {
         ("paged_tree_verify_attention_launch", [_P] * 9 + [_I] * 12 + [_P]),
     ),
     "verify_attention": (
-        ("verify_attention_launch", [_P] * 7 + [_I] * 11 + [_P]),
-        ("tree_verify_attention_launch", [_P] * 8 + [_I] * 11 + [_P]),
+        ("verify_attention_launch", [_P] * 7 + [_I] * 12 + [_P]),
+        ("tree_verify_attention_launch", [_P] * 8 + [_I] * 12 + [_P]),
     ),
     "ssm_scan": (
         ("ssm_scan_chunk_launch", [_P] * 8 + [_I] * 5 + [_P]),

@@ -1,8 +1,9 @@
 // Helpers shared by every kernel library of the port: 16-byte loads that
 // widen float32 / bfloat16 to fp32, single-value stores that narrow back,
-// a launch that raises the block's dynamic shared-memory limit when needed,
-// and the error-string entry point the Python wrappers call after a failed
-// launch.  Each library (.cu) includes this header once.
+// a launch that raises the block's dynamic shared-memory limit when needed
+// (and its variant for thread-block clusters), and the error-string entry
+// point the Python wrappers call after a failed launch.  Each library (.cu)
+// includes this header once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +51,34 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
     if (err != cudaSuccess) return err;
   }
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
+
+// The same for a grid of thread-block clusters of `cluster` CTAs along z
+// (the grid's z extent a multiple of it; at most 8, the portable limit),
+// through cudaLaunchKernelEx; returns the launch's error.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int threads, size_t smem,
+                           int cluster, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

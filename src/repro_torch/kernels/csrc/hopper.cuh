@@ -2,8 +2,10 @@
 // on the tensor cores: mbarriers, TMA tile loads and the tensor map they
 // read, `cp.async` copies with zero-fill and the proxy fence that hands
 // their data to `wgmma`, warpgroup MMA (`wgmma`) with its shared-memory
-// descriptors and register fences, `setmaxnreg` and named barriers.  The
-// flash-attention library and the chunked-prefill libraries include it.
+// descriptors and register fences, `setmaxnreg`, named barriers, and the
+// thread-block cluster's rank, barrier and distributed shared memory
+// (DSMEM).  The flash-attention, chunked-prefill and verify libraries
+// include it.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
@@ -277,6 +279,54 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------
+
+// This CTA's rank in its cluster (0 .. cluster size - 1).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives, then waits for all of
+// them: the shared-memory writes before it (release) are visible to the
+// peers' reads after it (acquire).  Every thread of the cluster calls it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The same barrier with a relaxed arrive, which does not wait for this
+// thread's earlier writes (to device memory, say) to complete: for keeping
+// every CTA's shared memory alive until its peers are done reading it,
+// each reader arriving after its reads' values are used.
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The address in the cluster's shared window of `addr` (a shared-memory
+// address of this CTA's layout) in the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 8 / 16 bytes from a peer's shared memory (an address from `mapa`).
+__device__ __forceinline__ float2 ld_dsmem_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
 }
 
 // Two floats -> one register of two bf16, `lo` in the low half.

@@ -36,13 +36,15 @@
 // prefill: block_q = 8 chunk rows per block).  It does not overlap the next
 // tile's loads with the current tile's math, uses fp32 FMAs on the CUDA
 // cores, and runs the rows' softmax one thread per row.  Decode (paged and
-// dense) and the dense verify and tree verify run it in every dtype; the
-// chunked prefill and the paged verify and tree verify run it only in fp32
-// (held to 1e-4, which TF32 products would not meet) and at head dims other
-// than 64 / 128.  In bf16 at hd 64 / 128 those take the tensor-core body of
-// prefill_tc.cuh instead (64-row `wgmma` tiles, the softmax in registers, a
-// `cp.async` ring over 64-key tiles; verify split over the tiles through
-// verify_tc.cuh and this file's `combine_splits`).
+// dense) runs it in every dtype; the chunked prefill and the verify and
+// tree verify (paged and dense) run it only in fp32 (held to 1e-4, which
+// TF32 products would not meet) and at head dims other than 64 / 128.  In
+// bf16 at hd 64 / 128 those take the tensor-core body of prefill_tc.cuh
+// instead (64-row `wgmma` tiles, the softmax in registers, a `cp.async`
+// ring over 64-key tiles; the paged verify split over the tiles through
+// verify_tc.cuh and this file's `combine_splits`, the dense verify split
+// across a thread-block cluster that merges in distributed shared memory,
+// verify_attention.cu).
 #pragma once
 
 #include "common.cuh"

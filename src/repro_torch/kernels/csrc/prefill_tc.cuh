@@ -1,18 +1,20 @@
 // Tensor-core attention body (bf16, hd 64 or 128) for Hopper (sm_90a): the
-// paged and dense chunked-prefill kernels and the paged chunk-verify and
-// tree-verify kernels.
+// paged and dense chunked-prefill kernels, and the paged and dense
+// chunk-verify and tree-verify kernels.
 //
 // Replaces, with the FMA body of paged_attention.cuh that fp32 and other
 // head dims keep, the TPU kernels repro/kernels/prefill_attention.py
 // `prefill_attention` and repro/kernels/paged_prefill_attention.py
-// `paged_prefill_attention` (one Pallas body, `_prefill_kernel`), and
+// `paged_prefill_attention` (one Pallas body, `_prefill_kernel`),
 // repro/kernels/paged_verify_attention.py `paged_verify_attention` and
 // repro/kernels/paged_tree_verify_attention.py `paged_tree_verify_attention`
-// (see verify_tc.cuh).  Chunk row t of slot b attends the keys its
-// visibility policy shows it (`CausalVis`: kpos <= start + t; `TreeVis`:
-// the prefix kpos < start and the tree nodes of its ancestor mask), cut at
-// kend; rows t >= clen and rows that see no key give exact zeros, never the
-// mean of V.
+// (see verify_tc.cuh), and repro/kernels/verify_attention.py
+// `verify_attention` and repro/kernels/tree_verify_attention.py
+// `tree_verify_attention` (see verify_attention.cu).  Chunk row t of slot b
+// attends the keys its visibility policy shows it (`CausalVis`: kpos <=
+// start + t; `TreeVis`: the prefix kpos < start and the tree nodes of its
+// ancestor mask), cut at kend; rows t >= clen and rows that see no key give
+// exact zeros, never the mean of V.
 //
 // One CTA, one warpgroup of 128 threads, per (q tile of 64 rows, kv head,
 // slot) -- and, for verify, per split of the slot's KV tiles.  The C * group
@@ -39,10 +41,16 @@
 //     stands between a tile and its copies;
 //   * a kStages-deep ring: each tile's copies are issued before the math of
 //     the tile ahead of it, so one tile's fetch overlaps another's math;
-//   * two epilogues: normalised bf16 rows (`RowsOut`, the chunked prefill,
-//     which walks every tile of its slot in one CTA) or a split's
-//     unnormalised fp32 state for `paged::combine_splits` (`SplitOut`,
-//     verify, whose CTAs each take a range of the slot's tiles).
+//   * three epilogues: normalised bf16 rows (`RowsOut`, the chunked
+//     prefill, which walks every tile of its slot in one CTA); a split's
+//     unnormalised fp32 state for `paged::combine_splits` (`SplitOut`, the
+//     paged verify, whose CTAs each take a range of the slot's tiles and
+//     whose combine is a second launch); or a split's state left in shared
+//     memory for its thread-block cluster to merge through distributed
+//     shared memory in the same launch (`ClusterOut`, the dense verify:
+//     the cluster's CTAs are the slot's splits, so neither a second launch
+//     nor fp32 partials in device memory stand between the walk and the
+//     output).
 // The chunked prefill does not split: the longest slot paces its launch, but
 // at serving chunk sizes (8 tiles at max_seq 512) a split's second launch
 // and fp32 partials would cost about what it saves.  No TMA: a page is 16
@@ -146,7 +154,9 @@ struct TreeVis {
 // [C, H, HD] output.  SplitOut: one split's unnormalised state in the layout
 // `paged::combine_splits` reads -- row R of this (slot, split, kv head) at
 // acc + R * HD (fp32 O) and ml + 2 R (m in units of the scaled score, as
-// the FMA body writes it, and l).
+// the FMA body writes it, and l).  ClusterOut: one split of a thread-block
+// cluster whose CTA of rank r holds split r; the splits merge through
+// distributed shared memory into the slot's normalised bf16 [C, H, HD] rows.
 struct RowsOut {
   bf16* out;
 };
@@ -154,18 +164,38 @@ struct SplitOut {
   float* acc;
   float* ml;
 };
+struct ClusterOut {
+  bf16* out;
+  int rank;  // this CTA's rank in the cluster: its split
+  int size;  // CTAs of the cluster (<= kMaxCluster)
+};
+constexpr int kMaxCluster = 8;  // the portable limit of a cluster's CTAs
+
+// ClusterOut's shared layout, over the K / V ring once the walk is done: the
+// split's fp32 O of the 64 rows (rows padded to HD + 8 floats, so a warp's
+// fragment stores hit every bank once per 128 bytes), then (m, l) per row.
+template <int HD>
+struct MergeSmem {
+  static constexpr int kLd = HD + 8;
+  static constexpr int kO = Smem<HD>::kK;
+  static constexpr int kML = kO + kRows * kLd * 4;
+  static_assert(kML + kRows * 8 <= Smem<HD>::kTable, "merge state exceeds the K / V ring");
+};
 
 // One CTA's q tile qt of kv head `head` for one slot, over the slot's KV
 // tiles tile_lo .. tile_hi - 1 that its visibility bound reaches: q is the
 // slot's [C, H, HD]; kv names the slot's K / V rows (`page` is the pool's
-// page size, unused by DenseKV).  A SplitOut CTA whose range holds no such tile writes (m, l) = (-inf, 0) for
-// its rows and loads nothing.
+// page size, unused by DenseKV).  A CTA whose range holds no such tile
+// loads nothing: under SplitOut it writes (m, l) = (-inf, 0) for its rows
+// and returns; under ClusterOut it must join its cluster's barriers, so it
+// goes on to the merge with (m, l, O) = (-inf, 0, 0).
 template <int HD, typename KV, typename Vis, typename Out>
 __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
                             const bf16* __restrict__ v_pool, KV kv, Vis vis, int page,
                             int start, int clen, int C, int H, int kvh, int head, int qt,
                             int tile_lo, int tile_hi, float scale, Out out) {
   constexpr bool kSplit = std::is_same<Out, SplitOut>::value;
+  constexpr bool kCluster = std::is_same<Out, ClusterOut>::value;
   using L = Smem<HD>;
   constexpr int CH = HD / 8;  // 16-byte chunks of a row
   extern __shared__ uint8_t smem_raw[];
@@ -365,6 +395,79 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
         out.ml[2 * Rb + 1] = l1;
       }
     }
+  } else if constexpr (kCluster) {
+    // ---- epilogue: the splits' merge in distributed shared memory ----
+    // This CTA's state goes where its K / V ring was (no copy is in flight
+    // and the walk's last barrier has passed), a cluster barrier publishes
+    // it, and rank r merges item share r of the tile's real rows (an item
+    // is 4 columns of a row) from every rank's state, in rank order: M =
+    // the largest m of the splits that saw a key (l > 0), then
+    // sum exp2((m_s - M) scale log2 e) (O_s, l_s) -- m is in raw scores.
+    // A row no split saw (M = -inf) gives zeros, as does a row t >= clen.
+    // The last barrier keeps every CTA's shared memory alive until its
+    // peers have read it; its arrive is relaxed, so the output's stores
+    // need not complete before it (a release arrive would wait for them).
+    using MS = MergeSmem<HD>;
+    hop::cp_async_wait<0>();
+    float* sO = reinterpret_cast<float*>(gbase + MS::kO);
+    float* sML = reinterpret_cast<float*>(gbase + MS::kML);
+    const int c = 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      *reinterpret_cast<float2*>(sO + r0 * MS::kLd + 8 * i + c) =
+          make_float2(o[4 * i], o[4 * i + 1]);
+      *reinterpret_cast<float2*>(sO + (r0 + 8) * MS::kLd + 8 * i + c) =
+          make_float2(o[4 * i + 2], o[4 * i + 3]);
+    }
+    if (lane % 4 == 0) {
+      *reinterpret_cast<float2*>(sML + 2 * r0) = make_float2(m0, l0);
+      *reinterpret_cast<float2*>(sML + 2 * (r0 + 8)) = make_float2(m1, l1);
+    }
+    hop::cluster_sync();
+    constexpr int Q4 = HD / 4;  // items of a row
+    const int items = (min(R0 + kRows, rows) - R0) * Q4;
+    const int per = (items + out.size - 1) / out.size;
+    const uint32_t aO = base + MS::kO, aML = base + MS::kML;
+    for (int i = out.rank * per + tid; i < min(items, (out.rank + 1) * per); i += kThreads) {
+      const int r = i / Q4, cc = i % Q4;
+      // every peer's (m, l) and O first, then the sums: the loads overlap
+      float mv[kMaxCluster], lv[kMaxCluster], M = -INFINITY;
+      float4 xv[kMaxCluster];
+#pragma unroll
+      for (int s = 0; s < kMaxCluster; ++s) {
+        const float2 ml = s < out.size ? hop::ld_dsmem_f2(hop::mapa(aML + 8 * r, s))
+                                       : make_float2(-INFINITY, 0.f);
+        mv[s] = ml.x;
+        lv[s] = ml.y;
+      }
+#pragma unroll
+      for (int s = 0; s < kMaxCluster; ++s)
+        xv[s] = s < out.size ? hop::ld_dsmem_f4(hop::mapa(aO + 4 * (r * MS::kLd + 4 * cc), s))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int s = 0; s < kMaxCluster; ++s)
+        if (lv[s] > 0.f) M = fmaxf(M, mv[s]);
+      float L = 0.f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int s = 0; s < kMaxCluster; ++s) {
+        if (lv[s] > 0.f) {
+          const float w = exp2f((mv[s] - M) * sl2);
+          L = fmaf(w, lv[s], L);
+          acc.x = fmaf(w, xv[s].x, acc.x);
+          acc.y = fmaf(w, xv[s].y, acc.y);
+          acc.z = fmaf(w, xv[s].z, acc.z);
+          acc.w = fmaf(w, xv[s].w, acc.w);
+        }
+      }
+      const int R = R0 + r, t = R / group;
+      const float inv = t < clen && L > 0.f ? 1.f / L : 0.f;  // rows t >= clen: zeros
+      *reinterpret_cast<uint2*>(out.out + ((size_t)t * H + head * group + R % group) * HD +
+                                4 * cc) =
+          make_uint2(hop::pack_bf16(acc.x * inv, acc.y * inv),
+                     hop::pack_bf16(acc.z * inv, acc.w * inv));
+    }
+    hop::cluster_sync_relaxed();
   } else {
     // ---- epilogue: O / l as bf16 through the Q tile's space, 16-byte stores ----
     const bool real0 = (R0 + r0) / group < clen, real1 = (R0 + r0 + 8) / group < clen;

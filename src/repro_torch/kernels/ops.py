@@ -291,6 +291,8 @@ _BODY_COUNTS = {
     "prefill_attention": _dense_prefill.BODY_COUNTS,
     "paged_verify_attention": _verify.BODY_COUNTS,
     "paged_tree_verify_attention": _tree.BODY_COUNTS,
+    "verify_attention": _dense_verify.BODY_COUNTS,
+    "tree_verify_attention": _dense_tree.BODY_COUNTS,
 }
 
 
@@ -303,8 +305,8 @@ def launch_counts() -> dict:
 def body_counts() -> dict:
     """Kernel launches since the last reset by kernel name and body
     (``"tc"``: tensor cores, ``"fma"``: CUDA cores), for the kernels that
-    pick their body from dtype and head dim: the chunked prefill (paged and
-    dense) and the paged verify and tree verify."""
+    pick their body from dtype and head dim: the chunked prefill, the verify
+    and the tree verify, each paged and dense."""
     return {name: dict(counts) for name, counts in _BODY_COUNTS.items()}
 
 

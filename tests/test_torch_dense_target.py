@@ -36,6 +36,8 @@ from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import SpecDecodeConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels import tree_verify_attention as ttva
+from repro_torch.kernels import verify_attention as tva
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving import core as tserving
@@ -122,6 +124,166 @@ def test_dense_tree_verify_plain_matches_reference(tree, impl):
     if tree == "chain":
         chain = ops.verify_attention(_t(q), _t(k), _t(v), _t(lens), impl="torch")
         torch.testing.assert_close(out, chain, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route of #6 / #8: its body route, its cluster plan, and a
+# numpy emulation of its split walk and rank-ordered merge
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,hd,body", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 80, "fma"),
+    (torch.bfloat16, 96, "fma"), (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+])
+def test_dense_verify_body_route(dtype, hd, body):
+    """Both dense verify kernels launch through ``launch_dense_verify``,
+    which picks the body by the paged verify's rule: the tensor cores for
+    bf16 at hd 64 / 128, the FMA body else."""
+    assert tva.verify_body(dtype, hd) == body
+    assert ttva.launch_dense_verify is tva.launch_dense_verify
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_dense_verify_plan_covers_every_tile_once(hd):
+    """For S = 1..1024 the cluster's CTAs cover every 64-key tile of the slot
+    exactly once, in rank order, none holds more than ``tiles_per_cta``
+    tiles, the cluster stays within the portable 8 CTAs, and a CTA fits the
+    card's shared memory."""
+    for s in range(1, 1025):
+        n_tiles = -(-s // 64)
+        per, size = tva.dense_verify_plan(s)
+        covered = [j for r in range(size) for j in range(r * per, min((r + 1) * per, n_tiles))]
+        assert covered == list(range(n_tiles)), (s, per, size)
+        assert per >= 2 and 1 <= size <= tva.MAX_CLUSTER and (size - 1) * per < n_tiles
+        assert tva.tc_smem_bytes(hd) <= tva.MAX_SMEM
+    # the serving S = 512: 8 tiles, two a CTA, clusters of 4
+    assert tva.dense_verify_plan(512) == (2, 4)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _tc_emulation(q, k, v, lengths, anc=None):
+    """numpy emulation, in fp32 and in the kernel's units, of the tensor-core
+    route of ``csrc/verify_attention.cu``: per (slot, kv head, 64-row q
+    tile), the cluster's CTA of rank r walks 64-key tiles r * per ..
+    r * per + per - 1 up to the q tile's visibility end (keys past it
+    zero-filled and hidden), keeping m in raw scores and p = exp2((s - m)
+    scale log2 e); the merge weighs each rank that saw a key by exp2((m_r -
+    M) scale log2 e) and sums (O, l) in rank order.  Rows that see no key
+    give zeros."""
+    nb, c, h, hd = q.shape
+    _, s, kvh, _ = k.shape
+    group, rows = h // kvh, c * (h // kvh)
+    per, size = tva.dense_verify_plan(s)
+    sl2 = np.float32(hd**-0.5 * LOG2E)
+    out = np.zeros_like(q)
+    kpos = np.arange(s)
+    for b in range(nb):
+        start = int(lengths[b]) - c
+        for head in range(kvh):
+            for r0 in range(0, rows, 64):
+                R = np.arange(r0, min(r0 + 64, rows))
+                t, qh = R // group, head * group + R % group
+                if anc is None:
+                    kmax = min(start + min(int(t[-1]) + 1, c), s)
+                    seen = kpos[None, :] <= start + t[:, None]
+                else:
+                    kmax = min(start + c, s)
+                    j = kpos[None, :] - start
+                    bits = (anc[b, t][:, None] >> np.clip(j, 0, 31)) & 1
+                    seen = (j < 0) | ((j < c) & (bits == 1))
+                nk = -(-kmax // 64) if kmax > 0 else 0
+                ms, ls, os_ = [], [], []
+                for rank in range(size):
+                    m = np.full(len(R), -np.inf, np.float32)
+                    l = np.zeros(len(R), np.float32)
+                    o = np.zeros((len(R), hd), np.float32)
+                    for jt in range(rank * per, min((rank + 1) * per, nk)):
+                        kp = np.arange(jt * 64, jt * 64 + 64)
+                        inb = kp < kmax
+                        kc = np.minimum(kp, s - 1)
+                        kk = np.where(inb[:, None], k[b, kc, head], 0).astype(np.float32)
+                        vv = np.where(inb[:, None], v[b, kc, head], 0).astype(np.float32)
+                        sc = np.where(inb[None, :] & seen[:, kc], q[b, t, qh] @ kk.T, -np.inf)
+                        mx = np.maximum(m, sc.max(axis=1))
+                        bb = np.where(mx == -np.inf, 0, mx * sl2).astype(np.float32)
+                        p = np.exp2(sc * sl2 - bb[:, None]).astype(np.float32)
+                        corr = np.exp2(m * sl2 - bb).astype(np.float32)
+                        l = l * corr + p.sum(axis=1)
+                        o = o * corr[:, None] + p @ vv
+                        m = mx
+                    ms.append(m)
+                    ls.append(l)
+                    os_.append(o)
+                saw = [li > 0 for li in ls]
+                M = np.max([np.where(sw, mi, -np.inf) for sw, mi in zip(saw, ms)], axis=0)
+                L = np.zeros(len(R), np.float32)
+                O = np.zeros((len(R), hd), np.float32)
+                for sw, mi, li, oi in zip(saw, ms, ls, os_):  # rank order
+                    w = np.where(sw, np.exp2((np.where(sw, mi, 0) - np.where(sw, M, 0)) * sl2), 0)
+                    L = L + w * li
+                    O = O + w[:, None] * oi
+                out[b, t, qh] = np.where(L[:, None] > 0, O / np.where(L > 0, L, 1)[:, None], 0)
+    return out
+
+
+EMU_VERIFY_CASES = VERIFY_CASES + [
+    # (seed, b, t, h, kvh, hd, s, lengths): clusters of 3, 8 and 6 CTAs (two
+    # and three tiles a CTA), lengths < T, 0 and past S, two q tiles (T=40)
+    (3, 3, 5, 4, 2, 16, 300, [0, 3, 290]),
+    (4, 2, 5, 4, 2, 16, 1000, [1000, 1007]),
+    (5, 2, 40, 4, 2, 16, 1100, [700, 35]),
+]
+
+
+@pytest.mark.parametrize("case", EMU_VERIFY_CASES, ids=lambda c: f"seed{c[0]}")
+def test_dense_verify_cluster_emulation_matches_plain(case):
+    seed, b, t, h, kvh, hd, s, lengths = case
+    rng, k, v = _kv(seed, b, s, kvh, hd)
+    q = rng.standard_normal((b, t, h, hd)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    emu = _tc_emulation(q, k, v, lens)
+    plain = ops.verify_attention(_t(q), _t(k), _t(v), _t(lens), impl="torch")
+    assert np.isfinite(emu).all()
+    _close(plain, emu)
+    rows = (lens[:, None] - t + np.arange(t)[None, :]) < 0  # empty windows: zeros
+    assert not emu[rows].any()
+
+
+@pytest.mark.parametrize("tree", list(TREES))
+def test_dense_tree_cluster_emulation_matches_plain(tree):
+    """Over S = 300 (clusters of 3) at group 4, where the 31-node tree's 124
+    rows take two q tiles; a chain's emulation equals verify's bit for bit."""
+    parents = TREES[tree]
+    n = len(parents)
+    rng, k, v = _kv(6, 5, 300, 2, 16)
+    q = rng.standard_normal((5, n, 8, 16)).astype(np.float32)
+    lens = np.asarray([0, n - 2, n + 9, 300, 305], np.int32)
+    anc = np.broadcast_to(np.asarray(jtree.tree_ancestor_masks(parents)), (5, n)).astype(np.int32)
+    emu = _tc_emulation(q, k, v, lens, anc)
+    plain = ops.tree_verify_attention(_t(q), _t(k), _t(v), _t(lens), _t(anc), impl="torch")
+    assert np.isfinite(emu).all()
+    _close(plain, emu)
+    assert not emu[0].any()  # lengths == 0: every row sees nothing
+    if tree == "chain":
+        assert np.array_equal(emu, _tc_emulation(q, k, v, lens))
+
+
+def test_dense_verify_plain_versions_leave_body_counts_at_zero():
+    ops.reset_launch_counts()
+    qc = torch.zeros((2, 3, 4, 16))
+    kv = torch.zeros((2, 8, 2, 16))
+    lens = torch.tensor([3, 8], dtype=torch.int32)
+    anc = torch.tensor([[1, 3, 7]] * 2, dtype=torch.int32)
+    for impl in ("auto", "torch"):
+        ops.verify_attention(qc, kv, kv, lens, impl=impl)
+        ops.tree_verify_attention(qc, kv, kv, lens, anc, impl=impl)
+    for name in ("verify_attention", "tree_verify_attention"):
+        assert ops.launch_counts()[name] == {"cuda": 0, "torch": 2}
+        assert ops.body_counts()[name] == {"tc": 0, "fma": 0}
+    ops.reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------

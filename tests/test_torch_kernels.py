@@ -130,7 +130,8 @@ def test_body_counts_reset_and_untouched_by_plain_versions():
     assert all(c == {"tc": 0, "fma": 0} for c in ops.body_counts().values())
     assert set(ops.body_counts()) == {"paged_prefill_attention", "prefill_attention",
                                       "paged_verify_attention",
-                                      "paged_tree_verify_attention"}
+                                      "paged_tree_verify_attention", "verify_attention",
+                                      "tree_verify_attention"}
 
 
 def _small_decode_inputs():
