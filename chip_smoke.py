@@ -16,17 +16,21 @@ Phases, each printing a line before the last:
                  calls; pages gathered first, an explicit boolean mask for
                  verify and tree) and the bound the card's memory rate and
                  peak give for the same work: the paged decode / chunked-
-                 prefill kernels at the serving shapes (the prefill also
-                 checked at GQA group 7, hd 64 and C = 64), flash attention
+                 prefill kernels at the serving shapes (the decode also
+                 checked at lengths on the 64-key tile edges, GQA groups 1
+                 and 7 at hd 128 and 64, and a 4,096-key table, timed there
+                 and at one tile a CTA, every slot with lengths <= 0 exactly
+                 zero; the prefill at GQA group 7, hd 64 and C = 64), flash
+                 attention
                  forward and backward at the training shape (plus a ragged
                  case, a non-causal case at hd 128 and 64, the smallest
                  monolithic prefill bucket and a sequence shorter than one q
                  tile; TFLOP/s and the share of the bound; the same at B=1,
-                 S=4096), the dense decode /
-                 chunked prefill at the
-                 draft model's shapes (plus a GQA case; the prefill also at
-                 the dense target's H = 16, timed there too, and at group 7,
-                 hd 64 and C = 64 with chunks past S), the paged verify for
+                 S=4096), the dense decode / chunked prefill at the draft
+                 model's shapes and the dense target's H = 16, timed at both
+                 (the decode also at the paged decode's extra shapes, lengths
+                 past S and S = 4,096; the prefill at group 7, hd 64 and
+                 C = 64 with chunks past S), the paged verify for
                  T = 2, 3, 5 and at the suffix prefill's bucket sizes T = 64,
                  128 (lengths up to and past the table), the paged tree
                  verify for a chain (bit-equal to verify at T = 5), a
@@ -42,8 +46,10 @@ Phases, each printing a line before the last:
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
-                 streams, speculating engines (draft-paired, n-gram, and the
-                 target as its own draft) whose streams must also equal the
+                 streams (the cuda engine's decode graphs must have captured
+                 one paged decode launch a layer and step), speculating
+                 engines (draft-paired, n-gram, and the target as its own
+                 draft) whose streams must also equal the
                  plain greedy engine's, the dense target layout under chunked
                  and monolithic prefill (plain, draft-paired, n-gram), the
                  paged engine with monolithic prefill and radix hits (suffix
@@ -70,8 +76,10 @@ Phases, each printing a line before the last:
                  any ``torch.profiler`` session: after one, every launch
                  costs more on the host, and its times are host-paced.
 6. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
-                 through ``EngineCore.step()``; every request must finish and
-                 both paged kernels must have launched (plain versions never),
+                 through ``EngineCore.step()``; every request must finish,
+                 both paged kernels must have launched (plain versions never)
+                 and each decode graph must have captured one paged decode
+                 launch a layer and step,
                  each bf16 chunked prefill through the tensor-core body (as in
                  phases 5, 7 and 8).
 7. spec serve -- the same model and requests, paired with its 1-layer draft
@@ -95,11 +103,13 @@ Phases, each printing a line before the last:
 Then, under ``torch.profiler``, one train step of phase 5's model (the
 device's busy share and the flash kernels' share of device time),
 the flash backward's three kernels one by one, the paged verify's and
-tree verify's split pass and combine apart, and the dense verify's and
-tree verify's one cluster kernel; one
+tree verify's split pass and combine apart, the dense verify's and
+tree verify's one cluster kernel, and the paged and dense decode's one
+cluster kernel (a call must be that one kernel and one allocation, its
+output); one
 ``{"kernels": [...]}`` line (launches from the run of each
 kernel's path: the speculative kernels' from the spec serve run -- the
-dense prefill's also from the dense target serve run --, the dense
+dense decode's and prefill's also from the dense target serve run --, the dense
 verify and tree verify from the dense target serve run, the scan from the
 ssm serve run, the others' from the collocated run) and, last, the
 ``{"ok": true, ...}`` line.  Any failed
@@ -148,6 +158,13 @@ DECODE_LENGTHS = [512, 300, 0, 17, 1, 256, 511, 100]
 PREFILL_STARTS = [0, 64, 100, 480, 0, 33, 256, 16]
 PREFILL_LENS = [32, 0, 17, 32, 1, 5, 32, 20]
 SHARED_PAGES = 4  # slot 1's first pages are slot 0's (a radix-shared prefix)
+# decode check shapes beyond the serving ones: lengths at the 64-key tile
+# edges (0, 1, 63, 64, 65, 127, 129, the full table; dense also past S),
+# groups 1 and 7, hd 64, and a 4,096-key table / S (8 tiles a CTA)
+DECODE_EDGE_LENGTHS = [63, 64, 65, 0, 1, 512, 127, 129]
+DENSE_EDGE_LENGTHS = [63, 64, 65, 0, 1, 512, 600, 129]
+LONG_NCOLS, LONG_S = 256, 4096
+LONG_LENGTHS = [4096, 3000, 0, 17, 1, 2048, 4095, 1000]
 # chunked prefill at C = 64 (two q tiles of 64 rows at group 2); on the
 # dense cache slots 3 and 7 run past S
 PREFILL_STARTS_C64 = [0, 64, 100, 448, 0, 33, 256, 16]
@@ -298,15 +315,15 @@ def _time_ms(fn, reps: int = 30) -> float:
     return times[len(times) // 2]
 
 
-def _pool_inputs(dtype, seed: int = 0, hd: int = HD, kvh: int = KVH):
+def _pool_inputs(dtype, seed: int = 0, hd: int = HD, kvh: int = KVH, ncols: int = NCOLS):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    pool_n = 1 + B * NCOLS
+    pool_n = 1 + B * ncols
     k_pool = torch.randn((pool_n, PAGE, kvh, hd), generator=g, device="cuda").to(dtype)
     v_pool = torch.randn((pool_n, PAGE, kvh, hd), generator=g, device="cuda").to(dtype)
     perm = torch.randperm(pool_n - 1, generator=g, device="cuda") + 1
-    bt = perm.reshape(B, NCOLS).to(torch.int32)
+    bt = perm.reshape(B, ncols).to(torch.int32)
     bt[1, :SHARED_PAGES] = bt[0, :SHARED_PAGES]
     bt = torch.cat([bt, torch.zeros((B, 1), dtype=torch.int32, device="cuda")], 1)
     return g, k_pool, v_pool, bt.contiguous()
@@ -318,7 +335,7 @@ def _unique_kv_rows(bt, needed):
     rows = set()
     tables = bt.tolist()
     for b, n in enumerate(needed):
-        for pos in range(min(n, NCOLS * PAGE)):
+        for pos in range(min(n, (bt.shape[1] - 1) * PAGE)):
             rows.add((tables[b][pos // PAGE], pos % PAGE))
     return len(rows)
 
@@ -369,6 +386,43 @@ def _check_kernel(name, kernel, plain, make_inputs):
     return errs
 
 
+def _decode_cases(edge_lengths, long_kw):
+    """(label, keyword arguments of a decode ``make_inputs`` factory): the
+    serving shape (group 2, hd 128), lengths at the 64-key tile edges,
+    groups 1 and 7 at hd 128 and 64, hd 64, and a 4,096-key slot."""
+    return (("", {}), (" (tile edges)", {"lens": edge_lengths}),
+            (" (group 1, H=8)", {"h": 8}), (" (group 1, hd 64)", {"h": 8, "hd": 64}),
+            (" (group 7, H=56)", {"h": 56}),
+            (" (group 7, hd 64)", {"h": 28, "kvh": 4, "hd": 64}),
+            (" (hd 64)", {"hd": 64}), (" (4,096 keys)", long_kw))
+
+
+def _check_decode(name, kernel, plain, make_inputs):
+    """``_check_kernel``, and the rows of a slot with ``lengths <= 0`` exactly
+    zero in both types."""
+    import torch
+
+    errs = _check_kernel(name, kernel, plain, make_inputs)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = make_inputs(dtype)
+        out = kernel(*args)
+        if out[args[-1] <= 0].any():
+            raise AssertionError(f"{name} {dtype}: a slot with lengths <= 0 is not zeros")
+    return errs
+
+
+def _one_tile_per_cta_ms(fn):
+    """``fn``'s time with the decode kernels' plan at one 64-key tile a CTA
+    (the default is DECODE_TILES_PER_CTA)."""
+    from repro_torch.kernels import decode_attention as dd
+
+    default, dd.DECODE_TILES_PER_CTA = dd.DECODE_TILES_PER_CTA, 1
+    try:
+        return _time_ms(fn)
+    finally:
+        dd.DECODE_TILES_PER_CTA = default
+
+
 def phase_kernels():
     """Returns the kernel rows of the final ``kernels`` line (launches are
     filled in by the serve phase)."""
@@ -381,34 +435,48 @@ def phase_kernels():
     rows = []
     isz = 2  # bf16 timing runs
 
-    # ---- paged decode ----------------------------------------------------
+    # ---- paged decode (#1): the serving shape, then the shapes the cluster
+    # kernel must also take -------------------------------------------------
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    long_lengths = torch.tensor(LONG_LENGTHS, dtype=torch.int32, device="cuda")
 
-    def decode_inputs(dtype):
-        g, k_pool, v_pool, bt = _pool_inputs(dtype)
-        q = torch.randn((B, H, HD), generator=g, device="cuda").to(dtype)
-        return q, k_pool, v_pool, bt, lengths
+    def decode_inputs(h=H, kvh=KVH, hd=HD, ncols=NCOLS, lens=lengths):
+        def make(dtype):
+            g, k_pool, v_pool, bt = _pool_inputs(dtype, hd=hd, kvh=kvh, ncols=ncols)
+            q = torch.randn((B, h, hd), generator=g, device="cuda").to(dtype)
+            return q, k_pool, v_pool, bt, lens
+        return make
 
-    errs = _check_kernel(
-        "paged_decode_attention", dec.paged_decode_attention,
-        dec.paged_decode_attention_torch, decode_inputs,
-    )
-    q, k_pool, v_pool, bt, _ = decode_inputs(torch.bfloat16)
+    errs = _worst(*[
+        _check_decode(f"paged_decode_attention{label}", dec.paged_decode_attention,
+                      dec.paged_decode_attention_torch, decode_inputs(**kw))
+        for label, kw in _decode_cases(
+            torch.tensor(DECODE_EDGE_LENGTHS, dtype=torch.int32, device="cuda"),
+            {"ncols": LONG_NCOLS, "lens": long_lengths})])
+    q, k_pool, v_pool, bt, _ = decode_inputs()(torch.bfloat16)
     k_ms = _time_ms(lambda: dec.paged_decode_attention(q, k_pool, v_pool, bt, lengths))
     p_ms = _time_ms(lambda: dec.paged_decode_attention_torch(q, k_pool, v_pool, bt, lengths))
-    # yardstick: SDPA over the pre-gathered pages (gather not timed)
-    S = NCOLS * PAGE
-    kd = dec.gather_pages(k_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
-    vd = dec.gather_pages(v_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
-    mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask))
-    needed = [min(n, S) for n in DECODE_LENGTHS]
-    kv_rows = _unique_kv_rows(bt, needed)
-    nbytes = (2 * B * H * HD * isz + 2 * kv_rows * KVH * HD * isz
-              + bt.numel() * 4 + B * 4)
-    flops = 4 * HD * H * sum(needed)
-    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    one_ms = _one_tile_per_cta_ms(lambda: dec.paged_decode_attention(q, k_pool, v_pool, bt,
+                                                                    lengths))
+
+    def paged_decode_yardsticks(q, k_pool, v_pool, bt, lens):
+        """SDPA over the pre-gathered pages (gather not timed), and the bound."""
+        s = (bt.shape[1] - 1) * PAGE
+        kd = dec.gather_pages(k_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
+        vd = dec.gather_pages(v_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
+        mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd,
+                                                               attn_mask=mask))
+        needed = [min(n, s) for n in lens.tolist()]
+        nbytes = (2 * B * H * HD * isz + 2 * _unique_kv_rows(bt, needed) * KVH * HD * isz
+                  + bt.numel() * 4 + B * 4)
+        return (l_ms, *_bound_ms(nbytes, 4 * HD * H * sum(needed), torch.bfloat16))
+
+    l_ms, bound, by = paged_decode_yardsticks(q, k_pool, v_pool, bt, lengths)
+    lq, lk, lv, lbt, _ = decode_inputs(ncols=LONG_NCOLS, lens=long_lengths)(torch.bfloat16)
+    long_ms = _time_ms(lambda: dec.paged_decode_attention(lq, lk, lv, lbt, long_lengths))
+    long_l_ms, long_bound, _ = paged_decode_yardsticks(lq, lk, lv, lbt, long_lengths)
+    del lq, lk, lv, lbt
     rows.append({
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -416,10 +484,12 @@ def phase_kernels():
         "launches": 0, "max_abs_err": errs["bfloat16"],
         "max_abs_err_fp32": errs["float32"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": l_ms,
+        "library_ms": l_ms, "ms_1_tile_per_cta": one_ms, "ms_4096_keys": long_ms,
+        "library_ms_4096_keys": long_l_ms, "bound_ms_4096_keys": long_bound,
     })
     log(f"kernel paged_decode_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by}); at 1 tile a CTA {one_ms:.4f} ms; "
+        f"4,096-key table {long_ms:.4f} ms, sdpa {long_l_ms:.4f} ms, bound {long_bound:.4f} ms")
 
     # ---- paged chunked prefill: the serving shape, then the shapes the
     # tensor-core body must also take (group 7, hd 64, two q tiles) ----------
@@ -442,6 +512,7 @@ def phase_kernels():
     p_ms = _time_ms(
         lambda: pre.paged_prefill_attention_torch(q, k_pool, v_pool, bt, starts, clens)
     )
+    S = NCOLS * PAGE
     kd = dec.gather_pages(k_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
     vd = dec.gather_pages(v_pool, bt).transpose(1, 2).repeat_interleave(H // KVH, 1)
     t = torch.arange(CHUNK, device="cuda")
@@ -680,12 +751,12 @@ def _kernel_ms_by_name(fn, names, reps: int = 30) -> dict:
     return {n: sorted(t)[len(t) // 2] if t else None for n, t in times.items()}
 
 
-def _dense_inputs(dtype, seed, hd=HD, kvh=KVH):
+def _dense_inputs(dtype, seed, hd=HD, kvh=KVH, s=DENSE_S):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k = torch.randn((B, DENSE_S, kvh, hd), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, DENSE_S, kvh, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, s, kvh, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, s, kvh, hd), generator=g, device="cuda").to(dtype)
     return g, k, v
 
 
@@ -721,35 +792,59 @@ def _spec_rows():
 
     rows, isz = [], 2
 
-    # ---- dense decode (#3): the draft's proposal step -------------------------
+    # ---- dense decode (#3): the draft's proposal step (H = 8) and, on the
+    # dense target layout, the target's decode step (H = 16), plus the shapes
+    # the cluster kernel must also take ------------------------------------------
     lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device="cuda")
+    long_lengths = torch.tensor(LONG_LENGTHS, dtype=torch.int32, device="cuda")
 
-    def decode_inputs(h):
+    def decode_inputs(h=DRAFT_H, kvh=KVH, hd=HD, s=DENSE_S, lens=lengths):
         def make(dtype):
-            g, k, v = _dense_inputs(dtype, seed=2)
-            q = torch.randn((B, h, HD), generator=g, device="cuda").to(dtype)
-            return q, k, v, lengths
+            g, k, v = _dense_inputs(dtype, seed=2, hd=hd, kvh=kvh, s=s)
+            q = torch.randn((B, h, hd), generator=g, device="cuda").to(dtype)
+            return q, k, v, lens
         return make
 
-    errs = _worst(
-        _check_kernel("decode_attention", dd.decode_attention, dd.decode_attention_torch,
-                      decode_inputs(DRAFT_H)),
-        _check_kernel("decode_attention (GQA, H=16)", dd.decode_attention,
-                      dd.decode_attention_torch, decode_inputs(H)),
-    )
-    q, k, v, _ = decode_inputs(DRAFT_H)(torch.bfloat16)
-    k_ms = _time_ms(lambda: dd.decode_attention(q, k, v, lengths))
-    p_ms = _time_ms(lambda: dd.decode_attention_torch(q, k, v, lengths))
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # kvH == H for the draft
-    mask = (torch.arange(DENSE_S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
-                                                           attn_mask=mask))
-    needed = [min(n, DENSE_S) for n in DENSE_LENGTHS]
-    nbytes = 2 * B * DRAFT_H * HD * isz + 2 * sum(needed) * KVH * HD * isz + B * 4
-    bound, by = _bound_ms(nbytes, 4 * HD * DRAFT_H * sum(needed), torch.bfloat16)
-    rows.append(_row("decode_attention", "decode_attention.cu",
-                     "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms,
-                     bound, by))
+    cases = [("", {}), (" (dense target, H=16)", {"h": H})] + [
+        (label, {"h": H, **kw}) for label, kw in _decode_cases(
+            torch.tensor(DENSE_EDGE_LENGTHS, dtype=torch.int32, device="cuda"),
+            {"s": LONG_S, "lens": long_lengths})[1:]
+        if "group 1" not in label] + [(" (group 1, hd 64)", {"hd": 64})]
+    errs = _worst(*[_check_decode(f"decode_attention{label}", dd.decode_attention,
+                                  dd.decode_attention_torch, decode_inputs(**kw))
+                    for label, kw in cases])
+
+    def dense_decode_times(h, s=DENSE_S, lens=lengths, plain=True):
+        """(kernel, plain, SDPA, bound ms, bound by) in bf16 at h q heads."""
+        q, k, v, _ = decode_inputs(h=h, s=s, lens=lens)(torch.bfloat16)
+        k_ms = _time_ms(lambda: dd.decode_attention(q, k, v, lens))
+        p_ms = _time_ms(lambda: dd.decode_attention_torch(q, k, v, lens)) if plain else None
+        kt = k.transpose(1, 2).repeat_interleave(h // KVH, 1)
+        vt = v.transpose(1, 2).repeat_interleave(h // KVH, 1)
+        mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                               attn_mask=mask))
+        needed = [min(max(n, 0), s) for n in lens.tolist()]
+        nbytes = 2 * B * h * HD * isz + 2 * sum(needed) * KVH * HD * isz + B * 4
+        return (k_ms, p_ms, l_ms, *_bound_ms(nbytes, 4 * HD * h * sum(needed),
+                                               torch.bfloat16))
+
+    row = _row("decode_attention", "decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:92", errs, *dense_decode_times(DRAFT_H))
+    k_ms, p_ms, l_ms, bound, by = dense_decode_times(H)
+    log(f"kernel decode_attention (dense target, H={H}): {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    row.update(ms_target=k_ms, plain_ms_target=p_ms, library_ms_target=l_ms,
+               bound_ms_target=bound)
+    q, k, v, _ = decode_inputs()(torch.bfloat16)
+    one_ms = _one_tile_per_cta_ms(lambda: dd.decode_attention(q, k, v, lengths))
+    long_ms, _, long_l_ms, long_bound, _ = dense_decode_times(DRAFT_H, LONG_S, long_lengths,
+                                                              plain=False)
+    row.update(ms_1_tile_per_cta=one_ms, ms_4096_keys=long_ms,
+               library_ms_4096_keys=long_l_ms, bound_ms_4096_keys=long_bound)
+    log(f"kernel decode_attention: at 1 tile a CTA {one_ms:.4f} ms; S = {LONG_S} "
+        f"{long_ms:.4f} ms, sdpa {long_l_ms:.4f} ms, bound {long_bound:.4f} ms")
+    rows.append(row)
 
     # ---- dense chunked prefill (#4): the draft's chunk wave (H = 8) and, on
     # the dense target layout, the target's (H = 16), plus the shapes the
@@ -981,6 +1076,62 @@ def _verify_by_kernel(rows):
         log(f"kernel {name} by kernel (median of 30, profiler): cluster kernel "
             + (f"{t:.4f} ms, the launch outside it {row['ms'] - t:.4f} ms (CUDA events "
                f"{row['ms']:.4f} ms)" if t is not None else "not measured"))
+
+
+def _decode_by_kernel(rows):
+    """The paged and dense decode's one launch at the table's shapes (bf16;
+    the dense one at the draft's H = 8 and the dense target's H = 16): a
+    call must be one kernel, the cluster kernel (no ``combine_splits``), and
+    one allocation, its output (no scratch); the kernel's profiler span
+    against the row's CUDA-event time shows what the launch costs outside
+    it.  Runs after every other phase, as ``_verify_by_kernel`` does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import paged_decode_attention as dec
+
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    g, k_pool, v_pool, bt = _pool_inputs(torch.bfloat16)  # phase_kernels' inputs
+    q = torch.randn((B, H, HD), generator=g, device="cuda").to(torch.bfloat16)
+    dlens = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device="cuda")
+    calls = [("paged_decode_attention", "ms", "paged_decode_cluster_kernel",
+              lambda: dec.paged_decode_attention(q, k_pool, v_pool, bt, lengths))]
+    for h, key in ((DRAFT_H, "ms"), (H, "ms_target")):
+        g, k, v = _dense_inputs(torch.bfloat16, seed=2)  # _spec_rows' inputs
+        qd = torch.randn((B, h, HD), generator=g, device="cuda").to(torch.bfloat16)
+        calls.append(("decode_attention", key, "dense_decode_cluster_kernel",
+                      lambda qd=qd, k=k, v=v: dd.decode_attention(qd, k, v, dlens)))
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    reps = 30
+    for name, key, kernel, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fn()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        # the profiler may drop a few events: every kernel it saw (not the
+        # flush's) must be the cluster kernel, at most one a call
+        seen = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Fill" not in e.name and "emset" not in e.name]
+        if allocs != 1 or len(seen) > reps or any(kernel not in e.name for e in seen):
+            raise AssertionError(f"{name}: a call made {allocs} allocations, and {reps} calls "
+                                 f"launched {sorted({e.name for e in seen})} {len(seen)} times "
+                                 f"(one allocation, the output, and only {kernel} expected)")
+        spans = sorted((e.time_range.end - e.time_range.start) / 1e3 for e in seen)
+        t = spans[len(spans) // 2] if spans else None
+        row = next(r for r in rows if r["name"] == name)
+        row.setdefault("kernels_ms", {})[f"cluster kernel ({key})"] = t
+        log(f"kernel {name} ({key}) by kernel (profiler, median of the {len(seen)} launches "
+            f"it saw in {reps} calls, all of {kernel}); one allocation a call; " + (
+                f"cluster kernel {t:.4f} ms, the launch outside it {row[key] - t:.4f} ms "
+                f"(CUDA events {row[key]:.4f} ms)" if t is not None else
+                "the profiler saw no kernel (span not measured)"))
 
 
 def _dense_target_rows():
@@ -1307,9 +1458,12 @@ def phase_parity():
                            shared_prefix=32, shared_idx=(0, 5))
         reqs, _ = _serve(eng, prompts, max_new=8)
         streams[impl] = [list(r.output_tokens) for r in reqs]
+        if impl == "cuda":
+            graphs = _decode_graph_launches("parity engine", eng, cfg)
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("parity: EngineCore token streams differ (cuda vs torch)")
-    log(f"parity engine: {len(streams['cuda'])} requests, token streams equal")
+    log(f"parity engine: {len(streams['cuda'])} requests, token streams equal; the cuda "
+        f"engine's decode graphs captured {graphs} paged decode launches (k: launches)")
     _spec_parity(cfg, params)
     _dense_target_parity(cfg, params)
     _ssm_parity()
@@ -1535,6 +1689,7 @@ def phase_serve():
             raise AssertionError("serve: token id out of the vocabulary")
     _require_launches("serve", counts, SERVE_KERNELS)
     bodies = _require_tc_bodies("serve", counts)
+    graphs = _decode_graph_launches("serve", engine, cfg)
     tokens = sum(len(r.output_tokens) for r in reqs)
     ttft = m.histogram("core/online_ttft_s")
     lat = m.histogram("core/online_latency_s")
@@ -1545,12 +1700,25 @@ def phase_serve():
         f"latency p50 {lat.percentile(50) * 1e3:.1f} ms p95 {lat.percentile(95) * 1e3:.1f} ms; "
         f"prefix-skipped {engine.prefill_skipped_tokens} tokens; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"serve: the decode graphs captured {graphs} paged decode launches (k: launches, "
+        f"one a layer and step; every replay launches them again)")
     log(f"serve launches: {json.dumps(counts)} "
         f"(per generated token: " + ", ".join(
             f"{k} {v['cuda'] / tokens:.2f}" for k, v in counts.items()) + "); "
         f"bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg)
     return {name: c["cuda"] for name, c in counts.items()}
+
+
+def _decode_graph_launches(phase, engine, cfg):
+    """The paged decode launches each of the engine's decode graphs captured
+    (``DecodeGraph.launches``): one a layer and step of its k.  Raises if
+    the engine replayed no graph or a graph captured another count."""
+    graphs = {k: g.launches["paged_decode_attention"] for k, g in engine._decode_graphs.items()}
+    if not graphs or any(n != cfg.num_layers * k for k, n in graphs.items()):
+        raise AssertionError(f"{phase}: decode graphs captured {graphs} paged decode "
+                             f"launches ({cfg.num_layers} a step expected)")
+    return graphs
 
 
 def _busy_and_top(prof):
@@ -2129,6 +2297,7 @@ def main() -> int:
     _profile_train()
     _flash_bwd_by_kernel(next(r for r in rows if r["name"] == "flash_attention_bwd"))
     _verify_by_kernel(rows)
+    _decode_by_kernel(rows)
     for row in rows:
         # each kernel's launches on the run of its path: the spec kernels in
         # the spec serve run, the dense verify / tree verify in the dense
@@ -2136,7 +2305,7 @@ def main() -> int:
         # collocated run
         if row["name"] in SPEC_KERNELS:
             row["launches"] = spec_launches[row["name"]]
-            if row["name"] == "prefill_attention":
+            if row["name"] in ("prefill_attention", "decode_attention"):
                 row["launches_dense_target"] = dense_launches[row["name"]]
         elif row["name"] in ("verify_attention", "tree_verify_attention"):
             row["launches"] = dense_launches[row["name"]]

@@ -32,13 +32,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points of each kernel library and their argument types
 SIGNATURES = {
     "paged_decode_attention": (
-        ("paged_decode_attention_launch", [_P] * 8 + [_I] * 10 + [_P]),
+        ("paged_decode_attention_launch", [_P] * 6 + [_I] * 10 + [_P]),
     ),
     "paged_prefill_attention": (
         ("paged_prefill_attention_launch", [_P] * 7 + [_I] * 11 + [_P]),
     ),
     "decode_attention": (
-        ("decode_attention_launch", [_P] * 7 + [_I] * 10 + [_P]),
+        ("decode_attention_launch", [_P] * 5 + [_I] * 9 + [_P]),
     ),
     "prefill_attention": (
         ("prefill_attention_launch", [_P] * 6 + [_I] * 11 + [_P]),

@@ -4,8 +4,8 @@
 // their data to `wgmma`, warpgroup MMA (`wgmma`) with its shared-memory
 // descriptors and register fences, `setmaxnreg`, named barriers, and the
 // thread-block cluster's rank, barrier and distributed shared memory
-// (DSMEM).  The flash-attention, chunked-prefill and verify libraries
-// include it.
+// (DSMEM).  The flash-attention, chunked-prefill, verify and decode
+// libraries include it.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)

@@ -1,6 +1,7 @@
-// Shared body of the attention kernels over a KV cache: paged and dense
-// decode, paged and dense chunked prefill, paged and dense chunk-verify and
-// tree-verify.
+// Shared FMA body of the attention kernels over a KV cache: paged and dense
+// chunked prefill, paged and dense chunk-verify and tree-verify (the decode
+// kernels have their own body, decode_cluster.cuh, which takes this file's
+// KV address policies).
 //
 // One thread block owns one (slot, kv head, block of chunk rows) and a range
 // of the slot's KV tiles.  It walks its tiles up to the last one its rows can
@@ -9,7 +10,7 @@
 // its rows -- the GQA group's query heads for every chunk row -- in shared
 // memory.  On the TPU that state lived in VMEM scratch carried across the
 // sequential KV axis of the grid; here the KV axis is a loop inside the
-// block (and, for decode and verify, split over blocks whose partial states
+// block (and, for verify, split over blocks whose partial states
 // `combine_splits` merges), since blocks run in parallel and in no order.
 //
 // Two policies make the variants:
@@ -24,27 +25,25 @@
 // (q head h maps to kv head h / group).  Rows t >= clen are padding and give
 // zeros, as does a row that saw no key (l == 0): never the mean of V.
 //
-// Decode is the case C = 1, start = length - 1, clen = (length > 0); verify
-// is C = clen = T, start = length - T (rows split over blocks of
-// kVerifyRows chunk rows).
+// Verify is the case C = clen = T, start = length - T (rows split over
+// blocks of kVerifyRows chunk rows).
 //
 // Bound: at serving batch sizes every variant is bound by device-memory
 // bytes (each K/V row read once per kv head feeds 2 * group * hd FMAs per
 // chunk row).  This body reads each needed tile once per block with 16-byte
 // vector loads, stops at the last useful tile, and spreads the work over
-// enough blocks to fill the SMs (decode and verify: tiles split over blocks;
-// prefill: block_q = 8 chunk rows per block).  It does not overlap the next
-// tile's loads with the current tile's math, uses fp32 FMAs on the CUDA
-// cores, and runs the rows' softmax one thread per row.  Decode (paged and
-// dense) runs it in every dtype; the chunked prefill and the verify and
-// tree verify (paged and dense) run it only in fp32 (held to 1e-4, which
-// TF32 products would not meet) and at head dims other than 64 / 128.  In
-// bf16 at hd 64 / 128 those take the tensor-core body of prefill_tc.cuh
-// instead (64-row `wgmma` tiles, the softmax in registers, a `cp.async`
-// ring over 64-key tiles; the paged verify split over the tiles through
-// verify_tc.cuh and this file's `combine_splits`, the dense verify split
-// across a thread-block cluster that merges in distributed shared memory,
-// verify_attention.cu).
+// enough blocks to fill the SMs (verify: tiles split over blocks; prefill:
+// block_q = 8 chunk rows per block).  It does not overlap the next tile's
+// loads with the current tile's math, uses fp32 FMAs on the CUDA cores, and
+// runs the rows' softmax one thread per row.  The chunked prefill and the
+// verify and tree verify (paged and dense) run it only in fp32 (held to
+// 1e-4, which TF32 products would not meet) and at head dims other than
+// 64 / 128.  In bf16 at hd 64 / 128 they take the tensor-core body of
+// prefill_tc.cuh instead (64-row `wgmma` tiles, the softmax in registers, a
+// `cp.async` ring over 64-key tiles; the paged verify split over the tiles
+// through verify_tc.cuh and this file's `combine_splits`, the dense verify
+// split across a thread-block cluster that merges in distributed shared
+// memory, verify_attention.cu).
 #pragma once
 
 #include "common.cuh"
@@ -329,11 +328,12 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream,
 }
 
 // ---------------------------------------------------------------------------
-// Split-K over the KV tiles ("flash-decoding"), for decode (C = 1) and
-// verify (C = T): a block covers one split of a slot's tiles and writes the
-// unnormalised state of its R = C * group rows at rows
-// ((b * splits + s) * kvH + head) * R .. + R - 1 of part_acc [.., hd] and
-// part_ml [.., 2]; `combine_splits` then merges the splits of each row.
+// Split-K over the KV tiles ("flash-decoding"), for verify (C = T): a block
+// covers one split of a slot's tiles and writes the unnormalised state of
+// its R = C * group rows at rows ((b * splits + s) * kvH + head) * R .. +
+// R - 1 of part_acc [.., hd] and part_ml [.., 2]; `combine_splits` then
+// merges the splits of each row (also the tensor-core paged verify's,
+// verify_tc.cuh).
 // ---------------------------------------------------------------------------
 
 template <typename T>

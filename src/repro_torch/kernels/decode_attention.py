@@ -1,19 +1,24 @@
 """Dense flash-decode attention: the CUDA kernel's wrapper and its plain
 PyTorch version.
 
-Replaces the TPU kernel ``repro/kernels/decode_attention.py``
-(``decode_attention``; body ``_decode_kernel``).  The kernel is
-``csrc/decode_attention.cu``: the paged decode kernel's body over a dense
-``[B, S, kvH, hd]`` cache -- one block per (slot, kv head, split of 16-row
-tiles) walks the slot's rows up to ``min(lengths, S)`` with the GQA group's
-fp32 online-softmax state in shared memory, and a second kernel combines
-the splits.  On the serving path it is the draft model's proposal step.
-On the card it is bound by the bytes of the K/V rows it must read.
+Replaces the TPU kernel ``repro/kernels/decode_attention.py:92``
+(``decode_attention``, ``pallas_call`` at ``:146``; body
+``_decode_kernel``).  The kernel is ``csrc/decode_attention.cu``: one
+launch per call, in both dtypes and every head dim the wrapper takes.  The
+slot's 64-row tiles up to ``min(lengths, S)`` are split across the CTAs of
+one thread-block cluster by ``decode_plan`` (from S alone); each CTA walks
+its tiles through a ``cp.async`` ring with the GQA group's q rows in
+registers and an fp32 online softmax, and the cluster merges its splits in
+distributed shared memory (``csrc/decode_cluster.cuh``).  On the serving
+path it is the draft model's proposal step and the dense target layout's
+decode step.  On the card it is bound by the bytes of the K/V rows it must
+read, and at serving sizes by the fixed cost of a short walk.
 
 ``decode_core`` is the plain math, shared with the paged decode's plain
-version.  ``COUNTS["cuda"]`` counts kernel launches, ``COUNTS["torch"]``
-calls of the plain version; ``repro_torch.kernels.ops`` reads and resets
-them.
+version.  ``TILE`` and ``split_plan`` are the split of the FMA verify and
+prefill bodies (16-row tiles).  ``COUNTS["cuda"]`` counts kernel launches,
+``COUNTS["torch"]`` calls of the plain version; ``repro_torch.kernels.ops``
+reads and resets them.
 """
 from __future__ import annotations
 
@@ -23,19 +28,61 @@ from repro_torch.kernels import build
 
 COUNTS = {"cuda": 0, "torch": 0}
 NEG_INF = -1e30
-#: cache rows per KV tile
+#: cache rows per KV tile of the FMA verify and prefill bodies
 TILE = 16
-#: tiles per split (at least; raised so a slot never has more than
-#: MAX_SPLITS splits, which bounds the scratch).  2 tiles give a 32-tile
-#: slot 16 splits: 8 slots x 8 kv heads x 16 = 1024 blocks on 132 SMs
+#: tiles per split of those bodies (at least; raised so a slot never has
+#: more than MAX_SPLITS splits, which bounds their scratch)
 TILES_PER_SPLIT = 2
 MAX_SPLITS = 16
+
+#: keys per KV tile of the decode kernels (``decode::kKeys``)
+DECODE_KEYS = 64
+#: fewest tiles a decode CTA walks: the second tile's copies are in flight
+#: under the first one's math
+DECODE_TILES_PER_CTA = 2
+#: most CTAs of one thread-block cluster (the portable limit;
+#: ``decode::kMaxCluster``)
+MAX_CLUSTER = 8
+#: largest K/V row of the decode kernels, hd * itemsize (bytes):
+#: bfloat16 up to hd 256, float32 up to hd 128
+MAX_ROW_BYTES = 512
+#: largest dynamic shared memory of one block on the H100 (bytes)
+MAX_SMEM = 232_448
 
 
 def split_plan(n_tiles: int) -> tuple[int, int]:
     """(tiles per split, splits) of a split-K pass over ``n_tiles`` tiles."""
     per = max(TILES_PER_SPLIT, -(-n_tiles // MAX_SPLITS))
     return per, -(-n_tiles // per)
+
+
+def decode_plan(n_keys: int) -> tuple[int, int]:
+    """(64-key tiles per CTA, CTAs per cluster) of the decode kernels over a
+    slot of ``n_keys`` key positions (paged: (W - 1) * page; dense: S):
+    rank r walks tiles r * per .. r * per + per - 1.  At least
+    ``DECODE_TILES_PER_CTA`` tiles a CTA, raised so a cluster never has
+    more than ``MAX_CLUSTER`` CTAs.  It reads no length, so a captured CUDA
+    graph stays valid at every replay.  At 512 keys: (2, 4); at 4096:
+    (8, 8)."""
+    n_tiles = max(1, -(-n_keys // DECODE_KEYS))
+    per = max(DECODE_TILES_PER_CTA, -(-n_tiles // MAX_CLUSTER))
+    return per, -(-n_tiles // per)
+
+
+def rows_per_cta(group: int) -> int:
+    """q rows of a GQA group one decode CTA holds (``decode::rows_per_cta``):
+    the next power of two, at most 4; a wider group takes several CTAs."""
+    g = 1
+    while g < min(group, 4):
+        g *= 2
+    return g
+
+
+def decode_smem_bytes(group: int, hd: int, itemsize: int, table_ints: int = 0) -> int:
+    """``decode::smem_bytes``: a 2-stage ring of 64-key K and V tiles in the
+    cache's dtype, the warps' (m, l), and ``table_ints`` block-table
+    entries (paged)."""
+    return 2 * 2 * DECODE_KEYS * hd * itemsize + 4 * 4 * 2 * rows_per_cta(group) + 4 * table_ints
 
 
 def decode_core(
@@ -67,29 +114,34 @@ def decode_attention_torch(
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
-    """Launch the CUDA kernels (partial splits, then their combine) on the
-    current stream; scratch and output are allocated here.  q: [B, H, hd];
-    k/v: [B, S, kvH, hd] of q's dtype (float32 or bfloat16); lengths: [B]
-    int32 (clamped to S by the kernel).  Returns a new [B, H, hd] tensor.
-    Raises on CPU tensors or arguments the kernel does not take."""
+    """Launch the CUDA kernel (one launch, no scratch) on the current
+    stream; the output is allocated here.  q: [B, H, hd]; k/v: [B, S, kvH,
+    hd] of q's dtype (float32 or bfloat16); lengths: [B] int32 (clamped to
+    S by the kernel).  Returns a new [B, H, hd] tensor.  Raises on CPU
+    tensors or arguments the kernel does not take."""
     _check(q, k, v, lengths)
     b, h, hd = q.shape
     _, s, kvh, _ = k.shape
-    pps, splits = split_plan(-(-s // TILE))
+    per, cluster = decode_plan(s)
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, splits, h, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32, device=q.device)
     lib = build.load("decode_attention")
     err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        b, h, kvh, hd, s, TILE, pps, splits,
-        build.DTYPE_CODES[q.dtype], q.device.index,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, h, kvh, hd, s, per, cluster, build.DTYPE_CODES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch(lib, err, "decode_attention")
     COUNTS["cuda"] += 1
     return out
+
+
+def check_head_dim(hd: int, dtype: torch.dtype) -> None:
+    """The decode kernels' rows: hd a multiple of 8, at most
+    ``MAX_ROW_BYTES`` bytes."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    build.require(hd % 8 == 0 and hd * isz <= MAX_ROW_BYTES,
+                  f"head_dim {hd} must be a multiple of 8 with rows of at most "
+                  f"{MAX_ROW_BYTES} bytes ({MAX_ROW_BYTES // isz} in {dtype})")
 
 
 def _check(q, k, v, lengths) -> None:
@@ -104,7 +156,8 @@ def _check(q, k, v, lengths) -> None:
     b, h, hd = q.shape
     kb, _, kvh, khd = k.shape
     req(v.shape == k.shape, "k and v shapes differ")
-    req(khd == hd and hd % 8 == 0, f"head_dim {hd} must match and be a multiple of 8")
+    req(khd == hd, f"head_dim {khd} of k does not match q's {hd}")
+    check_head_dim(hd, q.dtype)
     req(kvh > 0 and h % kvh == 0, f"q heads {h} not a multiple of kv heads {kvh}")
     req(kb == b and lengths.shape[0] == b, "batch mismatch")
     req(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")

@@ -1,14 +1,19 @@
 """Paged flash-decode attention: the CUDA kernel's wrapper and its plain
 PyTorch version.
 
-Replaces the TPU kernel ``repro/kernels/paged_decode_attention.py``
-(``paged_decode_attention``; body ``_decode_kernel``).  The kernel is
-``csrc/paged_decode_attention.cu``: split-K over the slot's pages -- one
-block per (slot, kv head, split of ``pps`` pages) walks its pages through
-the block table up to ``ceil(length / page)`` (at most W - 1; the last table
-column is the sentinel) with the GQA group's fp32 online-softmax state in
-shared memory, and a second kernel combines the splits.  On the card it is
-bound by the bytes of the K/V pages it must read.
+Replaces the TPU kernel ``repro/kernels/paged_decode_attention.py:53``
+(``paged_decode_attention``, ``pallas_call`` at ``:111``; body
+``_decode_kernel``).  The kernel is ``csrc/paged_decode_attention.cu``: one
+launch per call, in both dtypes and every head dim the wrapper takes.  The
+slot's 64-key tiles up to ``lengths`` (at most (W - 1) * page; the last
+table column is the sentinel) are split across the CTAs of one
+thread-block cluster by ``decode_plan`` (from the table width alone, so
+the engine's captured decode graph replays with any lengths); each CTA
+stages its block-table entries with the length and q, walks its tiles
+through a ``cp.async`` ring, and the cluster merges its splits in
+distributed shared memory (``csrc/decode_cluster.cuh``).  On the card it is
+bound by the bytes of the K/V pages it must read, and at serving sizes by
+the fixed cost of a short walk.
 
 ``COUNTS["cuda"]`` counts kernel launches, ``COUNTS["torch"]`` calls of the
 plain version; ``repro_torch.kernels.ops`` reads and resets them.
@@ -18,7 +23,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import decode_core, split_plan
+from repro_torch.kernels.decode_attention import (
+    DECODE_KEYS,
+    MAX_SMEM,
+    check_head_dim,
+    decode_core,
+    decode_plan,
+    decode_smem_bytes,
+)
 
 COUNTS = {"cuda": 0, "torch": 0}
 
@@ -57,32 +69,33 @@ def paged_decode_attention(
     block_tables: torch.Tensor,
     lengths: torch.Tensor,
 ) -> torch.Tensor:
-    """Launch the CUDA kernels (partial splits, then their combine) on the
-    current stream; scratch and output are allocated here.  q: [B, H, hd];
-    k/v_pool: [P, page, kvH, hd] of q's dtype (float32 or bfloat16);
-    block_tables: [B, W] int32; lengths: [B] int32.  Returns a new
-    [B, H, hd] tensor.  Raises on CPU tensors or arguments the kernel does
-    not take."""
+    """Launch the CUDA kernel (one launch, no scratch) on the current
+    stream; the output is allocated here.  q: [B, H, hd]; k/v_pool: [P,
+    page, kvH, hd] of q's dtype (float32 or bfloat16); block_tables: [B, W]
+    int32; lengths: [B] int32.  Returns a new [B, H, hd] tensor.  Raises on
+    CPU tensors or arguments the kernel does not take."""
     _check(q, k_pool, v_pool, block_tables, lengths)
     b, h, hd = q.shape
     _, page, kvh, _ = k_pool.shape
-    ncols = block_tables.shape[1] - 1
-    pps, splits = split_plan(ncols)
+    w = block_tables.shape[1]
+    per, cluster = decode_plan((w - 1) * page)
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, splits, h, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32, device=q.device)
     lib = build.load("paged_decode_attention")
     err = lib.paged_decode_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
-        b, h, kvh, hd, page, ncols + 1, pps, splits,
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, h, kvh, hd, page, w, per, cluster,
         build.DTYPE_CODES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch(lib, err, "paged_decode_attention")
     COUNTS["cuda"] += 1
     return out
+
+
+def table_ints(per: int, page: int) -> int:
+    """Block-table entries a decode CTA of ``per`` tiles stages
+    (``decode::table_ints``): the pages its keys span."""
+    return per * DECODE_KEYS // page + 2
 
 
 def _check(q, k_pool, v_pool, block_tables, lengths) -> None:
@@ -101,10 +114,16 @@ def _check(q, k_pool, v_pool, block_tables, lengths) -> None:
     b, h, hd = q.shape
     _, _, kvh, khd = k_pool.shape
     req(v_pool.shape == k_pool.shape, "k_pool and v_pool shapes differ")
-    req(khd == hd and hd % 8 == 0, f"head_dim {hd} must match and be a multiple of 8")
+    req(khd == hd, f"head_dim {khd} of the pools does not match q's {hd}")
+    check_head_dim(hd, q.dtype)
     req(kvh > 0 and h % kvh == 0, f"q heads {h} not a multiple of kv heads {kvh}")
     req(block_tables.shape[0] == b and lengths.shape[0] == b, "batch mismatch")
     req(block_tables.shape[1] >= 2, "block table needs a sentinel column")
+    page, w = k_pool.shape[1], block_tables.shape[1]
+    need = decode_smem_bytes(h // kvh, hd, q.element_size(),
+                             table_ints(decode_plan((w - 1) * page)[0], page))
+    req(need <= MAX_SMEM, f"a decode CTA needs {need} bytes of shared memory "
+        f"(hd {hd}, page {page}, {w - 1} table columns); at most {MAX_SMEM}")
     req(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
     req(all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)),
         "q and the pools must be 16-byte aligned")

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import NEG_INF, split_plan
+from repro_torch.kernels.decode_attention import MAX_SMEM, NEG_INF, split_plan
 from repro_torch.kernels.paged_decode_attention import gather_pages
 from repro_torch.kernels.prefill_attention import BODY_CODES, prefill_body
 
@@ -164,8 +164,6 @@ def paged_verify_attention(
     return out
 
 
-#: largest dynamic shared memory of one block on the H100 (bytes)
-MAX_SMEM = 232_448
 #: chunk rows of one verify block (``paged::kVerifyRows``)
 VERIFY_ROWS = 32
 

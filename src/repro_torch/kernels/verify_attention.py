@@ -25,8 +25,8 @@ of two bodies from dtype and head dim alone:
 * ``"fma"`` (float32, or another head dim): the paged verify's FMA body over
   the dense rows -- one block per (kv head, slot, chunk rows, split of
   16-row tiles) with the fp32 online-softmax state in shared memory, then
-  the combine kernel of dense decode -- which the fp32 parity checks hold
-  to 1e-4.
+  its combine kernel (``paged::combine_splits``) -- which the fp32 parity
+  checks hold to 1e-4.
 
 The plain version is ``verify_core``, the reference's XLA
 ``verify_attention``.  ``COUNTS["cuda"]`` counts kernel launches,
