@@ -40,9 +40,10 @@ Phases, each printing a line before the last:
                  per split of the tensor-core body); the same for the dense
                  verify and tree verify over the target's dense rows (their
                  bf16 cluster kernel also beside the paged verify's
-                 two-launch split over the same rows); the Mamba1 scan chunk
-                 at falcon-mamba's widths (fp32, B = 1 and 8, two chained
-                 chunks against one 128-step scan).
+                 two-launch split over the same rows); the Mamba1 scan at
+                 falcon-mamba's widths (fp32, B = 1 and 8, Q = 8 to 256; one
+                 launch against chained 64-step launches; ds 4, 8 and 32 at
+                 a ragged d_inner), timed at Q = 64 and 256.
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -98,7 +99,7 @@ Phases, each printing a line before the last:
 9. ssm serve  -- falcon-mamba-7b at full depth and width, bf16, serves 16
                  requests (dense state rows, monolithic bucket prefill); every
                  request must finish and the scan kernel must launch once per
-                 layer and 64-step chunk of each admission.
+                 layer and admission.
 
 Then, under ``torch.profiler``, one train step of phase 5's model (the
 device's busy share and the flash kernels' share of device time),
@@ -199,10 +200,15 @@ SUFFIX_LENGTHS = {
 }
 # dense target slice: the target's verify chunks over its dense rows (qwen3's
 # 16 q / 8 kv heads of 128, max_seq 512); the Mamba1 scan at falcon-mamba's
-# widths (d_inner 8192, ssm_state 16, 64-step chunks), B = 1 as one
-# admission runs it and B = 8
+# widths (d_inner 8192, ssm_state 16), B = 1 as one admission runs it and
+# B = 8, over the engine's smallest bucket (8), a 64-step chunk (the table's
+# row), one step past it, and whole buckets of 128 and 256 steps; then the
+# other state widths at a d_inner that leaves a ragged 32-row block (100) or
+# is not a multiple of 4 (99: the 4-byte copies)
 SSM_Q, SSM_DI, SSM_DS = 64, 8192, 16
+SSM_QS = (8, 64, 65, 128, 256)
 SSM_BATCHES = (1, 8)
+SSM_SMALL = ((4, 100), (8, 99), (32, 100))  # (ds, di) at B = 2, Q = 65
 #: fp32 scan kernel vs plain version: relative to max |y| (max |h|)
 SSM_RTOL = 1e-5
 SPEC_COLLOC_ITERS = 4
@@ -1283,66 +1289,93 @@ def _dense_target_rows():
     return rows
 
 
-def _ssm_inputs(b, q, seed):
+def _ssm_inputs(b, q, seed, di=SSM_DI, ds=SSM_DS):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    xi = torch.randn((b, q, SSM_DI), generator=g, device="cuda")
+    xi = torch.randn((b, q, di), generator=g, device="cuda")
     dt = torch.nn.functional.softplus(
-        torch.randn((b, q, SSM_DI), generator=g, device="cuda") - 2)
-    bm = torch.randn((b, q, SSM_DS), generator=g, device="cuda")
-    cm = torch.randn((b, q, SSM_DS), generator=g, device="cuda")
-    a = -torch.arange(1, SSM_DS + 1, dtype=torch.float32, device="cuda").expand(
-        SSM_DI, SSM_DS).contiguous()
-    h0 = torch.randn((b, SSM_DI, SSM_DS), generator=g, device="cuda")
+        torch.randn((b, q, di), generator=g, device="cuda") - 2)
+    bm = torch.randn((b, q, ds), generator=g, device="cuda")
+    cm = torch.randn((b, q, ds), generator=g, device="cuda")
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds).contiguous()
+    h0 = torch.randn((b, di, ds), generator=g, device="cuda")
     return xi, dt, bm, cm, a, h0
 
 
+def _ssm_chained(ss, xi, dt, bm, cm, a, h0, chunk=SSM_Q):
+    """The same kernel over ``chunk``-step pieces, h carried from one launch
+    into the next (the reference's 64-step chunking)."""
+    import torch
+
+    ys, h = [], h0
+    for c in range(0, xi.shape[1], chunk):
+        y, h = ss.ssm_scan_chunk(*(t[:, c: c + chunk].contiguous() for t in (xi, dt, bm, cm)),
+                                 a, h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def _ssm_bound(q):
+    """Bound of one B = 1 scan of ``q`` steps at the table's widths.  Bytes:
+    xi, dt, y [q, di] and B, C [q, ds] once, A, h0 and h once; ops: per
+    (step, row, state) dt*A, exp, *h, fma with dt*x*B, *C, the sum."""
+    import torch
+
+    elems = q * SSM_DI * SSM_DS
+    nbytes = 4 * (3 * q * SSM_DI + 2 * q * SSM_DS + 3 * SSM_DI * SSM_DS)
+    return _bound_ms(nbytes, 7 * elems + q * SSM_DI, torch.float32)
+
+
 def _ssm_rows():
-    """The Mamba1 scan chunk (#10), fp32 in and out: held to its plain
-    version at B = 1 and 8 (Q = 64, d_inner 8192, ssm_state 16) and across
-    two chained chunks (h carried from the first 64 steps into the next
-    equals one 128-step plain scan); timed at B = 1.  No single PyTorch call
-    computes the scan, so the row has no library time."""
+    """The Mamba1 scan (#10), fp32 in and out: held to its plain version at
+    B = 1 and 8 and Q in ``SSM_QS`` (d_inner 8192, ssm_state 16), one
+    whole-sequence launch against chained 64-step launches of the same
+    kernel, and the other state widths at a small, ragged d_inner
+    (``SSM_SMALL``); timed at B = 1 for Q = 64 (the table's row) and 256.
+    No single PyTorch call computes the scan, so the row has no library
+    time."""
     import torch
 
     from repro_torch.kernels import ssm_scan as ss
 
     rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()
+    cases = [(b, q, SSM_DI, SSM_DS) for b in SSM_BATCHES for q in SSM_QS]
+    cases += [(2, 65, di, ds) for ds, di in SSM_SMALL]
     err = 0.0
-    for b in SSM_BATCHES:
-        xi, dt, bm, cm, a, h0 = _ssm_inputs(b, 2 * SSM_Q, seed=6)
-        first = [t[:, :SSM_Q].contiguous() for t in (xi, dt, bm, cm)]
-        second = [t[:, SSM_Q:].contiguous() for t in (xi, dt, bm, cm)]
-        y1, h1 = ss.ssm_scan_chunk(*first, a, h0)
-        y2, h2 = ss.ssm_scan_chunk(*second, a, h1)
+    for b, q, di, ds in cases:
+        args = _ssm_inputs(b, q, seed=6, di=di, ds=ds)
+        y, h = ss.ssm_scan_chunk(*args)
+        cy, ch = _ssm_chained(ss, *args)
         torch.cuda.synchronize()
-        ry1, rh1 = ss.ssm_scan_chunk_torch(*first, a, h0)
-        ry, rh = ss.ssm_scan_chunk_torch(xi, dt, bm, cm, a, h0)
-        errs = (rel(y1, ry1), rel(h1, rh1), rel(torch.cat([y1, y2], 1), ry), rel(h2, rh))
-        if not all(torch.isfinite(t).all() for t in (y1, y2, h1, h2)):
-            raise AssertionError(f"ssm_scan B={b}: non-finite output")
-        log(f"kernel ssm_scan B={b} fp32: max err / max|ref| y {errs[0]:.2e}, h "
-            f"{errs[1]:.2e}; two chained chunks vs one 128-step scan: y {errs[2]:.2e}, "
-            f"h {errs[3]:.2e} (tol {SSM_RTOL:g})")
+        ry, rh = ss.ssm_scan_chunk_torch(*args)
+        errs = (rel(y, ry), rel(h, rh), rel(y, cy), rel(h, ch))
+        if not all(torch.isfinite(t).all() for t in (y, h, cy, ch)):
+            raise AssertionError(f"ssm_scan B={b} Q={q} di={di} ds={ds}: non-finite output")
+        log(f"kernel ssm_scan B={b} Q={q} di={di} ds={ds} fp32: max err / max|ref| y "
+            f"{errs[0]:.2e}, h {errs[1]:.2e}; one launch vs chained {SSM_Q}-step launches: "
+            f"y {errs[2]:.2e}, h {errs[3]:.2e} (tol {SSM_RTOL:g})")
         if not max(errs) <= SSM_RTOL:
-            raise AssertionError(f"ssm_scan B={b}: errors {errs} > {SSM_RTOL}")
+            raise AssertionError(f"ssm_scan B={b} Q={q} di={di} ds={ds}: errors {errs} > "
+                                 f"{SSM_RTOL}")
         err = max(err, *errs)
-    args = _ssm_inputs(1, SSM_Q, seed=7)
-    k_ms = _time_ms(lambda: ss.ssm_scan_chunk(*args))
-    p_ms = _time_ms(lambda: ss.ssm_scan_chunk_torch(*args))
-    # bytes: xi, dt, y [Q, di] and B, C [Q, ds] once, A, h0 and h once; ops:
-    # per (step, row, state) dt*A, exp, *h, fma with dt*x*B, *C, the sum
-    elems = SSM_Q * SSM_DI * SSM_DS
-    nbytes = 4 * (3 * SSM_Q * SSM_DI + 2 * SSM_Q * SSM_DS + 3 * SSM_DI * SSM_DS)
-    bound, by = _bound_ms(nbytes, 7 * elems + SSM_Q * SSM_DI, torch.float32)
-    log(f"kernel ssm_scan (B=1, Q={SSM_Q}, di={SSM_DI}, ds={SSM_DS}, fp32): {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, library none, bound {bound:.4f} ms ({by})")
+    times = {}
+    for q in (SSM_Q, 256):
+        args = _ssm_inputs(1, q, seed=7)
+        k_ms = _time_ms(lambda: ss.ssm_scan_chunk(*args))
+        p_ms = _time_ms(lambda: ss.ssm_scan_chunk_torch(*args))
+        bound, by = _ssm_bound(q)
+        times[q] = (k_ms, p_ms, bound, by)
+        log(f"kernel ssm_scan (B=1, Q={q}, di={SSM_DI}, ds={SSM_DS}, fp32): {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, library none, bound {bound:.4f} ms ({by})")
+    k_ms, p_ms, bound, by = times[SSM_Q]
     return [{
         "name": "ssm_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:56", "launches": 0,
         "max_abs_err": err, "err_kind": "relative to max|ref|, fp32",
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "ms_q256": times[256][0], "plain_ms_q256": times[256][1],
+        "bound_ms_q256": times[256][2],
     }]
 
 
@@ -1744,12 +1777,14 @@ def _busy_and_top(prof):
     return busy / 1e6, len(spans), by_name
 
 
-def _profile_serve(engine, cfg, label="serve"):
+def _profile_serve(engine, cfg, label="serve", kernel=None):
     """Where the time goes: a second, smaller serving round under
     ``torch.profiler`` -- the device's busy share of the wall time (union of
-    kernel intervals) and the kernels that took it.  The profiler slows the
-    host, so the share is a lower bound for the unprofiled run."""
+    kernel intervals) and the kernels that took it, and the launches and
+    device time of the kernels whose name holds ``kernel``.  The profiler
+    slows the host, so the share is a lower bound for the unprofiled run."""
     import numpy as np
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     prompts = _prompts(np.random.default_rng(3), 8, 48, 96, cfg.vocab_size, 0, ())
@@ -1765,6 +1800,10 @@ def _profile_serve(engine, cfg, label="serve"):
         f"tokens, profiler on): wall {secs:.3f}s, device busy {busy_s:.3f}s "
         f"({100 * busy_s / secs:.1f}%), {n} kernels; top: " + "; ".join(
             f"{name[:60]} {sec * 1e3:.1f}ms" for name, sec in top))
+    if kernel is not None:
+        ms = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        log(f"{label} profile: {len(ms)} {kernel} launches, {sum(ms):.3f} ms of device time")
 
 
 # ---------------------------------------------------------------------------
@@ -1942,7 +1981,8 @@ def phase_ssm_serve():
     512: 16 ONLINE requests of 25-157 tokens, 32 new tokens each, through
     EngineCore on dense state rows with monolithic bucket prefill.  Every
     request must finish and the scan kernel must launch once per layer and
-    64-step chunk of each admission's bucket.  Returns the launch counts."""
+    admission, over the admission's whole bucket.  Returns the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -1971,7 +2011,7 @@ def phase_ssm_serve():
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(25, 158, 16)]
     max_new = 32
-    expected = cfg.num_layers * sum(-(-engine._bucket_len(len(p)) // SSM_Q) for p in prompts)
+    expected = cfg.num_layers * len(prompts)
     ops.reset_launch_counts()
     reqs, secs = _serve(engine, prompts, max_new)
     counts = ops.launch_counts()
@@ -1979,12 +2019,12 @@ def phase_ssm_serve():
     _require_launches("ssm serve", counts, SSM_KERNELS)
     if counts["ssm_scan"]["cuda"] != expected:
         raise AssertionError(f"ssm serve: {counts['ssm_scan']['cuda']} scan launches, "
-                             f"{expected} expected (layers x 64-step chunks per bucket)")
+                             f"{expected} expected (one a layer and admission)")
     tokens = sum(len(r.output_tokens) for r in reqs)
     log(f"ssm serve: prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens; "
         f"{_serve_summary(engine.obs.metrics, reqs, tokens, secs)}; scan launches "
-        f"{counts['ssm_scan']['cuda']} (= {cfg.num_layers} layers x 64-step chunks)")
-    _profile_serve(engine, cfg, "ssm serve")
+        f"{counts['ssm_scan']['cuda']} (= {cfg.num_layers} layers x {len(prompts)} admissions)")
+    _profile_serve(engine, cfg, "ssm serve", kernel="ssm_scan_kernel")
     return {name: c["cuda"] for name, c in counts.items()}
 
 

@@ -4,7 +4,7 @@
 // their data to `wgmma`, warpgroup MMA (`wgmma`) with its shared-memory
 // descriptors and register fences, `setmaxnreg`, named barriers, and the
 // thread-block cluster's rank, barrier and distributed shared memory
-// (DSMEM).  The flash-attention, chunked-prefill, verify and decode
+// (DSMEM).  The flash-attention, chunked-prefill, verify, decode and scan
 // libraries include it.
 #pragma once
 
@@ -122,6 +122,13 @@ inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, uint64_t d0,
 // 16) arrive as zeros (src must still be a valid global address).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes from global to shared memory (through L1; both addresses 4-byte
+// aligned), zero-filled past `src_bytes` (0 or 4).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }

@@ -259,10 +259,11 @@ def tree_verify_attention(
 
 
 def ssm_scan_chunk(xi, dt, B_, C_, A, h0, *, impl: str = "auto"):
-    """One chunk of the Mamba1 selective scan, fp32 in and out (inputs are
-    cast): ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * xi_t) * B_t``,
-    ``y_t = h_t . C_t``.  xi/dt: [B, Q, di]; B_/C_: [B, Q, ds]; A: [di, ds];
-    h0: [B, di, ds].  Returns ``(y [B, Q, di], h [B, di, ds])``."""
+    """Q steps of the Mamba1 selective scan (any Q: the engine passes a whole
+    prefill bucket), fp32 in and out (inputs are cast): ``h_t = exp(dt_t *
+    A) * h_{t-1} + (dt_t * xi_t) * B_t``, ``y_t = h_t . C_t``.  xi/dt: [B, Q,
+    di]; B_/C_: [B, Q, ds]; A: [di, ds]; h0: [B, di, ds].  Returns ``(y [B,
+    Q, di], h [B, di, ds])``."""
     args = [t.float().contiguous() for t in (xi, dt, B_, C_, A, h0)]
     if _resolve(impl, args[0]) == "cuda":
         return _ssm.ssm_scan_chunk(*args)

@@ -1,14 +1,19 @@
-"""Mamba1 selective-scan chunk: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Mamba1 selective scan: the CUDA kernel's wrapper and its plain PyTorch
+version.
 
 Replaces the TPU kernel ``repro/kernels/ssm_scan.py`` (``ssm_scan_chunk``;
-body ``_ssm_kernel``).  The kernel is ``csrc/ssm_scan.cu``: one thread per
-(d_inner row, state column) keeps its state value in a register through
-the chunk's Q serial steps ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) *
-B_t``, ``y_t = h_t . C_t`` (a shuffle sum over the row's ``ds`` lanes).  On
-the serving path it is the falcon-mamba prefill's scan, one 64-step chunk
-per layer at a time.  On the card it is bound by the bytes of its inputs
-and outputs, and in practice by launch latency and the serial step chain.
+body ``_ssm_kernel``).  The kernel is ``csrc/ssm_scan.cu``: the Q serial
+steps ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t``, ``y_t = h_t .
+C_t`` in one launch for any Q.  A CTA owns 32 d_inner rows of one batch
+row, 4 lanes a row (each lane 4 of falcon-mamba's 16 states, in registers
+for the whole sequence); it copies each 16-step tile of dt / xi / B / C by
+``cp.async`` into a ring of 4 tiles in shared memory, issued 3 tiles ahead
+of the scan, so only the one dependent FMA a step is on the serial chain;
+each step's y is summed over the row's lanes by a butterfly after the tile
+and stored in coalesced rows.
+On the serving path it is the falcon-mamba prefill's scan, one launch per
+layer over the whole bucket.  On the card it is bound by the bytes of its
+inputs and outputs, with the exponentials close behind.
 
 The plain version is the naive sequential scan of the reference's
 ``kernels/ref.py`` ``ssm_scan_chunk_ref``.  Both are fp32 in and out.

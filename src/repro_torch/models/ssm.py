@@ -2,9 +2,10 @@
 
 Counterpart of the Mamba1 part of ``repro.models.ssm``: ``causal_conv`` /
 ``causal_conv_step`` (the depthwise causal convolution over a sequence and
-one decode step), ``init_mamba1``, ``selective_scan_chunked`` (the scan in
-64-step chunks, each chunk one ``ops.ssm_scan_chunk`` -- the kernel on CUDA
-tensors), and the decode state (``mamba1_init_state``, ``mamba1_step``).
+one decode step), ``init_mamba1``, ``selective_scan_chunked`` (the whole
+sequence in one ``ops.ssm_scan_chunk`` -- one kernel launch on CUDA
+tensors, where the reference scans 64-step chunks), and the decode state
+(``mamba1_init_state``, ``mamba1_step``).
 Plain functions on tensors with an explicit device; the training block
 (``mamba1_block``, which needs a backward of the scan) is not ported yet.
 """
@@ -19,7 +20,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 Params = Any
-DEFAULT_CHUNK = 64
 
 
 # ---------------------------------------------------------------------------
@@ -94,27 +94,16 @@ def selective_scan_chunked(
     C_: torch.Tensor,
     A: torch.Tensor,
     h0: torch.Tensor,
-    chunk: int = DEFAULT_CHUNK,
     impl: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective scan ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``,
-    ``y_t = h_t . C_t`` in ``chunk``-step pieces, the tail zero-padded (a
-    pad step has dt = 0: it leaves h as it is).  xi/dt: [B, S, di]; B_/C_:
-    [B, S, ds]; A: [di, ds]; h0: [B, di, ds].  Returns ``(y [B, S, di],
-    h_final)``, fp32.  Each chunk is one ``ops.ssm_scan_chunk``."""
-    b, s, di = xi.shape
-    nchunks = max(1, -(-s // chunk))
-    pad = nchunks * chunk - s
-    if pad:
-        xi, dt, B_, C_ = (F.pad(t, (0, 0, 0, pad)) for t in (xi, dt, B_, C_))
-    h = h0
-    ys = []
-    for c in range(nchunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        y, h = ops.ssm_scan_chunk(xi[:, sl], dt[:, sl], B_[:, sl], C_[:, sl], A, h,
-                                  impl=impl)
-        ys.append(y)
-    return torch.cat(ys, dim=1)[:, :s], h
+    ``y_t = h_t . C_t``.  xi/dt: [B, S, di]; B_/C_: [B, S, ds]; A: [di, ds];
+    h0: [B, di, ds].  Returns ``(y [B, S, di], h_final)``, fp32.  The whole
+    sequence is one ``ops.ssm_scan_chunk``: the kernel keeps h in registers
+    and the plain version steps one t at a time, so neither needs the
+    reference's 64-step chunks (they bound its XLA path's [B, chunk, di,
+    ds] state tensor)."""
+    return ops.ssm_scan_chunk(xi, dt, B_, C_, A, h0, impl=impl)
 
 
 def mamba1_init_state(

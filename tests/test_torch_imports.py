@@ -1,5 +1,6 @@
-"""The port stands alone: no module under ``src/repro_torch/`` nor
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the reference package
+"""The port stands alone: no module under ``src/repro_torch/``, nor
+``chip_smoke.py``, nor the port's card scripts (``scripts/torch_*.py``)
+imports ``jax``, ``jaxlib`` or the reference package
 ``repro`` (``repro_torch`` is allowed), and importing the serving core, the
 speculative decoding package, the filling runtime, the train step, the
 Mamba1 model and the dense verify / tree-verify / scan kernels pulls no JAX
@@ -14,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -36,6 +38,7 @@ def test_walk_covers_the_port():
                 "kernels/tree_verify_attention.py", "kernels/ssm_scan.py",
                 "configs/falcon_mamba_7b.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
+    assert ROOT / "scripts" / "torch_scan_breakdown.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -3,7 +3,9 @@ in fp32.
 
 The plain selective-scan chunk (#10) against the reference's Pallas kernel
 (interpret mode, as its own tests run it) and its naive oracle
-``ssm_scan_chunk_ref``, chaining included; the chunked scan, the causal
+``ssm_scan_chunk_ref``, chaining included; the whole-sequence scan (one
+``ops.ssm_scan_chunk`` call, one a layer in a monolithic prefill) against
+the reference's 64-step chunked scan and chained plain chunks; the causal
 conv, ``init_params`` (names, shapes, dtypes, scales), ``prefill`` /
 ``prefill_into_slot`` with bucket padding (the state after a padded prompt
 equals the unpadded one's), ``decode_step`` and ``decode_loop``; and a full
@@ -104,6 +106,70 @@ def test_selective_scan_chunked_matches_reference(impl):
     y_t, h_t = SSM.selective_scan_chunked(*map(_t, (xi, dt, B_, C_, A, h0)), impl="torch")
     _close(y_t, y_j)
     _close(h_t, h_j)
+
+
+def _chained_plain(xi, dt, B_, C_, A, h0, chunk=64):
+    """The plain scan over ``chunk``-step pieces, h carried across (the
+    reference's chunking)."""
+    ys, h = [], _t(h0)
+    for c in range(0, xi.shape[1], chunk):
+        y, h = ops.ssm_scan_chunk(*map(_t, (xi[:, c: c + chunk], dt[:, c: c + chunk],
+                                            B_[:, c: c + chunk], C_[:, c: c + chunk], A)),
+                                  h, impl="torch")
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+@pytest.mark.parametrize("pad", [False, True], ids=["dense", "dt0_pad"])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("s", [1, 8, 63, 64, 65, 100, 256])
+def test_selective_scan_one_call_matches_reference_and_chained_chunks(s, b, pad):
+    """The whole sequence in one ``ops.ssm_scan_chunk`` call equals the
+    reference's 64-step chunked scan (Pallas kernel and XLA path) and the
+    plain version chained over 64-step chunks.  With dt = 0 on the second
+    half's steps (bucket padding), h equals the scan of the first half
+    alone."""
+    xi, dt, B_, C_, A, h0 = _scan_inputs(10 + s, b, s, 32, 8)
+    valid = s // 2 if pad else s
+    dt[:, valid:] = 0
+    ops.reset_launch_counts()
+    y_t, h_t = SSM.selective_scan_chunked(*map(_t, (xi, dt, B_, C_, A, h0)), impl="torch")
+    assert ops.launch_counts()["ssm_scan"]["torch"] == 1
+    assert tuple(y_t.shape) == (b, s, 32) and tuple(h_t.shape) == (b, 32, 8)
+    for impl in ("pallas", "xla"):
+        y_j, h_j = JSSM.selective_scan_chunked(*map(_j, (xi, dt, B_, C_, A, h0)), impl=impl)
+        _close(y_t, y_j)
+        _close(h_t, h_j)
+    y_c, h_c = _chained_plain(xi, dt, B_, C_, A, h0)
+    _close(y_t, y_c.numpy())
+    _close(h_t, h_c.numpy())
+    if pad and valid:
+        y_v, h_v = ops.ssm_scan_chunk(*map(_t, (xi[:, :valid], dt[:, :valid], B_[:, :valid],
+                                                C_[:, :valid], A, h0)), impl="torch")
+        _close(h_t, h_v.numpy())
+        _close(y_t[:, :valid], y_v.numpy())
+    elif pad:  # every step is padding: h stays h0
+        _close(h_t, h0)
+
+
+@pytest.mark.parametrize("bucket", [32, 64, 256])
+def test_monolithic_prefill_scans_once_per_layer(bucket):
+    """A bucket-padded monolithic prefill makes one scan call a layer,
+    whatever the bucket's length (no 64-step chunks), and leaves the state
+    of the unpadded prompt."""
+    n = bucket - 5
+    prompt = np.random.default_rng(bucket).integers(0, CFG.vocab_size, n).astype(np.int32)
+    buf = np.zeros((1, bucket), np.int32)
+    buf[0, :n] = prompt
+    tc = T.init_cache(CFG, 2, bucket, torch.float32, "cpu")
+    ops.reset_launch_counts()
+    _, tc = T.prefill_into_slot(CFG, PARAMS, _t(buf), n, 1, tc, max_seq=bucket, impl="torch",
+                                compute_dtype=torch.float32)
+    assert ops.launch_counts()["ssm_scan"] == {"cuda": 0, "torch": CFG.num_layers}
+    _, unpadded = T.prefill(CFG, PARAMS, _t(prompt[None]), bucket, impl="torch",
+                            compute_dtype=torch.float32)
+    _close(tc["layers"]["h"][:, 1], unpadded["layers"]["h"][:, 0].numpy())
+    _close(tc["layers"]["conv"][:, 1], unpadded["layers"]["conv"][:, 0].numpy())
 
 
 # ---------------------------------------------------------------------------
