@@ -43,7 +43,12 @@ Phases, each printing a line before the last:
                  two-launch split over the same rows); the Mamba1 scan at
                  falcon-mamba's widths (fp32, B = 1 and 8, Q = 8 to 256; one
                  launch against chained 64-step launches; ds 4, 8 and 32 at
-                 a ragged d_inner), timed at Q = 64 and 256.
+                 a ragged d_inner), timed at Q = 64 and 256.  Then a NaN at
+                 one live K position of one slot, in bf16 and fp32, through
+                 every attention kernel (#1-#9; flash forward causal and
+                 non-causal, and backward): non-finite outputs exactly where
+                 the plain version's are, every other slot bit-equal to the
+                 call without the NaN.
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -76,27 +81,36 @@ Phases, each printing a line before the last:
                  tokens and spec rounds be produced.  This phase runs before
                  any ``torch.profiler`` session: after one, every launch
                  costs more on the host, and its times are host-paced.
-6. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
+6. chaos      -- failure containment and crash recovery (``phase_chaos``),
+                 also before any profiler session: fp32 sweeps at phase 4's
+                 2-layer width with the NaN, allocator, revocation and
+                 overrun faults armed (paged with graph-replayed decode,
+                 dense, draft-paired), journal kill / replay on both
+                 layouts, a snapshot round trip; bf16 at full depth one
+                 chaos sweep (its fault-free run journaled, its radix cache
+                 snapshotted) and phase 5's trainer under SpecInFRuntime
+                 with early resume armed.
+7. serve      -- qwen3-1.7b at full depth and width, bf16, serves 16 requests
                  through ``EngineCore.step()``; every request must finish,
                  both paged kernels must have launched (plain versions never)
                  and each decode graph must have captured one paged decode
                  launch a layer and step,
                  each bf16 chunked prefill through the tensor-core body (as in
-                 phases 5, 7 and 8).
-7. spec serve -- the same model and requests, paired with its 1-layer draft
+                 phases 5, 8 and 9).
+8. spec serve -- the same model and requests, paired with its 1-layer draft
                  model and ``proposer="auto"``; every request must finish, the
                  router must have run both proposers, and the dense decode,
                  dense prefill, paged verify and paged tree verify kernels must
                  have launched (plain versions never), each bf16 launch of a
                  prefill or paged verify kernel through the tensor-core body
-                 (``ops.body_counts``; also in phases 5, 6 and 8).
-8. dense target serve -- the same on the dense target layout
+                 (``ops.body_counts``; also in phases 5, 7 and 9).
+9. dense target serve -- the same on the dense target layout
                  (``kv_page_size=0``): the dense decode, dense prefill, dense
                  verify and dense tree verify kernels must launch, each bf16
                  launch of a prefill or verify kernel through the
                  tensor-core body; then a short run with monolithic prefill
                  must launch the flash forward kernel, under the same rule.
-9. ssm serve  -- falcon-mamba-7b at full depth and width, bf16, serves 16
+10. ssm serve -- falcon-mamba-7b at full depth and width, bf16, serves 16
                  requests (dense state rows, monolithic bucket prefill); every
                  request must finish and the scan kernel must launch once per
                  layer and admission.
@@ -417,6 +431,150 @@ def _check_decode(name, kernel, plain, make_inputs):
     return errs
 
 
+def _check_nan_slot(name, kernel, plain, make_inputs, poison, slot):
+    """A NaN at one live K position of ``slot`` (``poison(args)`` returns the
+    arguments with a poisoned copy of K), in bf16 and fp32: the kernel's
+    output is non-finite exactly where the plain version's is (and somewhere
+    in ``slot``: the NaN is not swallowed), and every other slot's output is
+    bit-equal to the same call without the NaN."""
+    import torch
+
+    for dtype in (torch.bfloat16, torch.float32):
+        args = make_inputs(dtype)
+        clean = kernel(*args)
+        pargs = poison(args)
+        out = kernel(*pargs)
+        ref = plain(*[a.float() if a.is_floating_point() else a for a in pargs])
+        bad, ref_bad = ~torch.isfinite(out), ~torch.isfinite(ref)
+        others = [i for i in range(out.shape[0]) if i != slot]
+        if not bad[slot].any():
+            raise AssertionError(f"{name} {dtype}: the NaN in slot {slot} was swallowed")
+        if not torch.equal(bad, ref_bad):
+            raise AssertionError(f"{name} {dtype}: non-finite at {int(bad.sum())} places, "
+                                 f"the plain version at {int(ref_bad.sum())}, not the same")
+        if not torch.equal(out[others], clean[others]):
+            raise AssertionError(f"{name} {dtype}: a NaN in slot {slot} changed other slots")
+        log(f"kernel {name} {dtype}: NaN in slot {slot} -> {int(bad.sum())} non-finite "
+            f"outputs, where the plain version's are; other slots bit-equal")
+
+
+def _nan_checks():
+    """Every attention kernel propagates a NaN key as its plain version does
+    (``_check_nan_slot``): the paged and dense decode, chunked prefill, verify
+    and tree verify at their serving shapes with the NaN in a position every
+    query row of the slot sees, and flash forward (causal: the rows at and
+    past the NaN) and forward + backward (non-causal: every row)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pdec
+    from repro_torch.kernels import paged_prefill_attention as ppre
+    from repro_torch.kernels import paged_tree_verify_attention as ptv
+    from repro_torch.kernels import paged_verify_attention as pv
+    from repro_torch.kernels import prefill_attention as dp
+    from repro_torch.kernels import tree_verify_attention as tv
+    from repro_torch.kernels import verify_attention as va
+    from repro_torch.spec.tree import branching_tree, tree_ancestor_masks
+
+    def i32(xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    def paged(q_shape, *extra):
+        def make(dtype):
+            g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=7)
+            q = torch.randn((B, *q_shape), generator=g, device="cuda").to(dtype)
+            return (q, k_pool, v_pool, bt, *extra)
+        return make
+
+    def dense(q_shape, *extra):
+        def make(dtype):
+            g, k, v = _dense_inputs(dtype, seed=7)
+            q = torch.randn((B, *q_shape), generator=g, device="cuda").to(dtype)
+            return (q, k, v, *extra)
+        return make
+
+    def poison_paged(slot, pos):
+        def poison(args):
+            k = args[1].clone()
+            k[int(args[3][slot, pos // PAGE]), pos % PAGE, 1, 5] = float("nan")
+            return (args[0], k, *args[2:])
+        return poison
+
+    def poison_dense(slot, pos):
+        def poison(args):
+            k = args[1].clone()
+            k[slot, pos, 1, 5] = float("nan")
+            return (args[0], k, *args[2:])
+        return poison
+
+    tree = branching_tree(2, 2)
+    anc = torch.tensor(tree_ancestor_masks(tree), device="cuda").expand(B, len(tree)).contiguous()
+    # the poisoned slot: dense decode and both prefills slot 2 (length 300,
+    # start 100), paged decode and the verify pairs slot 1 (length 300; its
+    # pages past the first 64 keys are its own)
+    dlen, plen = i32(DENSE_LENGTHS), i32(DECODE_LENGTHS)
+    st, cl, vl = i32(PREFILL_STARTS), i32(PREFILL_LENS), i32(VERIFY_LENGTHS)
+    cases = (
+        ("paged_decode_attention", pdec.paged_decode_attention,
+         pdec.paged_decode_attention_torch, paged((H, HD), plen), poison_paged(1, 100), 1),
+        ("paged_prefill_attention", ppre.paged_prefill_attention,
+         ppre.paged_prefill_attention_torch, paged((CHUNK, H, HD), st, cl),
+         poison_paged(2, 50), 2),
+        ("decode_attention", dd.decode_attention, dd.decode_attention_torch,
+         dense((H, HD), dlen), poison_dense(2, 100), 2),
+        ("prefill_attention", dp.prefill_attention, dp.prefill_attention_torch,
+         dense((CHUNK, H, HD), st, cl), poison_dense(2, 50), 2),
+        ("paged_verify_attention", pv.paged_verify_attention, pv.paged_verify_attention_torch,
+         paged((5, H, HD), vl), poison_paged(1, 100), 1),
+        ("paged_tree_verify_attention", ptv.paged_tree_verify_attention,
+         ptv.paged_tree_verify_attention_torch, paged((len(tree), H, HD), vl, anc),
+         poison_paged(1, 100), 1),
+        ("verify_attention", va.verify_attention, va.verify_attention_torch,
+         dense((5, H, HD), vl), poison_dense(1, 100), 1),
+        ("tree_verify_attention", tv.tree_verify_attention, tv.tree_verify_attention_torch,
+         dense((len(tree), H, HD), vl, anc), poison_dense(1, 100), 1),
+    )
+    for name, kernel, plain, make, poison, slot in cases:
+        _check_nan_slot(name, kernel, plain, make, poison, slot)
+
+    # flash: [B, H, S, hd]; causal forward with the NaN at key 100 of batch 1,
+    # head 2 (rows >= 100 of that head see it), then non-causal forward and
+    # backward (every row of the head sees it; the plain version's autograd
+    # spreads 0 * NaN through masked entries, so a causal backward's dQ rows
+    # before the NaN differ by construction, not by the kernel)
+    def flash_make(dtype):
+        q, k, v, do = _flash_inputs(dtype, 2, 4, 256, 256, seed=8)
+        return q, k, v, do
+
+    def flash_poison(args):
+        k = args[1].clone()
+        k[1, 2, 100, 5] = float("nan")
+        return (args[0], k, *args[2:])
+
+    for causal in (True, False):
+        def fwd(q, k, v, do, causal=causal):
+            return fa.flash_attention_fwd(q, k, v, causal=causal)[0]
+
+        def fwd_plain(q, k, v, do, causal=causal):
+            return fa.flash_attention_torch(q, k, v, causal=causal)
+
+        _check_nan_slot(f"flash_attention forward (causal={causal})", fwd, fwd_plain,
+                        flash_make, flash_poison, 1)
+
+    def bwd(q, k, v, do):
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+        return torch.stack(fa.flash_attention_bwd(q, k, v, out, do, lse, causal=False), 1)
+
+    def bwd_plain(q, k, v, do):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        ref = fa.flash_attention_torch(*leaves, causal=False)
+        return torch.stack(torch.autograd.grad(ref, leaves, do), 1)
+
+    _check_nan_slot("flash_attention backward (dq, dk, dv; causal=False)", bwd, bwd_plain,
+                    flash_make, flash_poison, 1)
+
+
 def _one_tile_per_cta_ms(fn):
     """``fn``'s time with the decode kernels' plan at one 64-key tile a CTA
     (the default is DECODE_TILES_PER_CTA)."""
@@ -559,6 +717,7 @@ def phase_kernels():
     log(f"kernel paged_prefill_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by}); every prefix cut to one "
         f"tile {one_tile_ms:.4f} ms, slot {longest} alone {alone_ms:.4f} ms")
+    _nan_checks()
     return rows + _flash_rows() + _spec_rows() + _dense_target_rows() + _ssm_rows()
 
 
@@ -2036,7 +2195,8 @@ def phase_ssm_serve():
 def phase_collocated():
     """qwen3-1.7b at full depth and width trains under SpecInFRuntime while
     a bf16 engine on the initial weights fills its bubbles.  Returns the
-    kernel launch counts of the runtime's run."""
+    kernel launch counts of the runtime's run, and what the chaos phase
+    reuses: the engine weights, the trainer and its profile."""
     import numpy as np
     import torch
 
@@ -2143,7 +2303,9 @@ def phase_collocated():
     eparams = engine.params  # the initial weights, bf16
     del engine, rt
     _spec_collocated(cfg, eparams, timed_step, state, batches, profile, microstep_s)
-    return {name: c["cuda"] for name, c in counts.items()}
+    colloc = dict(cfg=cfg, eparams=eparams, step=timed_step, state=state, batches=batches,
+                  profile=profile, microstep_s=microstep_s)
+    return {name: c["cuda"] for name, c in counts.items()}, colloc
 
 
 def _spec_collocated(cfg, params, step, state, batches, profile, microstep_s):
@@ -2258,6 +2420,444 @@ def _dots_step(cfg, tcfg, state, ds):
             raise AssertionError(f"dots train step: {name} {got} vs {ref} under 'none'")
 
 
+# ---------------------------------------------------------------------------
+# 6. chaos
+# ---------------------------------------------------------------------------
+
+#: the serving fault points, armed together (``scripts/check_chaos.py``'s
+#: sweep, at twice its rate so one seed fires every point)
+CHAOS_SPECS = (
+    ("engine/nan_logits", {"probability": 0.1, "max_fires": 3}),
+    ("pool/alloc_fail", {"probability": 0.1, "after": 2, "max_fires": 3}),
+    ("core/revoke_mid_quantum", {"probability": 0.1, "max_fires": 3}),
+    ("core/step_overrun", {"probability": 0.1, "max_fires": 3}),
+)
+CHAOS_SEED = 1
+CHAOS_STEP_S = 0.002  # virtual seconds a microstep-equivalent costs
+CHAOS_CLEAN = ("length", "stop")
+
+
+def _injector(specs, seed=CHAOS_SEED):
+    from repro_torch.resilience import FaultInjector, FaultSpec
+
+    return FaultInjector(seed=seed, specs=[FaultSpec(p, **kw) for p, kw in specs])
+
+
+def _chaos_submit(core, vocab, seed, n_off, n_on, off_new, on_new, lo, hi):
+    """``n_off`` OFFLINE requests at t = 0 and ``n_on`` ONLINE ones arriving
+    10 ms apart on average (virtual), prompts of ``lo``..``hi`` tokens."""
+    import numpy as np
+
+    from repro_torch.serving.core import Priority, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    reqs = [core.submit(rng.integers(0, vocab, int(rng.integers(lo, hi + 1))),
+                        SamplingParams(max_new_tokens=off_new),
+                        priority=Priority.OFFLINE, arrival_time=0.0)
+            for _ in range(n_off)]
+    for t in np.cumsum(rng.exponential(0.01, n_on)):
+        reqs.append(core.submit(rng.integers(0, vocab, int(rng.integers(lo, hi + 1))),
+                                SamplingParams(max_new_tokens=on_new, deadline_s=5.0),
+                                priority=Priority.ONLINE, arrival_time=float(t)))
+    return reqs
+
+
+def _chaos_drain(core, vnow, token_budget):
+    """Step the core on the virtual clock until every request finishes, each
+    grant revocable (a fresh signal, re-checked every 2 microsteps)."""
+    from repro_torch.serving.core import Grant, RevocationSignal
+
+    quanta = 0
+    while core.has_unfinished:
+        quanta += 1
+        if quanta > 5000:
+            raise AssertionError("chaos: the drain made no progress (containment hang)")
+        base = vnow[0]
+        out = core.step(Grant(
+            now=base, token_budget=token_budget, revocation=RevocationSignal(),
+            revoke_check_steps=2,
+            advance_clock=lambda steps, b=base: vnow.__setitem__(0, b + steps * CHAOS_STEP_S)))
+        if out.cost_steps == 0 and not out.admitted:
+            vnow[0] += CHAOS_STEP_S
+    return quanta
+
+
+def _chaos_checks(label, engine, reqs, base, inj, exact=True):
+    """What a chaos drain must show: every request terminal, every clean
+    finish equal to the fault-free run's (``exact``; else only counted),
+    one quarantine per ``engine/nan_logits`` fire, every KV row no slot
+    holds finite, attribution telescoping to 1e-6 with no dropped event.
+    Returns (clean finishes equal to the fault-free run, clean finishes)."""
+    import torch
+
+    m = engine.obs.metrics
+    if not all(r.state.finished for r in reqs):
+        raise AssertionError(f"{label}: a request never reached a terminal state")
+    clean = [(r, b) for r, b in zip(reqs, base) if r.finish_reason in CHAOS_CLEAN]
+    same = sum(r.output_tokens == b.output_tokens and r.finish_reason == b.finish_reason
+               for r, b in clean)
+    if exact and same != len(clean):
+        raise AssertionError(f"{label}: {len(clean) - same} clean finishes differ from the "
+                             f"fault-free run")
+    fires = inj.fires.get("engine/nan_logits", 0)
+    quarantines = m.counter("fault/nan_quarantines").value
+    if fires == 0 or quarantines != fires:
+        raise AssertionError(f"{label}: {quarantines} NaN quarantines for {fires} fires")
+    layers = engine.cache["layers"]
+    if engine.paged:
+        free = [p for p in range(engine.pool.num_pages) if engine.pool.refcount[p] == 0]
+        idx = torch.tensor(free, device="cuda")
+        rows = [layers["k"][:, idx], layers["v"][:, idx]]
+    else:
+        rows = [layers["k"], layers["v"]]  # every slot is free after the drain
+    if not all(torch.isfinite(t).all() for t in rows):
+        raise AssertionError(f"{label}: a free KV page / row holds a non-finite value")
+    tr = engine.obs.tracer
+    resid = max((abs(ra.total - (ra.finish_time - ra.arrival_time))
+                 for ra in tr.attribution().values() if ra.finish_time is not None),
+                default=0.0)
+    if tr.dropped or not resid <= 1e-6:
+        raise AssertionError(f"{label}: tracer dropped {tr.dropped}, attribution residual "
+                             f"{resid}")
+    return same, len(clean), resid
+
+
+def _timed_quarantines(engine, inj):
+    """Wrap the engine so each quarantine's cost is recorded: (from the
+    poisoning before the fused dispatch to the request's requeue, the scrub,
+    evict and requeue alone), in ms, the device synchronised at each end."""
+    import torch
+
+    costs, poisoned = [], []
+    inject, quarantine = engine._maybe_inject_nan, engine._quarantine_slot
+
+    def timed_inject():
+        fired = inj.fires.get("engine/nan_logits", 0)
+        t = time.monotonic()
+        inject()
+        if inj.fires.get("engine/nan_logits", 0) > fired:
+            poisoned.append(t)
+
+    def timed_quarantine(i):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        req = quarantine(i)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        costs.append(((t1 - poisoned[-1]) * 1e3, (t1 - t0) * 1e3))
+        return req
+
+    engine._maybe_inject_nan, engine._quarantine_slot = timed_inject, timed_quarantine
+    return costs
+
+
+def phase_chaos(colloc):
+    """Failure containment and crash recovery on the card (the reference's
+    ``scripts/check_chaos.py`` sweeps), before any profiler session.
+
+    fp32, the 2-layer full-width qwen3-1.7b of phase 4: a mixed ONLINE /
+    OFFLINE drain through ``EngineCore.step()`` on a virtual clock with the
+    NaN, allocator, revocation and overrun points armed, on the paged layout
+    (graph-replayed decode), the dense layout and the paged layout with the
+    draft pairing; every clean finish byte-identical to the fault-free cuda
+    run.  Then the recovery sweep (``process/kill`` and a journal; each kill
+    cuts the journal to its fsynced prefix and replays it into a fresh
+    engine) on both layouts: one durable finish a request, streams equal to
+    the uninterrupted run's; and a snapshot round trip warming a fresh
+    engine's radix cache.  bf16, qwen3-1.7b at full depth and width: one
+    paged chaos sweep (clean finishes equal to the fault-free bf16 run
+    counted, not asserted: a re-prefill rounds differently from decode),
+    its fault-free run journaled, the snapshot timed; then phase 5's trainer
+    under ``SpecInFRuntime`` with ``runtime/early_resume`` armed and
+    ``revocation_check_steps=1``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.models import transformer as T
+    from repro_torch.resilience import (
+        EngineSnapshot,
+        FaultInjector,
+        FaultSpec,
+        ProcessKilled,
+        RequestJournal,
+        read_journal,
+    )
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"), num_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    spec = SpecDecodeConfig(mode="greedy")
+    dcfg = draft_config(cfg, spec)
+    dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    tmp = tempfile.TemporaryDirectory()
+
+    def engine(vnow, page, draft=False, inj=None):
+        kw = dict(draft_cfg=dcfg, draft_params=dparams, spec=spec) if draft else {}
+        return InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                               compute_dtype=torch.float32, clock=lambda: vnow[0],
+                               kv_page_size=page, fault_injector=inj, **kw)
+
+    def serve(page, draft=False, inj=None, eng=None):
+        vnow = [0.0]
+        eng = eng or engine(vnow, page, draft, inj)
+        eng.clock = lambda: vnow[0]
+        eng.core.fault_backoff_s = 0.0  # virtual clock: retry at once
+        reqs = _chaos_submit(eng.core, cfg.vocab_size, 3, 4, 6, 24, 8, 17, 90)
+        _chaos_drain(eng.core, vnow, token_budget=64)
+        return eng, reqs
+
+    t0 = time.monotonic()
+    bases = {}
+    for page, draft in ((16, False), (0, False), (16, True)):
+        label = f"chaos fp32 {'paged' if page else 'dense'}{' + draft' if draft else ''}"
+        _, base = serve(page, draft)
+        if not all(b.finish_reason in CHAOS_CLEAN for b in base):
+            raise AssertionError(f"{label}: the fault-free run did not finish every request")
+        bases[(page, draft)] = base
+        inj = _injector(CHAOS_SPECS)
+        eng, reqs = serve(page, draft, inj)
+        same, clean, resid = _chaos_checks(label, eng, reqs, base, inj)
+        graphs = sorted(eng._decode_graphs)
+        if page and not draft:
+            _decode_graph_launches(label, eng, cfg)
+        faults = {k: v["value"] for k, v in eng.obs.metrics.snapshot().items()
+                  if k.startswith("fault/") and "value" in v}
+        log(f"{label}: fires {dict(inj.fires)}; {json.dumps(faults)}; clean finishes "
+            f"{same}/{clean} equal to the fault-free run, {len(reqs) - clean} not clean; "
+            f"attribution residual {resid:.1e}; decode graphs captured for k in {graphs}")
+
+    # recovery: kill -> cut the journal to its fsynced prefix -> replay
+    recover_ms = []
+    for page in (16, 0):
+        label = f"recovery fp32 {'paged' if page else 'dense'}"
+        path = os.path.join(tmp.name, f"journal_{page}.jsonl")
+        inj = FaultInjector(seed=CHAOS_SEED, specs=(
+            FaultSpec("process/kill", probability=0.05, max_fires=3),))
+        restarts, rid0 = 0, None
+        while True:
+            vnow = [0.0]
+            eng = engine(vnow, page, inj=inj)
+            eng.core.fault_backoff_s = 0.0
+            journal = RequestJournal(path, fsync_interval=4)
+            report = journal.recover_into(eng.core)
+            recover_ms.append(report.duration_s * 1e3)
+            journal.attach(eng.core)
+            if rid0 is None:
+                rid0 = _chaos_submit(eng.core, cfg.vocab_size, 3, 4, 6, 24, 8, 17, 90
+                                     )[0].request_id
+            try:
+                _chaos_drain(eng.core, vnow, token_budget=64)
+            except ProcessKilled:
+                journal.crash()
+                restarts += 1
+                if restarts > 10:
+                    raise AssertionError(f"{label}: the kill / restore loop did not converge")
+                continue
+            journal.close()
+            break
+        toks, fins = {}, {}
+        for rec in read_journal(path)[0]:
+            if rec["k"] == "delta":
+                cur = toks.setdefault(rec["rid"] - rid0, [])
+                if rec["tot"] == len(cur) + len(rec["tok"]):
+                    cur.extend(rec["tok"])
+            elif rec["k"] == "fin":
+                fins.setdefault(rec["rid"] - rid0, []).append(rec["rsn"])
+        base = bases[(page, False)]
+        bad = [i for i, b in enumerate(base)
+               if fins.get(i) != [b.finish_reason] or toks.get(i, []) != b.output_tokens]
+        if inj.total_fires == 0 or bad:
+            raise AssertionError(f"{label}: {inj.total_fires} kills; requests {bad} lost, "
+                                 f"duplicated or diverged")
+        log(f"{label}: {inj.total_fires} kills, {restarts} restarts; every request has one "
+            f"durable finish equal to the uninterrupted run; recover_into "
+            f"{', '.join(f'{t:.2f}' for t in recover_ms[-restarts - 1:])} ms")
+
+    # snapshot: a fresh paged engine warmed from the radix cache
+    eng, _ = serve(16)
+    snap_dir = os.path.join(tmp.name, "snap_fp32")
+    if not EngineSnapshot(eng, Checkpointer(snap_dir)).save():
+        raise AssertionError("snapshot fp32: nothing to save")
+    vnow = [0.0]
+    warm = engine(vnow, 16)
+    loaded = EngineSnapshot(warm, Checkpointer(snap_dir)).restore()
+    _, reqs = serve(16, eng=warm)
+    equal = [r.output_tokens for r in reqs] == [b.output_tokens for b in bases[(16, False)]]
+    if not (loaded > 0 and warm.prefix_cache.hits > 0 and equal):
+        raise AssertionError(f"snapshot fp32: {loaded} nodes loaded, {warm.prefix_cache.hits} "
+                             f"radix hits, streams equal {equal}")
+    log(f"snapshot fp32: {loaded} radix nodes restored, {warm.prefix_cache.hits} hits, "
+        f"prefill skipped {warm.prefill_skipped_tokens} tokens, streams equal; fp32 sweeps "
+        f"{time.monotonic() - t0:.1f}s")
+    del eng, warm, params, dparams
+    _chaos_full_depth(colloc, tmp.name)
+    tmp.cleanup()
+
+
+def _chaos_full_depth(colloc, tmpdir):
+    """The bf16 full-depth part of ``phase_chaos``: phase 5's engine weights
+    and trainer (``colloc``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import SpecInFConfig
+    from repro_torch.core import SpecInFRuntime
+    from repro_torch.resilience import EngineSnapshot, RequestJournal
+    from repro_torch.serving.core import Priority, SamplingParams
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg, eparams = colloc["cfg"], colloc["eparams"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def serve(inj=None, journal=None, vnow=None):
+        vnow = vnow if vnow is not None else [0.0]
+        eng = InferenceEngine(cfg, eparams, max_slots=4, max_seq=512, clock=lambda: vnow[0],
+                              fault_injector=inj)
+        eng.core.fault_backoff_s = 0.0
+        if journal is not None:
+            journal.attach(eng.core)
+        reqs = _chaos_submit(eng.core, cfg.vocab_size, 4, 4, 6, 32, 8, 24, 130)
+        t0 = time.monotonic()
+        _chaos_drain(eng.core, vnow, token_budget=64)
+        torch.cuda.synchronize()
+        return eng, reqs, time.monotonic() - t0
+
+    # the fault-free run, journaled: appends and fsyncs per served token
+    journal = RequestJournal(os.path.join(tmpdir, "journal_bf16.jsonl"), fsync_interval=8)
+    spent = {"hooks": 0.0, "fsync": 0.0}
+
+    def timed(name, fn):
+        def wrapped(*a):
+            t = time.monotonic()
+            out = fn(*a)
+            spent[name] += time.monotonic() - t
+            return out
+        return wrapped
+
+    for hook in ("record_submit", "record_step", "record_finish"):
+        setattr(journal, hook, timed("hooks", getattr(journal, hook)))
+    journal.commit = timed("fsync", journal.commit)
+    eng, base, secs = serve(journal=journal)
+    journal.close()
+    tokens = sum(len(r.output_tokens) for r in base)
+    if not all(b.finish_reason in CHAOS_CLEAN for b in base):
+        raise AssertionError("chaos bf16: the fault-free run did not finish every request")
+    log(f"journal bf16 (fsync every 8 records): {journal.appends} appends, {journal.fsyncs} "
+        f"fsyncs for {tokens} tokens = {journal.appends / tokens:.3f} appends, "
+        f"{journal.fsyncs / tokens:.3f} fsyncs a token; journal hooks "
+        f"{spent['hooks'] * 1e3:.2f} ms (fsyncs {spent['fsync'] * 1e3:.2f} ms) of the "
+        f"{secs * 1e3:.1f} ms drain, {spent['hooks'] / tokens * 1e6:.1f} us a token")
+
+    # snapshot of the full-depth radix cache: bytes, save and restore times
+    snap_dir = os.path.join(tmpdir, "snap_bf16")
+    t0 = time.monotonic()
+    EngineSnapshot(eng, Checkpointer(snap_dir)).save()
+    save_ms = (time.monotonic() - t0) * 1e3
+    nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                 for dp, _, fs in os.walk(snap_dir) for f in fs)
+    del eng
+    warm = InferenceEngine(cfg, eparams, max_slots=4, max_seq=512)
+    t0 = time.monotonic()
+    loaded = EngineSnapshot(warm, Checkpointer(snap_dir)).restore()
+    torch.cuda.synchronize()
+    restore_ms = (time.monotonic() - t0) * 1e3
+    if loaded <= 0:
+        raise AssertionError("snapshot bf16: no radix node restored")
+    log(f"snapshot bf16: {loaded} radix nodes, {nbytes / 1e6:.2f} MB on disk; save "
+        f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms")
+    del warm
+
+    # the chaos sweep: containment, quarantine cost, share of equal finishes
+    inj = _injector(CHAOS_SPECS)
+    vnow = [0.0]
+    eng = InferenceEngine(cfg, eparams, max_slots=4, max_seq=512, clock=lambda: vnow[0],
+                          fault_injector=inj)
+    costs = _timed_quarantines(eng, inj)
+    eng.core.fault_backoff_s = 0.0
+    reqs = _chaos_submit(eng.core, cfg.vocab_size, 4, 4, 6, 32, 8, 24, 130)
+    _chaos_drain(eng.core, vnow, token_budget=64)
+    same, clean, resid = _chaos_checks("chaos bf16 paged", eng, reqs, base, inj, exact=False)
+    faults = {k: v["value"] for k, v in eng.obs.metrics.snapshot().items()
+              if k.startswith("fault/") and "value" in v}
+    log(f"chaos bf16 paged ({cfg.num_layers} layers): fires {dict(inj.fires)}; {json.dumps(faults)}; "
+        f"attribution residual {resid:.1e}; quarantine, poisoning to requeue "
+        f"{', '.join(f'{a:.2f}' for a, _ in costs)} ms (scrub + evict + requeue "
+        f"{', '.join(f'{b:.2f}' for _, b in costs)} ms); decode graphs for k in "
+        f"{sorted(eng._decode_graphs)}")
+    log(f"chaos bf16 share of clean finishes equal to the fault-free run: {same}/{clean} = "
+        f"{same / max(clean, 1):.3f} (not asserted: a re-prefill in bf16 rounds otherwise "
+        f"than the decode it replaces)")
+    del eng
+
+    # early resume under the runtime: phase 5's trainer, revocation_check_steps=1
+    step, state, batches = colloc["step"], colloc["state"], colloc["batches"]
+    profile, microstep_s = colloc["profile"], colloc["microstep_s"]
+    iters = 3
+    eng = InferenceEngine(cfg, eparams, max_slots=8, max_seq=512)
+    rng = np.random.default_rng(7)
+    for n in (24, 48, 80, 130):
+        eng.core.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        SamplingParams(max_new_tokens=256), priority=Priority.OFFLINE)
+    # wall overrun: from the start of the sub-dispatch whose virtual span
+    # crossed the resume instant (the quantum's start if none did) to the
+    # return of the step, the device synchronised
+    subs, wall_overrun = [], []
+    decode, core_step = eng._drive_decode_loop, eng.core.step
+
+    def timed_decode(k):
+        subs.append((time.monotonic(), eng.clock()))  # the clock is at its end
+        return decode(k)
+
+    def timed_step(grant=None):
+        subs.clear()
+        t0 = time.monotonic()
+        out = core_step(grant)
+        sig = grant.revocation
+        if sig is not None and grant.now < sig.revoke_at <= eng.clock():
+            torch.cuda.synchronize()
+            start = next((w for w, v in subs if v >= sig.revoke_at), t0)
+            wall_overrun.append((time.monotonic() - start) * 1e3)
+        return out
+
+    eng._drive_decode_loop, eng.core.step = timed_decode, timed_step
+    # every bubble resumes early: some instants fall inside a running quantum
+    inj = _injector((("runtime/early_resume", {"probability": 1.0}),))
+    rt = SpecInFRuntime(train_step=step, train_state=state, batch_iter=batches,
+                        profile=profile, engine=eng,
+                        cfg=SpecInFConfig(revocation_check_steps=1),
+                        decode_microstep_s=microstep_s, faults=inj)
+    m = rt.run(iters)
+    baseline = SpecInFRuntime(train_step=lambda s, b: (s, {}), train_state=None,
+                              batch_iter=iter(lambda: {}, None), profile=profile,
+                              cfg=SpecInFConfig()).run(iters)
+    reg = eng.obs.metrics
+    resumes = reg.counter("fault/early_resume").value
+    virtual = reg.histogram("fault/revocation_overrun_s").values()
+    bound = 3 * microstep_s  # one sub-dispatch, and the monitor window's slack
+    if not (resumes == inj.fires["runtime/early_resume"] >= 1
+            and max(virtual, default=math.inf) <= bound
+            and m.virtual_time_s == baseline.virtual_time_s
+            and m.train_iterations == iters and np.isfinite(m.train_losses).all()):
+        raise AssertionError(f"early resume: {resumes} resumes for {inj.fires} fires, "
+                             f"virtual overruns {virtual} (bound {bound}), virtual time "
+                             f"{m.virtual_time_s} vs baseline {baseline.virtual_time_s}")
+    log(f"early resume ({cfg.num_layers} layers, bf16, {iters} iterations, revocation_check_steps=1): "
+        f"{resumes} resumes; virtual overrun "
+        f"{', '.join(f'{v * 1e3:.3f}' for v in virtual)} ms (bound {bound * 1e3:.2f} ms: "
+        f"one sub-dispatch); virtual time {m.virtual_time_s:.6f} s = the no-serving "
+        f"baseline; {len(wall_overrun)} of the resumes fell inside a running quantum, wall "
+        f"overrun from revocation to yield [{', '.join(f'{w:.2f}' for w in wall_overrun)}] "
+        f"ms (the others fell where no quantum ran; a fresh engine's first decode dispatch "
+        f"also captures its decode graphs); {m.offline_tokens_generated} offline tokens "
+        f"filled")
+
+
 def _profile_train():
     """Where the train step's time goes: phase 5's model and step, on fresh
     weights after one warm-up step, for one step under ``torch.profiler``
@@ -2328,7 +2928,9 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_parity()
-    launches = phase_collocated()
+    launches, colloc = phase_collocated()
+    phase_chaos(colloc)  # before any profiler session, as phase 5
+    del colloc
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()

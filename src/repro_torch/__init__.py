@@ -1,6 +1,8 @@
 """PyTorch / CUDA port of SpecInF (``repro`` is the reference): the serving
-engine, the single-device trainer, and the runtime that fills the trainer's
-bubbles with the engine's work under Algorithm 1.
+engine, the single-device trainer, the runtime that fills the trainer's
+bubbles with the engine's work under Algorithm 1, and the failure
+containment and crash durability around them (``resilience``,
+``checkpoint``).
 
 The package mirrors ``repro``'s layout module by module and imports neither
 JAX nor anything of ``repro``: what it needs from a host-only module there

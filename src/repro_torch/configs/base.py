@@ -134,6 +134,10 @@ class SpecInFConfig:
     #: profiled per-prefill-token step cost in microstep-equivalents; 0
     #: keeps prefill free in the cost model
     prefill_token_cost_steps: float = 0.0
+    #: revocable grants: > 0 splits each bubble quantum into sub-dispatches
+    #: of at most this many microsteps with ``Grant.revocation`` re-checked
+    #: between them; 0 keeps one dispatch a quantum
+    revocation_check_steps: int = 0
 
 
 # ---------------------------------------------------------------------------

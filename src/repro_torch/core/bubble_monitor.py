@@ -20,6 +20,8 @@ class BubbleMonitor:
         self.cfg = cfg
         self.window = collections.deque(maxlen=cfg.window_len)
         self._zero_run = 0
+        #: out-of-band early-resume notices
+        self.interrupts = 0
 
     def observe(self, activity_count: int) -> int:
         """Record one window's activity count; returns current zero-count Z_c."""
@@ -33,6 +35,13 @@ class BubbleMonitor:
     @property
     def zero_count(self) -> int:
         return self._zero_run
+
+    def notice_activity(self) -> None:
+        """Training resumed inside a span the profile predicted idle (a
+        revoked grant): cut the zero run now, not at the next window, so
+        Algorithm 1 sees Z_c = 0 and stops granting."""
+        self.interrupts += 1
+        self._zero_run = 0
 
     def utilization(self) -> float:
         """Fraction of recent windows with activity (diagnostics only)."""

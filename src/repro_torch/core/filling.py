@@ -17,9 +17,16 @@ Algorithm-1 phase and the observed acceptance to a draft length, and the
 quantum's k is sized by the expected verified tokens per round and priced
 by the routed proposer.
 
-Not in this slice: fault injection, the request journal and revocable
-grants -- the port's engine has none of them yet -- and
-``make_collocated_step``, the fused train + decode program.
+Revocation: with a ``faults`` injector armed at ``runtime/early_resume``,
+training resumes at a seeded point inside a bubble and the bubble's
+``RevocationSignal`` is armed there; with ``cfg.revocation_check_steps`` > 0
+every grant carries a signal and decodes in sub-dispatches of that many
+microsteps, so a revoked quantum yields within one sub-dispatch.  A
+``journal`` is replayed into the core before fresh submissions and then
+attached.
+
+Not in this slice: ``make_collocated_step``, the fused train + decode
+program.
 """
 from __future__ import annotations
 
@@ -34,10 +41,12 @@ from repro_torch.core.profiles import IterationProfile
 from repro_torch.core.scheduler import AdaptiveKernelScheduler, Status
 from repro_torch.obs import Observability
 from repro_torch.obs.trace import _num
+from repro_torch.resilience.faults import FaultInjector
 from repro_torch.serving.core import (
     Grant,
     Priority,
     RequestState,
+    RevocationSignal,
     SamplingParams,
     SchedulerPolicy,
     StepOutputs,
@@ -242,6 +251,8 @@ class SpecInFRuntime:
         cfg: SpecInFConfig = SpecInFConfig(),
         decode_microstep_s: float = 0.005,
         gamma_controller: Optional[AdaptiveGammaController] = None,
+        faults: Optional[FaultInjector] = None,
+        journal=None,
     ):
         self.train_step = train_step
         self.state = train_state
@@ -249,6 +260,15 @@ class SpecInFRuntime:
         self.profile = profile
         self.engine = engine
         self.cfg = cfg
+        # one seeded injector for every fault point: the runtime consults
+        # ``runtime/early_resume`` per bubble, the engine and its pool the rest
+        self.faults = faults
+        if faults is not None and engine is not None:
+            faults.metrics = engine.obs.metrics
+            if engine.fault_injector is None:
+                engine.fault_injector = faults
+                if engine.pool is not None:
+                    engine.pool.fault_injector = faults
         self.monitor = BubbleMonitor(cfg)
         self.scheduler = AdaptiveKernelScheduler(cfg, num_instances=1)
         # the run's metrics are views over the engine's registry
@@ -269,6 +289,7 @@ class SpecInFRuntime:
         # every request timestamp comes from the runtime's virtual clock
         self._vnow = 0.0
         self.core = None
+        self.recovery = None
         if engine is not None:
             engine.clock = lambda: self._vnow
             # Algorithm 1 as the engine core's scheduler policy
@@ -290,6 +311,12 @@ class SpecInFRuntime:
             for cr in self.core.slot_requests.values():
                 cr.arrival_time = 0.0
                 tr.restamp_arrival(cr.request_id, 0.0)
+            # a journal replays the previous incarnation's surviving requests
+            # (after the restamp above, so its shifted stamps stay) before
+            # fresh submissions, then logs this incarnation's
+            if journal is not None:
+                self.recovery = journal.recover_into(self.core)
+                journal.attach(self.core)
             for r in sorted(online_requests or [], key=lambda r: r.arrival_time):
                 self.core.submit(
                     r.prompt,
@@ -297,6 +324,7 @@ class SpecInFRuntime:
                     priority=Priority.ONLINE if r.online else Priority.OFFLINE,
                     arrival_time=r.arrival_time,
                 )
+        self.journal = journal
 
     # ------------------------------------------------------------------
     def _observe_windows(self, n: int, activity: int = 0):
@@ -321,7 +349,11 @@ class SpecInFRuntime:
         (token grant, IDLE gate for online admission, phase for the gamma
         controller, the bubble's room as ``max_cost_steps``) and lets
         ``SpecInFPolicy`` shape the quantum;
-        its cost advances the virtual clock and the window count."""
+        its cost advances the virtual clock and the window count.
+
+        When the bubble's ``RevocationSignal`` trips (early resume) the fill
+        ends at once, the overrun past the resume instant is recorded, and
+        the rest of the span is fed to the monitor as training activity."""
         if self.engine is None:
             self.metrics.virtual_time_s += bubble_s
             self._advance_windows(bubble_s, activity=0)
@@ -329,10 +361,15 @@ class SpecInFRuntime:
         now = self.metrics.virtual_time_s
         tracer = self.engine.obs.tracer
         tracer.span("bubble", "train", now, now + bubble_s, span_s=bubble_s)
+        sig, resume_at = self._arm_revocation(now, bubble_s)
         spent = 0.0
         step_cost = self.decode_microstep_s
+        revoked = False
         while spent < bubble_s:
             base = now + spent
+            if sig is not None and sig.check(base):
+                revoked = True  # revoked on a quantum boundary: run nothing
+                break
             d = self._observe_windows(1)
             self._vnow = base  # admission / TTFT stamps land at quantum start
             tracer.window_state = {
@@ -353,9 +390,14 @@ class SpecInFRuntime:
                 advance_clock=lambda steps, _b=base: setattr(
                     self, "_vnow", _b + steps * step_cost
                 ),
+                revocation=sig,
+                revoke_check_steps=max(self.cfg.revocation_check_steps, 1),
             )
             out = self.core.step(grant)
             if out.cost_steps <= 0:
+                if out.revoked:
+                    revoked = True
+                    break
                 spent += self._window_s
                 continue
             dt = out.cost_steps * step_cost
@@ -365,8 +407,43 @@ class SpecInFRuntime:
             quanta = max(out.k, int(round(out.cost_steps)))
             self._observe_windows(quanta - 1)
             self._record_step(out)
+            if out.revoked or (sig is not None and sig.check(self._vnow)):
+                # cut mid-plan, or tripped as the quantum completed
+                revoked = True
+                break
+        if not revoked and sig is not None and sig.check(now + bubble_s):
+            # armed inside the span with no quantum running to cut
+            revoked = True
+        if revoked:
+            m = self.engine.obs.metrics
+            m.counter("fault/early_resume").inc()
+            m.histogram("fault/revocation_overrun_s").record(
+                max(0.0, self._vnow - resume_at)
+            )
+            self.monitor.notice_activity()
+            remaining = bubble_s - spent
+            if remaining > 0:
+                # training owns the rest of the span
+                self._advance_windows(remaining, activity=1)
         self.metrics.virtual_time_s += bubble_s
         self._vnow = self.metrics.virtual_time_s
+
+    def _arm_revocation(self, now: float, bubble_s: float):
+        """This bubble's ``(signal, resume instant)``.  When the injector
+        fires ``runtime/early_resume``, training resumes at a seeded 25-75 %
+        of the bubble and the signal is armed there; otherwise an unarmed
+        signal rides every grant while ``cfg.revocation_check_steps`` > 0
+        (the sub-dispatch path runs, nothing fires), and none by default."""
+        faults = self.faults
+        if faults is not None and faults.should_fire("runtime/early_resume"):
+            frac = 0.25 + 0.5 * faults.uniform("runtime/early_resume")
+            resume_at = now + frac * bubble_s
+            sig = RevocationSignal()
+            sig.arm(resume_at, reason="early_resume")
+            return sig, resume_at
+        if self.cfg.revocation_check_steps > 0:
+            return RevocationSignal(), math.inf
+        return None, math.inf
 
     def _record_step(self, out: StepOutputs) -> None:
         """Count a quantum's spec rounds, and its microsteps as offline work

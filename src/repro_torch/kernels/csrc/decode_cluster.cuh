@@ -278,18 +278,19 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
       wl[warp * G + g] = l[g];
     }
   __syncthreads();
-  // M = the largest m of the warps that saw a key (l > 0), then
+  // M = the largest m of the warps that saw a key (l != 0: a NaN l counts,
+  // so a NaN key poisons the row as in the plain version), then
   // sum exp2(m_w - M) (O_w, l_w) in warp order
   for (int i = tid; i < G * hd; i += kThreads) {
     const int g = i / hd;
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      if (wl[w * G + g] > 0.f) M = fmaxf(M, wm[w * G + g]);
+      if (wl[w * G + g] != 0.f) M = fmaxf(M, wm[w * G + g]);
     float L = 0.f, O = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      if (wl[w * G + g] > 0.f) {
+      if (wl[w * G + g] != 0.f) {
         const float wt = exp2f(wm[w * G + g] - M);
         L = fmaf(wt, wl[w * G + g], L);
         O = fmaf(wt, sO[(w * G + g) * hd + i - g * hd], O);
@@ -326,12 +327,12 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
     float M = -INFINITY;
 #pragma unroll
     for (int s = 0; s < kMaxCluster; ++s)
-      if (lv[s] > 0.f) M = fmaxf(M, mv[s]);
+      if (lv[s] != 0.f) M = fmaxf(M, mv[s]);
     float L = 0.f;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int s = 0; s < kMaxCluster; ++s) {
-      if (lv[s] > 0.f) {
+      if (lv[s] != 0.f) {
         const float wt = exp2f(mv[s] - M);
         L = fmaf(wt, lv[s], L);
         acc.x = fmaf(wt, xv[s].x, acc.x);
@@ -340,7 +341,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
         acc.w = fmaf(wt, xv[s].w, acc.w);
       }
     }
-    const float inv = L > 0.f ? 1.f / L : 0.f;
+    const float inv = L == 0.f ? 0.f : 1.f / L;
     T* dst = out + (size_t)(head * group + g0 + g) * hd + 4 * cc;
     kern::store1(dst, acc.x * inv);
     kern::store1(dst + 1, acc.y * inv);

@@ -261,11 +261,11 @@ __global__ void __launch_bounds__(kThreads)
     const int r = ty + 16 * i, qpos = q0 + r;
     if (qpos >= Sq) continue;
     const float l = sL[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;  // no key seen: zeros
+    const float inv = l == 0.f ? 0.f : 1.f / l;  // no key seen: zeros; NaN stays NaN
     T* orow = out + ((size_t)bh * Sq + qpos) * HD;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) kern::store1(orow + tx + 16 * j, acc[i][j] * inv);
-    if (tx == 0) lse[(size_t)bh * Sq + qpos] = l > 0.f ? sM[r] + logf(l) : -INFINITY;
+    if (tx == 0) lse[(size_t)bh * Sq + qpos] = l == 0.f ? -INFINITY : sM[r] + logf(l);
   }
 }
 
@@ -752,13 +752,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float i0 = l0 > 0.f ? 1.f / l0 : 0.f, i1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    const float i0 = l0 == 0.f ? 0.f : 1.f / l0, i1 = l1 == 0.f ? 0.f : 1.f / l1;
     store_rows<HD>(o, i0, i1, gbase + L::kO, FQ, 64 * c, out + (size_t)bh * Sq * HD,
                    q0 + 64 * c, Sq, 1 + c);
     hop::named_sync(1 + c, 128);  // every row is out before the next tile's O lands
     if (lane % 4 == 0) {
-      if (qa < Sq) lse[(size_t)bh * Sq + qa] = l0 > 0.f ? m0 * scale + logf(l0) : -INFINITY;
-      if (qb < Sq) lse[(size_t)bh * Sq + qb] = l1 > 0.f ? m1 * scale + logf(l1) : -INFINITY;
+      if (qa < Sq) lse[(size_t)bh * Sq + qa] = l0 == 0.f ? -INFINITY : m0 * scale + logf(l0);
+      if (qb < Sq) lse[(size_t)bh * Sq + qb] = l1 == 0.f ? -INFINITY : m1 * scale + logf(l1);
     }
   }
 }

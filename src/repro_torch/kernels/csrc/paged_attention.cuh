@@ -315,7 +315,7 @@ __device__ void attend_block(const T* __restrict__ q,
     const int t = q0 + r / group, g = r % group;
     if (t >= C) continue;
     const float l = l_s[r];
-    const float o = (t < clen && l > 0.f) ? acc[i] / l : 0.f;
+    const float o = (t < clen && l != 0.f) ? acc[i] / l : 0.f;
     store1(epi.out + ((size_t)t * H + head * group + g) * hd + d, o);
   }
 }
@@ -345,7 +345,7 @@ __device__ Epilogue<T> split_epilogue(float* part_acc, float* part_ml, int b,
 }
 
 // out[b, t, h] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the
-// splits that saw a key (l_s > 0); 0 when none did.  Grid (kvH * C * group, B);
+// splits that saw a key (l_s != 0, NaN included); 0 when none did.  Grid (kvH * C * group, B);
 // out is [B, C, H, hd].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -361,7 +361,7 @@ __global__ void __launch_bounds__(kThreads)
   float M = -INFINITY;
   for (int s = 0; s < splits; ++s) {
     const float* ml = part_ml + (base + s * stride) * 2;
-    if (ml[1] > 0.f) M = fmaxf(M, ml[0]);
+    if (ml[1] != 0.f) M = fmaxf(M, ml[0]);
   }
   T* o = out + (((size_t)b * C + t) * kvh * group + head * group + g) * hd;
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
@@ -369,13 +369,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int s = 0; s < splits; ++s) {
       const size_t row = base + s * stride;
       const float* ml = part_ml + row * 2;
-      if (ml[1] > 0.f) {
+      if (ml[1] != 0.f) {
         const float w = expf(ml[0] - M);
         L = fmaf(w, ml[1], L);
         O = fmaf(w, part_acc[row * hd + d], O);
       }
     }
-    store1(o + d, L > 0.f ? O / L : 0.f);
+    store1(o + d, L == 0.f ? 0.f : O / L);
   }
 }
 

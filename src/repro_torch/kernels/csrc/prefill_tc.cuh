@@ -401,7 +401,7 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
     // and the walk's last barrier has passed), a cluster barrier publishes
     // it, and rank r merges item share r of the tile's real rows (an item
     // is 4 columns of a row) from every rank's state, in rank order: M =
-    // the largest m of the splits that saw a key (l > 0), then
+    // the largest m of the splits that saw a key (l != 0: a NaN l counts), then
     // sum exp2((m_s - M) scale log2 e) (O_s, l_s) -- m is in raw scores.
     // A row no split saw (M = -inf) gives zeros, as does a row t >= clen.
     // The last barrier keeps every CTA's shared memory alive until its
@@ -446,12 +446,12 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
                              : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int s = 0; s < kMaxCluster; ++s)
-        if (lv[s] > 0.f) M = fmaxf(M, mv[s]);
+        if (lv[s] != 0.f) M = fmaxf(M, mv[s]);
       float L = 0.f;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int s = 0; s < kMaxCluster; ++s) {
-        if (lv[s] > 0.f) {
+        if (lv[s] != 0.f) {
           const float w = exp2f((mv[s] - M) * sl2);
           L = fmaf(w, lv[s], L);
           acc.x = fmaf(w, xv[s].x, acc.x);
@@ -461,7 +461,9 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
         }
       }
       const int R = R0 + r, t = R / group;
-      const float inv = t < clen && L > 0.f ? 1.f / L : 0.f;  // rows t >= clen: zeros
+      // rows t >= clen: exact zeros, also where a NaN key reached their sum
+      if (t >= clen) acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float inv = L == 0.f ? 0.f : 1.f / L;
       *reinterpret_cast<uint2*>(out.out + ((size_t)t * H + head * group + R % group) * HD +
                                 4 * cc) =
           make_uint2(hop::pack_bf16(acc.x * inv, acc.y * inv),
@@ -470,15 +472,18 @@ __device__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__
     hop::cluster_sync_relaxed();
   } else {
     // ---- epilogue: O / l as bf16 through the Q tile's space, 16-byte stores ----
+    // rows t >= clen (zero Q) are exact zeros, also where a NaN key reached
+    // their sum; a real row that saw no key (l == 0) gives zeros, a NaN l NaN
     const bool real0 = (R0 + r0) / group < clen, real1 = (R0 + r0 + 8) / group < clen;
-    const float i0 = real0 && l0 > 0.f ? 1.f / l0 : 0.f;
-    const float i1 = real1 && l1 > 0.f ? 1.f / l1 : 0.f;
+    const float i0 = l0 == 0.f ? 0.f : 1.f / l0;
+    const float i1 = l1 == 0.f ? 0.f : 1.f / l1;
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       uint8_t* p = gbase + L::kQ + swz(r0, i) + 4 * (lane % 4);  // r0 + 8: the same phase
-      *reinterpret_cast<uint32_t*>(p) = hop::pack_bf16(o[4 * i] * i0, o[4 * i + 1] * i0);
+      *reinterpret_cast<uint32_t*>(p) =
+          real0 ? hop::pack_bf16(o[4 * i] * i0, o[4 * i + 1] * i0) : 0u;
       *reinterpret_cast<uint32_t*>(p + 8 * 128) =
-          hop::pack_bf16(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
+          real1 ? hop::pack_bf16(o[4 * i + 2] * i1, o[4 * i + 3] * i1) : 0u;
     }
     __syncthreads();
     for (int i = tid; i < kRows * CH; i += kThreads) {

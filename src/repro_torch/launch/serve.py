@@ -4,6 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --proposer ngram
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl --restore
 
 Counterpart of ``repro.launch.serve``: all requests are submitted up front
 (ONLINE priority, explicit arrival times) and the loop calls
@@ -19,6 +21,11 @@ speculation (``--proposer`` other than ``none`` raises).  The run is on
 without a CUDA device the default raises.  The end-of-run summary reads the
 metrics registry under the reference's stable names; ``--trace PREFIX``
 also writes the step trace as ``PREFIX.jsonl`` and ``PREFIX.chrome.json``.
+``--journal PATH`` logs every submit, transition, token delta and finish to
+a write-ahead journal (fsync'd every ``--journal-fsync-interval`` records);
+``--restore`` first replays that journal, so a killed run's unfinished
+requests re-enter the queue (mid-flight ones PREEMPTED) and finish as they
+would have.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ def summarize(engine: InferenceEngine) -> list:
     lines = []
     reasons = {
         r: m.counter(f"core/finish_reason/{r}").value
-        for r in ("stop", "length", "abort", "expired")
+        for r in ("stop", "length", "abort", "expired", "error")
     }
     lines.append(
         "[serve] finish reasons: "
@@ -110,6 +117,23 @@ def main() -> None:
         help="write the step trace to PREFIX.jsonl + PREFIX.chrome.json",
     )
     ap.add_argument(
+        "--journal", metavar="PATH", default=None,
+        help="write-ahead request journal (append-only JSONL): submits, "
+        "transitions, token deltas and finishes, so a killed run can be "
+        "recovered with --restore",
+    )
+    ap.add_argument(
+        "--journal-fsync-interval", type=int, default=8,
+        help="group commit: fsync the journal every N records (a crash "
+        "loses at most the last N appends)",
+    )
+    ap.add_argument(
+        "--restore", action="store_true",
+        help="replay the --journal file before submitting fresh work: a "
+        "previous run's unfinished requests re-enter the queue (mid-flight "
+        "ones as PREEMPTED) and finish byte-identically",
+    )
+    ap.add_argument(
         "--proposer", choices=("auto", "draft", "ngram", "none"), default="none",
         help="speculation source: 'ngram' is host-only (no draft model); "
         "'draft' / 'auto' also build a draft pairing; 'auto' routes between "
@@ -139,6 +163,23 @@ def main() -> None:
     engine.obs.tracer.enabled = args.trace is not None
     core = engine.core
 
+    journal = None
+    if args.journal is not None:
+        from repro_torch.resilience import RequestJournal
+
+        journal = RequestJournal(args.journal, fsync_interval=args.journal_fsync_interval)
+        if args.restore:
+            report = journal.recover_into(core)
+            print(
+                f"[serve] restored {report.restored} requests "
+                f"({report.resumed_inflight} mid-flight, "
+                f"{report.replayed_tokens} tokens replayed, "
+                f"{report.skipped_finished} already finished) from {args.journal}"
+            )
+        journal.attach(core)
+    elif args.restore:
+        raise SystemExit("--restore requires --journal PATH")
+
     rng = np.random.default_rng(args.seed)
     arrivals = np.cumsum(rng.exponential(args.mean_interval_ms / 1e3, args.requests))
     requests = [
@@ -159,6 +200,8 @@ def main() -> None:
         out = core.step()
         if out.k == 0 and not out.admitted:
             time.sleep(0.001)  # idle until the next arrival
+    if journal is not None:
+        journal.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total_tokens = sum(len(r.output_tokens) for r in requests)

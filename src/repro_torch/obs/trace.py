@@ -87,6 +87,13 @@ class StepTracer:
                     and ev["to"] == "waiting"):
                 ev["t"] = float(t)
 
+    def attribution(self) -> dict:
+        """Per-request SLO attribution of this trace's transition events
+        (``repro_torch.obs.attribution.attribute``)."""
+        from repro_torch.obs.attribution import attribute
+
+        return attribute(self.events)
+
     def write_jsonl(self, path: str, **meta) -> None:
         head = {
             "type": "meta", "version": TRACE_VERSION,

@@ -20,8 +20,17 @@ radix-cached) and re-queues the request at the FRONT of its class; resume
 re-prefills ``prompt + generated`` and continues greedy decode, so the
 resumed stream is byte-identical to an uninterrupted one.
 
-Fault containment, revocable grants, the overload ladder and the request
-journal of the reference core are not in this slice.
+Failure containment (``repro_torch.resilience``): a slot the engine
+quarantines (non-finite logits, a failed page top-up) comes back through
+``_on_slot_fault`` and is re-queued PREEMPTED with exponential backoff
+(``retry_at``), or finishes FINISHED_ERROR past ``max_fault_retries``; a
+grant may carry a ``RevocationSignal``, and the quantum then decodes in
+sub-dispatches of ``revoke_check_steps`` microsteps and stops once it trips;
+an ``OverloadLadder`` (``core.ladder``) sheds queued work and downshifts the
+plan; a ``RequestJournal`` (``core.journal``) logs submits, transitions,
+token deltas and finishes for crash recovery.  The fault points
+``process/kill``, ``core/revoke_mid_quantum`` and ``core/step_overrun`` are
+consulted here.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ __all__ = [
     "PriorityPolicy",
     "RequestOutput",
     "RequestState",
+    "RevocationSignal",
     "SamplingParams",
     "SchedulerPolicy",
     "StepOutputs",
@@ -70,8 +80,11 @@ class RequestState(enum.Enum):
     FINISHED_STOPPED = "finished_stopped"
     FINISHED_LENGTH = "finished_length"
     FINISHED_ABORTED = "finished_aborted"
-    #: ``SamplingParams.deadline_s`` elapsed while WAITING
+    #: ``SamplingParams.deadline_s`` elapsed while WAITING, or the overload
+    #: ladder shed the request before it took a slot
     FINISHED_EXPIRED = "finished_expired"
+    #: quarantined more times than the core's retry budget allows
+    FINISHED_ERROR = "finished_error"
 
     @property
     def finished(self) -> bool:
@@ -84,6 +97,7 @@ FINISH_REASONS = {
     RequestState.FINISHED_LENGTH: "length",
     RequestState.FINISHED_ABORTED: "abort",
     RequestState.FINISHED_EXPIRED: "expired",
+    RequestState.FINISHED_ERROR: "error",
 }
 
 
@@ -117,14 +131,52 @@ class EngineRequest:
     finish_time: Optional[float] = None
     finish_reason: Optional[str] = None
     preemptions: int = 0
+    #: quarantines survived, and the engine-clock instant before which
+    #: admission must not retry (exponential backoff after each quarantine)
+    faults: int = 0
+    retry_at: float = 0.0
     # -- core internals --
     _internal: Optional[Request] = None  # engine-side record while in a slot
     _consumed: int = 0  # tokens of _internal.generated already absorbed
     _ttft_reported: bool = False
+    #: consecutive clean decode quanta since the last quarantine; at
+    #: ``EngineCore.fault_decay_quanta`` the fault counter resets
+    _clean_quanta: int = 0
 
     @property
     def remaining_budget(self) -> int:
         return self.sampling.max_new_tokens - len(self.output_tokens)
+
+
+class RevocationSignal:
+    """A grant's kill switch: raised at once by ``revoke()`` or ahead of time
+    by ``arm(at)`` (the engine-clock instant training resumes);
+    ``EngineCore.step()`` re-checks it between decode sub-dispatches.
+    Latching: once ``check()`` saw it, it stays revoked."""
+
+    def __init__(self) -> None:
+        self._revoked = False
+        self.revoke_at = math.inf
+        self.reason: Optional[str] = None
+
+    def revoke(self, reason: str = "revoked") -> None:
+        self._revoked = True
+        self.reason = self.reason or reason
+
+    def arm(self, at: float, reason: str = "early_resume") -> None:
+        """Revoke at engine-clock instant ``at`` (the earliest armed wins)."""
+        if at < self.revoke_at:
+            self.revoke_at = at
+            self.reason = reason
+
+    def check(self, now: float) -> bool:
+        if not self._revoked and now >= self.revoke_at:
+            self._revoked = True
+        return self._revoked
+
+    @property
+    def revoked(self) -> bool:
+        return self._revoked
 
 
 @dataclasses.dataclass
@@ -134,7 +186,11 @@ class Grant:
     the engine clock); ``max_cost_steps`` caps the quantum in
     microstep-equivalents; ``token_budget`` caps the step's mixed batch
     (prefill chunk tokens plus decode tokens); ``advance_clock`` is called
-    with the step's cost right before the device work runs."""
+    with the step's cost right before the device work runs.  ``revocation``
+    (None: the quantum runs to completion in one dispatch) splits the decode
+    into sub-dispatches of ``revoke_check_steps`` microsteps with the signal
+    re-checked before each, so the step yields within ``revoke_check_steps
+    * slots * (gamma + 1)`` tokens of the signal tripping."""
 
     tokens: float = math.inf
     online_ok: bool = True
@@ -143,6 +199,8 @@ class Grant:
     max_cost_steps: float = math.inf
     token_budget: float = math.inf
     advance_clock: Optional[Callable[[float], None]] = None
+    revocation: Optional[RevocationSignal] = None
+    revoke_check_steps: int = 1
 
 
 @dataclasses.dataclass
@@ -195,6 +253,9 @@ class StepOutputs:
     #: draft tokens accepted / proposed by this step's speculative rounds
     spec_accepted: int = 0
     spec_proposed: int = 0
+    #: the grant's revocation cut this quantum short: ``k`` and
+    #: ``cost_steps`` are then the microsteps that ran
+    revoked: bool = False
 
 
 def largest_bucket(n: int, buckets: tuple = DECODE_K_BUCKETS) -> int:
@@ -224,8 +285,9 @@ class SchedulerPolicy:
 
     @staticmethod
     def eligible(cr: EngineRequest, grant: Grant) -> bool:
-        """The request has arrived by the grant's instant."""
-        return cr.arrival_time <= grant.now
+        """The request has arrived by the grant's instant and its quarantine
+        backoff (``retry_at``) has elapsed."""
+        return cr.arrival_time <= grant.now and cr.retry_at <= grant.now
 
     def _clamp_k_to_budget(
         self, plan: StepPlan, core: "EngineCore", grant: Grant
@@ -397,6 +459,17 @@ class EngineCore:
         self.requests: dict = {}  # request_id -> EngineRequest
         self.slot_requests: dict = {}  # slot -> EngineRequest (in a slot)
         self._finished_buffer: list = []
+        #: optional ``OverloadLadder``: sheds load and downshifts the plan
+        self.ladder = None
+        #: quarantines a request may survive before FINISHED_ERROR, and the
+        #: backoff base: retry n waits ``fault_backoff_s * 2**(n-1)`` seconds
+        self.max_fault_retries = 3
+        self.fault_backoff_s = 0.01
+        #: clean decode quanta after which a request's fault counter resets
+        #: (0 disables the decay)
+        self.fault_decay_quanta = 8
+        #: optional ``RequestJournal`` (set by ``RequestJournal.attach``)
+        self.journal = None
 
     # ------------------------------------------------------------------
     def submit(
@@ -430,6 +503,8 @@ class EngineCore:
         self.obs.tracer.transition(
             cr.request_id, None, "waiting", arrival_time, priority=priority.value,
         )
+        if self.journal is not None:
+            self.journal.record_submit(cr, self.engine.clock())
         return cr
 
     def slot_of(self, req: EngineRequest) -> Optional[int]:
@@ -464,6 +539,11 @@ class EngineCore:
         if g.now is None:
             g = dataclasses.replace(g, now=self.engine.clock())
         eng = self.engine
+        inj = eng.fault_injector
+        if inj is not None and inj.should_fire("process/kill"):
+            from repro_torch.resilience.faults import ProcessKilled
+
+            raise ProcessKilled("injected process death between quanta")
         self._finished_buffer = []
         active = list(self.slot_requests.values())
         base = {cr.request_id: len(cr.output_tokens) for cr in active}
@@ -475,7 +555,11 @@ class EngineCore:
             self.obs.metrics.counter("core/starved_quanta").inc()
             plan = StepPlan(prefill_tokens=0.0)
         else:
+            if self.ladder is not None:
+                self.ladder.update(self, g)
             plan = self.policy.plan(self, g)
+            if self.ladder is not None:
+                self.ladder.apply(self, g, plan)
         out = StepOutputs()
         for slot in list(plan.preempt):
             cr = self.preempt(slot)
@@ -532,19 +616,34 @@ class EngineCore:
                 for slot, cr in self.slot_requests.items()
                 if not eng.slot_prefilling(slot)
             }
-        cost = (plan.cost_steps if k > 0 else 0.0) + pf_cost
-        if (k > 0 or out.prefill_tokens > 0) and g.advance_clock is not None:
-            g.advance_clock(cost)
-        if k > 0:
-            out.k = k
-            if plan.gamma is not None and plan.proposer is not None:
-                out.gamma, out.proposer = plan.gamma, plan.proposer
-                eng._drive_proposed_loop(k, plan.gamma, plan.proposer)
-            elif plan.gamma is not None and eng.spec_enabled:
-                out.gamma = plan.gamma
-                eng._drive_spec_loop(k, plan.gamma)
-            else:
-                eng._drive_decode_loop(k)
+        if g.revocation is None:
+            cost = (plan.cost_steps if k > 0 else 0.0) + pf_cost
+            if (k > 0 or out.prefill_tokens > 0) and g.advance_clock is not None:
+                g.advance_clock(cost)
+            if k > 0:
+                out.k = k
+                if plan.gamma is not None and plan.proposer is not None:
+                    out.gamma, out.proposer = plan.gamma, plan.proposer
+                    eng._drive_proposed_loop(k, plan.gamma, plan.proposer)
+                elif plan.gamma is not None and eng.spec_enabled:
+                    out.gamma = plan.gamma
+                    eng._drive_spec_loop(k, plan.gamma)
+                else:
+                    eng._drive_decode_loop(k)
+        else:
+            # revocable quantum: pay the prefill first, then decode in
+            # sub-dispatches; the plan is re-priced to what ran
+            if out.prefill_tokens > 0 and g.advance_clock is not None:
+                g.advance_clock(pf_cost)
+            ran = self._drive_revocable(g, plan, k, out, pf_cost)
+            plan.cost_steps = ran * (plan.cost_steps / k) if k > 0 else 0.0
+            cost = plan.cost_steps + pf_cost
+        if (inj is not None and (out.k > 0 or out.prefill_tokens)
+                and inj.should_fire("core/step_overrun")):
+            # slow-step fault: the quantum takes 25-75% longer than priced
+            cost *= 1.25 + 0.5 * inj.uniform("core/step_overrun")
+            if g.advance_clock is not None:
+                g.advance_clock(cost)
         if out.k > 0 or out.prefill_tokens:
             out.cost_steps = cost
         out.spec_accepted = eng.spec_accepted - a0
@@ -560,7 +659,23 @@ class EngineCore:
                     priority=cr.priority.value,
                 )
             self._absorb_running(slot, cr)
+        if inj is not None and inj.should_fire("process/kill"):
+            # mid-quantum death: the device work ran and its tokens were
+            # absorbed, but the journal append below never happens
+            from repro_torch.resilience.faults import ProcessKilled
+
+            raise ProcessKilled("injected process death mid-quantum")
         m = self.obs.metrics
+        if self.fault_decay_quanta and out.k > 0:
+            # a quarantined request that then decodes N clean quanta in a
+            # row earns its retry budget back
+            for cr in self.slot_requests.values():
+                if cr.faults and cr.state is RequestState.RUNNING:
+                    cr._clean_quanta += 1
+                    if cr._clean_quanta >= self.fault_decay_quanta:
+                        cr.faults = 0
+                        cr._clean_quanta = 0
+                        m.counter("fault/decays").inc()
         out.finished = list(self._finished_buffer)
         for cr in out.finished:
             touched.setdefault(cr.request_id, cr)
@@ -590,9 +705,54 @@ class EngineCore:
                 request_id=rid, priority=cr.priority, new_tokens=list(new),
                 state=cr.state, finish_reason=cr.finish_reason, ttft_s=ttft,
             ))
+        if self.journal is not None:
+            self.journal.record_step(self, out)
         self._record_quantum(g, plan, out, ran_slots)
         self.policy.observe(out)
         return out
+
+    def _drive_revocable(
+        self, g: Grant, plan: StepPlan, k: int, out: StepOutputs,
+        pf_cost: float = 0.0,
+    ) -> int:
+        """Decode portion of a revocable quantum: the ``k`` planned
+        microsteps as sub-dispatches of at most ``g.revoke_check_steps``,
+        the signal re-checked on the engine clock (which the per-dispatch
+        ``advance_clock`` keeps current) before each.  Returns the
+        microsteps that ran; stamps ``out.k`` / ``gamma`` / ``revoked``.  On
+        CUDA each plain sub-dispatch replays the paged decode graph of its
+        size, captured once per size."""
+        eng = self.engine
+        sig = g.revocation
+        inj = eng.fault_injector
+        per_cost = (plan.cost_steps / k) if k > 0 else 0.0
+        spec = plan.gamma is not None and (eng.spec_enabled or plan.proposer is not None)
+        check = max(int(g.revoke_check_steps), 1)
+        ran = 0
+        while ran < k and eng.num_active > eng.num_prefilling:
+            if inj is not None and inj.should_fire("core/revoke_mid_quantum"):
+                sig.revoke(reason="injected_revocation")
+            if sig.check(eng.clock()):
+                break
+            k_sub = min(largest_bucket(min(check, k - ran)), k - ran)
+            if g.advance_clock is not None:
+                # absolute from quantum start: the cumulative cost so far
+                g.advance_clock(pf_cost + (ran + k_sub) * per_cost)
+            if spec and plan.proposer is not None:
+                eng._drive_proposed_loop(k_sub, plan.gamma, plan.proposer)
+            elif spec:
+                eng._drive_spec_loop(k_sub, plan.gamma)
+            else:
+                eng._drive_decode_loop(k_sub)
+            ran += k_sub
+        out.k = ran
+        if spec and ran > 0:
+            out.gamma = plan.gamma
+            out.proposer = plan.proposer
+        if sig.revoked and ran < k:
+            out.revoked = True
+            self.obs.metrics.counter("fault/revocations").inc()
+        return ran
 
     # ------------------------------------------------------------------
     def stream(
@@ -637,6 +797,9 @@ class EngineCore:
             except ValueError:
                 pass
         self._finish(req, RequestState.FINISHED_ABORTED, self.engine.clock())
+        if self.journal is not None:
+            # abort() runs outside step(): the end-of-quantum hook misses it
+            self.journal.record_finish(req, self.engine.clock())
 
     def preempt(self, target: Union[int, EngineRequest]) -> Optional[EngineRequest]:
         """Evict a slot and re-queue its request (PREEMPTED) at the front of
@@ -723,7 +886,7 @@ class EngineCore:
             },
             k=out.k, gamma=out.gamma, proposer=out.proposer,
             cost_steps=out.cost_steps,
-            prefill_tokens=out.prefill_tokens,
+            prefill_tokens=out.prefill_tokens, revoked=out.revoked,
             admitted=list(out.admitted), preempted=list(out.preempted),
             finished=[cr.request_id for cr in out.finished],
             spec_accepted=out.spec_accepted,
@@ -789,6 +952,49 @@ class EngineCore:
             for cr in expired:
                 q.remove(cr)
                 self._finish(cr, RequestState.FINISHED_EXPIRED, now)
+
+    def shed(self, cr: EngineRequest, now: float, kind: str) -> None:
+        """Load-shed a queued request (overload ladder): remove it from its
+        queue and finish it FINISHED_EXPIRED; ``kind`` labels the
+        ``fault/shed/<kind>`` counter."""
+        try:
+            self.waiting[cr.priority].remove(cr)
+        except ValueError:
+            return
+        self.obs.metrics.counter("fault/shed/" + kind).inc()
+        self._finish(cr, RequestState.FINISHED_EXPIRED, now)
+
+    def _on_slot_fault(self, slot: int, internal: Request) -> None:
+        """Engine quarantine callback: the slot was scrubbed and freed, and
+        its request is re-queued at the front of its class with exponential
+        backoff, or finishes FINISHED_ERROR once its retry budget is spent.
+        The poisoned dispatch's tokens were never absorbed, so the retry's
+        stream equals a fault-free run's."""
+        cr = self.slot_requests.pop(slot, None)
+        if cr is None:
+            return
+        frm = cr.state.value
+        new = self._collect(cr)
+        cr._internal = None
+        cr.faults += 1
+        cr._clean_quanta = 0
+        now = self.engine.clock()
+        if self._apply_stop(cr, new):
+            # the good tokens absorbed before the fault carried a stop
+            self._finish(cr, RequestState.FINISHED_STOPPED, now)
+            return
+        m = self.obs.metrics
+        if cr.faults > self.max_fault_retries:
+            m.counter("fault/retry_exhausted").inc()
+            self._finish(cr, RequestState.FINISHED_ERROR, now)
+            return
+        cr.retry_at = now + self.fault_backoff_s * 2 ** (cr.faults - 1)
+        cr.state = RequestState.PREEMPTED
+        m.counter("fault/requeues").inc()
+        self.obs.tracer.transition(
+            cr.request_id, frm, "preempted", now, priority=cr.priority.value,
+        )
+        self.waiting[cr.priority].appendleft(cr)
 
     def _on_slot_finished(self, slot: int, internal: Request) -> None:
         """Engine retirement callback (budget exhausted or max_seq horizon)."""

@@ -30,16 +30,23 @@ waves, ``_drive_decode_loop``, ``_drive_spec_loop``,
 ``_drive_proposed_loop``, ``evict_slot``); the request lifecycle lives in
 ``serving/core.py`` (``EngineCore``), which the ``core`` property builds.
 
+Fault containment (``repro_torch.resilience``): a seeded ``fault_injector``
+is consulted at ``engine/nan_logits`` before each fused dispatch (one
+decodable slot's last written K is poisoned) and handed to the page pool for
+``pool/alloc_fail``.  A slot whose logits come back non-finite is quarantined
+(its private KV scrubbed, the slot evicted, the request re-queued with
+backoff by the core); a failed top-up allocation evicts and re-queues that
+slot alone.  Every such write lands in place in the pool tensors, which a
+captured decode graph reads at the addresses it recorded.
+
 The device is ``cuda`` unless the caller passes ``device="cpu"``; without a
 CUDA device and without an explicit ``device="cpu"`` the constructor raises.
 On CUDA the attention cores launch the hand-written kernels, on the CPU their
 plain PyTorch versions.  The KV pool, block tables, indices and token vector
 are updated in place (the reference's jit donates them).
 
-Not ported: fault injection and NaN quarantine (a non-finite verify or
-decode logit raises ``FloatingPointError``), speculation on a recurrent
-(Mamba1) target or draft (``NotImplementedError``), and the MoE, hybrid and
-frontend families.
+Not ported: speculation on a recurrent (Mamba1) target or draft
+(``NotImplementedError``), and the MoE, hybrid and frontend families.
 """
 from __future__ import annotations
 
@@ -68,6 +75,15 @@ from repro_torch.spec.proposers import (
 )
 
 _req_counter = itertools.count()
+
+
+def advance_request_ids(floor: int) -> None:
+    """Future auto-assigned request ids are ``>= floor`` (journal recovery
+    re-creates requests under their journaled ids)."""
+    global _req_counter
+    nxt = next(_req_counter)
+    _req_counter = itertools.count(max(nxt, int(floor)))
+
 
 #: Fused-loop sizes callers pick their k from (the reference bounds its
 #: compiled programs with them; the schedule is kept identical).
@@ -211,10 +227,16 @@ class InferenceEngine:
         spec: Optional[SpecDecodeConfig] = None,
         kv_page_size: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
+        kv_pool_pages: Optional[int] = None,
+        fault_injector=None,
     ):
         """``kv_page_size``: None -> 16 for attention families, 0 (dense rows)
         otherwise; ``prefill_chunk``: None -> 32 for attention families, 0
-        (monolithic bucket prefill) otherwise.
+        (monolithic bucket prefill) otherwise; ``kv_pool_pages``: None -> the
+        dense-equivalent capacity plus the sentinel page (a smaller pool can
+        run out, and admission then waits).  ``fault_injector`` arms the
+        fault points (``repro_torch.resilience.FaultInjector``; None is
+        inert).
 
         ``decode_impl`` picks the kernels of every pass ("auto" | "cuda" |
         "torch", as ``kernels.ops``): decode, chunked and monolithic prefill
@@ -235,6 +257,9 @@ class InferenceEngine:
             raise NotImplementedError(_RECURRENT_SPEC)
         # the counter views' cells live in ``self.obs.metrics``: build it first
         self.obs = Observability()
+        self.fault_injector = fault_injector
+        if fault_injector is not None:
+            fault_injector.metrics = self.obs.metrics
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_slots = max_slots
@@ -287,8 +312,9 @@ class InferenceEngine:
                 raise ValueError("kv_page_size must be a power of two")
             self.pages_per_slot = -(-max_seq // kv_page_size)
             # dense-equivalent logical capacity plus the sentinel page
-            num_pages = max_slots * self.pages_per_slot + 1
+            num_pages = kv_pool_pages or max_slots * self.pages_per_slot + 1
             self.pool = PagePool(num_pages, kv_page_size)
+            self.pool.fault_injector = fault_injector
             self.prefix_cache = RadixCache(self.pool)
             self.cache = T.init_paged_cache(
                 cfg, max_slots, num_pages, kv_page_size, self.pages_per_slot,
@@ -490,6 +516,43 @@ class InferenceEngine:
         )
         return total_pages - len(shared) <= self.pool.available + evictable
 
+    def export_prefix_pages(self):
+        """Warm-state snapshot export: the radix cache's nodes with the KV
+        of their pages, ``(nodes, k, v)`` with ``k`` / ``v`` shaped
+        ``[L, N, page, kvH, hd]`` in node order.  None on a dense engine or
+        an empty cache."""
+        if self.prefix_cache is None:
+            return None
+        nodes = self.prefix_cache.export_nodes()
+        if not nodes:
+            return None
+        idx = torch.tensor([page for _, _, page in nodes], device=self.device)
+        layers = self.cache["layers"]
+        return nodes, layers["k"][:, idx], layers["v"][:, idx]
+
+    def import_prefix_pages(self, nodes, k, v) -> int:
+        """Warm the radix cache from an exported snapshot: allocate fresh
+        pages (evicting colder entries if needed), copy the saved KV into
+        them IN PLACE (a captured decode graph reads the pools where they
+        live) and rebuild the tree.  Nodes that do not fit are dropped from
+        the tail (parents come first, so a prefix is still a forest).
+        Returns the nodes loaded."""
+        if self.prefix_cache is None or not nodes:
+            return 0
+        keep = len(nodes)
+        if not self._ensure_capacity(keep):
+            keep = self.pool.available
+            nodes = nodes[:keep]
+        if keep == 0:
+            return 0
+        pages = self.pool.alloc(keep)
+        idx = torch.tensor(pages, device=self.device)
+        layers = self.cache["layers"]
+        for name, src in (("k", k), ("v", v)):
+            dst = layers[name]
+            dst.index_copy_(1, idx, torch.as_tensor(src[:, :keep]).to(dst.device, dst.dtype))
+        return self.prefix_cache.load_nodes(nodes, pages)
+
     def _sync_block_tables(self) -> None:
         # a copy: the device table must not alias the host mirror
         self.cache["block_tables"] = torch.tensor(self._bt_host, device=self.device)
@@ -498,7 +561,9 @@ class InferenceEngine:
     def _top_up_pages(self, steps: int) -> None:
         """Extend every active slot's block table to cover its next
         ``steps`` token writes, turning admission reservations into pages,
-        so the decode loop never needs a host allocation."""
+        so the decode loop never needs a host allocation.  A ``PageAllocError``
+        (an injected allocator fault) evicts that slot alone and re-queues its
+        request through the core's fault path."""
         for i, r in enumerate(self.slots):
             if r is None:
                 continue
@@ -506,7 +571,14 @@ class InferenceEngine:
             need = self.pool.pages_for(cover)
             cur = len(self._slot_pages[i])
             if need > cur:
-                got = self.pool.alloc(need - cur, reserved=True)
+                try:
+                    got = self.pool.alloc(need - cur, reserved=True)
+                except PageAllocError:
+                    self.obs.metrics.counter("fault/alloc_failures").inc()
+                    req = self.evict_slot(i, sync=False)
+                    if self._core is not None:
+                        self._core._on_slot_fault(i, req)
+                    continue
                 self._slot_reserved[i] -= len(got)
                 self._bt_host[i, cur: cur + len(got)] = got
                 self._slot_pages[i].extend(got)
@@ -591,6 +663,8 @@ class InferenceEngine:
         try:
             new_pages = self.pool.alloc(prompt_pages - len(shared_pages))
         except PageAllocError:
+            # exhaustion or an injected allocator fault: admission blocks
+            self.obs.metrics.counter("fault/alloc_failures").inc()
             if shared_pages:
                 self.pool.decref(shared_pages)
             return None
@@ -910,6 +984,80 @@ class InferenceEngine:
         return tok
 
     # ------------------------------------------------------------------
+    # Fault injection and containment
+    # ------------------------------------------------------------------
+    def _poisonable(self, i: int) -> bool:
+        """Slot ``i`` is decoding and its last written position lies past
+        the prompt's full pages, which the radix tree may share (only a
+        private page can be scrubbed at quarantine)."""
+        r = self.slots[i]
+        if r is None or self.slot_prefilling(i) or not r.generated:
+            return False
+        if not self.paged:
+            return True
+        ps = self.kv_page_size
+        return (self._slot_idx[i] - 1) // ps >= len(r.prompt) // ps
+
+    def _maybe_inject_nan(self) -> None:
+        """Consult ``engine/nan_logits`` before a fused dispatch; on a fire,
+        poison layer 0's K of one decodable slot at its last written
+        position, so its next attention read gives NaN logits for that slot
+        alone.  Only a slot whose last write lies past its prompt's full
+        pages is a victim (``_poisonable``), so a radix-cached prefix is
+        never poisoned and the point is consulted only when one exists: the
+        reference states that rule but breaks it for a slot whose prompt
+        fills whole pages and has just finished its prefill.  Written in
+        place: a captured decode graph reads the pool where it lives."""
+        inj = self.fault_injector
+        if inj is None:
+            return
+        if "k" not in self.cache["layers"]:
+            inj.should_fire("engine/nan_logits")  # Mamba1: no KV to poison
+            return
+        cands = [i for i in range(self.max_slots) if self._poisonable(i)]
+        if not cands or not inj.should_fire("engine/nan_logits"):
+            return
+        slot = cands[inj.choice("engine/nan_logits", len(cands))]
+        k = self.cache["layers"]["k"]
+        if self.paged:
+            pos = self._slot_idx[slot] - 1
+            page = self._slot_pages[slot][pos // self.kv_page_size]
+            k[0, page, pos % self.kv_page_size] = float("nan")
+        else:
+            pos = int(self.cache["index"][slot]) - 1
+            k[0, slot, pos] = float("nan")
+
+    def _scrub_slot_kv(self, i: int) -> None:
+        """Zero, in place, the KV a quarantined slot wrote before its pages
+        or rows are released: a masked position still adds ``0 * NaN`` to an
+        attention sum, so a freed page must hold finite data.  Pages the
+        radix tree shares are left alone (the poison never lands there)."""
+        layers = self.cache["layers"]
+        if "k" not in layers:
+            return
+        if self.paged:
+            private = [p for p in self._slot_pages[i] if self.pool.refcount[p] == 1]
+            if private:
+                idx = torch.tensor(private, device=self.device)
+                layers["k"].index_fill_(1, idx, 0)
+                layers["v"].index_fill_(1, idx, 0)
+        else:
+            layers["k"][:, i] = 0
+            layers["v"][:, i] = 0
+
+    def _quarantine_slot(self, i: int) -> Request:
+        """Containment of a slot whose logits came back non-finite: count it,
+        scrub its KV, evict it and hand the request to the core's fault path
+        (bounded-retry requeue).  The poisoned dispatch's tokens are never
+        absorbed, so the retry's stream equals a fault-free run's."""
+        self.obs.metrics.counter("fault/nan_quarantines").inc()
+        self._scrub_slot_kv(i)
+        req = self.evict_slot(i, sync=False)
+        if self._core is not None:
+            self._core._on_slot_fault(i, req)
+        return req
+
+    # ------------------------------------------------------------------
     @property
     def decode_graphs(self) -> bool:
         """Whether the plain decode loop replays CUDA graphs: on CUDA, on the
@@ -938,6 +1086,9 @@ class InferenceEngine:
             return []  # every slot is mid-prefill: nothing to decode
         if self.paged:
             self._top_up_pages(k)
+            if self.num_active == 0:
+                return []  # every slot fell to an allocator fault
+        self._maybe_inject_nan()
         remaining = torch.tensor(self._remaining(), device=self.device)
         if self.decode_graphs:
             graph = self._decode_graphs.get(k)
@@ -963,15 +1114,16 @@ class InferenceEngine:
         self.d2h_transfers += 1  # the single fused fetch above
         toks_np = fetched[: k * b].reshape(k, b)
         steps_np, rem_np, idx_np, bad_np = fetched[k * b:].reshape(4, b)
-        if bad_np.any():
-            raise FloatingPointError(
-                f"non-finite logits in decode for slots {np.flatnonzero(bad_np)}"
-            )
         self.steps_executed += k
         now = self.clock()
         finished = []
         for i, req in enumerate(self.slots):
             if req is None or self.slot_prefilling(i):
+                continue
+            if bad_np[i]:
+                # the loop's tokens of this slot are garbage (the screen
+                # cannot say which microstep went bad): drop them all
+                self._quarantine_slot(i)
                 continue
             n = int(steps_np[i])
             req.generated.extend(int(t) for t in toks_np[:n, i])
@@ -1001,6 +1153,9 @@ class InferenceEngine:
         if self.paged:
             # worst case every round accepts the whole chunk
             self._top_up_pages(k * (gamma + 1))
+            if self.num_active == 0:
+                return []  # every slot fell to an allocator fault
+        self._maybe_inject_nan()
         (
             self.tokens, self.cache, self.draft_cache, rem,
             out_toks, n_out, accepted, proposed, bad,
@@ -1021,10 +1176,6 @@ class InferenceEngine:
         toks_np = fetched[: k * b * t].reshape(k, b, t)
         n_np, acc_np, prop_np = fetched[k * b * t: k * b * (t + 3)].reshape(3, k, b)
         rem_np, idx_np, bad_np = fetched[k * b * (t + 3):].reshape(3, b)
-        if bad_np.any():
-            raise FloatingPointError(
-                f"non-finite verify logits for slots {np.flatnonzero(bad_np)}"
-            )
         self.steps_executed += k
         self.spec_rounds += k
         now = self.clock()
@@ -1032,6 +1183,11 @@ class InferenceEngine:
         self._last_spec_slot_stats = {}
         for i, req in enumerate(self.slots):
             if req is None or self.slot_prefilling(i):
+                continue
+            if bad_np[i]:
+                # every round of this slot is suspect: drop the loop's output
+                # (and its acceptance counts) and quarantine
+                self._quarantine_slot(i)
                 continue
             for j in range(k):
                 n = int(n_np[j, i])
@@ -1142,6 +1298,9 @@ class InferenceEngine:
             # worst case the round accepts a whole root-to-leaf path;
             # node-index K/V slots need n_nodes positions regardless
             self._top_up_pages(n_nodes)
+            if self.num_active == 0:
+                return []  # every slot fell to an allocator fault
+        self._maybe_inject_nan()
         (
             self.tokens, self.cache, rem, out, n_out, accepted, proposed, bad,
         ) = spec_tree.tree_verify_round(
@@ -1160,10 +1319,6 @@ class InferenceEngine:
         self.d2h_transfers += 1  # one per round: proposals need the history
         toks_np = fetched[: b * w].reshape(b, w)
         n_np, acc_np, prop_np, rem_np, idx_np, bad_np = fetched[b * w:].reshape(6, b)
-        if bad_np.any():
-            raise FloatingPointError(
-                f"non-finite verify logits for slots {np.flatnonzero(bad_np)}"
-            )
         self.steps_executed += 1
         self.spec_rounds += 1
         self.obs.metrics.gauge("spec/proposer/tree_nodes").set(n_nodes)
@@ -1172,6 +1327,9 @@ class InferenceEngine:
         finished = []
         for i, req in enumerate(self.slots):
             if req is None or self.slot_prefilling(i):
+                continue
+            if bad_np[i]:
+                self._quarantine_slot(i)
                 continue
             n = int(n_np[i])
             req.generated.extend(int(x) for x in toks_np[i, :n])

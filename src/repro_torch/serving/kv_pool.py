@@ -1,8 +1,6 @@
 """Paged KV pool: page allocator + prefix-sharing radix tree (host side).
 
-Own copy of ``repro.serving.kv_pool`` (numpy-only), without the fault
-injection hook and the warm-state snapshot export, which are not on the
-port's path yet.
+Own copy of ``repro.serving.kv_pool`` (numpy-only).
 
 **PagePool** -- free-list allocator with refcounts and reservations.
 
@@ -35,8 +33,10 @@ SENTINEL_PAGE = 0
 
 
 class PageAllocError(RuntimeError):
-    """Page allocation failed: the pool is exhausted.  Callers unwind their
-    partial holds and block admission until capacity returns."""
+    """Page allocation failed: the pool is exhausted, or an armed fault
+    injector fired ``pool/alloc_fail`` (a transient allocator fault).
+    Callers unwind their partial holds and block admission, or quarantine
+    the affected slot."""
 
 
 class PagePool:
@@ -51,6 +51,9 @@ class PagePool:
         # LIFO free list (pop from the end); sentinel page 0 excluded
         self._free = list(range(num_pages - 1, 0, -1))
         self.reserved = 0
+        #: optional ``FaultInjector``: when armed, ``pool/alloc_fail`` makes
+        #: ``alloc`` raise ``PageAllocError``
+        self.fault_injector = None
 
     @property
     def available(self) -> int:
@@ -86,9 +89,13 @@ class PagePool:
     def alloc(self, n: int, *, reserved: bool = False) -> list[int]:
         """Pop ``n`` free pages (refcount 1 each).  ``reserved=True`` converts
         previously-reserved pages (the lazy top-up path); otherwise the pages
-        must fit in ``available``, else ``PageAllocError``."""
+        must fit in ``available``, else ``PageAllocError`` (also raised when
+        an armed fault injector fires ``pool/alloc_fail``)."""
         if n == 0:
             return []
+        inj = self.fault_injector
+        if inj is not None and inj.should_fire("pool/alloc_fail"):
+            raise PageAllocError(f"injected allocator fault (alloc({n}))")
         if reserved:
             assert n <= self.reserved, "top-up exceeds this pool's reservation"
             assert n <= len(self._free), "reservation invariant violated"
@@ -140,6 +147,8 @@ class RadixCache:
         self.pool = pool
         self.root = _Node(None, SENTINEL_PAGE, None)
         self._tick = 0
+        #: admissions whose prompt matched at least one cached page
+        self.hits = 0
 
     def _chunks(self, tokens: Sequence[int]):
         ps = self.pool.page_size
@@ -163,6 +172,8 @@ class RadixCache:
                 self._touch(child)
             pages.append(child.page)
             node = child
+        if record and pages:
+            self.hits += 1
         return pages
 
     def insert(self, tokens: Sequence[int], pages: Sequence[int]) -> None:
@@ -180,6 +191,45 @@ class RadixCache:
                 self.pool.incref([pages[j]])
             self._touch(child)
             node = child
+
+    def export_nodes(self) -> list[tuple[int, tuple, int]]:
+        """Flatten the tree for a warm-state snapshot: ``(parent_index,
+        chunk, page)`` per node, parents before children (the root is index
+        -1).  Page ids only mean something against this pool."""
+        nodes: list[tuple[int, tuple, int]] = []
+        stack = [(-1, child) for child in self.root.children.values()]
+        while stack:
+            parent_idx, node = stack.pop()
+            idx = len(nodes)
+            nodes.append((parent_idx, node.chunk, node.page))
+            stack.extend((idx, c) for c in node.children.values())
+        return nodes
+
+    def load_nodes(
+        self, nodes: Sequence[tuple[int, tuple, int]], pages: Sequence[int]
+    ) -> int:
+        """Rebuild exported nodes onto this pool: ``pages[i]`` is the freshly
+        allocated page of ``nodes[i]``, whose one reference becomes the
+        tree's.  Nodes already cached are skipped and their page freed;
+        returns the nodes added."""
+        by_idx: dict = {}
+        added = 0
+        for i, (parent_idx, chunk, _) in enumerate(nodes):
+            parent = self.root if parent_idx < 0 else by_idx.get(parent_idx)
+            if parent is None:
+                self.pool.decref([pages[i]])
+                continue  # its parent was a duplicate resolved to nothing
+            chunk = tuple(chunk)
+            child = parent.children.get(chunk)
+            if child is None:
+                child = _Node(chunk, pages[i], parent)
+                parent.children[chunk] = child
+                added += 1
+            else:
+                self.pool.decref([pages[i]])
+            self._touch(child)
+            by_idx[i] = child
+        return added
 
     def evictable_pages(self) -> int:
         """Pages reclaimable by eviction (cached pages only the tree holds)."""

@@ -89,7 +89,9 @@ def spec_round(
         ),
     )
     dcache = dict(
-        dcache, index=new_idx,
+        # its own tensor: the engine re-pins a PREFILLING slot's draft index
+        # in place, which must not move the target's
+        dcache, index=new_idx.clone(),
         layers=T.merge_recurrent_states(
             draft_cfg, dcache["layers"],
             rollback_recurrent(draft_cfg, d_states, a, active, old_d),

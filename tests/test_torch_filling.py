@@ -280,9 +280,8 @@ def test_specinf_config_budgets_the_h100():
     shared = {f.name for f in dataclasses.fields(SpecInFConfig)} - {"hbm_limit_bytes"}
     jdef = {f.name: f.default for f in dataclasses.fields(JSpecInFConfig)}
     assert {n: getattr(cfg, n) for n in shared} == {n: jdef[n] for n in shared}
-    # left behind: the simulator's busy hold and the revocation knob
-    assert set(jdef) - shared == {"hbm_limit_bytes", "busy_hold_ms",
-                                  "revocation_check_steps"}
+    # left behind: the simulator's busy hold
+    assert set(jdef) - shared == {"hbm_limit_bytes", "busy_hold_ms"}
 
 
 # ---------------------------------------------------------------------------
