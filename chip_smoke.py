@@ -20,7 +20,8 @@ Phases, each printing a line before the last:
                  checked at lengths on the 64-key tile edges, GQA groups 1
                  and 7 at hd 128 and 64, and a 4,096-key table, timed there
                  and at one tile a CTA, every slot with lengths <= 0 exactly
-                 zero; the prefill at GQA group 7, hd 64 and C = 64), flash
+                 zero; the prefill at GQA group 7, hd 64 and C = 64; both
+                 also at dbrx-132b's GQA group 6, H = 48), flash
                  attention
                  forward and backward at the training shape (plus a ragged
                  case, a non-causal case at hd 128 and 64, the smallest
@@ -35,7 +36,8 @@ Phases, each printing a line before the last:
                  128 (lengths up to and past the table), the paged tree
                  verify for a chain (bit-equal to verify at T = 5), a
                  branching and a 31-node tree (both also at GQA group 7,
-                 hd 64; timed also with every slot cut to one 64-key tile,
+                 hd 64, and at moonshot's group 1, 16 / 16 heads: T = 5,
+                 the chain and the 31-node tree; timed also with every slot cut to one 64-key tile,
                  the longest slot alone, the 31-node tree, and at one tile
                  per split of the tensor-core body); the same for the dense
                  verify and tree verify over the target's dense rows (their
@@ -114,9 +116,45 @@ Phases, each printing a line before the last:
                  requests (dense state rows, monolithic bucket prefill); every
                  request must finish and the scan kernel must launch once per
                  layer and admission.
+11. moe parity -- moonshot-v1-16b-a3b (64 experts, top 6) at 2 layers, full
+                 width, fp32, impl="cuda" against impl="torch": model steps,
+                 EngineCore streams and counters on the paged layout (decode
+                 graphs: one paged decode launch a layer and step) and the
+                 dense layout, plain, paired with the 1-layer MoE draft
+                 and from the n-gram lookup (its lm_head tied to the
+                 embedding, so greedy decoding repeats and the lookup
+                 matches; reaching the chain and tree verify kernels at GQA
+                 group 1), and under a capacity factor whose monolithic prefill drops
+                 expert choices (``moe_dropped`` printed, > 0 required); then
+                 qwen3-1.7b's ``decode_microstep`` against the fused loop
+                 (equal streams and transfers).
+12. moe serve -- moonshot-v1-16b-a3b at full depth and width (48 layers,
+                 56 GB of bf16 weights), the serve phase's 16 requests, plain
+                 and then speculating (``proposer="auto"``, 1-layer MoE
+                 draft): every request finishes, the paths' kernels launch,
+                 the router runs both proposers; the decode step (k=8
+                 graph replay, 8 slots) and the eager ``decode_microstep``
+                 beside the bytes bound (every expert read every step),
+                 probed before the plain serve (so its timed run holds no
+                 decode-graph capture); its profiled round comes in the
+                 end-of-run profiler block.
+13. moe train -- moonshot-v1-16b-a3b at full width, 2 layers, fp32 params +
+                 AdamW, bf16 compute, 4 x 1024 tokens, 3 steps: finite loss
+                 and moe_aux, a non-zero router gradient, the flash forward
+                 and backward once a layer and step.
+14. config serves -- dbrx-132b (full width, 4 of 40 layers; GQA group 6),
+                 qwen2-7b and deepseek-coder-33b (full depth and width), bf16:
+                 every request finishes, both paged kernels launch, the
+                 decode graphs capture one launch a layer and step; the
+                 decode step beside its bytes bound, probed first.
+                 Phases 11-14 each free their weights before the next.
+                 They run after phase 6 and before phase 7, so every time
+                 they take comes before the first profiler session
+                 (phase 7's).
 
-Then, under ``torch.profiler``, one train step of phase 5's model (the
-device's busy share and the flash kernels' share of device time),
+Then, under ``torch.profiler``, a serving round of phase 12's moonshot
+engine (rebuilt from the same seed), one train step of phase 5's model
+(the device's busy share and the flash kernels' share of device time),
 the flash backward's three kernels one by one, the paged verify's and
 tree verify's split pass and combine apart, the dense verify's and
 tree verify's one cluster kernel, and the paged and dense decode's one
@@ -126,7 +164,9 @@ output); one
 kernel's path: the speculative kernels' from the spec serve run -- the
 dense decode's and prefill's also from the dense target serve run --, the dense
 verify and tree verify from the dense target serve run, the scan from the
-ssm serve run, the others' from the collocated run) and, last, the
+ssm serve run, the others' from the collocated run; each row also gains
+``launches_<run>`` for the runs of phases 12-14 that launch it) and, last,
+the
 ``{"ok": true, ...}`` line.  Any failed
 phase raises and the script exits non-zero.  It imports nothing of JAX or
 of the ``repro`` package.
@@ -179,6 +219,10 @@ SHARED_PAGES = 4  # slot 1's first pages are slot 0's (a radix-shared prefix)
 DECODE_EDGE_LENGTHS = [63, 64, 65, 0, 1, 512, 127, 129]
 DENSE_EDGE_LENGTHS = [63, 64, 65, 0, 1, 512, 600, 129]
 LONG_NCOLS, LONG_S = 256, 4096
+# dbrx-132b's attention: GQA group 6 (48 q heads over 8 kv heads of 128); the
+# decode's rows-per-CTA plan gives G = 4 over 2 passes, the second with 2
+# live rows, and a 32-token chunk's 192 rows fill three 64-row tiles
+GROUP6_CASE = (" (group 6, H=48)", {"h": 48})
 LONG_LENGTHS = [4096, 3000, 0, 17, 1, 2048, 4095, 1000]
 # chunked prefill at C = 64 (two q tiles of 64 rows at group 2); on the
 # dense cache slots 3 and 7 run past S
@@ -616,7 +660,11 @@ def phase_kernels():
                       dec.paged_decode_attention_torch, decode_inputs(**kw))
         for label, kw in _decode_cases(
             torch.tensor(DECODE_EDGE_LENGTHS, dtype=torch.int32, device="cuda"),
-            {"ncols": LONG_NCOLS, "lens": long_lengths})])
+            {"ncols": LONG_NCOLS, "lens": long_lengths}) + (GROUP6_CASE,)])
+    g6 = decode_inputs(**GROUP6_CASE[1])(torch.bfloat16)
+    g6_ms = _time_ms(lambda: dec.paged_decode_attention(*g6))
+    g6_p_ms = _time_ms(lambda: dec.paged_decode_attention_torch(*g6))
+    del g6
     q, k_pool, v_pool, bt, _ = decode_inputs()(torch.bfloat16)
     k_ms = _time_ms(lambda: dec.paged_decode_attention(q, k_pool, v_pool, bt, lengths))
     p_ms = _time_ms(lambda: dec.paged_decode_attention_torch(q, k_pool, v_pool, bt, lengths))
@@ -650,10 +698,12 @@ def phase_kernels():
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": l_ms, "ms_1_tile_per_cta": one_ms, "ms_4096_keys": long_ms,
         "library_ms_4096_keys": long_l_ms, "bound_ms_4096_keys": long_bound,
+        "ms_group6": g6_ms, "plain_ms_group6": g6_p_ms,
     })
     log(f"kernel paged_decode_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by}); at 1 tile a CTA {one_ms:.4f} ms; "
-        f"4,096-key table {long_ms:.4f} ms, sdpa {long_l_ms:.4f} ms, bound {long_bound:.4f} ms")
+        f"4,096-key table {long_ms:.4f} ms, sdpa {long_l_ms:.4f} ms, bound {long_bound:.4f} ms; "
+        f"group 6 (H=48) {g6_ms:.4f} ms, plain {g6_p_ms:.4f} ms")
 
     # ---- paged chunked prefill: the serving shape, then the shapes the
     # tensor-core body must also take (group 7, hd 64, two q tiles) ----------
@@ -670,7 +720,11 @@ def phase_kernels():
     errs = _worst(*[
         _check_kernel(f"paged_prefill_attention{label}", pre.paged_prefill_attention,
                       pre.paged_prefill_attention_torch, prefill_inputs(**kw))
-        for label, kw in _prefill_cases()])
+        for label, kw in _prefill_cases() + (GROUP6_CASE,)])
+    g6 = prefill_inputs(**GROUP6_CASE[1])(torch.bfloat16)
+    g6_ms = _time_ms(lambda: pre.paged_prefill_attention(*g6))
+    g6_p_ms = _time_ms(lambda: pre.paged_prefill_attention_torch(*g6))
+    del g6
     q, k_pool, v_pool, bt, _, _ = prefill_inputs()(torch.bfloat16)
     k_ms = _time_ms(lambda: pre.paged_prefill_attention(q, k_pool, v_pool, bt, starts, clens))
     p_ms = _time_ms(
@@ -712,11 +766,12 @@ def phase_kernels():
         "max_abs_err_fp32": errs["float32"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": l_ms, "ms_one_tile_prefixes": one_tile_ms,
-        "ms_longest_slot_alone": alone_ms,
+        "ms_longest_slot_alone": alone_ms, "ms_group6": g6_ms, "plain_ms_group6": g6_p_ms,
     })
     log(f"kernel paged_prefill_attention: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"sdpa {l_ms:.4f} ms, bound {bound:.4f} ms ({by}); every prefix cut to one "
-        f"tile {one_tile_ms:.4f} ms, slot {longest} alone {alone_ms:.4f} ms")
+        f"tile {one_tile_ms:.4f} ms, slot {longest} alone {alone_ms:.4f} ms; group 6 "
+        f"(H=48) {g6_ms:.4f} ms, plain {g6_p_ms:.4f} ms")
     _nan_checks()
     return rows + _flash_rows() + _spec_rows() + _dense_target_rows() + _ssm_rows()
 
@@ -1061,7 +1116,9 @@ def _spec_rows():
     # ---- paged verify (#7) and tree verify (#9): the target's verify pass,
     # bf16 on the tensor-core body, fp32 on the FMA body; also at qwen2-7b's
     # GQA group 7 (28 / 4 heads) and hd 64, where a suffix bucket (T = 64:
-    # 448 rows) and the 31-node tree (217 rows) take several 64-row q tiles --
+    # 448 rows) and the 31-node tree (217 rows) take several 64-row q tiles,
+    # and at moonshot-v1-16b-a3b's group 1 (16 / 16 heads: 5- and 31-row
+    # tiles) ---------------------------------------------------------------
     vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
     cap = NCOLS * PAGE
 
@@ -1081,17 +1138,20 @@ def _spec_rows():
     suffix = {t: torch.tensor(n, dtype=torch.int32, device="cuda")
               for t, n in SUFFIX_LENGTHS.items()}
     g7 = {"h": 28, "kvh": 4, "hd": 64}
+    g1 = {"h": 16, "kvh": 16}  # moonshot-v1-16b-a3b: 16 / 16 heads of 128
     vcases = [(f"T={t}", t, {}) for t in VERIFY_TS]
     vcases += [(f"suffix prefill, T={t}", t, {"lens": n}) for t, n in suffix.items()]
     vcases += [("group 7, hd 64, T=5", 5, g7),
-               ("group 7, hd 64, suffix prefill, T=64", 64, {**g7, "lens": suffix[64]})]
+               ("group 7, hd 64, suffix prefill, T=64", 64, {**g7, "lens": suffix[64]}),
+               ("group 1, T=5", 5, g1)]
     verr = [_check_kernel(f"paged_verify_attention ({label})", pv.paged_verify_attention,
                           pv.paged_verify_attention_torch, verify_inputs(t, **kw))
             for label, t, kw in vcases]
     trees = {"linear_chain(4)": linear_chain(4), "branching_tree(2, 2)": branching_tree(2, 2),
              "branching_tree(3, 10), 31 nodes": branching_tree(3, 10)}
     tcases = [(name, par, {}) for name, par in trees.items()]
-    tcases += [(f"group 7, hd 64, {name}", trees[name], g7)
+    tcases += [(f"group {g}, {name}", trees[name], kw)
+               for g, kw in (("7, hd 64", g7), ("1", g1))
                for name in ("linear_chain(4)", "branching_tree(3, 10), 31 nodes")]
     terr = [_check_kernel(f"paged_tree_verify_attention ({name})",
                           ptv.paged_tree_verify_attention,
@@ -1099,7 +1159,7 @@ def _spec_rows():
                           verify_inputs(len(par), anc_of(par), **kw))
             for name, par, kw in tcases]
     chain = anc_of(linear_chain(4))
-    for label, kw in (("", {}), (" (group 7, hd 64)", g7)):
+    for label, kw in (("", {}), (" (group 7, hd 64)", g7), (" (group 1)", g1)):
         for dtype in (torch.bfloat16, torch.float32):
             args = verify_inputs(5, **kw)(dtype)
             same = torch.equal(ptv.paged_tree_verify_attention(*args, chain),
@@ -1305,8 +1365,9 @@ def _dense_target_rows():
     T = 2, 3, 5 and the suffix-prefill sizes T = 64, 128 (lengths up to and
     past S), tree at a 5-node chain, branching_tree(2, 2) and the 31-node
     branching_tree(3, 10); both also at GQA group 7, hd 64 (T = 5, T = 64,
-    the chain, the 31-node tree).  A chain's tree verify must equal verify
-    bit for bit in both types at both groups.  Timed in bf16 at T = 5 / the
+    the chain, the 31-node tree) and group 1, 16 / 16 heads (T = 5, the
+    chain, the 31-node tree).  A chain's tree verify must equal verify bit
+    for bit in both types at every group.  Timed in bf16 at T = 5 / the
     chain, SDPA with an explicit boolean mask as the yardstick; #6 also with
     every slot cut to one 64-key tile, with the longest slot alone, at 1 and
     8 tiles a CTA of the cluster plan, and beside the paged verify's
@@ -1338,23 +1399,26 @@ def _dense_target_rows():
     suffix = {t: torch.tensor(n, dtype=torch.int32, device="cuda")
               for t, n in SUFFIX_LENGTHS.items()}
     g7 = {"h": 28, "kvh": 4, "hd": 64}
+    g1 = {"h": 16, "kvh": 16}  # moonshot-v1-16b-a3b: 16 / 16 heads of 128
     vcases = [(f"T={t}", t, {}) for t in VERIFY_TS]
     vcases += [(f"suffix-prefill size, T={t}", t, {"lens": n}) for t, n in suffix.items()]
     vcases += [("group 7, hd 64, T=5", 5, g7),
-               ("group 7, hd 64, suffix-prefill size, T=64", 64, {**g7, "lens": suffix[64]})]
+               ("group 7, hd 64, suffix-prefill size, T=64", 64, {**g7, "lens": suffix[64]}),
+               ("group 1, T=5", 5, g1)]
     verr = [_check_kernel(f"verify_attention ({label})", va.verify_attention,
                           va.verify_attention_torch, inputs(t, **kw))
             for label, t, kw in vcases]
     trees = {"linear_chain(4)": linear_chain(4), "branching_tree(2, 2)": branching_tree(2, 2),
              "branching_tree(3, 10), 31 nodes": branching_tree(3, 10)}
     tcases = [(name, par, {}) for name, par in trees.items()]
-    tcases += [(f"group 7, hd 64, {name}", trees[name], g7)
+    tcases += [(f"group {g}, {name}", trees[name], kw)
+               for g, kw in (("7, hd 64", g7), ("1", g1))
                for name in ("linear_chain(4)", "branching_tree(3, 10), 31 nodes")]
     terr = [_check_kernel(f"tree_verify_attention ({name})", tv.tree_verify_attention,
                           tv.tree_verify_attention_torch, inputs(len(par), anc_of(par), **kw))
             for name, par, kw in tcases]
     chain = anc_of(linear_chain(4))
-    for label, kw in (("", {}), (" (group 7, hd 64)", g7)):
+    for label, kw in (("", {}), (" (group 7, hd 64)", g7), (" (group 1)", g1)):
         for dtype in (torch.bfloat16, torch.float32):
             args = inputs(5, **kw)(dtype)
             same = torch.equal(tv.tree_verify_attention(*args, chain),
@@ -1584,24 +1648,20 @@ def _serve(engine, prompts, max_new, steps=None):
     return reqs, time.monotonic() - t0
 
 
-def phase_parity():
-    import numpy as np
+def _model_step_parity(label, cfg, params, rng):
+    """Model steps with impl="cuda" and impl="torch" on the same fp32 weights
+    and paged cache: two chunk waves (ragged, a frozen slot, starts > 0; the
+    tokens drawn from ``rng``), one decode step, one fused loop with
+    per-slot freeze.  Next tokens and the loop's streams must be equal, K/V
+    within FP32_ATOL and the decode logits within LOGITS_ATOL."""
     import torch
 
-    from repro_torch import configs
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import InferenceEngine
 
-    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"), num_layers=2)
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-
-    # model steps: two chunk waves (ragged, a frozen slot, starts > 0), one
-    # decode step, one fused loop with per-slot freeze
     b, per_slot = 4, 8
     bt = torch.zeros((b, per_slot + 1), dtype=torch.int32)
     bt[:, :per_slot] = torch.randperm(b * per_slot, generator=torch.Generator().manual_seed(0)
                                       ).reshape(b, per_slot) + 1
-    rng = np.random.default_rng(0)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, b, CHUNK)), dtype=torch.int32,
                         device="cuda")
     waves = [torch.tensor(w, dtype=torch.int32, device="cuda")
@@ -1631,15 +1691,29 @@ def phase_parity():
                  (v_c[:, 1:] - v_t[:, 1:]).abs().max().item())
     logit_err = (l_c - l_t).abs().max().item()
     if not torch.equal(f_c, f_t):
-        raise AssertionError("parity: prefill next tokens differ (cuda vs torch)")
+        raise AssertionError(f"{label}: prefill next tokens differ (cuda vs torch)")
     if not (kv_err <= FP32_ATOL):
-        raise AssertionError(f"parity: prefill K/V differ by {kv_err} > {FP32_ATOL}")
+        raise AssertionError(f"{label}: prefill K/V differ by {kv_err} > {FP32_ATOL}")
     if not (logit_err <= LOGITS_ATOL and torch.isfinite(l_c).all()):
-        raise AssertionError(f"parity: decode logits differ by {logit_err} > {LOGITS_ATOL}")
+        raise AssertionError(f"{label}: decode logits differ by {logit_err} > {LOGITS_ATOL}")
     if not torch.equal(s_c, s_t):
-        raise AssertionError("parity: decode_loop token streams differ")
-    log(f"parity model (2 layers, full width, fp32): prefill K/V max err {kv_err:.2e}, "
+        raise AssertionError(f"{label}: decode_loop token streams differ")
+    log(f"{label} (2 layers, full width, fp32): prefill K/V max err {kv_err:.2e}, "
         f"decode logits max err {logit_err:.2e} (tol {LOGITS_ATOL:g}), tokens equal")
+
+
+def phase_parity():
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"), num_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    _model_step_parity("parity model", cfg, params, rng)
 
     # the engine: same requests through EngineCore with either impl
     streams = {}
@@ -1971,8 +2045,9 @@ def _profile_serve(engine, cfg, label="serve", kernel=None):
 
 
 def _spec_engine(cfg, params, **kw):
-    """qwen3-1.7b paired with its draft model (seeded init, bf16), routing
-    between the draft and the n-gram lookup per quantum."""
+    """``cfg`` (qwen3-1.7b, moonshot-v1-16b-a3b) paired with its draft model
+    (seeded init, bf16), routing between the draft and the n-gram lookup
+    per quantum."""
     import torch
 
     from repro_torch.configs import SpecDecodeConfig, draft_config
@@ -2858,6 +2933,452 @@ def _chaos_full_depth(colloc, tmpdir):
         f"filled")
 
 
+# ---------------------------------------------------------------------------
+# 11. MoE parity, 12. MoE serve, 13. MoE train, 14. the other configs' serves
+# ---------------------------------------------------------------------------
+
+#: a capacity factor under which moonshot's monolithic prefill drops expert
+#: choices: a 64- or 128-token bucket row offers 384 or 768 choices to 64
+#: experts of 8 slots each
+MOE_DROP_FACTOR = 0.25
+
+
+def _fresh_phase():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _end_phase(label):
+    """Collect the phase's engines and weights, hand the cached blocks back,
+    and log what is still allocated."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label}: device memory allocated after the phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+
+def _decode_weight_bytes(cfg):
+    """bf16 bytes one decode step must read: every weight but the embedding
+    table (of which it reads one row a slot); for the MoE family every
+    expert, since the capacity dispatch runs each expert over its whole
+    buffer every step."""
+    return 2 * (cfg.param_count() - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
+
+
+def _decode_step_ms(engine, slots):
+    """Device-synchronised host time of one decode microstep with ``slots``
+    requests running: one 8-step quantum (graph-replayed on the paged
+    layout; a fresh engine captures its decode graphs in the untimed
+    quantum before it), over 8; then 4 eager ``decode_microstep`` calls over
+    the same slots.  Leaves the core empty.  Returns (fused ms, microstep
+    ms)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.core import Priority, SamplingParams
+    from repro_torch.serving.engine import DECODE_K_BUCKETS
+
+    core, k = engine.core, DECODE_K_BUCKETS[-1]
+    rng = np.random.default_rng(0)
+    for _ in range(slots):
+        core.submit(rng.integers(0, engine.cfg.vocab_size, 24).astype(np.int32),
+                    SamplingParams(max_new_tokens=1 + 3 * k + 4), priority=Priority.OFFLINE)
+    core.step()  # admits and prefills every probe request
+    core.step()  # the untimed quantum
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = core.step()
+    torch.cuda.synchronize()
+    fused = (time.monotonic() - t0) / k
+    if out.k != k or out.prefill_tokens or sum(len(o.new_tokens) for o in out.outputs) != k * slots:
+        raise AssertionError(f"decode step probe: quantum k={out.k}, prefill "
+                             f"{out.prefill_tokens} (k={k} over {slots} slots expected)")
+    t0 = time.monotonic()
+    for _ in range(4):
+        if len(engine.decode_microstep()) != (slots if _ == 3 else 0):
+            raise AssertionError("decode step probe: the microsteps retired early or late")
+    micro = (time.monotonic() - t0) / 4
+    while core.has_unfinished:
+        core.step()
+    return fused * 1e3, micro * 1e3
+
+
+def _serve_and_check(label, engine, cfg, prompts, max_new, kernels):
+    """Serve ``prompts`` through EngineCore: every request must finish with
+    ``max_new`` tokens and every kernel of ``kernels`` launch (plain
+    versions never), each bf16 prefill / verify launch through the
+    tensor-core body.  Returns the launch counts."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    reqs, secs = _serve(engine, prompts, max_new)
+    counts = ops.launch_counts()
+    _check_finished(label, reqs, max_new, cfg)
+    _require_launches(label, counts, kernels)
+    bodies = _require_tc_bodies(label, counts)
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    log(f"{label}: prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens; "
+        f"{_serve_summary(engine.obs.metrics, reqs, tokens, secs)}")
+    log(f"{label} launches: "
+        f"{json.dumps({k: v['cuda'] for k, v in counts.items() if v['cuda']})}; "
+        f"bodies {json.dumps(bodies)}")
+    return {name: c["cuda"] for name, c in counts.items()}
+
+
+def _log_decode_step(label, engine, cfg, slots):
+    """The decode step probe on a fresh engine (it captures the decode
+    graphs, so the serve after it times no capture), beside the bound."""
+    fused_ms, micro_ms = _decode_step_ms(engine, slots)
+    nbytes = _decode_weight_bytes(cfg)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{label}: decode step at {slots} slots {fused_ms:.3f} ms (k=8 quantum"
+        f"{', graph-replayed' if engine.decode_graphs else ''}), decode_microstep "
+        f"{micro_ms:.3f} ms (eager, one fetch a step); bound {bound:.3f} ms = "
+        f"{nbytes / 1e9:.2f} GB of bf16 weights at 3.35 TB/s, {bound / fused_ms:.1%} of it")
+
+
+def _microstep_parity():
+    """qwen3-1.7b at 2 layers, full width, fp32, paged: ``decode_microstep``
+    (eager, one fetch a step) against the fused loop (graph-replayed k=1
+    quanta) over the same schedule -- three admissions, one chunk wave that
+    leaves the 80-token prompt PREFILLING, three decode steps, its last
+    chunks, decode to the end.  Streams and transfers must be equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine, Request
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"), num_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    res = {}
+    for mode in ("microstep", "fused"):
+        eng = InferenceEngine(cfg, params, max_slots=3, max_seq=256,
+                              compute_dtype=torch.float32)
+        decode = eng.decode_microstep if mode == "microstep" else (
+            lambda: eng._drive_decode_loop(1))
+        rng = np.random.default_rng(0)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=m) for n, m in ((20, 6), (24, 9), (80, 5))]
+        for r in reqs:
+            eng._admit_request(r)
+        eng._drive_prefill_chunks(20 + 24 + 32)
+        for _ in range(3):
+            decode()
+        if eng.num_prefilling != 1:
+            raise AssertionError(f"microstep parity: {eng.num_prefilling} PREFILLING slots")
+        eng._drive_prefill_chunks()
+        times = []
+        while eng.num_active:
+            t0 = time.monotonic()
+            decode()
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        res[mode] = ([list(r.generated) for r in reqs], eng.d2h_transfers, sorted(times))
+    if res["microstep"][:2] != res["fused"][:2]:
+        raise AssertionError(f"microstep parity: decode_microstep streams / transfers "
+                             f"{res['microstep'][:2]} differ from the fused loop's "
+                             f"{res['fused'][:2]}")
+    med = {m: r[2][len(r[2]) // 2] for m, r in res.items()}
+    log(f"microstep parity (qwen3-1.7b, 2 layers, full width, fp32, paged): decode_microstep "
+        f"streams and {res['fused'][1]} device-to-host transfers equal the fused loop's; "
+        f"a step {med['microstep']:.3f} ms eager, {med['fused']:.3f} ms as a k=1 graph replay")
+
+
+def phase_moe_parity():
+    """moonshot-v1-16b-a3b at 2 layers, full width (64 experts top 6), fp32,
+    impl="cuda" against impl="torch" on the same weights: model steps, then
+    EngineCore streams and counters on the paged layout (graph-replayed
+    decode, whose graphs must capture one paged decode launch a layer and
+    step) and the dense layout, plain, paired with the 1-layer MoE draft
+    (chain verify) and speculating from the n-gram lookup (tree verify),
+    each speculating engine launching its layout's verify kernel; then
+    monolithic prefill at a capacity factor that drops expert choices;
+    then ``decode_microstep`` against the fused loop."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    _fresh_phase()
+    cfg = dataclasses.replace(configs.get_config("moonshot-v1-16b-a3b"), num_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    _model_step_parity("moe parity model", cfg, params, np.random.default_rng(0))
+
+    dcfg = draft_config(cfg)
+    dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    prompts = _prompts(np.random.default_rng(1), 6, 24, 80, cfg.vocab_size,
+                       shared_prefix=32, shared_idx=(0, 5))
+    # the n-gram engines run on a copy of the weights whose lm_head is the
+    # embedding's transpose: greedy decoding then repeats tokens, as
+    # qwen3-1.7b's tied weights do, so the lookup matches (untied random
+    # weights walk a long random chain and it never does)
+    ngram_params = {**params, "lm_head": params["embed"].T.contiguous()}
+    # the verify kernel each speculating engine must reach: the draft
+    # verifies a chain, the n-gram lookup a tree (GQA group 1 at T = 1..31)
+    verify_kernel = {("paged", "draft"): "paged_verify_attention",
+                     ("paged", "ngram"): "paged_tree_verify_attention",
+                     ("dense", "draft"): "verify_attention",
+                     ("dense", "ngram"): "tree_verify_attention"}
+    report = []
+    for layout, kw in (("paged", {}), ("dense", dict(kv_page_size=0))):
+        for name, pkw in (("plain", {}),
+                          ("draft", dict(draft_cfg=dcfg, draft_params=dparams,
+                                         spec=SpecDecodeConfig(proposer="draft"))),
+                          ("ngram", dict(spec=SpecDecodeConfig(proposer="ngram")))):
+            res = {}
+            for impl in ("cuda", "torch"):
+                eng = InferenceEngine(cfg, ngram_params if name == "ngram" else params,
+                                      max_slots=4, max_seq=256,
+                                      compute_dtype=torch.float32, decode_impl=impl,
+                                      **kw, **pkw)
+                ops.reset_launch_counts()
+                reqs, _ = _serve(eng, prompts, max_new=12)
+                counts = ops.launch_counts()
+                res[impl] = ([list(r.output_tokens) for r in reqs],
+                             (eng.spec_rounds, eng.spec_accepted, eng.spec_drafted,
+                              eng.prefill_skipped_tokens))
+                if impl == "cuda" and layout == "paged" and name == "plain":
+                    graphs = _decode_graph_launches("moe parity engine", eng, cfg)
+                if impl == "cuda" and name != "plain":
+                    verify = counts[verify_kernel[layout, name]]
+                    if verify["cuda"] <= 0 or verify["torch"]:
+                        raise AssertionError(f"moe parity: {layout} {name} engine launched "
+                                             f"{verify_kernel[layout, name]} {verify}")
+            if res["cuda"] != res["torch"]:
+                raise AssertionError(f"moe parity: {layout} {name} streams or counters "
+                                     f"differ (cuda vs torch): {res['cuda'][1]} vs "
+                                     f"{res['torch'][1]}")
+            if name != "plain" and res["cuda"][1][0] <= 0:
+                raise AssertionError(f"moe parity: {layout} {name} engine ran no spec round")
+            report.append(f"{layout} {name} (rounds/accepted/drafted/prefix-skipped "
+                          f"{res['cuda'][1]}"
+                          + (f"; {verify_kernel[layout, name]} launches {verify['cuda']}"
+                             if name != "plain" else "") + ")")
+    log(f"moe parity engine (2 layers, full width, fp32): " + "; ".join(report)
+        + f"; streams equal cuda vs torch; the paged cuda engine's decode graphs captured "
+        f"{graphs} paged decode launches (k: launches)")
+
+    drop_cfg = dataclasses.replace(cfg, moe_capacity_factor=MOE_DROP_FACTOR)
+    with torch.no_grad():
+        dropped = [T.forward(drop_cfg, params, torch.tensor(p[None], device="cuda"),
+                             compute_dtype=torch.float32)[1]["moe_dropped"].item()
+                   for p in prompts]
+    streams = {}
+    for impl in ("cuda", "torch"):
+        eng = InferenceEngine(drop_cfg, params, max_slots=4, max_seq=256, prefill_chunk=0,
+                              compute_dtype=torch.float32, decode_impl=impl)
+        reqs, _ = _serve(eng, prompts, max_new=12)
+        streams[impl] = [list(r.output_tokens) for r in reqs]
+    if streams["cuda"] != streams["torch"]:
+        raise AssertionError("moe parity: streams differ (cuda vs torch) under capacity drops")
+    if not min(dropped) > 0:
+        raise AssertionError(f"moe parity: capacity factor {MOE_DROP_FACTOR} dropped "
+                             f"{dropped} of the prompts' expert choices")
+    log(f"moe parity capacity drops (factor {MOE_DROP_FACTOR}, monolithic prefill): "
+        f"moe_dropped of a forward over each prompt " + ", ".join(f"{d:.3f}" for d in dropped)
+        + "; streams equal cuda vs torch")
+    del params, dparams, ngram_params, eng
+    _microstep_parity()
+    _end_phase("moe parity")
+
+
+def phase_moe_serve():
+    """moonshot-v1-16b-a3b at full depth and width (48 layers, 64 experts
+    top 6), bf16 weights made on the card, 8 slots, max_seq 512, paged,
+    32-token chunks: the serve phase's 16 ONLINE requests, 32 new tokens
+    each; then the same with its 1-layer MoE draft and ``proposer="auto"``.
+    Every request must finish, the paths' kernels launch, the decode graphs
+    capture one paged decode launch a layer and step, and the router run
+    both proposers.  Its profiled round is ``_profile_moe_serve``.  Returns
+    the launch counts of the two runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.tree import tree_leaves
+
+    _fresh_phase()
+    cfg = configs.get_config("moonshot-v1-16b-a3b")
+    t0 = time.monotonic()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    t_start = time.monotonic()
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512,
+                             clock=lambda: time.monotonic() - t_start)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    log(f"moe serve: weights {n / 1e9:.3f} B params bf16 ({cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts top {cfg.experts_per_token}), KV pool "
+        f"{engine.kv_cache_bytes() / 1e9:.3f} GB, set-up {time.monotonic() - t0:.1f}s")
+    prompts = _prompts(np.random.default_rng(2), 16, 24, 136, cfg.vocab_size,
+                       shared_prefix=64, shared_idx=(0, 13, 14, 15))
+    _log_decode_step("moe serve", engine, cfg, 8)
+    counts = _serve_and_check("moe serve", engine, cfg, prompts, 32, SERVE_KERNELS)
+    graphs = _decode_graph_launches("moe serve", engine, cfg)
+    log(f"moe serve: the decode graphs captured {graphs} paged decode launches")
+    del engine
+    gc.collect()
+    t_start = time.monotonic()
+    engine = _spec_engine(cfg, params, clock=lambda: time.monotonic() - t_start)
+    spec_counts = _serve_and_check("moe spec serve", engine, cfg, prompts, 32,
+                                   SPEC_KERNELS + ("paged_prefill_attention",))
+    m = engine.obs.metrics
+    per = {name: tuple(m.counter(f"spec/proposer/{w}/{name}").value
+                       for w in ("rounds", "accepted", "proposed")) for name in ("draft", "ngram")}
+    if min(r for r, _, _ in per.values()) <= 0:
+        raise AssertionError(f"moe spec serve: the router did not run both proposers: {per}")
+    log(f"moe spec serve: spec rounds {engine.spec_rounds}, acceptance "
+        f"{engine.spec_acceptance_rate:.4f}; per proposer (rounds, accepted, proposed) {per}")
+    del engine, params
+    _end_phase("moe serve")
+    return counts, spec_counts
+
+
+def _profile_moe_serve():
+    """Phase 12's profiled round, in the end-of-run profiler block: the
+    same seeded bf16 weights and plain engine, its decode step probed again
+    (which captures the decode graphs, so none is captured under the
+    profiler), then ``_profile_serve``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    _fresh_phase()
+    cfg = configs.get_config("moonshot-v1-16b-a3b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512)
+    _log_decode_step("moe serve (profiled engine)", engine, cfg, 8)
+    _profile_serve(engine, cfg, "moe serve")
+    del engine, params
+    _end_phase("moe serve profile")
+
+
+def phase_moe_train():
+    """moonshot-v1-16b-a3b at full width, 2 of 48 layers (full depth would
+    need ~450 GB of fp32 params, grads and moments): fp32 params and AdamW,
+    bf16 compute, batch 4 x seq 1024 synthetic, 3 steps.  Loss and moe_aux
+    must be finite, the router's gradient non-zero (its first moment), and
+    the flash forward and backward launch once a layer and step.  Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    _fresh_phase()
+    cfg = dataclasses.replace(configs.get_config("moonshot-v1-16b-a3b"), num_layers=2)
+    steps = 3
+    state = init_train_state(T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    step = make_train_step(cfg, TrainConfig(warmup_steps=2, total_steps=steps + 2))
+    ds = SyntheticDataset(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    ops.reset_launch_counts()
+    losses, auxes, ms = [], [], []
+    for _ in range(steps):
+        batch = ds.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        auxes.append(metrics["moe_aux"].item())
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.isfinite(losses).all() and np.isfinite(auxes).all() and min(auxes) > 0):
+        raise AssertionError(f"moe train: losses {losses}, moe_aux {auxes}")
+    router_mu = state["opt"]["mu"]["layers"]["ffn"]["router"].abs().max().item()
+    if not router_mu > 0:
+        raise AssertionError("moe train: the router's gradient is zero")
+    _require_launches("moe train", counts, TRAIN_KERNELS)
+    for name in TRAIN_KERNELS:
+        if counts[name]["cuda"] != cfg.num_layers * steps:
+            raise AssertionError(f"moe train: {name} launched {counts[name]['cuda']} times "
+                                 f"({cfg.num_layers} a step expected)")
+    with torch.no_grad():
+        _, fm = T.forward(cfg, state["params"], torch.as_tensor(batch["inputs"], device="cuda"))
+    log(f"moe train (moonshot-v1-16b-a3b, 2 layers, full width; fp32 params + AdamW, bf16 "
+        f"compute, B={TRAIN_B} x S={TRAIN_S}): steps " + ", ".join(f"{t:.1f}" for t in ms)
+        + f" ms; losses " + ", ".join(f"{x:.4f}" for x in losses) + "; moe_aux "
+        + ", ".join(f"{x:.4f}" for x in auxes) + f"; moe_dropped {fm['moe_dropped'].item():.4f} "
+        f"(capacity {TRAIN_S}-token rows); router |mu| max {router_mu:.3e}; peak device "
+        f"memory {peak:.2f} GB; flash launches "
+        + json.dumps({k: counts[k]["cuda"] for k in TRAIN_KERNELS}))
+    del state, step, fm
+    _end_phase("moe train")
+    return {name: c["cuda"] for name, c in counts.items()}
+
+
+#: (run label, arch, layers (None: full depth), slots, requests): 16 new
+#: tokens each, max_seq 512, paged with 32-token chunks
+CONFIG_SERVES = (
+    ("dbrx_serve", "dbrx-132b", 4, 8, 8),
+    ("qwen2_serve", "qwen2-7b", None, 8, 8),
+    ("deepseek_serve", "deepseek-coder-33b", None, 4, 4),
+)
+
+
+def phase_config_serves():
+    """dbrx-132b at full width and 4 of 40 layers (its 264 GB of bf16
+    weights do not fit the card), qwen2-7b and deepseek-coder-33b at full
+    depth and width, each in bf16 (weights made on the card), one at a time:
+    every request finishes and both paged kernels launch; the decode step
+    beside its bound.  Returns {run label: launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    out = {}
+    for label, arch, layers, slots, n_req in CONFIG_SERVES:
+        _fresh_phase()
+        cfg = configs.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.monotonic()
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.bfloat16)
+        t_start = time.monotonic()
+        engine = InferenceEngine(cfg, params, max_slots=slots, max_seq=512,
+                                 clock=lambda: time.monotonic() - t_start)
+        del params
+        torch.cuda.synchronize()
+        name = label.replace("_", " ")
+        log(f"{name}: {arch} at {cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B "
+            f"params bf16, KV pool {engine.kv_cache_bytes() / 1e9:.3f} GB, set-up "
+            f"{time.monotonic() - t0:.1f}s")
+        prompts = _prompts(np.random.default_rng(6), n_req, 24, 136, cfg.vocab_size, 0, ())
+        _log_decode_step(name, engine, cfg, slots)
+        out[label] = _serve_and_check(name, engine, cfg, prompts, 16, SERVE_KERNELS)
+        graphs = _decode_graph_launches(name, engine, cfg)
+        log(f"{name}: the decode graphs captured {graphs} paged decode launches")
+        del engine
+        _end_phase(name)
+    return out
+
+
 def _profile_train():
     """Where the train step's time goes: phase 5's model and step, on fresh
     weights after one warm-up step, for one step under ``torch.profiler``
@@ -2931,11 +3452,18 @@ def main() -> int:
     launches, colloc = phase_collocated()
     phase_chaos(colloc)  # before any profiler session, as phase 5
     del colloc
+    # phases 11-14 before phase 7's first profiler session: after one, every
+    # launch costs more on the host
+    phase_moe_parity()
+    moe_launches, moe_spec_launches = phase_moe_serve()
+    slice_launches = {"moe_serve": moe_launches, "moe_spec_serve": moe_spec_launches,
+                      "moe_train": phase_moe_train(), **phase_config_serves()}
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()
     ssm_launches = phase_ssm_serve()
-    # the profiler sessions last: after one, every launch costs more on the host
+    # the end-of-run profiler sessions
+    _profile_moe_serve()
     _profile_train()
     _flash_bwd_by_kernel(next(r for r in rows if r["name"] == "flash_attention_bwd"))
     _verify_by_kernel(rows)
@@ -2957,6 +3485,10 @@ def main() -> int:
             row["launches"] = launches[row["name"]]
             if serve_launches[row["name"]]:
                 row["launches_serve"] = serve_launches[row["name"]]
+        # and its launches in the MoE and other configs' runs that use it
+        for run, counts in slice_launches.items():
+            if counts.get(row["name"]):
+                row[f"launches_{run}"] = counts[row["name"]]
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     import torch

@@ -1,4 +1,6 @@
-"""Architecture registry, limited to the archs the port runs.
+"""Architecture registry of the archs the port runs: the dense family
+(qwen3-1.7b, olmo-1b, qwen2-7b, deepseek-coder-33b), the Mixture-of-Experts
+family (moonshot-v1-16b-a3b, dbrx-132b) and Mamba1 (falcon-mamba-7b).
 
 Public ids use dashes (``--arch qwen3-1.7b``); modules use underscores.
 """
@@ -16,6 +18,10 @@ from repro_torch.configs.base import (
 )
 
 _ARCH_MODULES = {
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "dbrx-132b": "dbrx_132b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "qwen2-7b": "qwen2_7b",
     "qwen3-1.7b": "qwen3_1p7b",
     "olmo-1b": "olmo_1b",
     "falcon-mamba-7b": "falcon_mamba_7b",
@@ -47,6 +53,9 @@ def smoke_config(arch: str) -> ModelConfig:
     if full.num_heads:
         reduced["num_heads"] = 4
         reduced["num_kv_heads"] = 4 if full.num_kv_heads == full.num_heads else 2
+    if full.family == "moe":
+        reduced["num_experts"] = 4
+        reduced["experts_per_token"] = 2
     if full.ssm_version:
         reduced["ssm_state"] = 8
         reduced["dt_rank"] = 8

@@ -3,9 +3,9 @@ copies of ``repro.configs.base``'s ``ModelConfig``, ``TrainConfig``,
 ``SpecDecodeConfig`` / ``draft_config`` and ``SpecInFConfig``).
 
 Only the fields and derived properties of the families the port runs are
-kept: the ``dense`` family's and the Mamba1 (``ssm``) family's; the MoE,
-Mamba2 / hybrid and frontend fields return with the slices that run those
-families.  ``TrainConfig`` keeps the
+kept: the ``dense`` family's, the Mixture-of-Experts (``moe``) family's and
+the Mamba1 (``ssm``) family's; the Mamba2 / hybrid and frontend fields
+return with the slices that run those families.  ``TrainConfig`` keeps the
 reference's fields and defaults except the mesh layout (``zero1``,
 ``fsdp``, ``layout``), which returns with scale-out.  ``SpecInFConfig``
 keeps what the runtime and the collocation planner read (the simulator's
@@ -21,8 +21,9 @@ import math
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters for one decoder-style backbone:
-    ``dense`` (attention + MLP every layer) or ``ssm`` (a Mamba1 block every
-    layer, attention-free)."""
+    ``dense`` (attention + MLP every layer), ``moe`` (attention + a top-k
+    Mixture-of-Experts every layer) or ``ssm`` (a Mamba1 block every layer,
+    attention-free)."""
 
     name: str
     family: str
@@ -33,6 +34,11 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
 
     # --- SSM (Mamba1) ---
     ssm_state: int = 0
@@ -91,6 +97,65 @@ class ModelConfig:
     def d_inner(self) -> int:
         """Mamba inner width."""
         return self.ssm_expand * self.d_model
+
+    # --- analytic parameter counts (the reference's, for these families) ---
+    def param_count(self) -> int:
+        """Total parameters of the tree ``init_params`` builds."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.parametric_norm:
+            n += d  # final norm
+        if self.family == "ssm":
+            per_layer = self._mamba1_params() + (d if self.parametric_norm else 0)
+        else:
+            per_layer = self._attn_params(d, hd)
+            if self.family == "moe":
+                per_layer += self.num_experts * 3 * d * self.d_ff  # gate/up/down
+                per_layer += d * self.num_experts  # router
+            else:
+                per_layer += 3 * d * self.d_ff
+            per_layer += 2 * d if self.parametric_norm else 0  # two norms
+        return n + self.num_layers * per_layer
+
+    def _attn_params(self, d: int, hd: int, physical: bool = True) -> int:
+        h = self.num_heads_physical if physical else self.num_heads
+        q = d * h * hd
+        kv = 2 * d * self.num_kv_heads * hd
+        o = h * hd * d
+        b = (h + 2 * self.num_kv_heads) * hd if self.qkv_bias else 0
+        qk = 2 * hd if self.qk_norm else 0
+        return q + kv + o + b + qk
+
+    def _mamba1_params(self) -> int:
+        d, di, ds = self.d_model, self.d_inner, self.ssm_state
+        dtr = self.resolved_dt_rank
+        n = d * 2 * di  # in_proj -> (x, z)
+        n += di * self.ssm_conv + di  # depthwise conv + bias
+        n += di * (dtr + 2 * ds)  # x_proj -> (dt, B, C)
+        n += dtr * di + di  # dt_proj
+        n += di * ds + di  # A_log, D
+        n += di * d  # out_proj
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token's forward uses: the MoE family counts its
+        ``experts_per_token`` routed experts, not all of them; masked
+        padding heads are left out."""
+        d, l = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        if self.family != "moe":
+            if not self.padded_heads:
+                return self.param_count()
+            pad = self._attn_params(d, hd, True) - self._attn_params(d, hd, False)
+            return self.param_count() - l * pad
+        per_layer = self._attn_params(d, hd, physical=False)
+        per_layer += self.experts_per_token * 3 * d * self.d_ff
+        per_layer += d * self.num_experts
+        per_layer += 2 * d if self.parametric_norm else 0
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.parametric_norm:
+            n += d
+        return n + l * per_layer
 
 
 @dataclasses.dataclass(frozen=True)

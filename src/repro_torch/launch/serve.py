@@ -4,6 +4,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --proposer ngram
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl --restore
 
@@ -14,7 +15,10 @@ own seeded init (the draft model's from ``--seed + 1``).  ``--proposer``
 turns on speculation: ``ngram`` verifies host-proposed n-gram trees without
 a draft model, ``draft`` pairs the target with ``draft_config``'s draft
 model, ``auto`` registers both and routes per quantum.  An attention
-family serves on the paged KV layout with chunked prefill; falcon-mamba-7b
+family (dense: qwen3-1.7b, olmo-1b, qwen2-7b, deepseek-coder-33b; MoE:
+moonshot-v1-16b-a3b, dbrx-132b) serves on the paged KV layout with chunked
+prefill, its weights made in bf16 on the device (moonshot's 28 B
+parameters are 56 GB there, deepseek-coder-33b's 67 GB); falcon-mamba-7b
 (Mamba1) on dense state rows with monolithic bucket prefill, and without
 speculation (``--proposer`` other than ``none`` raises).  The run is on
 ``cuda`` unless ``--device cpu`` is given;

@@ -217,27 +217,63 @@ def dense_kv_write_dropped(
     return cache
 
 
+def last_writers(dest: torch.Tensor, rows: int) -> torch.Tensor:
+    """dest: [N] flat destination rows in ``0 .. rows - 1``.  For each entry,
+    the index of the last entry bound for the same row: gathering the
+    values through it before a scatter makes every colliding write carry
+    the value the reference's scatter keeps on the CPU.  O(N + rows), no
+    host sync."""
+    order = torch.arange(dest.numel(), device=dest.device)
+    last = torch.full((rows,), -1, dtype=torch.long, device=dest.device)
+    return last.scatter_reduce_(0, dest, order, "amax")[dest]
+
+
 def paged_kv_write(
-    pool: torch.Tensor,
-    new: torch.Tensor,
+    pools: tuple[torch.Tensor, ...],
+    news: tuple[torch.Tensor, ...],
     block_tables: torch.Tensor,
     positions: torch.Tensor,
-) -> torch.Tensor:
-    """Scatter new K/V rows into the paged pool through the block table, in
-    place.
+    plan: Optional[dict] = None,
+) -> tuple[torch.Tensor, ...]:
+    """Scatter new K/V rows into the paged pools through the block table, in
+    place: ``news[i]`` into ``pools[i]`` (a layer's K and V share one set of
+    destinations).
 
-    pool: [P, page, kvH, hd]; new: [B, T, kvH, hd]; block_tables: [B, W]
-    int32; positions: [B, T] logical positions.  Positions whose logical page
-    falls past the table width clamp onto the last column, which the engine
-    keeps at the sentinel page: overflow writes land there instead of on
-    live pages."""
-    page = pool.shape[1]
-    w = block_tables.shape[1]
-    positions = positions.long()
-    cols = torch.clamp(positions // page, max=w - 1)
-    pages = torch.gather(block_tables.long(), 1, cols)  # [B, T]
-    pool[pages, positions % page] = new.to(pool.dtype)
-    return pool
+    pools: each [P, page, kvH, hd]; news: each [B, T, kvH, hd];
+    block_tables: [B, W] int32; positions: [B, T] logical positions.
+    Positions whose logical page falls past the table width clamp onto the
+    last column, which the engine keeps at the sentinel page: overflow
+    writes land there instead of on live pages.
+
+    Rows can land on one pool row: idle slots on the sentinel page, a
+    chunk's rows past the slot's pages.  Which of them a plain scatter keeps
+    is unspecified, so every row first takes the value of the last row (in
+    row-major order) bound for its pool row, as the reference's scatter
+    keeps on the CPU: whichever write lands, the result is the same.  The
+    MoE family needs that, since the rows that read such a pool row (an
+    idle slot's decode, a verify chunk's padding) share expert capacity
+    with live rows.  O(B T) work and no host sync, so a captured decode
+    graph holds it.
+
+    ``plan``, a dict shared by the layers of one model step (they write the
+    same positions through the same table), keeps the destinations and
+    their resolution from the first layer's write for the others."""
+    if plan is None:
+        plan = {}
+    if not plan:
+        page = pools[0].shape[1]
+        w = block_tables.shape[1]
+        positions = positions.long()
+        cols = torch.clamp(positions // page, max=w - 1)
+        pages = torch.gather(block_tables.long(), 1, cols)  # [B, T]
+        offs = positions % page
+        plan.update(pages=pages, offs=offs, src=last_writers(
+            (pages * page + offs).reshape(-1), pools[0].shape[0] * page))
+    pages, offs, src = plan["pages"], plan["offs"], plan["src"]
+    for pool, new in zip(pools, news):
+        rows = new.reshape(src.numel(), *new.shape[2:])[src]
+        pool[pages, offs] = rows.reshape(new.shape).to(pool.dtype)
+    return pools
 
 
 def attention_decode_paged(
@@ -249,20 +285,21 @@ def attention_decode_paged(
     cache_index: torch.Tensor,
     *,
     impl: str = "auto",
+    plan: Optional[dict] = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode against the paged KV pool.
 
     x: [B, 1, d]; pool k/v: [P, page, kvH, hd]; block_tables: [B, W] int32;
     cache_index: [B] int32 per-slot lengths.  The new token's K/V is written
     in place at ``index``, then the attention core reads the slot's pages
-    through the block table (``ops.paged_decode_attention``)."""
+    through the block table (``ops.paged_decode_attention``).  ``plan``:
+    as ``paged_kv_write``."""
     b = x.shape[0]
     idx = cache_index.to(torch.int32).expand(b)
     positions = idx[:, None]
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     k_pool, v_pool = kv_pool
-    paged_kv_write(k_pool, k_new, block_tables, positions)
-    paged_kv_write(v_pool, v_new, block_tables, positions)
+    paged_kv_write((k_pool, v_pool), (k_new, v_new), block_tables, positions, plan)
     out = ops.paged_decode_attention(
         q[:, 0].contiguous(), k_pool, v_pool, block_tables, idx + 1, impl=impl
     )[:, None]
@@ -279,6 +316,7 @@ def attention_prefill_chunk_paged(
     chunk_lens: torch.Tensor,
     *,
     impl: str = "auto",
+    plan: Optional[dict] = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Chunked-prefill step against the paged KV pool.
 
@@ -287,7 +325,8 @@ def attention_prefill_chunk_paged(
     position ``W * page``, which clamps onto the sentinel column (a write
     sink nobody attends to).  Then each real row attends the slot's earlier
     pages (radix-shared ones included) plus the chunk's causal triangle
-    (``ops.paged_prefill_chunk_attention``)."""
+    (``ops.paged_prefill_chunk_attention``).  ``plan``: as
+    ``paged_kv_write``."""
     b, c, _ = x.shape
     idx = cache_index.to(torch.int32).expand(b)
     steps = torch.arange(c, dtype=torch.int32, device=x.device)
@@ -298,8 +337,7 @@ def attention_prefill_chunk_paged(
     w = block_tables.shape[1]
     valid = steps[None, :] < chunk_lens[:, None]
     pos_w = torch.where(valid, positions, torch.full_like(positions, w * page))
-    paged_kv_write(k_pool, k_new, block_tables, pos_w)
-    paged_kv_write(v_pool, v_new, block_tables, pos_w)
+    paged_kv_write((k_pool, v_pool), (k_new, v_new), block_tables, pos_w, plan)
     out = ops.paged_prefill_chunk_attention(
         q.contiguous(), k_pool, v_pool, block_tables, idx, chunk_lens,
         impl=impl,
@@ -414,6 +452,7 @@ def attention_verify_paged(
     cache_index: torch.Tensor,
     *,
     impl: str = "auto",
+    plan: Optional[dict] = None,
     anc: Optional[torch.Tensor] = None,
     depths: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
@@ -429,7 +468,8 @@ def attention_verify_paged(
     position is ``index + depths[j]`` so siblings rotate alike, its K/V
     still lands at node-index position ``index + j``, and the ancestor
     bitmasks select what each node sees
-    (``ops.paged_tree_verify_attention``)."""
+    (``ops.paged_tree_verify_attention``).  ``plan``: as
+    ``paged_kv_write``."""
     b, t, _ = x.shape
     idx = cache_index.to(torch.int32).expand(b)
     pos_w = idx[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
@@ -439,8 +479,7 @@ def attention_verify_paged(
         positions = idx[:, None] + depths.to(torch.int32)[None, :]
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     k_pool, v_pool = kv_pool
-    paged_kv_write(k_pool, k_new, block_tables, pos_w)
-    paged_kv_write(v_pool, v_new, block_tables, pos_w)
+    paged_kv_write((k_pool, v_pool), (k_new, v_new), block_tables, pos_w, plan)
     q = q.contiguous()
     if anc is None:
         out = ops.paged_verify_attention(

@@ -1,9 +1,10 @@
-"""Decoder-only LM, dense and Mamba1 (``ssm``) families: the training
-forward and loss (dense), and the serving path (both).
+"""Decoder-only LM, dense, Mixture-of-Experts (``moe``) and Mamba1 (``ssm``)
+families: the training forward and loss (dense and MoE), and the serving
+path (all three).
 
 Counterpart of ``repro.models.transformer`` for what the trainer and the
 serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
-``forward`` / ``lm_loss`` (dense, with remat policies ``"none"``,
+``forward`` / ``lm_loss`` (dense and MoE, with remat policies ``"none"``,
 ``"dots"`` and ``"full"``), ``init_paged_cache`` and ``init_cache`` (dense
 rows, or the Mamba1 conv / SSM state), ``decode_step``, the fused
 ``decode_loop``, ``prefill_chunks_into_slots`` on either KV layout,
@@ -29,13 +30,17 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = Any
 
 
-#: the families the port runs: attention + MLP, and Mamba1
-FAMILIES = ("dense", "ssm")
+#: the families the port runs: attention + MLP, attention + top-k experts,
+#: and Mamba1
+FAMILIES = ("dense", "moe", "ssm")
+#: the families whose layers hold attention (a KV cache, paged or dense)
+ATTENTION_FAMILIES = ("dense", "moe")
 
 
 def _require_family(cfg: ModelConfig, families: tuple = FAMILIES) -> None:
@@ -43,8 +48,8 @@ def _require_family(cfg: ModelConfig, families: tuple = FAMILIES) -> None:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} not in {families} here")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    _require_family(cfg, ("dense",))
+def _require_attention(cfg: ModelConfig) -> None:
+    _require_family(cfg, ATTENTION_FAMILIES)
 
 
 # ---------------------------------------------------------------------------
@@ -74,10 +79,9 @@ def init_params(
             if cfg.parametric_norm:
                 p["ln"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
         else:
-            p = {
-                "attn": L.init_attention(cfg, gen, cfg.d_model, dtype),
-                "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
-            }
+            p = {"attn": L.init_attention(cfg, gen, cfg.d_model, dtype)}
+            p["ffn"] = (MOE.init_moe(cfg, gen, dtype) if cfg.family == "moe"
+                        else L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype))
             if cfg.parametric_norm:
                 p["ln1"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
                 p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
@@ -152,8 +156,10 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 #: matmuls' outputs, or recompute each layer in the backward
 REMAT_POLICIES = ("none", "dots", "full")
 #: the ops whose outputs "dots" saves: matrix products with no batch dims
-#: (the projections; attention's batched products and kernels are recomputed),
-#: as ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does
+#: (the projections and the MoE router; attention's batched products, the
+#: kernels and the experts' ``bmm``s, whose expert dimension is a batch
+#: dimension, are recomputed), as
+#: ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -175,13 +181,22 @@ def _unstack(stacked: Params) -> list:
     return list(torch.unbind(stacked, 0))
 
 
-def _dense_layer(
-    cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str
-) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> tuple:
+    """The layer's MLP or MoE block: ``(y, moe_aux, moe_dropped)``, the last
+    two None for the dense family (only the training forward reads them)."""
+    if cfg.family == "moe":
+        return MOE.moe_block(cfg, p, h)
+    return L.mlp_block(p, h), None, None
+
+
+def _dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str) -> tuple:
+    """One attention layer over the full sequence: ``(x, moe_aux,
+    moe_dropped)`` as ``_ffn``."""
     h = L.norm(cfg, x, p.get("ln1"))
     x = x + L.attention_block(cfg, p["attn"], h, impl=impl)
     h = L.norm(cfg, x, p.get("ln2"))
-    return x + L.mlp_block(p["ffn"], h)
+    y, aux, dropped = _ffn(cfg, p["ffn"], h)
+    return x + y, aux, dropped
 
 
 def forward(
@@ -200,28 +215,40 @@ def forward(
     ``remat_policy="full"`` recomputes each layer in the backward
     (``torch.utils.checkpoint``) instead of keeping its activations;
     ``"dots"`` keeps only the outputs of its projection matmuls and
-    recomputes the rest (norms, RoPE, attention, activations)."""
+    recomputes the rest (norms, RoPE, attention, activations, the experts'
+    batched products).  ``metrics`` holds ``moe_aux`` and ``moe_dropped``,
+    the MoE family's mean over layers (zero for the dense family)."""
     if cfg.family == "ssm":
         raise NotImplementedError(
             "Mamba1 training (a backward of the selective scan) is not ported yet"
         )
-    _require_dense(cfg)
+    _require_attention(cfg)
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if inputs.is_floating_point():
         raise ValueError(f"{cfg.name} takes int tokens, not embeddings")
     x = embed_tokens(cfg, params, inputs, compute_dtype)
+    auxs, drops = [], []
     for lp in _unstack(cast_params(params["layers"], compute_dtype)):
         if remat_policy == "full":
-            x = checkpoint(_dense_layer, cfg, lp, x, impl, use_reentrant=False)
+            x, aux, dropped = checkpoint(_dense_layer, cfg, lp, x, impl,
+                                         use_reentrant=False)
         elif remat_policy == "dots":
-            x = checkpoint(_dense_layer, cfg, lp, x, impl, use_reentrant=False,
-                           context_fn=_dots_context)
+            x, aux, dropped = checkpoint(_dense_layer, cfg, lp, x, impl,
+                                         use_reentrant=False,
+                                         context_fn=_dots_context)
         else:
-            x = _dense_layer(cfg, lp, x, impl)
+            x, aux, dropped = _dense_layer(cfg, lp, x, impl)
+        auxs.append(aux)
+        drops.append(dropped)
     x = L.norm(cfg, x, params.get("final_norm"))
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(cfg, params, x), {"moe_aux": zero, "moe_dropped": zero}
+    if cfg.family == "moe":
+        metrics = {"moe_aux": torch.stack(auxs).mean(),
+                   "moe_dropped": torch.stack(drops).mean()}
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        metrics = {"moe_aux": zero, "moe_dropped": zero}
+    return unembed(cfg, params, x), metrics
 
 
 def lm_loss(
@@ -235,9 +262,10 @@ def lm_loss(
     compute_dtype: torch.dtype = torch.bfloat16,
     moe_aux_weight: float = 0.01,
 ) -> tuple[torch.Tensor, dict]:
-    """Mean next-token cross-entropy over fp32 logits (plus the MoE aux
-    term, zero for the dense family).  Returns ``(loss, metrics)`` with
-    ``metrics`` holding ``ce``, ``loss``, ``moe_aux`` and ``moe_dropped``."""
+    """Mean next-token cross-entropy over fp32 logits plus
+    ``moe_aux_weight`` times the MoE aux loss (zero for the dense family).
+    Returns ``(loss, metrics)`` with ``metrics`` holding ``ce``, ``loss``,
+    ``moe_aux`` and ``moe_dropped``."""
     logits, metrics = forward(
         cfg, params, inputs, impl=impl, remat_policy=remat_policy,
         compute_dtype=compute_dtype,
@@ -263,7 +291,7 @@ def init_cache(
     device: str | torch.device = "cuda",
 ) -> Params:
     """Dense decode cache with ``index`` [B] int32 (the reference starts from
-    a scalar that its engine replaces with a [B] vector).  Dense family:
+    a scalar that its engine replaces with a [B] vector).  Dense and MoE:
     ``layers.k/v`` are [L, B, S, kvH, hd] rows per slot.  Mamba1:
     ``layers.conv`` [L, B, conv - 1, d_inner] in ``dtype`` and ``layers.h``
     [L, B, d_inner, ssm_state] fp32 (``max_seq`` unused)."""
@@ -297,7 +325,7 @@ def init_paged_cache(
     physical pages shared across slots; ``block_tables`` is [B, W] int32
     with ``W = max_pages_per_slot + 1``, whose last column stays at the
     sentinel page 0 so overflow writes land on a page nobody reads."""
-    _require_dense(cfg)
+    _require_attention(cfg)
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {
@@ -348,6 +376,7 @@ def decode_step(
     else:
         bt = cache.get("block_tables")  # None: the dense layout
         k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
+        plan = {}  # the paged K/V writes' destinations, shared by the layers
         for i in range(cfg.num_layers):
             lp = _layer(layers, i)
             h = L.norm(cfg, x, lp.get("ln1"))
@@ -358,11 +387,11 @@ def decode_step(
             else:
                 y, _ = L.attention_decode_paged(
                     cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
-                    impl=attn_impl,
+                    impl=attn_impl, plan=plan,
                 )
             x = x + y
             h = L.norm(cfg, x, lp.get("ln2"))
-            x = x + L.mlp_block(lp["ffn"], h)
+            x = x + _ffn(cfg, lp["ffn"], h)[0]
     x = L.norm(cfg, x, params.get("final_norm"))
     logits = unembed(cfg, params, x)[:, 0]
     return logits, dict(cache, index=idx + 1)
@@ -375,7 +404,7 @@ def decode_step(
 
 def chunk_recurrent_states(cfg: ModelConfig, layers: Params) -> Optional[Params]:
     """The rollback-relevant slice of a cache's ``layers``: the conv and SSM
-    state of the Mamba1 family, ``None`` for the dense family, whose
+    state of the Mamba1 family, ``None`` for the attention families, whose
     rollback is an index rewind."""
     _require_family(cfg)
     return layers if cfg.family == "ssm" else None
@@ -420,13 +449,14 @@ def decode_chunk(
         raise NotImplementedError(
             "speculation on a recurrent (Mamba1) target is not ported yet"
         )
-    _require_dense(cfg)
+    _require_attention(cfg)
     t = tokens.shape[1]
     x = embed_tokens(cfg, params, tokens, compute_dtype)  # [B, T, d]
     idx = cache["index"]
     bt = cache.get("block_tables")  # None: the dense layout
     layers = cast_params(params["layers"], compute_dtype)
     k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
+    plan = {}  # the paged K/V writes' destinations, shared by the layers
     for i in range(cfg.num_layers):
         lp = _layer(layers, i)
         h = L.norm(cfg, x, lp.get("ln1"))
@@ -438,11 +468,11 @@ def decode_chunk(
         else:
             y, _ = L.attention_verify_paged(
                 cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx,
-                impl=attn_impl, anc=anc, depths=depths,
+                impl=attn_impl, anc=anc, depths=depths, plan=plan,
             )
         x = x + y
         h = L.norm(cfg, x, lp.get("ln2"))
-        x = x + L.mlp_block(lp["ffn"], h)
+        x = x + _ffn(cfg, lp["ffn"], h)[0]
     x = L.norm(cfg, x, params.get("final_norm"))
     if logits_at is not None:
         j = min(max(int(logits_at), 0), t - 1)
@@ -540,13 +570,14 @@ def prefill_chunks_into_slots(
     ``max(chunk_lens[b] - 1, 0)`` (frozen slots give a token nobody reads).
     ``need_logits=False`` (the draft model's prefill, whose first-token
     logits are never read) skips the vocab projection and returns zeros."""
-    _require_dense(cfg)
+    _require_attention(cfg)
     x = embed_tokens(cfg, params, tokens, compute_dtype)  # [B, C, d]
     idx = cache["index"]
     lens = chunk_lens.to(torch.int32)
     bt = cache.get("block_tables")  # None: the dense layout
     layers = cast_params(params["layers"], compute_dtype)
     k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
+    plan = {}  # the paged K/V writes' destinations, shared by the layers
     for i in range(cfg.num_layers):
         lp = _layer(layers, i)
         h = L.norm(cfg, x, lp.get("ln1"))
@@ -558,11 +589,11 @@ def prefill_chunks_into_slots(
         else:
             y, _ = L.attention_prefill_chunk_paged(
                 cfg, lp["attn"], h, (k_all[i], v_all[i]), bt, idx, lens,
-                impl=attn_impl,
+                impl=attn_impl, plan=plan,
             )
         x = x + y
         h = L.norm(cfg, x, lp.get("ln2"))
-        x = x + L.mlp_block(lp["ffn"], h)
+        x = x + _ffn(cfg, lp["ffn"], h)[0]
     new_cache = dict(cache, index=idx + lens)
     if not need_logits:
         return torch.zeros_like(lens), new_cache
@@ -591,7 +622,7 @@ def prefill(
 ) -> tuple[torch.Tensor, Params]:
     """Full-sequence prefill.  inputs: [B, S] int tokens.  Returns
     ``(last-position logits [B, V], cache)`` with the cache in
-    ``cache_dtype`` (default ``compute_dtype``): dense family, K/V
+    ``cache_dtype`` (default ``compute_dtype``): dense and MoE, K/V
     [L, B, max_seq, kvH, hd] zero-padded past S; Mamba1, the conv and SSM
     state after the prompt.
 
@@ -630,7 +661,7 @@ def prefill(
             out = ops.attention(q, k, v, causal=True, impl=impl)
             x = x + L._out_proj(cfg, lp["attn"], out)
             h = L.norm(cfg, x, lp.get("ln2"))
-            x = x + L.mlp_block(lp["ffn"], h)
+            x = x + _ffn(cfg, lp["ffn"], h)[0]
             ks.append(k)
             vs.append(v)
 
@@ -735,7 +766,7 @@ def prefill_into_slot_paged(
     land on the slot's last page past the index (overwritten before read) or
     on unallocated table entries, which hold the sentinel page.  Returns
     ``(first generated token [] int32 on the device, cache)``."""
-    _require_dense(cfg)
+    _require_attention(cfg)
     k_pool = cache["layers"]["k"]  # [L, P, page, kvH, hd]
     l, _, page, kvh, hd = k_pool.shape
     sb = inputs.shape[1]

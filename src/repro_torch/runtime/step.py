@@ -79,7 +79,7 @@ def make_train_step(
         if n_micro == 1:
             loss, metrics, grads = loss_and_grads(params, inputs, labels)
             grads = [g.float() for g in grads]
-            ce, aux = metrics["ce"].detach(), metrics["moe_aux"]
+            ce, aux = metrics["ce"].detach(), metrics["moe_aux"].detach()
         else:
             grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                      for p in tree_leaves(params)]
@@ -93,7 +93,7 @@ def make_train_step(
                     acc.add_(gj.float())
                 losses.append(l)
                 ces.append(m["ce"].detach())
-                auxes.append(m["moe_aux"])
+                auxes.append(m["moe_aux"].detach())
             for acc in grads:
                 acc.div_(n_micro)
             loss = torch.stack(losses).mean()

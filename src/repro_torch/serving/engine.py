@@ -1,7 +1,8 @@
 """Continuous-batching greedy inference engine, with speculative decoding.
 
-Counterpart of ``repro.serving.engine.InferenceEngine``.  Two KV layouts
-(``kv_page_size``): by default (attention families) KV lives in a shared
+Counterpart of ``repro.serving.engine.InferenceEngine``, for the dense,
+Mixture-of-Experts and Mamba1 families.  Two KV layouts (``kv_page_size``):
+by default (the attention families, dense and MoE) KV lives in a shared
 pool of 16-token physical pages addressed through per-slot block tables
 (``serving/kv_pool.py``), admission reserves a slot's worst-case pages and a
 radix tree serves shared page-aligned prefixes from cached pages;
@@ -16,6 +17,8 @@ a radix hit only the suffix, through the paged verify pass).  Decode runs
 the end; on CUDA the paged layout's plain decode loop is captured once per
 ``k`` as a CUDA graph and replayed (``DecodeGraph``), since its eager form
 is paced by the host's launches of some 2,000 small ops per microstep.
+``decode_microstep`` is the reference's single-step path, eager on every
+layout.
 
 Speculation (``spec``): a ``draft_cfg`` / ``draft_params`` pairing keeps the
 draft model in a dense cache (``T.init_cache``) whose prompt streams through
@@ -45,8 +48,14 @@ On CUDA the attention cores launch the hand-written kernels, on the CPU their
 plain PyTorch versions.  The KV pool, block tables, indices and token vector
 are updated in place (the reference's jit donates them).
 
+The MoE family routes each decode step's tokens as ONE group across every
+slot (``models/moe.py``): through expert capacity a slot's tokens depend on
+the other slots' tokens, idle and PREFILLING slots included, so the engine
+keeps the reference's token vector and decodes every slot, never a
+compacted batch.
+
 Not ported: speculation on a recurrent (Mamba1) target or draft
-(``NotImplementedError``), and the MoE, hybrid and frontend families.
+(``NotImplementedError``), and the hybrid and frontend families.
 """
 from __future__ import annotations
 
@@ -99,7 +108,7 @@ DEFAULT_PREFILL_CHUNK = 32
 MIN_PREFILL_BUCKET = 8
 
 #: families whose layers hold attention (paged KV and chunked prefill apply)
-_ATTENTION_FAMILIES = ("dense",)
+_ATTENTION_FAMILIES = T.ATTENTION_FAMILIES
 
 _RECURRENT_SPEC = (
     "speculation with a recurrent (Mamba1) target or draft is not ported yet "
@@ -1130,6 +1139,53 @@ class InferenceEngine:
             self.generated_tokens_total += n
             self._slot_idx[i] = int(idx_np[i])
             if rem_np[i] == 0 or idx_np[i] >= self.max_seq - 1:
+                finished.append(self._retire_slot(i, now))
+        if self._bt_dirty:
+            self._sync_block_tables()  # one upload covers every retirement
+        return finished
+
+    def decode_microstep(self) -> list[Request]:
+        """One greedy decode step over every slot; returns the requests that
+        finished.  The reference's single-step path: an eager
+        ``T.decode_step`` (no decode graph), with the token vector and the
+        finish-check indices fetched in ONE device -> host transfer.  The
+        fused ``_drive_decode_loop`` is the fast path."""
+        if self.num_active == 0 or self.num_active == self.num_prefilling:
+            return []
+        if self.paged:
+            self._top_up_pages(1)
+        logits, self.cache = T.decode_step(
+            self.cfg, self.params, self.tokens, self.cache,
+            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
+        )
+        self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        self.steps_executed += 1
+        if self.num_prefilling:
+            # the step advanced EVERY slot's index: restore the PREFILLING
+            # slots' prefill progress in one batched write (their stale K/V
+            # write at the old index is overwritten by the next chunk)
+            slots, values = [], []
+            for i in range(self.max_slots):
+                if self.slot_prefilling(i):
+                    left = self._prefill_left[i]
+                    slots.append(i)
+                    values.append(len(self.slots[i].prompt) - (
+                        len(left) if left is not None else 0))
+            self.cache["index"][torch.tensor(slots, device=self.device)] = torch.tensor(
+                values, dtype=torch.int32, device=self.device)
+        b = self.max_slots
+        fetched = torch.cat([self.tokens, self.cache["index"]]).cpu().numpy()
+        self.d2h_transfers += 1  # tokens + finish-check indices, batched
+        host_tokens, idx_np = fetched[:b], fetched[b:]
+        now = self.clock()
+        finished = []
+        for i, req in enumerate(self.slots):
+            if req is None or self.slot_prefilling(i):
+                continue
+            req.generated.append(int(host_tokens[i]))
+            self.generated_tokens_total += 1
+            self._slot_idx[i] = int(idx_np[i])
+            if len(req.generated) >= req.max_new_tokens or idx_np[i] >= self.max_seq - 1:
                 finished.append(self._retire_slot(i, now))
         if self._bt_dirty:
             self._sync_block_tables()  # one upload covers every retirement

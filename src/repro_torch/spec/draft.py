@@ -38,8 +38,8 @@ def draft_propose(
     residual test).
 
     Returns ``(draft_tokens [B, gamma], draft_probs [B, gamma, V] | None,
-    cache, step_states)``; ``step_states`` is ``None`` (the dense family
-    rolls back by an index rewind).  The cache index advances by
+    cache, step_states)``; ``step_states`` is ``None`` (an attention
+    family rolls back by an index rewind).  The cache index advances by
     ``gamma + 1`` and the draft's K/V is written in place; callers
     overwrite the index with the post-acceptance one."""
     assert mode in ("greedy", "sample"), mode

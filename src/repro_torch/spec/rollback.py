@@ -27,7 +27,7 @@ def rollback_recurrent(
     old_states: Optional[dict],
 ) -> Optional[dict]:
     """Each active slot's post-acceptance recurrent state; frozen slots keep
-    their pre-round state.  The dense family has none (``step_states`` is
+    their pre-round state.  The attention families have none (``step_states`` is
     ``None``): the rollback is the index rewind, and ``old_states`` comes
     back unchanged.  Recurrent-state selection is not ported yet."""
     if step_states is None:

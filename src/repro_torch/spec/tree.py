@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 #: int32 ancestor bitmasks bound the packed tree size.
@@ -155,8 +156,9 @@ def _compact_paged(pool, block_tables, idx0, comp) -> None:
     over every layer at once.  pool: [L, P, page, kvH, hd]; comp [B, N]:
     source node of each destination slot (``comp >= slot``, and the gather
     is a copy taken before the scatter).  Positions past the table width
-    clamp onto the sentinel column, as ``layers.paged_kv_write``."""
-    n = comp.shape[1]
+    clamp onto the sentinel column, and rows that collide there keep the
+    last one's value, as ``layers.paged_kv_write``."""
+    b, n = comp.shape
     page = pool.shape[2]
     w = block_tables.shape[1]
     bt = block_tables.long()
@@ -169,7 +171,9 @@ def _compact_paged(pool, block_tables, idx0, comp) -> None:
     vals = pool[:, src_pages, src_offs]  # [L, B, N, kvH, hd]
     dst = idx0[:, None] + torch.arange(n, dtype=torch.int32, device=comp.device)[None, :]
     dst_pages, dst_offs = addr(dst)
-    pool[:, dst_pages, dst_offs] = vals
+    src = L.last_writers((dst_pages * page + dst_offs).reshape(-1), pool.shape[1] * page)
+    vals = vals.reshape(pool.shape[0], b * n, *vals.shape[3:])[:, src]
+    pool[:, dst_pages, dst_offs] = vals.reshape(pool.shape[0], b, n, *vals.shape[2:])
 
 
 def _compact_dense(kc, idx0, comp) -> None:

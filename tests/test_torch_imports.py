@@ -3,8 +3,8 @@
 imports ``jax``, ``jaxlib`` or the reference package
 ``repro`` (``repro_torch`` is allowed), and importing the serving core, the
 speculative decoding package, the filling runtime, the train step, the
-Mamba1 model and the dense verify / tree-verify / scan kernels pulls no JAX
-into a fresh interpreter."""
+Mamba1 and MoE models and the dense verify / tree-verify / scan kernels
+pulls no JAX into a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -36,7 +36,8 @@ def test_walk_covers_the_port():
                 "kernels/paged_tree_verify_attention.py", "kernels/decode_attention.py",
                 "models/ssm.py", "kernels/verify_attention.py",
                 "kernels/tree_verify_attention.py", "kernels/ssm_scan.py",
-                "configs/falcon_mamba_7b.py"):
+                "configs/falcon_mamba_7b.py", "models/moe.py",
+                "configs/moonshot_v1_16b_a3b.py", "configs/dbrx_132b.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
     assert ROOT / "scripts" / "torch_scan_breakdown.py" in FILES
 
@@ -60,6 +61,7 @@ def test_serving_core_import_pulls_no_jax():
         "import repro_torch.kernels.verify_attention; "
         "import repro_torch.kernels.tree_verify_attention; "
         "import repro_torch.configs.falcon_mamba_7b; "
+        "import repro_torch.models.moe; import repro_torch.configs.dbrx_132b; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )
