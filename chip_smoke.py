@@ -50,7 +50,13 @@ Phases, each printing a line before the last:
                  every attention kernel (#1-#9; flash forward causal and
                  non-causal, and backward): non-finite outputs exactly where
                  the plain version's are, every other slot bit-equal to the
-                 call without the NaN.
+                 call without the NaN.  Last, zamba2-2.7b's shared attention
+                 at hd 80: flash forward and backward at its training shape
+                 (B=4, H=32, S=1024), a ragged monolithic bucket (S=200) and
+                 a non-causal ragged case, the dense decode at group 1 (H =
+                 kvH = 32) at the serving lengths and the tile edges, in both
+                 dtypes, a NaN in one slot through both, timed in bf16
+                 beside SDPA and the bound (rows ``*_hd80``).
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -147,14 +153,32 @@ Phases, each printing a line before the last:
                  every request finishes, both paged kernels launch, the
                  decode graphs capture one launch a layer and step; the
                  decode step beside its bytes bound, probed first.
-                 Phases 11-14 each free their weights before the next.
+                 Phases 11-17 each free their weights before the next.
                  They run after phase 6 and before phase 7, so every time
                  they take comes before the first profiler session
                  (phase 7's).
+15. hybrid parity -- zamba2-2.7b at full width, 12 of 54 layers (2 cycles,
+                 so the shared block runs twice), fp32, impl="cuda" against
+                 impl="torch": forward logits, a padded 128-bucket prefill
+                 bit-equal to the unpadded 100-token one (logits and Mamba2
+                 state), EngineCore streams on the dense layout (4 slots, 8
+                 requests) equal; flash launched once per cycle and
+                 admission, the dense decode once per cycle and step.
+16. hybrid serve -- zamba2-2.7b at full depth, bf16, 8 slots, max_seq 512:
+                 the decode step (eager) beside its bytes bound (every
+                 weight but the embedding, the shared block 9 times, plus
+                 each slot's SSM and conv state read and written), then
+                 phase 10's 16 requests; every request finishes with 32
+                 tokens, the launch counts as in phase 15.
+17. hybrid train -- zamba2-2.7b at full depth and width under remat "full",
+                 fp32 params + AdamW, bf16 compute, 4 x 1024 tokens, 3
+                 steps: finite loss and gradient norm, peak memory, flash
+                 forward twice and backward once a cycle and step.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
-engine (rebuilt from the same seed), one train step of phase 5's model
-(the device's busy share and the flash kernels' share of device time),
+engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
+one train step of phase 5's model and one of phase 17's (the device's busy
+share and the flash kernels' share of device time),
 the flash backward's three kernels one by one, the paged verify's and
 tree verify's split pass and combine apart, the dense verify's and
 tree verify's one cluster kernel, and the paged and dense decode's one
@@ -164,8 +188,10 @@ output); one
 kernel's path: the speculative kernels' from the spec serve run -- the
 dense decode's and prefill's also from the dense target serve run --, the dense
 verify and tree verify from the dense target serve run, the scan from the
-ssm serve run, the others' from the collocated run; each row also gains
-``launches_<run>`` for the runs of phases 12-14 that launch it) and, last,
+ssm serve run, the hd-80 rows' from phases 16 (decode) and 17 (flash),
+the others' from the collocated run; each row also gains
+``launches_<run>`` for the runs of phases 12-14 and 16-17 that launch it)
+and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
 phase raises and the script exits non-zero.  It imports nothing of JAX or
@@ -271,6 +297,18 @@ SSM_SMALL = ((4, 100), (8, 99), (32, 100))  # (ds, di) at B = 2, Q = 65
 SSM_RTOL = 1e-5
 SPEC_COLLOC_ITERS = 4
 COLLOC_ITERS = 8
+# zamba2-2.7b's shared attention: 32 MHA heads of 80.  Flash (#5) at its
+# training shape and at a ragged monolithic bucket (plus a non-causal ragged
+# case); the dense decode (#3) at group 1 over its 8-slot, 512-row serving
+# cache, at the serving lengths and the 64-key tile edges
+HYB_H, HYB_HD = 32, 80
+FLASH_HD80_CASES = (  # (B, H, Sq, Sk, causal, hd)
+    (TRAIN_B, HYB_H, TRAIN_S, TRAIN_S, True, HYB_HD),
+    (1, HYB_H, 200, 200, True, HYB_HD),
+    (2, 4, 130, 200, False, HYB_HD),
+)
+#: zamba2 parity depth: 2 cycles of 6 Mamba2 layers, so the shared block runs twice
+HYBRID_PARITY_LAYERS = 12
 
 
 #: the kernels each path runs
@@ -281,6 +319,7 @@ SPEC_KERNELS = ("decode_attention", "prefill_attention", "paged_verify_attention
 DENSE_TARGET_KERNELS = ("decode_attention", "prefill_attention", "verify_attention",
                         "tree_verify_attention")
 SSM_KERNELS = ("ssm_scan",)
+HYBRID_SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
 
 
 def log(msg: str) -> None:
@@ -545,13 +584,6 @@ def _nan_checks():
             return (args[0], k, *args[2:])
         return poison
 
-    def poison_dense(slot, pos):
-        def poison(args):
-            k = args[1].clone()
-            k[slot, pos, 1, 5] = float("nan")
-            return (args[0], k, *args[2:])
-        return poison
-
     tree = branching_tree(2, 2)
     anc = torch.tensor(tree_ancestor_masks(tree), device="cuda").expand(B, len(tree)).contiguous()
     # the poisoned slot: dense decode and both prefills slot 2 (length 300,
@@ -566,21 +598,29 @@ def _nan_checks():
          ppre.paged_prefill_attention_torch, paged((CHUNK, H, HD), st, cl),
          poison_paged(2, 50), 2),
         ("decode_attention", dd.decode_attention, dd.decode_attention_torch,
-         dense((H, HD), dlen), poison_dense(2, 100), 2),
+         dense((H, HD), dlen), _poison_dense(2, 100), 2),
         ("prefill_attention", dp.prefill_attention, dp.prefill_attention_torch,
-         dense((CHUNK, H, HD), st, cl), poison_dense(2, 50), 2),
+         dense((CHUNK, H, HD), st, cl), _poison_dense(2, 50), 2),
         ("paged_verify_attention", pv.paged_verify_attention, pv.paged_verify_attention_torch,
          paged((5, H, HD), vl), poison_paged(1, 100), 1),
         ("paged_tree_verify_attention", ptv.paged_tree_verify_attention,
          ptv.paged_tree_verify_attention_torch, paged((len(tree), H, HD), vl, anc),
          poison_paged(1, 100), 1),
         ("verify_attention", va.verify_attention, va.verify_attention_torch,
-         dense((5, H, HD), vl), poison_dense(1, 100), 1),
+         dense((5, H, HD), vl), _poison_dense(1, 100), 1),
         ("tree_verify_attention", tv.tree_verify_attention, tv.tree_verify_attention_torch,
-         dense((len(tree), H, HD), vl, anc), poison_dense(1, 100), 1),
+         dense((len(tree), H, HD), vl, anc), _poison_dense(1, 100), 1),
     )
     for name, kernel, plain, make, poison, slot in cases:
         _check_nan_slot(name, kernel, plain, make, poison, slot)
+    _flash_nan_checks(HD)
+
+
+def _flash_nan_checks(hd):
+    """``_check_nan_slot`` for the flash kernels at head dim ``hd``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
 
     # flash: [B, H, S, hd]; causal forward with the NaN at key 100 of batch 1,
     # head 2 (rows >= 100 of that head see it), then non-causal forward and
@@ -588,7 +628,7 @@ def _nan_checks():
     # spreads 0 * NaN through masked entries, so a causal backward's dQ rows
     # before the NaN differ by construction, not by the kernel)
     def flash_make(dtype):
-        q, k, v, do = _flash_inputs(dtype, 2, 4, 256, 256, seed=8)
+        q, k, v, do = _flash_inputs(dtype, 2, 4, 256, 256, hd=hd, seed=8)
         return q, k, v, do
 
     def flash_poison(args):
@@ -603,8 +643,8 @@ def _nan_checks():
         def fwd_plain(q, k, v, do, causal=causal):
             return fa.flash_attention_torch(q, k, v, causal=causal)
 
-        _check_nan_slot(f"flash_attention forward (causal={causal})", fwd, fwd_plain,
-                        flash_make, flash_poison, 1)
+        _check_nan_slot(f"flash_attention forward (causal={causal}, hd {hd})", fwd,
+                        fwd_plain, flash_make, flash_poison, 1)
 
     def bwd(q, k, v, do):
         out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
@@ -615,8 +655,8 @@ def _nan_checks():
         ref = fa.flash_attention_torch(*leaves, causal=False)
         return torch.stack(torch.autograd.grad(ref, leaves, do), 1)
 
-    _check_nan_slot("flash_attention backward (dq, dk, dv; causal=False)", bwd, bwd_plain,
-                    flash_make, flash_poison, 1)
+    _check_nan_slot(f"flash_attention backward (dq, dk, dv; causal=False, hd {hd})", bwd,
+                    bwd_plain, flash_make, flash_poison, 1)
 
 
 def _one_tile_per_cta_ms(fn):
@@ -773,7 +813,10 @@ def phase_kernels():
         f"tile {one_tile_ms:.4f} ms, slot {longest} alone {alone_ms:.4f} ms; group 6 "
         f"(H=48) {g6_ms:.4f} ms, plain {g6_p_ms:.4f} ms")
     _nan_checks()
-    return rows + _flash_rows() + _spec_rows() + _dense_target_rows() + _ssm_rows()
+    flash = _flash_rows()
+    _flash_long_rows()
+    return (rows + flash + _spec_rows() + _dense_target_rows() + _ssm_rows()
+            + _hd80_rows())
 
 
 def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
@@ -787,17 +830,17 @@ def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
     return q, k, v, do
 
 
-def _check_flash():
+def _check_flash(cases=FLASH_CASES):
     """Forward output and dQ / dK / dV of the kernels against the plain
     version (autograd, fp32, on the same inputs) for every case and dtype;
     returns the worst errors (forward absolute, gradients relative to the
-    largest |g|) of the training-shape case."""
+    largest |g|) of the first (training-shape) case."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     worst = {}
-    for case in FLASH_CASES:
+    for case in cases:
         b, h, sq, sk, causal, hd = case
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = _flash_inputs(dtype, b, h, sq, sk, hd)
@@ -821,23 +864,24 @@ def _check_flash():
             if not (fwd_err <= fwd_tol and grad_err <= grad_tol):
                 raise AssertionError(f"flash_attention {case} {dtype}: forward err "
                                      f"{fwd_err}, gradient err {grad_err}")
-            if case == FLASH_CASES[0]:
+            if case == cases[0]:
                 name = "bfloat16" if bf16 else "float32"
                 worst[name] = (fwd_err, grad_err)
     return worst
 
 
-def _flash_rows():
-    """Rows of flash attention forward and backward: checked at every case,
-    timed at the training shape in bf16."""
+def _flash_rows(cases=FLASH_CASES, suffix=""):
+    """Rows of flash attention forward and backward (names + ``suffix``):
+    checked at every case of ``cases``, timed at the first (the training
+    shape) in bf16; the bound and TFLOP/s count the real head dim's work."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    errs = _check_flash()
-    b, h, s = TRAIN_B, H, TRAIN_S
-    q, k, v, do = _flash_inputs(torch.bfloat16, b, h, s, s, seed=1)
+    errs = _check_flash(cases)
+    b, h, s, _, _, hd = cases[0]
+    q, k, v, do = _flash_inputs(torch.bfloat16, b, h, s, s, hd=hd, seed=1)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
     bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True))
@@ -854,9 +898,9 @@ def _flash_rows():
     del plain_out, sdpa_out
     # bounds: each input read once, each output written once; the causal
     # (q, k) pairs this shape has, 2 products forward and 5 backward
-    elems, isz = b * h * s * HD, 2
+    elems, isz = b * h * s * hd, 2
     pairs = b * h * s * (s + 1) // 2
-    fwd_flops, bwd_flops = 4 * pairs * HD, 10 * pairs * HD
+    fwd_flops, bwd_flops = 4 * pairs * hd, 10 * pairs * hd
     fwd_bound, fwd_by = _bound_ms(4 * elems * isz + b * h * s * 4, fwd_flops,
                                   torch.bfloat16)
     bwd_bound, bwd_by = _bound_ms(8 * elems * isz + b * h * s * 4, bwd_flops,
@@ -871,7 +915,7 @@ def _flash_rows():
     ):
         tflops = flops / (ms * 1e-3) / 1e12
         rows.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name + suffix, "route": "cuda", "source": src,
             "replaces": "src/repro/kernels/flash_attention.py:92",
             "launches": 0, "max_abs_err": errs["bfloat16"][i],
             "max_abs_err_fp32": errs["float32"][i],
@@ -879,13 +923,12 @@ def _flash_rows():
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms, "tflops": tflops, "bound_share": bound / ms,
         })
-        log(f"kernel {name} (B={b}, H={h}, S={s}, hd={HD}, causal, bf16): {ms:.4f} ms "
+        log(f"kernel {name} (B={b}, H={h}, S={s}, hd={hd}, causal, bf16): {ms:.4f} ms "
             f"= {tflops:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} ms "
             f"({by}); plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
             f"({ms / lib_ms:.2f}x sdpa's time)")
     log(f"sdpa forward+backward {sdpa_fwd_ms + sdpa_bwd_ms:.4f} ms; flash kernels "
-        f"forward+backward {fwd_ms + bwd_ms:.4f} ms")
-    _flash_long_rows()
+        f"forward+backward {fwd_ms + bwd_ms:.4f} ms (hd {hd})")
     return rows
 
 
@@ -1600,6 +1643,67 @@ def _ssm_rows():
         "ms_q256": times[256][0], "plain_ms_q256": times[256][1],
         "bound_ms_q256": times[256][2],
     }]
+
+
+def _hd80_rows():
+    """zamba2-2.7b's shared attention at hd 80: flash (#5) forward and
+    backward at ``FLASH_HD80_CASES`` and the dense decode (#3) at group 1
+    (H = kvH = 32, 8 slots of 512 rows) at the serving lengths and the
+    64-key tile edges, each against its plain version in bf16 and fp32, and
+    a NaN in one slot through both; timed in bf16 at the hybrid's shapes
+    (flash at B=4, H=32, S=1024; decode at the serving lengths) beside SDPA
+    and the bound.  Rows ``flash_attention_fwd_hd80``,
+    ``flash_attention_bwd_hd80`` and ``decode_attention_hd80``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dd
+
+    rows = _flash_rows(FLASH_HD80_CASES, suffix="_hd80")
+    _flash_nan_checks(HYB_HD)
+
+    h = kvh = HYB_H
+    lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device="cuda")
+    edges = torch.tensor(DENSE_EDGE_LENGTHS, dtype=torch.int32, device="cuda")
+
+    def decode_inputs(lens):
+        def make(dtype):
+            g, k, v = _dense_inputs(dtype, seed=3, hd=HYB_HD, kvh=kvh)
+            q = torch.randn((B, h, HYB_HD), generator=g, device="cuda").to(dtype)
+            return q, k, v, lens
+        return make
+
+    errs = _worst(*[
+        _check_decode(f"decode_attention (hd 80, group 1, H=32{label})", dd.decode_attention,
+                      dd.decode_attention_torch, decode_inputs(lens))
+        for label, lens in (("", lengths), (", tile edges", edges))])
+    _check_nan_slot("decode_attention (hd 80)", dd.decode_attention, dd.decode_attention_torch,
+                    decode_inputs(lengths), _poison_dense(2, 100), 2)
+    q, k, v, _ = decode_inputs(lengths)(torch.bfloat16)
+    k_ms = _time_ms(lambda: dd.decode_attention(q, k, v, lengths))
+    p_ms = _time_ms(lambda: dd.decode_attention_torch(q, k, v, lengths))
+    mask = (torch.arange(DENSE_S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                           attn_mask=mask))
+    needed = sum(min(max(n, 0), DENSE_S) for n in DENSE_LENGTHS)
+    isz = 2
+    bound, by = _bound_ms(2 * B * h * HYB_HD * isz + 2 * needed * kvh * HYB_HD * isz + B * 4,
+                          4 * HYB_HD * h * needed, torch.bfloat16)
+    rows.append(_row("decode_attention_hd80", "decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms,
+                     bound, by))
+    return rows
+
+
+def _poison_dense(slot, pos):
+    """A NaN at K position ``pos`` of ``slot`` (kv head 1) of a dense
+    kernel's (q, k, v, ...) arguments, in a copy of K."""
+    def poison(args):
+        k = args[1].clone()
+        k[slot, pos, 1, 5] = float("nan")
+        return (args[0], k, *args[2:])
+    return poison
 
 
 # ---------------------------------------------------------------------------
@@ -3269,6 +3373,26 @@ def _profile_moe_serve():
     _end_phase("moe serve profile")
 
 
+def _profile_hybrid_serve():
+    """Phase 16's engine (the same seeded bf16 weights) in the end-of-run
+    profiler block: ``_profile_serve`` with the dense decode kernel's
+    launches and device time."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    _fresh_phase()
+    cfg = configs.get_config("zamba2-2.7b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512)
+    _profile_serve(engine, cfg, "hybrid serve", kernel="dense_decode_cluster_kernel")
+    del engine, params
+    _end_phase("hybrid serve profile")
+
+
 def phase_moe_train():
     """moonshot-v1-16b-a3b at full width, 2 of 48 layers (full depth would
     need ~450 GB of fp32 params, grads and moments): fp32 params and AdamW,
@@ -3379,11 +3503,225 @@ def phase_config_serves():
     return out
 
 
-def _profile_train():
-    """Where the train step's time goes: phase 5's model and step, on fresh
-    weights after one warm-up step, for one step under ``torch.profiler``
-    -- device busy share of its wall time, the flash kernels' share of the
-    device time, and the top kernels."""
+# ---------------------------------------------------------------------------
+# 15. hybrid parity, 16. hybrid serve, 17. hybrid train (zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_launches(label, counts, cfg, admissions, decode_steps):
+    """The hybrid serving path's kernels launched (plain versions never):
+    the flash forward once per cycle and admission, the dense decode once
+    per cycle and decode microstep."""
+    n_cyc = cfg.num_layers // cfg.shared_attn_every
+    _require_launches(label, counts, HYBRID_SERVE_KERNELS)
+    want = {"flash_attention_fwd": n_cyc * admissions, "decode_attention": n_cyc * decode_steps}
+    got = {name: counts[name]["cuda"] for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} ({n_cyc} cycles, "
+                             f"{admissions} admissions, {decode_steps} decode steps)")
+    return got
+
+
+def phase_hybrid_parity():
+    """zamba2-2.7b at full width and 12 of 54 layers (2 cycles, so the
+    shared block is reused), fp32 weights, impl="cuda" against
+    impl="torch" on the card: forward logits (B=2, S=200) within
+    LOGITS_ATOL; a prompt of 100 tokens prefilled padded to its 128 bucket
+    and unpadded (cuda) with bit-equal logits and Mamba2 state; EngineCore
+    streams on the dense layout (4 slots, 8 requests) equal, the cuda
+    engine launching flash once per cycle and admission and the dense
+    decode once per cycle and decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    _fresh_phase()
+    cfg = dataclasses.replace(configs.get_config("zamba2-2.7b"),
+                              num_layers=HYBRID_PARITY_LAYERS)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(7)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 200)), device="cuda")
+    with torch.no_grad():
+        logits = {impl: T.forward(cfg, params, toks, impl=impl, compute_dtype=torch.float32)[0]
+                  for impl in ("cuda", "torch")}
+    err = (logits["cuda"] - logits["torch"]).abs().max().item()
+    if not (err <= LOGITS_ATOL and torch.isfinite(logits["cuda"]).all()):
+        raise AssertionError(f"hybrid parity: forward logits differ by {err} > {LOGITS_ATOL}")
+    del logits
+
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 100)), dtype=torch.int32,
+                          device="cuda")
+    padded = torch.nn.functional.pad(prompt, (0, 28))
+    kw = dict(impl="cuda", compute_dtype=torch.float32)
+    l_r, c_r = T.prefill(cfg, params, prompt, 256, **kw)
+    l_p, c_p = T.prefill(cfg, params, padded, 256, length=100, **kw)
+    same = torch.equal(l_r, l_p) and all(
+        torch.equal(t, c_p["layers"]["mamba"][k]) for k, t in c_r["layers"]["mamba"].items())
+    if not same:
+        raise AssertionError("hybrid parity: the padded-bucket prefill differs from the "
+                             "unpadded one")
+    del c_r, c_p
+
+    prompts = _prompts(np.random.default_rng(8), 8, 24, 120, cfg.vocab_size, 0, ())
+    res = {}
+    for impl in ("cuda", "torch"):
+        eng = InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                              compute_dtype=torch.float32, decode_impl=impl)
+        ops.reset_launch_counts()
+        reqs, _ = _serve(eng, prompts, max_new=12)
+        res[impl] = ([list(r.output_tokens) for r in reqs], ops.launch_counts(),
+                     eng.steps_executed)
+        del eng
+    if res["cuda"][0] != res["torch"][0]:
+        raise AssertionError("hybrid parity: streams differ (cuda vs torch)")
+    got = _hybrid_launches("hybrid parity", res["cuda"][1], cfg, len(prompts),
+                           res["cuda"][2] - len(prompts))
+    log(f"hybrid parity (zamba2-2.7b, {cfg.num_layers} layers = 2 cycles, full width, fp32): "
+        f"forward logits max err {err:.2e} (tol {LOGITS_ATOL:g}); padded 128-bucket prefill "
+        f"of a 100-token prompt bit-equal to the unpadded one (logits and Mamba2 state); "
+        f"{len(prompts)} requests on the dense layout, streams equal; cuda launches "
+        f"{json.dumps(got)}")
+    del params, res
+    _end_phase("hybrid parity")
+
+
+def _hybrid_decode_bytes(cfg, slots):
+    """bf16 bytes one hybrid decode step must move: every weight but the
+    embedding, the shared block's read once per cycle; and each slot's
+    fp32 SSM state and its conv windows, read and written."""
+    n_cyc = cfg.num_layers // cfg.shared_attn_every
+    d = cfg.d_model
+    shared = cfg._attn_params(d, cfg.resolved_head_dim) + 3 * d * cfg.d_ff + 2 * d
+    weights = cfg.param_count() - cfg.vocab_size * d + (n_cyc - 1) * shared
+    state = cfg.num_layers * (4 * cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state
+                              + 2 * (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state))
+    return 2 * weights, 2 * slots * state
+
+
+def phase_hybrid_serve():
+    """zamba2-2.7b at full depth and width (54 Mamba2 layers, the shared
+    block 9 times), bf16 weights made on the card, 8 slots, max_seq 512:
+    the decode step probed first (8 OFFLINE slots, k = 8, eager), beside its
+    bytes bound; then the ssm serve's 16 ONLINE requests of 35-154 tokens,
+    32 new tokens each, on the dense layout with monolithic bucket prefill.
+    Every request finishes; the flash forward launches once per cycle and
+    admission, the dense decode once per cycle and decode step.  Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    _fresh_phase()
+    cfg = configs.get_config("zamba2-2.7b")
+    slots = 8
+    t0 = time.monotonic()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    t_start = time.monotonic()
+    engine = InferenceEngine(cfg, params, max_slots=slots, max_seq=512,
+                             clock=lambda: time.monotonic() - t_start)
+    del params
+    torch.cuda.synchronize()
+    log(f"hybrid serve: zamba2-2.7b, {cfg.param_count() / 1e9:.3f} B params bf16, cache "
+        f"(Mamba2 state + shared K/V rows) {engine.kv_cache_bytes() / 1e6:.1f} MB, set-up "
+        f"{time.monotonic() - t0:.1f}s")
+    fused_ms, micro_ms = _decode_step_ms(engine, slots)
+    w_bytes, s_bytes = _hybrid_decode_bytes(cfg, slots)
+    bound = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"hybrid serve: decode step at {slots} slots {fused_ms:.3f} ms (k=8 quantum, eager), "
+        f"decode_microstep {micro_ms:.3f} ms; bound {bound:.3f} ms = {w_bytes / 1e9:.2f} GB "
+        f"of bf16 weights (the shared block 9 times) + {s_bytes / 1e9:.3f} GB of SSM and "
+        f"conv state read and written at 3.35 TB/s, {bound / fused_ms:.1%} of it")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(25, 158, 16)]
+    max_new = 32
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = engine.steps_executed
+    ops.reset_launch_counts()
+    reqs, secs = _serve(engine, prompts, max_new)
+    counts = ops.launch_counts()
+    _check_finished("hybrid serve", reqs, max_new, cfg)
+    got = _hybrid_launches("hybrid serve", counts, cfg, len(prompts),
+                           engine.steps_executed - steps0 - len(prompts))
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    log(f"hybrid serve: prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens; "
+        f"{_serve_summary(engine.obs.metrics, reqs, tokens, secs)}; launches {json.dumps(got)}")
+    del engine
+    _end_phase("hybrid serve")
+    return {name: c["cuda"] for name, c in counts.items()}
+
+
+def phase_hybrid_train():
+    """zamba2-2.7b at full depth and width under remat "full" (each cycle
+    recomputed in the backward): fp32 params and AdamW (38.8 GB of state),
+    bf16 compute, batch 4 x seq 1024 Zipf tokens, 3 steps.  Loss and
+    gradient norm finite; the flash forward twice per cycle and step (the
+    recompute), the backward once.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    _fresh_phase()
+    cfg = configs.get_config("zamba2-2.7b")
+    n_cyc, steps = cfg.num_layers // cfg.shared_attn_every, 3
+    state = init_train_state(T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    step = make_train_step(cfg, TrainConfig(warmup_steps=2, total_steps=steps + 2,
+                                            remat_policy="full"))
+    ds = SyntheticDataset(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    torch.cuda.synchronize()
+    log(f"hybrid train: state {torch.cuda.memory_allocated() / 1e9:.2f} GB before the first "
+        f"step")
+    ops.reset_launch_counts()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        batch = ds.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all() and min(norms) > 0):
+        raise AssertionError(f"hybrid train: losses {losses}, grad norms {norms}")
+    _require_launches("hybrid train", counts, TRAIN_KERNELS)
+    want = {"flash_attention_fwd": 2 * n_cyc * steps, "flash_attention_bwd": n_cyc * steps}
+    got = {name: counts[name]["cuda"] for name in want}
+    if got != want:
+        raise AssertionError(f"hybrid train: flash launches {got}, expected {want}")
+    log(f"hybrid train (zamba2-2.7b, full depth and width, remat full; fp32 params + AdamW, "
+        f"bf16 compute, B={TRAIN_B} x S={TRAIN_S}): steps " + ", ".join(f"{t:.1f}" for t in ms)
+        + " ms; losses " + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.4f}" for x in norms) + f"; peak device memory {peak:.2f} GB; flash "
+        f"launches {json.dumps(got)}")
+    del state, step
+    _end_phase("hybrid train")
+    return {name: c["cuda"] for name, c in counts.items()}
+
+
+def _profile_train(arch="qwen3-1.7b", label="train", remat_policy="none"):
+    """Where the train step's time goes: phase 5's model and step (or
+    ``arch``'s at full depth under ``remat_policy``), on fresh weights after
+    one warm-up step, for one step under ``torch.profiler`` -- device busy
+    share of its wall time, the flash kernels' share of the device time,
+    and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3395,8 +3733,8 @@ def _profile_train():
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = configs.get_config("qwen3-1.7b")
-    tcfg = TrainConfig(warmup_steps=2, total_steps=COLLOC_ITERS + 2)
+    cfg = configs.get_config(arch)
+    tcfg = TrainConfig(warmup_steps=2, total_steps=COLLOC_ITERS + 2, remat_policy=remat_policy)
     state = init_train_state(T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0),
         dtype=getattr(torch, tcfg.param_dtype)))
@@ -3410,15 +3748,16 @@ def _profile_train():
         step(state, batch)
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
+    del state, step
     got = _busy_and_top(prof)
     if got is None:
-        log("train profile: the profiler saw no device time (not measured)")
+        log(f"{label} profile: the profiler saw no device time (not measured)")
         return
     busy, n, by_name = got
     total = sum(by_name.values())
     flash = {k: v for k, v in by_name.items() if "flash_" in k}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"train profile (1 step, profiler on): wall {secs:.3f}s, device busy {busy:.3f}s "
+    log(f"{label} profile (1 step, profiler on): wall {secs:.3f}s, device busy {busy:.3f}s "
         f"({100 * busy / secs:.1f}%), {n} kernels; flash kernels {sum(flash.values()):.3f}s "
         f"({100 * sum(flash.values()) / total:.1f}% of device time: " + ", ".join(
             f"{k.split('<')[0].split('::')[-1]} {v * 1e3:.1f}ms"
@@ -3458,21 +3797,34 @@ def main() -> int:
     moe_launches, moe_spec_launches = phase_moe_serve()
     slice_launches = {"moe_serve": moe_launches, "moe_spec_serve": moe_spec_launches,
                       "moe_train": phase_moe_train(), **phase_config_serves()}
+    # phases 15-17, zamba2-2.7b, also before any profiler session
+    phase_hybrid_parity()
+    hybrid_launches = {"hybrid_serve": phase_hybrid_serve(),
+                       "hybrid_train": phase_hybrid_train()}
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()
     ssm_launches = phase_ssm_serve()
     # the end-of-run profiler sessions
     _profile_moe_serve()
+    _profile_hybrid_serve()
     _profile_train()
+    _profile_train("zamba2-2.7b", "hybrid train", "full")
     _flash_bwd_by_kernel(next(r for r in rows if r["name"] == "flash_attention_bwd"))
     _verify_by_kernel(rows)
     _decode_by_kernel(rows)
     for row in rows:
-        # each kernel's launches on the run of its path: the spec kernels in
-        # the spec serve run, the dense verify / tree verify in the dense
-        # target serve run, the scan in the ssm serve run, the others in the
-        # collocated run
+        # each kernel's launches on the run of its path: the hd-80 rows in
+        # the hybrid runs (the train run's for flash, the serve run's for the
+        # decode), the spec kernels in the spec serve run, the dense verify /
+        # tree verify in the dense target serve run, the scan in the ssm serve
+        # run, the others in the collocated run
+        if row["name"].endswith("_hd80"):
+            name = row["name"][: -len("_hd80")]
+            serve, train = (hybrid_launches[r][name] for r in ("hybrid_serve", "hybrid_train"))
+            row["launches"] = train if name.startswith("flash") else serve
+            row["launches_hybrid_serve"], row["launches_hybrid_train"] = serve, train
+            continue
         if row["name"] in SPEC_KERNELS:
             row["launches"] = spec_launches[row["name"]]
             if row["name"] in ("prefill_attention", "decode_attention"):

@@ -1,6 +1,7 @@
 """Architecture registry of the archs the port runs: the dense family
 (qwen3-1.7b, olmo-1b, qwen2-7b, deepseek-coder-33b), the Mixture-of-Experts
-family (moonshot-v1-16b-a3b, dbrx-132b) and Mamba1 (falcon-mamba-7b).
+family (moonshot-v1-16b-a3b, dbrx-132b), Mamba1 (falcon-mamba-7b) and the
+Zamba2 hybrid (zamba2-2.7b).
 
 Public ids use dashes (``--arch qwen3-1.7b``); modules use underscores.
 """
@@ -18,6 +19,7 @@ from repro_torch.configs.base import (
 )
 
 _ARCH_MODULES = {
+    "zamba2-2.7b": "zamba2_2p7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "dbrx-132b": "dbrx_132b",
     "deepseek-coder-33b": "deepseek_coder_33b",
@@ -43,7 +45,7 @@ def smoke_config(arch: str) -> ModelConfig:
     full = get_config(arch)
     reduced = dict(
         name=full.name + "-smoke",
-        num_layers=2,
+        num_layers=2 if full.family != "hybrid" else 4,
         d_model=64,
         d_ff=128 if full.d_ff else 0,
         vocab_size=256,
@@ -58,7 +60,10 @@ def smoke_config(arch: str) -> ModelConfig:
         reduced["experts_per_token"] = 2
     if full.ssm_version:
         reduced["ssm_state"] = 8
+        reduced["ssm_head_dim"] = 16
         reduced["dt_rank"] = 8
+    if full.shared_attn_every:
+        reduced["shared_attn_every"] = 2
     return dataclasses.replace(full, **reduced)
 
 

@@ -3,9 +3,11 @@ copies of ``repro.configs.base``'s ``ModelConfig``, ``TrainConfig``,
 ``SpecDecodeConfig`` / ``draft_config`` and ``SpecInFConfig``).
 
 Only the fields and derived properties of the families the port runs are
-kept: the ``dense`` family's, the Mixture-of-Experts (``moe``) family's and
-the Mamba1 (``ssm``) family's; the Mamba2 / hybrid and frontend fields
-return with the slices that run those families.  ``TrainConfig`` keeps the
+kept: the ``dense`` family's, the Mixture-of-Experts (``moe``) family's,
+the Mamba1 (``ssm``) family's and the Zamba2 ``hybrid`` family's (Mamba2
+layers with one shared attention + MLP block); the frontend fields
+(``embed_inputs``) return with the slice that runs the audio and VLM
+families.  ``TrainConfig`` keeps the
 reference's fields and defaults except the mesh layout (``zero1``,
 ``fsdp``, ``layout``), which returns with scale-out.  ``SpecInFConfig``
 keeps what the runtime and the collocation planner read (the simulator's
@@ -22,8 +24,10 @@ import math
 class ModelConfig:
     """Architecture hyper-parameters for one decoder-style backbone:
     ``dense`` (attention + MLP every layer), ``moe`` (attention + a top-k
-    Mixture-of-Experts every layer) or ``ssm`` (a Mamba1 block every layer,
-    attention-free)."""
+    Mixture-of-Experts every layer), ``ssm`` (a Mamba1 block every layer,
+    attention-free) or ``hybrid`` (Mamba2 blocks with ONE shared attention +
+    MLP block applied before every ``shared_attn_every`` of them, Zamba2
+    style)."""
 
     name: str
     family: str
@@ -40,12 +44,13 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
 
-    # --- SSM (Mamba1) ---
+    # --- SSM (Mamba) ---
     ssm_state: int = 0
-    ssm_version: int = 0  # 1 = Mamba1 (falcon-mamba)
+    ssm_version: int = 0  # 1 = Mamba1 (falcon-mamba), 2 = Mamba2 (zamba2)
     ssm_expand: int = 2
     ssm_conv: int = 4
-    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+    ssm_head_dim: int = 64  # Mamba2 only
+    dt_rank: int = 0  # Mamba1 only; 0 -> ceil(d_model / 16)
 
     # --- attention options ---
     qkv_bias: bool = False
@@ -58,6 +63,9 @@ class ModelConfig:
     # --- norm options ---
     norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm"
     parametric_norm: bool = True
+
+    # --- hybrid (Zamba2) ---
+    shared_attn_every: int = 0  # the shared attn + MLP block every N layers
 
     tie_embeddings: bool = False
 
@@ -98,6 +106,13 @@ class ModelConfig:
         """Mamba inner width."""
         return self.ssm_expand * self.d_model
 
+    @property
+    def ssm_num_heads(self) -> int:
+        """Mamba2 head count (d_inner / ssm_head_dim); 0 for Mamba1."""
+        if self.ssm_version != 2:
+            return 0
+        return self.d_inner // self.ssm_head_dim
+
     # --- analytic parameter counts (the reference's, for these families) ---
     def param_count(self) -> int:
         """Total parameters of the tree ``init_params`` builds."""
@@ -107,6 +122,10 @@ class ModelConfig:
             n += d  # final norm
         if self.family == "ssm":
             per_layer = self._mamba1_params() + (d if self.parametric_norm else 0)
+        elif self.family == "hybrid":
+            per_layer = self._mamba2_params() + (d if self.parametric_norm else 0)
+            if self.shared_attn_every:  # the one shared block, counted once
+                n += self._attn_params(d, hd) + 3 * d * self.d_ff + 2 * d
         else:
             per_layer = self._attn_params(d, hd)
             if self.family == "moe":
@@ -137,6 +156,16 @@ class ModelConfig:
         n += di * d  # out_proj
         return n
 
+    def _mamba2_params(self) -> int:
+        d, di, ds = self.d_model, self.d_inner, self.ssm_state
+        nh = self.ssm_num_heads
+        n = d * (2 * di + 2 * ds + nh)  # in_proj -> (z, x, B, C, dt)
+        n += (di + 2 * ds) * (self.ssm_conv + 1)  # conv over (x, B, C) + bias
+        n += nh * 3  # A_log, D, dt_bias
+        n += di  # gated RMSNorm weight
+        n += di * d  # out_proj
+        return n
+
     def active_param_count(self) -> int:
         """Parameters a token's forward uses: the MoE family counts its
         ``experts_per_token`` routed experts, not all of them; masked
@@ -147,6 +176,8 @@ class ModelConfig:
             if not self.padded_heads:
                 return self.param_count()
             pad = self._attn_params(d, hd, True) - self._attn_params(d, hd, False)
+            if self.family == "hybrid" and self.shared_attn_every:
+                return self.param_count() - pad  # one shared block
             return self.param_count() - l * pad
         per_layer = self._attn_params(d, hd, physical=False)
         per_layer += self.experts_per_token * 3 * d * self.d_ff
@@ -245,12 +276,16 @@ def draft_config(
     """A cheap draft model derived from ``target``: same family, vocabulary
     and head dim, ``spec.draft_layers`` layers, and d_model, d_ff and the
     head counts scaled by ``spec.draft_width_factor`` (GQA grouping kept
-    exact).  For qwen3-1.7b: 1 layer, d_model 1024, 8 q / 8 kv heads of
-    128, d_ff 3072."""
-    changes: dict = {
-        "name": target.name + "-draft",
-        "num_layers": min(max(1, spec.draft_layers), target.num_layers),
-    }
+    exact; a hybrid's depth rounded up to whole cycles and its d_model to
+    whole Mamba2 heads).  For qwen3-1.7b: 1 layer, d_model 1024, 8 q / 8 kv
+    heads of 128, d_ff 3072."""
+    layers = max(1, spec.draft_layers)
+    changes: dict = {"name": target.name + "-draft"}
+    if target.shared_attn_every:
+        every = target.shared_attn_every
+        changes["num_layers"] = max(every, -(-layers // every) * every)
+    else:
+        changes["num_layers"] = min(layers, target.num_layers)
     wf = spec.draft_width_factor
     if wf != 1.0:
         hd = target.resolved_head_dim
@@ -265,4 +300,9 @@ def draft_config(
             d_model=max(hd, int(round(target.d_model * wf))),
             d_ff=max(16, int(round(target.d_ff * wf))),
         )
+        if target.ssm_version == 2:  # Mamba2 heads must divide d_inner
+            di = target.ssm_expand * changes["d_model"]
+            changes["d_model"] = (
+                -(-di // target.ssm_head_dim) * target.ssm_head_dim
+            ) // target.ssm_expand
     return dataclasses.replace(target, **changes)

@@ -49,14 +49,21 @@
 //     A operands of dV += P^T dO and dK += dS^T Q.  dq gives each consumer
 //     warpgroup 64 rows of a 128-row q tile and streams 64-row K / V tiles:
 //     S, dP, then dQ += dS K with dS from registers.
+//   hd 80 (zamba2's shared attention) runs in the hd-128 kernels: its tensor
+//   maps have an inner dimension of 80 (160-byte rows, 16-byte aligned), so
+//   the TMA zero-fills columns 80-127 of every tile; those add 0 to Q K^T and
+//   dP and give 0 in O, dQ, dK and dV, whose epilogues store columns < 80
+//   alone.  The scale is 80^-0.5, and LSE and D are unchanged.  The padded
+//   products cost 128 / 80 = 1.6x the tensor-core work.
 //   At the training shape neither pass comes near the 989 TFLOP/s peak: a
 //   CTA walks only 1-16 tiles, so its first loads, the diagonal tile's
 //   masked half and its epilogue weigh on it, and the first touch of every
 //   input comes from device memory.  At S = 4096 the same kernels do
 //   markedly more per second (`chip_smoke.py` times both shapes; PERF.md
 //   has the numbers).
-// * float32: the first version's FMA kernels, kept unchanged: each product
-//   an fp32 FMA on the CUDA cores from padded fp32 shared tiles.  The fp32
+// * float32: the first version's FMA kernels, kept unchanged (instantiated
+//   at hd 64, 80 and 128): each product an fp32 FMA on the CUDA cores from
+//   padded fp32 shared tiles.  The fp32
 //   parity checks hold them to 1e-4 of the plain version, which TF32 tensor
 //   cores (10-bit mantissa) would not meet, so fp32 does not take the
 //   tensor-core kernels.
@@ -546,13 +553,14 @@ __device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2], const uint32_t (
 // thread's first row times ma, its second times mb) goes as bf16 into rows
 // row0 .. row0 + 63 of a swizzled shared tile of `rows` rows (the layout
 // the TMA wrote), then out with 16-byte stores to rows grow0 .. of dst
-// ([nrows, HD]) below nrows.  `bar` names the warpgroup's barrier.
-template <int HD>
+// ([nrows, HG]) below nrows: only the HG real columns of a tile padded to
+// HD (HG = 80 in HD = 128 tiles).  `bar` names the warpgroup's barrier.
+template <int HD, int HG>
 __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], float ma, float mb,
                                            uint8_t* tile, int rows, int row0,
                                            bf16* __restrict__ dst, int grow0, int nrows,
                                            int bar) {
-  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  constexpr int CH = HG / 8;  // 16-byte chunks of a row of dst
   const int t = threadIdx.x % 128, lane = t % 32;
   const int r = row0 + 16 * (t / 32) + lane / 4;  // r + 8 has the same swizzle phase
 #pragma unroll
@@ -568,12 +576,17 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], float ma,
   for (int idx = t; idx < 64 * CH; idx += 128) {
     const int row = row0 + idx / CH, ch = idx % CH, g = grow0 + idx / CH;
     if (g < nrows)
-      *reinterpret_cast<uint4*>(dst + (size_t)g * HD + ch * 8) = *reinterpret_cast<const uint4*>(
+      *reinterpret_cast<uint4*>(dst + (size_t)g * HG + ch * 8) = *reinterpret_cast<const uint4*>(
           tile + (ch / 8) * rows * 128 + row * 128 + (((ch % 8) ^ (row & 7)) << 4));
   }
 }
 
-template <int HD>
+// HD: the tile width (64 or 128); HG: the rows' real width in device memory
+// (HD, or 80 in 128-wide tiles: the tensor maps' inner dimension is HG, so
+// the TMA zero-fills columns HG .. HD - 1, which add 0 to Q K^T and give 0
+// in O, and the epilogue stores columns below HG).  The softmax scale comes
+// from HG, the host's.
+template <int HD, int HG>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -753,7 +766,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float i0 = l0 == 0.f ? 0.f : 1.f / l0, i1 = l1 == 0.f ? 0.f : 1.f / l1;
-    store_rows<HD>(o, i0, i1, gbase + L::kO, FQ, 64 * c, out + (size_t)bh * Sq * HD,
+    store_rows<HD, HG>(o, i0, i1, gbase + L::kO, FQ, 64 * c, out + (size_t)bh * Sq * HG,
                    q0 + 64 * c, Sq, 1 + c);
     hop::named_sync(1 + c, 128);  // every row is out before the next tile's O lands
     if (lane % 4 == 0) {
@@ -801,7 +814,9 @@ struct DkdvSmem {
 // accumulating dV += P^T dO and dK += dS^T Q in registers.  S^T = K Q^T and
 // dP^T = V dO^T are computed transposed (keys as rows), so P^T and dS^T,
 // rounded to bf16 once, are the register A operands of the two products.
-template <int HD>
+// HD / HG as the forward's (zero-filled Q / dO / K / V columns give 0 in dK
+// and dV, which the epilogue does not store).
+template <int HD, int HG>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -955,10 +970,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 
   // each warpgroup's rows of the K and V tiles stage its dK and dV
-  const size_t off = (size_t)bh * Sk * HD;
-  store_rows<HD>(adk, scale, scale, gbase + L::kK, BKN, 64 * c, dk + off, k0 + 64 * c, Sk,
-                 1 + c);
-  store_rows<HD>(adv, 1.f, 1.f, gbase + L::kV, BKN, 64 * c, dv + off, k0 + 64 * c, Sk, 1 + c);
+  const size_t off = (size_t)bh * Sk * HG;
+  store_rows<HD, HG>(adk, scale, scale, gbase + L::kK, BKN, 64 * c, dk + off, k0 + 64 * c, Sk,
+                     1 + c);
+  store_rows<HD, HG>(adv, 1.f, 1.f, gbase + L::kV, BKN, 64 * c, dv + off, k0 + 64 * c, Sk,
+                     1 + c);
 }
 
 // Shared layout of dq: the Q and dO tiles [DQM, hd], a 2-stage ring of K
@@ -977,8 +993,9 @@ struct DqSmem {
 
 // One CTA per (q tile of DQM rows, bh): consumer warpgroup c owns rows c * 64
 // .. c * 64 + 63 and walks the kv tiles up to the diagonal, recomputing S =
-// Q K^T and dP = dO V^T and accumulating dQ += dS K in registers.
-template <int HD>
+// Q K^T and dP = dO V^T and accumulating dQ += dS K in registers.  HD / HG
+// as the forward's.
+template <int HD, int HG>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -1104,8 +1121,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     hop::mbar_arrive(empty + 8 * s);
   }
 
-  store_rows<HD>(adq, scale, scale, gbase + L::kQ, DQM, 64 * c, dq + (size_t)bh * Sq * HD,
-                 q0 + 64 * c, Sq, 1 + c);
+  store_rows<HD, HG>(adq, scale, scale, gbase + L::kQ, DQM, 64 * c, dq + (size_t)bh * Sq * HG,
+                     q0 + 64 * c, Sq, 1 + c);
 }
 
 }  // namespace tc
@@ -1155,58 +1172,60 @@ cudaError_t run_bwd(const void* q, const void* k, const void* v,
                       static_cast<T*>(dq), Sq, Sk, causal, scale);
 }
 
-template <int HD>
+// HD: the kernels' tile width; HG: the rows' width (hd), HD but for hd 80,
+// which runs in 128-wide tiles.
+template <int HD, int HG = HD>
 cudaError_t run_fwd_tc(const void* q, const void* k, const void* v, void* out,
                        void* lse, int BH, int Sq, int Sk, int causal, void* stream) {
   // tensor maps over [BH, S, hd]: encoded per call, since they hold the pointers
   CUtensorMap mq, mk, mv;
-  cudaError_t err = hop::make_map_3d(&mq, q, HD, Sq, BH, 64, tc::FQ);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HD, Sk, BH, 64, tc::FK);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HD, Sk, BH, 64, tc::FK);
+  cudaError_t err = hop::make_map_3d(&mq, q, HG, Sq, BH, 64, tc::FQ);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HG, Sk, BH, 64, tc::FK);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HG, Sk, BH, 64, tc::FK);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;  // one persistent CTA per SM
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int tiles = BH * ((Sq + tc::FQ - 1) / tc::FQ);
-  return kern::launch(tc::flash_fwd_tc_kernel<HD>, dim3(std::min(tiles, sms)),
+  return kern::launch(tc::flash_fwd_tc_kernel<HD, HG>, dim3(std::min(tiles, sms)),
                       tc::kWsThreads, (size_t)tc::FwdSmem<HD>::kBytes, stream, mq, mk, mv,
                       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), BH, Sq,
-                      Sk, causal, 1.0f / sqrtf((float)HD));
+                      Sk, causal, 1.0f / sqrtf((float)HG));
 }
 
-template <int HD>
+template <int HD, int HG = HD>
 cudaError_t run_bwd_tc(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const void* lse,
                        void* delta, void* dq, void* dk, void* dv, int BH, int Sq,
                        int Sk, int causal, void* stream) {
   using bf16 = __nv_bfloat16;
-  const float scale = 1.0f / sqrtf((float)HD);
+  const float scale = 1.0f / sqrtf((float)HG);
   const float* tl = static_cast<const float*>(lse);
   float* td = static_cast<float*>(delta);
   const int rows = BH * Sq, warps = kThreads / 32;
   cudaError_t err = kern::launch(
-      flash_bwd_delta_kernel<bf16, HD>, dim3((rows + warps - 1) / warps), kThreads, 0,
+      flash_bwd_delta_kernel<bf16, HG>, dim3((rows + warps - 1) / warps), kThreads, 0,
       stream, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), td, rows);
   if (err != cudaSuccess) return err;
   // dkdv streams q / dO tiles of BQM rows past kv tiles of BKN; dq the reverse
   CUtensorMap mq, mk, mv, mg;
-  err = hop::make_map_3d(&mq, q, HD, Sq, BH, 64, tc::BQM);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mg, dout, HD, Sq, BH, 64, tc::BQM);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HD, Sk, BH, 64, tc::BKN);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HD, Sk, BH, 64, tc::BKN);
+  err = hop::make_map_3d(&mq, q, HG, Sq, BH, 64, tc::BQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mg, dout, HG, Sq, BH, 64, tc::BQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HG, Sk, BH, 64, tc::BKN);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HG, Sk, BH, 64, tc::BKN);
   if (err != cudaSuccess) return err;
-  err = kern::launch(tc::flash_bwd_dkdv_tc_kernel<HD>, dim3(BH, (Sk + tc::BKN - 1) / tc::BKN),
+  err = kern::launch(tc::flash_bwd_dkdv_tc_kernel<HD, HG>, dim3(BH, (Sk + tc::BKN - 1) / tc::BKN),
                      tc::kWsThreads, (size_t)tc::DkdvSmem<HD>::kBytes, stream, mq, mk, mv,
                      mg, tl, (const float*)td, static_cast<bf16*>(dk),
                      static_cast<bf16*>(dv), Sq, Sk, causal, scale);
   if (err != cudaSuccess) return err;
-  err = hop::make_map_3d(&mq, q, HD, Sq, BH, 64, tc::DQM);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mg, dout, HD, Sq, BH, 64, tc::DQM);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HD, Sk, BH, 64, tc::DKN);
-  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HD, Sk, BH, 64, tc::DKN);
+  err = hop::make_map_3d(&mq, q, HG, Sq, BH, 64, tc::DQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mg, dout, HG, Sq, BH, 64, tc::DQM);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mk, k, HG, Sk, BH, 64, tc::DKN);
+  if (err == cudaSuccess) err = hop::make_map_3d(&mv, v, HG, Sk, BH, 64, tc::DKN);
   if (err != cudaSuccess) return err;
-  return kern::launch(tc::flash_bwd_dq_tc_kernel<HD>, dim3(BH, (Sq + tc::DQM - 1) / tc::DQM),
+  return kern::launch(tc::flash_bwd_dq_tc_kernel<HD, HG>, dim3(BH, (Sq + tc::DQM - 1) / tc::DQM),
                       tc::kWsThreads, (size_t)tc::DqSmem<HD>::kBytes, stream, mq, mk, mv,
                       mg, tl, (const float*)td, static_cast<bf16*>(dq), Sq, Sk, causal,
                       scale);
@@ -1215,7 +1234,8 @@ cudaError_t run_bwd_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels); hd:
-// 64 or 128; Sq, Sk >= 1.  Returns a cudaError_t code.
+// 64, 80 or 128 (bf16 hd 80 in the 128-wide tensor-core tiles, zero-padded
+// by the TMA); Sq, Sk >= 1.  Returns a cudaError_t code.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out, void* lse,
                                           int BH, int Sq, int Sk, int hd,
@@ -1227,10 +1247,14 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   if (Sq <= 0 || Sk <= 0) return cudaErrorInvalidValue;
   if (dtype == 0 && hd == 64)
     return run_fwd<float, 64>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
+  if (dtype == 0 && hd == 80)
+    return run_fwd<float, 80>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
   if (dtype == 0 && hd == 128)
     return run_fwd<float, 128>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
   if (dtype == 1 && hd == 64)
     return run_fwd_tc<64>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
+  if (dtype == 1 && hd == 80)
+    return run_fwd_tc<128, 80>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
   if (dtype == 1 && hd == 128)
     return run_fwd_tc<128>(q, k, v, out, lse, BH, Sq, Sk, causal, stream);
   return cudaErrorInvalidValue;
@@ -1249,12 +1273,18 @@ extern "C" int flash_attention_bwd_launch(
   if (dtype == 0 && hd == 64)
     return run_bwd<float, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH,
                               Sq, Sk, causal, stream);
+  if (dtype == 0 && hd == 80)
+    return run_bwd<float, 80>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH,
+                              Sq, Sk, causal, stream);
   if (dtype == 0 && hd == 128)
     return run_bwd<float, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH,
                                Sq, Sk, causal, stream);
   if (dtype == 1 && hd == 64)
     return run_bwd_tc<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Sq,
                           Sk, causal, stream);
+  if (dtype == 1 && hd == 80)
+    return run_bwd_tc<128, 80>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Sq,
+                               Sk, causal, stream);
   if (dtype == 1 && hd == 128)
     return run_bwd_tc<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Sq,
                            Sk, causal, stream);

@@ -16,7 +16,9 @@ cores with the loads overlapping them.  bfloat16 runs the tensor-core
 kernels: warp-specialised CTAs in which one producer thread keeps TMA
 loads in flight through mbarrier rings while two consumer warpgroups run
 ``wgmma`` (the forward persistent, its softmax in registers; the backward
-recomputing P from the log-sum-exp).  float32 runs the first version's
+recomputing P from the log-sum-exp); zamba2's hd 80 runs in the hd-128
+tiles, the TMA zero-filling columns 80-127 (1.6x the products of a true
+hd-80 tile).  float32 runs the first version's
 FMA kernels on the CUDA cores, since the fp32 parity checks hold it to
 1e-4, which TF32 products would not meet.  Either way a CUDA tensor
 launches a kernel or raises; the plain version runs only for CPU
@@ -34,8 +36,10 @@ from repro_torch.kernels import build
 
 FWD_COUNTS = {"cuda": 0, "torch": 0}
 BWD_COUNTS = {"cuda": 0, "torch": 0}
-#: head dims the kernels are instantiated for (qwen3 and olmo use 128)
-HEAD_DIMS = (64, 128)
+#: head dims the kernels take (qwen3 and olmo use 128, zamba2's shared
+#: attention 80: in bf16 it runs in the hd-128 tensor-core tiles, the
+#: columns past 80 zero-filled by the TMA)
+HEAD_DIMS = (64, 80, 128)
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:

@@ -4,6 +4,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --proposer ngram
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl --restore
@@ -19,8 +20,9 @@ family (dense: qwen3-1.7b, olmo-1b, qwen2-7b, deepseek-coder-33b; MoE:
 moonshot-v1-16b-a3b, dbrx-132b) serves on the paged KV layout with chunked
 prefill, its weights made in bf16 on the device (moonshot's 28 B
 parameters are 56 GB there, deepseek-coder-33b's 67 GB); falcon-mamba-7b
-(Mamba1) on dense state rows with monolithic bucket prefill, and without
-speculation (``--proposer`` other than ``none`` raises).  The run is on
+(Mamba1) and zamba2-2.7b (Mamba2 layers with a shared attention block) on
+dense rows with monolithic bucket prefill, and without speculation
+(``--proposer`` other than ``none`` raises).  The run is on
 ``cuda`` unless ``--device cpu`` is given;
 without a CUDA device the default raises.  The end-of-run summary reads the
 metrics registry under the reference's stable names; ``--trace PREFIX``

@@ -1,13 +1,21 @@
-"""Mamba1 state-space block (falcon-mamba): the serving half.
+"""Mamba1 (falcon-mamba) and Mamba2 (zamba2) state-space blocks.
 
-Counterpart of the Mamba1 part of ``repro.models.ssm``: ``causal_conv`` /
-``causal_conv_step`` (the depthwise causal convolution over a sequence and
-one decode step), ``init_mamba1``, ``selective_scan_chunked`` (the whole
-sequence in one ``ops.ssm_scan_chunk`` -- one kernel launch on CUDA
-tensors, where the reference scans 64-step chunks), and the decode state
-(``mamba1_init_state``, ``mamba1_step``).
-Plain functions on tensors with an explicit device; the training block
+Counterpart of ``repro.models.ssm``: ``causal_conv`` / ``causal_conv_step``
+(the depthwise causal convolution over a sequence and one decode step);
+Mamba1's serving half -- ``init_mamba1``, ``selective_scan_chunked`` (the
+whole sequence in one ``ops.ssm_scan_chunk``: one kernel launch on CUDA
+tensors, where the reference scans 64-step chunks) and the decode state
+(``mamba1_init_state``, ``mamba1_step``); its training block
 (``mamba1_block``, which needs a backward of the scan) is not ported yet.
+Mamba2, serving and training: ``init_mamba2``, the SSD in its chunked
+matmul form (``_segsum``, ``ssd_chunked``), the full-sequence block
+(``mamba2_block``; ``mamba2_with_state`` also returns the decode state a
+prefill leaves) and the decode state (``mamba2_init_state``,
+``mamba2_step``).  ``tail_state`` / ``dt_mask`` make a bucket-padded
+prompt's state equal the unpadded one's, for both versions.  The reference computes the SSD with XLA einsums and no
+Pallas kernel, so it is plain PyTorch here (on the card too), with the
+reference's 64-step chunks and einsum order; autograd differentiates it.
+Plain functions on tensors with an explicit device.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 Params = Any
+#: steps per SSD chunk (the reference's ``DEFAULT_CHUNK``)
+DEFAULT_CHUNK = 64
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +65,29 @@ def causal_conv_step(
     if b is not None:
         out = out + b
     return out, window[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# Bucket padding: the decode state of a zero-padded prompt
+# ---------------------------------------------------------------------------
+
+
+def tail_state(x: torch.Tensor, length: Optional[int], n: int) -> torch.Tensor:
+    """The last ``n`` steps before ``length``, left zero-padded: the decode
+    conv state of a bucket-padded prompt of true ``length``."""
+    if length is None:
+        return x[:, -n:, :]
+    xp = F.pad(x, (0, 0, n, 0))
+    return xp[:, int(length): int(length) + n, :]
+
+
+def dt_mask(dt: torch.Tensor, length: Optional[int]) -> torch.Tensor:
+    """Zero the SSM step size at pad positions (>= ``length``): dt = 0 makes
+    the recurrence a no-op (decay exp(0) = 1, input term 0)."""
+    if length is None:
+        return dt
+    valid = torch.arange(dt.shape[1], device=dt.device) < int(length)
+    return dt * valid[None, :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -138,3 +171,187 @@ def mamba1_step(
     y = y + p["D"].to(x_t.dtype) * xi
     y = y * F.silu(z)
     return y @ p["out_proj"], {"conv": conv_state, "h": h}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (zamba2): the SSD in its chunked matmul form
+# ---------------------------------------------------------------------------
+
+
+def init_mamba2(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype) -> Params:
+    """The reference's names, shapes, dtypes and scales
+    (``repro.models.ssm.init_mamba2``): the projections unpacked (z / x
+    apart from B / C / dt, conv_x apart from conv_bc); ``A_log``, ``D`` and
+    ``dt_bias`` are fp32 whatever ``dtype`` is.  The numbers come from
+    ``gen``."""
+    d, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh, k = cfg.ssm_num_heads, cfg.ssm_conv
+    dev = gen.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def full(n, value, dt):
+        return torch.full((n,), value, dtype=dt, device=dev)
+
+    return {
+        "in_proj_zx": normal(d, 2 * di) * d**-0.5,
+        "in_proj_bcdt": normal(d, 2 * ds + nh) * d**-0.5,
+        "conv_x_w": normal(k, di) * k**-0.5,
+        "conv_x_b": full(di, 0.0, dtype),
+        "conv_bc_w": normal(k, 2 * ds) * k**-0.5,
+        "conv_bc_b": full(2 * ds, 0.0, dtype),
+        "A_log": full(nh, 0.0, torch.float32),
+        "D": full(nh, 1.0, torch.float32),
+        "dt_bias": full(nh, -2.0, torch.float32),
+        "gate_norm": full(di, 1.0, dtype),
+        "out_proj": normal(di, d) * di**-0.5,
+    }
+
+
+def _segsum(logd: torch.Tensor) -> torch.Tensor:
+    """logd: [..., Q] -> [..., Q, Q] lower-triangular cumulative log decay:
+    ``out[i, j] = sum_{t = j + 1 .. i} logd[t]``, -inf above the diagonal."""
+    q = logd.shape[-1]
+    cs = torch.cumsum(logd, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=logd.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    B_: torch.Tensor,
+    C_: torch.Tensor,
+    A: torch.Tensor,
+    h0: torch.Tensor,
+    chunk: int = DEFAULT_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD: ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``, ``y_t = h_t
+    C_t`` per head, over ``chunk``-step chunks (the sequence zero-padded to
+    whole chunks, which adds nothing: dt = 0 there).  x: [B, S, nh, hp];
+    dt: [B, S, nh]; B_ / C_: [B, S, ds]; A: [nh] (negative); h0: [B, nh, hp,
+    ds].  Returns ``(y [B, S, nh, hp], h_final)``, fp32.
+
+    The reference's chunk body and einsums: inside a chunk the intra-chunk
+    part is a masked product of decays (``_segsum``) and scores, the state
+    carried in enters through ``C``, and the chunk's inputs update it.  The
+    reference scans the chunks one by one; here every chunk's products run
+    at once (one launch each, whatever S) and only the state hand-off,
+    ``h' = exp(cum[-1]) h + the chunk's input``, walks the chunks."""
+    b, s, nh, hp = x.shape
+    nc = max(1, -(-s // chunk))
+    pad = nc * chunk - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, pad))
+        C_ = F.pad(C_, (0, 0, 0, pad))
+    x = x.reshape(b, nc, chunk, nh, hp)
+    dt = dt.reshape(b, nc, chunk, nh)
+    B_ = B_.reshape(b, nc, chunk, -1)
+    C_ = C_.reshape(b, nc, chunk, -1)
+    logd = dt * A  # [B, nc, Q, nh] log decay per step
+    L = torch.exp(_segsum(logd.movedim(-1, 2)))  # [B, nc, nh, Q, Q]
+    # intra-chunk: scores[q, p] = C_q . B_p, weighted by decay and dt_p
+    scores = torch.einsum("bcqn,bcpn->bcqp", C_, B_)
+    M = L * scores[:, :, None] * dt.movedim(-1, 2)[:, :, :, None, :]
+    y = torch.einsum("bchqp,bcphx->bcqhx", M, x)
+    # each chunk's own input to the state: sum_p exp(cum[-1] - cum[p]) dt_p x_p B_p
+    cum = torch.cumsum(logd, dim=2)  # [B, nc, Q, nh]
+    decay_out = torch.exp(cum[:, :, -1:] - cum)
+    dx = (dt * decay_out)[..., None] * x  # [B, nc, Q, nh, hp]
+    inputs = torch.einsum("bcqnx,bcqs->bcnxs", dx, B_)
+    # the hand-off: the state entering each chunk, h' = exp(cum[-1]) h + input
+    decay_chunk = torch.exp(cum[:, :, -1])[..., None, None]  # [B, nc, nh, 1, 1]
+    h, h_in = h0, []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay_chunk[:, c] * h + inputs[:, c]
+    # inter-chunk: the carried state's contribution, the reference's
+    # einsum("bqn,bnxs,bqs->bqnx") with h . C contracted first (left to
+    # right, torch would form a [B, Q, nh, hp, ds] product)
+    y_inter = torch.einsum("bcnxs,bcqs->bcqnx", torch.stack(h_in, 1), C_)
+    y = y + y_inter * torch.exp(cum)[..., None]
+    return y.reshape(b, nc * chunk, nh, hp)[:, :s], h
+
+
+def mamba2_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence Mamba2 block from a zero state.  x: [B, S, d]."""
+    return mamba2_with_state(cfg, p, x)[0]
+
+
+def mamba2_with_state(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, length: Optional[int] = None
+) -> tuple[torch.Tensor, Params]:
+    """The Mamba2 block over a sequence (x: [B, S, d]) from a zero state,
+    also returning the decode state after it: the conv windows (the last
+    ``conv - 1`` raw inputs before ``length``) and the SSM state.
+    ``length`` marks a bucket-padded prompt's true length: pad steps get
+    dt = 0, so the state is exactly the unpadded prompt's.  The output is
+    the gated RMSNorm ``rms_norm(y * silu(z), gate_norm)`` projected back
+    to d."""
+    from repro_torch.models.layers import rms_norm
+
+    b, s, _ = x.shape
+    di, ds, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    z, xr = (x @ p["in_proj_zx"]).chunk(2, dim=-1)
+    bc_raw, dt = torch.split(x @ p["in_proj_bcdt"], [2 * ds, nh], dim=-1)
+    conv_x = tail_state(xr, length, cfg.ssm_conv - 1)
+    conv_bc = tail_state(bc_raw, length, cfg.ssm_conv - 1)
+    xi = F.silu(causal_conv(xr, p["conv_x_w"], p["conv_x_b"]))
+    bc = F.silu(causal_conv(bc_raw, p["conv_bc_w"], p["conv_bc_b"]))
+    B_, C_ = bc.chunk(2, dim=-1)
+    dt = dt_mask(F.softplus(dt.float() + p["dt_bias"]), length)
+    A = -torch.exp(p["A_log"])
+    xh = xi.reshape(b, s, nh, hp).float()
+    h0 = torch.zeros((b, nh, hp, ds), dtype=torch.float32, device=x.device)
+    y, h_fin = ssd_chunked(xh, dt, B_.float(), C_.float(), A, h0)
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gate_norm"])
+    return y @ p["out_proj"], {"conv_x": conv_x, "conv_bc": conv_bc, "h": h_fin}
+
+
+def mamba2_init_state(
+    cfg: ModelConfig, batch: int, dtype: torch.dtype, device: str | torch.device
+) -> Params:
+    """conv_x: [B, K - 1, d_inner] and conv_bc: [B, K - 1, 2 ssm_state] in
+    ``dtype``; h: [B, nh, head_dim, ssm_state] fp32."""
+    k = cfg.ssm_conv - 1
+    return {
+        "conv_x": torch.zeros((batch, k, cfg.d_inner), dtype=dtype, device=device),
+        "conv_bc": torch.zeros((batch, k, 2 * cfg.ssm_state), dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_step(
+    cfg: ModelConfig, p: Params, x_t: torch.Tensor, state: Params
+) -> tuple[torch.Tensor, Params]:
+    """One decode step.  x_t: [B, d]; state as ``mamba2_init_state``.
+    Returns ``(y [B, d], new state)``."""
+    from repro_torch.models.layers import rms_norm
+
+    b = x_t.shape[0]
+    di, ds, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    z, xr = (x_t @ p["in_proj_zx"]).chunk(2, dim=-1)
+    bc, dt = torch.split(x_t @ p["in_proj_bcdt"], [2 * ds, nh], dim=-1)
+    xi, conv_x = causal_conv_step(xr, state["conv_x"], p["conv_x_w"], p["conv_x_b"])
+    xi = F.silu(xi)
+    bc, conv_bc = causal_conv_step(bc, state["conv_bc"], p["conv_bc_w"], p["conv_bc_b"])
+    B_, C_ = F.silu(bc).chunk(2, dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # [B, nh]
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A)  # [B, nh]
+    xh = xi.reshape(b, nh, hp).float()
+    h = a[..., None, None] * state["h"] + (dt[..., None] * xh)[..., None] * (
+        B_.float()[:, None, None, :]
+    )
+    y = torch.einsum("bnxs,bs->bnx", h, C_.float())
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(b, di).to(x_t.dtype)
+    y = rms_norm(y * F.silu(z), p["gate_norm"])
+    return y @ p["out_proj"], {"conv_x": conv_x, "conv_bc": conv_bc, "h": h}

@@ -1,12 +1,14 @@
-"""Decoder-only LM, dense, Mixture-of-Experts (``moe``) and Mamba1 (``ssm``)
-families: the training forward and loss (dense and MoE), and the serving
-path (all three).
+"""Decoder-only LM, dense, Mixture-of-Experts (``moe``), Mamba1 (``ssm``)
+and Zamba2 hybrid (``hybrid``) families: the training forward and loss
+(dense, MoE and hybrid), and the serving path (all four).
 
 Counterpart of ``repro.models.transformer`` for what the trainer and the
 serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
-``forward`` / ``lm_loss`` (dense and MoE, with remat policies ``"none"``,
-``"dots"`` and ``"full"``), ``init_paged_cache`` and ``init_cache`` (dense
-rows, or the Mamba1 conv / SSM state), ``decode_step``, the fused
+``forward`` / ``lm_loss`` (dense, MoE and hybrid, with remat policies
+``"none"``, ``"dots"`` and ``"full"``), ``init_paged_cache`` and
+``init_cache`` (dense rows, the Mamba1 conv / SSM state, or the hybrid's
+Mamba2 state per cycle and layer beside the shared block's K/V rows per
+cycle), ``decode_step``, the fused
 ``decode_loop``, ``prefill_chunks_into_slots`` on either KV layout,
 monolithic bucket prefill (``prefill``, ``prefill_into_slot``,
 ``prefill_into_slot_paged``, ``prefill_suffix_into_slot``), and
@@ -15,6 +17,11 @@ target's chunk / tree verify pass on either KV layout.  The reference's
 ``lax.scan`` over stacked layer weights becomes a Python loop over the
 ``[L, ...]`` stacks; its donated caches become in-place updates of the
 cache dict's tensors (documented per function).
+
+The hybrid keeps the reference's layout: its Mamba2 layers are stacked
+``[n_cyc, shared_attn_every, ...]`` and ``params["shared"]`` holds the ONE
+attention + MLP block that runs before each cycle's layers.  Its attention
+is dense only (no paged KV, no chunked prefill), as in the reference.
 """
 from __future__ import annotations
 
@@ -32,13 +39,14 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.tree import tree_map
 
 Params = Any
 
 
 #: the families the port runs: attention + MLP, attention + top-k experts,
-#: and Mamba1
-FAMILIES = ("dense", "moe", "ssm")
+#: Mamba1, and Mamba2 layers with a shared attention + MLP block (Zamba2)
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 #: the families whose layers hold attention (a KV cache, paged or dense)
 ATTENTION_FAMILIES = ("dense", "moe")
 
@@ -63,7 +71,9 @@ def init_params(
     """Random weights on ``gen.device``, with the reference's tree, shapes and
     scales (``repro.models.transformer.init_params``).  The numbers come from
     the torch generator; tests that need the reference's weights go through
-    ``repro_torch.bridge.params_from_numpy`` instead."""
+    ``repro_torch.bridge.params_from_numpy`` instead.  The hybrid's layers
+    are stacked ``[n_cyc, shared_attn_every, ...]`` beside
+    ``params["shared"]``."""
     _require_family(cfg)
     dev = gen.device
     params: dict = {
@@ -74,8 +84,9 @@ def init_params(
     }
     stacked = None
     for i in range(cfg.num_layers):
-        if cfg.family == "ssm":
-            p = {"mixer": SSM.init_mamba1(cfg, gen, dtype)}
+        if cfg.family in ("ssm", "hybrid"):
+            p = {"mixer": (SSM.init_mamba1 if cfg.family == "ssm" else SSM.init_mamba2)(
+                cfg, gen, dtype)}
             if cfg.parametric_norm:
                 p["ln"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
         else:
@@ -90,6 +101,17 @@ def init_params(
         if stacked is None:
             stacked = _empty_stack(p, cfg.num_layers)
         _set_layer(stacked, i, p)
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        stacked = tree_map(
+            lambda t: t.reshape(cfg.num_layers // every, every, *t.shape[1:]), stacked)
+        params["shared"] = {
+            "attn": L.init_attention(cfg, gen, cfg.d_model, dtype),
+            "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+        }
+        if cfg.parametric_norm:
+            params["shared"]["ln1"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+            params["shared"]["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     params["layers"] = stacked
     if cfg.parametric_norm:
         params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
@@ -126,7 +148,9 @@ def cast_params(params: Params, compute_dtype: torch.dtype) -> Params:
     return params
 
 
-def _layer(stacked: Params, i: int) -> Params:
+def _layer(stacked: Params, i) -> Params:
+    """Layer ``i`` of a stack (an int, or a (cycle, layer) pair for the
+    hybrid's ``[n_cyc, every, ...]`` stacks), as views."""
     if isinstance(stacked, dict):
         return {k: _layer(v, i) for k, v in stacked.items()}
     return stacked[i]
@@ -199,6 +223,20 @@ def _dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str) -> tup
     return x + y, aux, dropped
 
 
+def _hybrid_cycle(
+    cfg: ModelConfig, shared: Params, cyc: Params, x: torch.Tensor, impl: str
+) -> tuple:
+    """One hybrid cycle over the full sequence: the shared attention + MLP
+    block (a dense layer), then the cycle's ``shared_attn_every`` Mamba2
+    layers (``cyc``: their ``[every, ...]`` stacks).  Returns ``(x, None,
+    None)`` as ``_dense_layer``."""
+    x = _dense_layer(cfg, shared, x, impl)[0]
+    for lp in _unstack(cyc):
+        h = L.norm(cfg, x, lp.get("ln"))
+        x = x + SSM.mamba2_block(cfg, lp["mixer"], h)
+    return x, None, None
+
+
 def forward(
     cfg: ModelConfig,
     params: Params,
@@ -216,29 +254,34 @@ def forward(
     (``torch.utils.checkpoint``) instead of keeping its activations;
     ``"dots"`` keeps only the outputs of its projection matmuls and
     recomputes the rest (norms, RoPE, attention, activations, the experts'
-    batched products).  ``metrics`` holds ``moe_aux`` and ``moe_dropped``,
-    the MoE family's mean over layers (zero for the dense family)."""
+    batched products).  The hybrid's unit of remat is the cycle (the shared
+    block and its Mamba2 layers), as the reference's.  ``metrics`` holds
+    ``moe_aux`` and ``moe_dropped``, the MoE family's mean over layers
+    (zero for the other families)."""
     if cfg.family == "ssm":
         raise NotImplementedError(
             "Mamba1 training (a backward of the selective scan) is not ported yet"
         )
-    _require_attention(cfg)
+    _require_family(cfg, ("dense", "moe", "hybrid"))
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if inputs.is_floating_point():
         raise ValueError(f"{cfg.name} takes int tokens, not embeddings")
     x = embed_tokens(cfg, params, inputs, compute_dtype)
+    if cfg.family == "hybrid":
+        shared = cast_params(params["shared"], compute_dtype)
+        body = lambda cfg_, lp, x_, impl_: _hybrid_cycle(cfg_, shared, lp, x_, impl_)
+    else:
+        body = _dense_layer
     auxs, drops = [], []
     for lp in _unstack(cast_params(params["layers"], compute_dtype)):
         if remat_policy == "full":
-            x, aux, dropped = checkpoint(_dense_layer, cfg, lp, x, impl,
-                                         use_reentrant=False)
+            x, aux, dropped = checkpoint(body, cfg, lp, x, impl, use_reentrant=False)
         elif remat_policy == "dots":
-            x, aux, dropped = checkpoint(_dense_layer, cfg, lp, x, impl,
-                                         use_reentrant=False,
+            x, aux, dropped = checkpoint(body, cfg, lp, x, impl, use_reentrant=False,
                                          context_fn=_dots_context)
         else:
-            x, aux, dropped = _dense_layer(cfg, lp, x, impl)
+            x, aux, dropped = body(cfg, lp, x, impl)
         auxs.append(aux)
         drops.append(dropped)
     x = L.norm(cfg, x, params.get("final_norm"))
@@ -294,12 +337,25 @@ def init_cache(
     a scalar that its engine replaces with a [B] vector).  Dense and MoE:
     ``layers.k/v`` are [L, B, S, kvH, hd] rows per slot.  Mamba1:
     ``layers.conv`` [L, B, conv - 1, d_inner] in ``dtype`` and ``layers.h``
-    [L, B, d_inner, ssm_state] fp32 (``max_seq`` unused)."""
+    [L, B, d_inner, ssm_state] fp32 (``max_seq`` unused).  Hybrid:
+    ``layers.mamba`` holds ``mamba2_init_state``'s leaves stacked
+    [n_cyc, every, B, ...] (the batch on axis 2), ``layers.shared_k`` /
+    ``shared_v`` the shared block's rows [n_cyc, B, S, kvH, hd]."""
     _require_family(cfg)
     l = cfg.num_layers
     if cfg.family == "ssm":
         st = SSM.mamba1_init_state(cfg, batch, dtype, device)
         layers = {k: v[None].expand(l, *v.shape).contiguous() for k, v in st.items()}
+    elif cfg.family == "hybrid":
+        n_cyc, every = l // cfg.shared_attn_every, cfg.shared_attn_every
+        st = SSM.mamba2_init_state(cfg, batch, dtype, device)
+        shape = (n_cyc, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        layers = {
+            "mamba": {k: v[None, None].expand(n_cyc, every, *v.shape).contiguous()
+                      for k, v in st.items()},
+            "shared_k": torch.zeros(shape, dtype=dtype, device=device),
+            "shared_v": torch.zeros(shape, dtype=dtype, device=device),
+        }
     else:
         shape = (l, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         layers = {
@@ -356,7 +412,8 @@ def decode_step(
 ) -> tuple[torch.Tensor, Params]:
     """tokens: [B] int32 (last generated).  Returns ``(logits [B, V],
     cache)``: every layer writes the token's K/V into the paged pool or the
-    dense cache (Mamba1: its new conv and SSM state) in place, and the
+    dense cache (Mamba1: its new conv and SSM state; hybrid: each cycle's
+    shared-block K/V row and its layers' Mamba2 state) in place, and the
     returned cache is a new dict whose ``index`` is advanced by one."""
     _require_family(cfg)
     x = embed_tokens(cfg, params, tokens, compute_dtype)[:, None, :]
@@ -373,6 +430,27 @@ def decode_step(
             conv_all[i] = st["conv"]
             h_all[i] = st["h"]
             x = x + y[:, None]
+    elif cfg.family == "hybrid":
+        shared = cast_params(params["shared"], compute_dtype)
+        mamba = cache["layers"]["mamba"]
+        k_all, v_all = cache["layers"]["shared_k"], cache["layers"]["shared_v"]
+        every = cfg.shared_attn_every
+        for c in range(cfg.num_layers // every):
+            h = L.norm(cfg, x, shared.get("ln1"))
+            y, _ = L.attention_decode(
+                cfg, shared["attn"], h, (k_all[c], v_all[c]), idx, impl=attn_impl
+            )
+            x = x + y
+            h = L.norm(cfg, x, shared.get("ln2"))
+            x = x + L.mlp_block(shared["ffn"], h)
+            for j in range(every):
+                lp = _layer(layers, (c, j))
+                h = L.norm(cfg, x, lp.get("ln"))
+                y, st = SSM.mamba2_step(cfg, lp["mixer"], h[:, 0],
+                                        {k: v[c, j] for k, v in mamba.items()})
+                for k, v in st.items():
+                    mamba[k][c, j] = v
+                x = x + y[:, None]
     else:
         bt = cache.get("block_tables")  # None: the dense layout
         k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
@@ -404,17 +482,26 @@ def decode_step(
 
 def chunk_recurrent_states(cfg: ModelConfig, layers: Params) -> Optional[Params]:
     """The rollback-relevant slice of a cache's ``layers``: the conv and SSM
-    state of the Mamba1 family, ``None`` for the attention families, whose
-    rollback is an index rewind."""
+    state of the Mamba1 family, the hybrid's ``mamba`` state, ``None`` for
+    the attention families, whose rollback is an index rewind."""
     _require_family(cfg)
-    return layers if cfg.family == "ssm" else None
+    if cfg.family == "ssm":
+        return layers
+    if cfg.family == "hybrid":
+        return layers["mamba"]
+    return None
 
 
 def merge_recurrent_states(cfg: ModelConfig, layers: Params, states) -> Params:
     """Inverse of ``chunk_recurrent_states``: graft recurrent state back into
-    a cache's ``layers`` (the Mamba1 layers are that state)."""
+    a cache's ``layers`` (the Mamba1 layers are that state; the hybrid's
+    is its ``mamba`` entry)."""
     _require_family(cfg)
-    return states if cfg.family == "ssm" else layers
+    if cfg.family == "ssm":
+        return states
+    if cfg.family == "hybrid":
+        return dict(layers, mamba=states)
+    return layers
 
 
 def decode_chunk(
@@ -444,10 +531,10 @@ def decode_chunk(
     Tree mode: ``anc`` [B, T] int32 ancestor bitmasks and ``depths`` [T]
     int32 node depths turn the rows into packed-tree nodes (node 0 = the
     current token) verified by the tree kernel.  Speculation on a recurrent
-    (Mamba1) target is not ported."""
-    if cfg.family == "ssm":
+    (Mamba1 or hybrid) target is not ported."""
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            "speculation on a recurrent (Mamba1) target is not ported yet"
+            "speculation on a recurrent (Mamba1 or hybrid) target is not ported yet"
         )
     _require_attention(cfg)
     t = tokens.shape[1]
@@ -624,20 +711,40 @@ def prefill(
     ``(last-position logits [B, V], cache)`` with the cache in
     ``cache_dtype`` (default ``compute_dtype``): dense and MoE, K/V
     [L, B, max_seq, kvH, hd] zero-padded past S; Mamba1, the conv and SSM
-    state after the prompt.
+    state after the prompt; hybrid, both: each cycle's shared-block K/V and
+    its layers' Mamba2 state (``init_cache``'s layout).
 
     ``length`` marks the true prompt length when ``inputs`` is zero-padded to
     a bucket: logits are taken at ``length - 1`` and ``index`` is ``length``.
     Dense pad positions only give K/V past the index, which decode overwrites
-    before reading; Mamba1 pad steps get dt = 0, so the state is exactly the
-    unpadded prompt's (``_ssm_dt_mask``).  The attention core is
-    ``ops.attention`` (the flash kernel on CUDA), the scan
-    ``ops.ssm_scan_chunk`` (the scan kernel on CUDA), under ``impl``."""
+    before reading; SSM pad steps get dt = 0, so the state is exactly the
+    unpadded prompt's (``SSM.dt_mask``).  The attention core is
+    ``ops.attention`` (the flash kernel on CUDA; one launch per layer, or
+    per hybrid cycle), the Mamba1 scan ``ops.ssm_scan_chunk`` (the scan
+    kernel on CUDA), under ``impl``; the Mamba2 SSD is plain PyTorch.
+
+    The hybrid prefills whole 64-step SSD chunks: the prompt is padded with
+    token 0 (dt-masked past ``length``, its K/V dropped past S), so its
+    logits and state do not depend on the bucket it came in, bit for bit (an
+    elementwise op's result can depend on its tensor's length, through the
+    CPU's vector tail).  A bucket of 64 or more tokens runs as it is."""
     _require_family(cfg)
     cache_dtype = cache_dtype or compute_dtype
     b, s = inputs.shape
+    if cfg.family == "hybrid":
+        length = s if length is None else length
+        run = -(-s // SSM.DEFAULT_CHUNK) * SSM.DEFAULT_CHUNK
+        inputs = torch.nn.functional.pad(inputs, (0, run - s))
+    else:
+        run = s
     x = embed_tokens(cfg, params, inputs, compute_dtype)
     layers = cast_params(params["layers"], compute_dtype)
+    positions = torch.arange(run, device=x.device).expand(b, run)
+
+    def pad_kv(t: list) -> torch.Tensor:
+        kv = torch.stack(t)[:, :, :s].to(cache_dtype)  # [L or n_cyc, B, S, kvH, hd]
+        return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, max_seq - s))
+
     if cfg.family == "ssm":
         conv, hs = [], []
         for i in range(cfg.num_layers):
@@ -651,51 +758,58 @@ def prefill(
             "conv": torch.stack(conv).to(cache_dtype),
             "h": torch.stack(hs).float(),
         }
+    elif cfg.family == "hybrid":
+        shared = cast_params(params["shared"], compute_dtype)
+        every = cfg.shared_attn_every
+        n_cyc = cfg.num_layers // every
+        ks, vs, states = [], [], []
+        for c in range(n_cyc):
+            h = L.norm(cfg, x, shared.get("ln1"))
+            y, k, v = _attn_prefill(cfg, shared["attn"], h, positions, impl)
+            x = x + y
+            h = L.norm(cfg, x, shared.get("ln2"))
+            x = x + L.mlp_block(shared["ffn"], h)
+            ks.append(k)
+            vs.append(v)
+            for j in range(every):
+                lp = _layer(layers, (c, j))
+                h = L.norm(cfg, x, lp.get("ln"))
+                y, st = SSM.mamba2_with_state(cfg, lp["mixer"], h, length=length)
+                x = x + y
+                states.append(st)
+        mamba = {}
+        for name in states[0]:
+            t = torch.stack([st[name] for st in states])
+            t = t.reshape(n_cyc, every, *t.shape[1:])
+            mamba[name] = t.float() if name == "h" else t.to(cache_dtype)
+        new_layers = {"mamba": mamba, "shared_k": pad_kv(ks), "shared_v": pad_kv(vs)}
     else:
-        positions = torch.arange(s, device=x.device).expand(b, s)
         ks, vs = [], []
         for i in range(cfg.num_layers):
             lp = _layer(layers, i)
             h = L.norm(cfg, x, lp.get("ln1"))
-            q, k, v = L._project_qkv(cfg, lp["attn"], h, positions)
-            out = ops.attention(q, k, v, causal=True, impl=impl)
-            x = x + L._out_proj(cfg, lp["attn"], out)
+            y, k, v = _attn_prefill(cfg, lp["attn"], h, positions, impl)
+            x = x + y
             h = L.norm(cfg, x, lp.get("ln2"))
             x = x + _ffn(cfg, lp["ffn"], h)[0]
             ks.append(k)
             vs.append(v)
-
-        def pad_kv(t: list) -> torch.Tensor:
-            kv = torch.stack(t).to(cache_dtype)  # [L, B, S, kvH, hd]
-            return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, max_seq - s))
-
         new_layers = {"k": pad_kv(ks), "v": pad_kv(vs)}
     x = L.norm(cfg, x, params.get("final_norm"))
     n = s if length is None else int(length)
-    j = min(max(n - 1, 0), s - 1)
+    j = min(max(n - 1, 0), s - 1)  # the logits of a position of the prompt
     logits = unembed(cfg, params, x[:, j: j + 1])[:, 0]
     index = torch.tensor(n, dtype=torch.int32, device=x.device)
     return logits, {"index": index, "layers": new_layers}
 
 
-def _ssm_tail_state(
-    x: torch.Tensor, length: Optional[int], n: int
-) -> torch.Tensor:
-    """The last ``n`` steps before ``length``, left zero-padded: the decode
-    conv state of a bucket-padded prompt of true ``length``."""
-    if length is None:
-        return x[:, -n:, :]
-    xp = torch.nn.functional.pad(x, (0, 0, n, 0))
-    return xp[:, int(length): int(length) + n, :]
-
-
-def _ssm_dt_mask(dt: torch.Tensor, length: Optional[int]) -> torch.Tensor:
-    """Zero the SSM step size at pad positions (>= ``length``): dt = 0 makes
-    the recurrence a no-op (decay exp(0) = 1, input term 0)."""
-    if length is None:
-        return dt
-    valid = torch.arange(dt.shape[1], device=dt.device) < int(length)
-    return dt * valid[None, :, None]
+def _attn_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                  positions: torch.Tensor, impl: str) -> tuple:
+    """Causal attention over the prompt through ``ops.attention``: ``(y, k,
+    v)``, the block's output and the K/V it caches."""
+    q, k, v = L._project_qkv(cfg, p, h, positions)
+    out = ops.attention(q, k, v, causal=True, impl=impl)
+    return L._out_proj(cfg, p, out), k, v
 
 
 def _mamba1_with_state(cfg, p, x, impl, length=None):
@@ -704,11 +818,11 @@ def _mamba1_with_state(cfg, p, x, impl, length=None):
     b = x.shape[0]
     di, ds, dtr = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank
     xi_raw, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    conv_state = _ssm_tail_state(xi_raw, length, cfg.ssm_conv - 1)
+    conv_state = SSM.tail_state(xi_raw, length, cfg.ssm_conv - 1)
     xi = torch.nn.functional.silu(SSM.causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
     dt_r, B_, C_ = torch.split(xi @ p["x_proj"], [dtr, ds, ds], dim=-1)
     dt = torch.nn.functional.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float()
-    dt = _ssm_dt_mask(dt, length)
+    dt = SSM.dt_mask(dt, length)
     A = -torch.exp(p["A_log"])
     h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
     y, h_fin = SSM.selective_scan_chunked(
@@ -731,19 +845,27 @@ def prefill_into_slot(
     impl: str = "auto",
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, Params]:
-    """Prefill one bucket-padded prompt and write its K/V (or Mamba1 state)
+    """Prefill one bucket-padded prompt and write its K/V (or SSM state)
     into the batch cache's row ``slot``, in place (the whole row, as the
     reference's ``dynamic_update_index_in_dim``), and set ``index[slot] =
-    length``.  inputs: [1, S_bucket] int32.  Returns ``(first generated
-    token [] int32 on the device, cache)``."""
-    cache_dtype = next(iter(cache["layers"].values())).dtype
+    length``.  The batch axis is 1 of every leaf but the hybrid's Mamba2
+    state, whose leaves are [n_cyc, every, B, ...].  inputs: [1, S_bucket]
+    int32.  Returns ``(first generated token [] int32 on the device,
+    cache)``."""
+    layers = cache["layers"]
+    cache_dtype = (layers["shared_k"] if cfg.family == "hybrid"
+                   else next(iter(layers.values()))).dtype
     logits, new = prefill(
         cfg, params, inputs, max_seq, impl=impl, compute_dtype=compute_dtype,
         cache_dtype=cache_dtype, length=length,
     )
     tok = torch.argmax(logits[0]).to(torch.int32)
-    for name, leaf in cache["layers"].items():
-        leaf[:, slot] = new["layers"][name][:, 0].to(leaf.dtype)
+    for name, leaf in layers.items():
+        if name == "mamba":
+            for k, t in leaf.items():
+                t[:, :, slot] = new["layers"]["mamba"][k][:, :, 0].to(t.dtype)
+        else:
+            leaf[:, slot] = new["layers"][name][:, 0].to(leaf.dtype)
     cache["index"][slot] = int(length)
     return tok, cache
 

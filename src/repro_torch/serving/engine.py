@@ -1,18 +1,20 @@
 """Continuous-batching greedy inference engine, with speculative decoding.
 
 Counterpart of ``repro.serving.engine.InferenceEngine``, for the dense,
-Mixture-of-Experts and Mamba1 families.  Two KV layouts (``kv_page_size``):
-by default (the attention families, dense and MoE) KV lives in a shared
-pool of 16-token physical pages addressed through per-slot block tables
-(``serving/kv_pool.py``), admission reserves a slot's worst-case pages and a
-radix tree serves shared page-aligned prefixes from cached pages;
-``kv_page_size=0`` (always for the Mamba1 family) keeps dense ``[B, S_max]``
-rows per slot (Mamba1: its conv and SSM state).  Two prefill modes
-(``prefill_chunk``): by default (attention families) the prompt streams as
-fixed 32-token chunks through ONE batched prefill program per wave;
-``prefill_chunk=0`` (always for Mamba1) prefills the whole prompt at
-admission, zero-padded to a power-of-two bucket (``prefill_into_slot``; on
-a radix hit only the suffix, through the paged verify pass).  Decode runs
+Mixture-of-Experts, Mamba1 and Zamba2 hybrid families.  Two KV layouts
+(``kv_page_size``): by default (the attention families, dense and MoE) KV
+lives in a shared pool of 16-token physical pages addressed through
+per-slot block tables (``serving/kv_pool.py``), admission reserves a slot's
+worst-case pages and a radix tree serves shared page-aligned prefixes from
+cached pages; ``kv_page_size=0`` (always for the recurrent families, Mamba1
+and the hybrid) keeps dense ``[B, S_max]`` rows per slot (Mamba1: its conv
+and SSM state; the hybrid: its Mamba2 state and the shared block's K/V
+rows).  Two prefill modes (``prefill_chunk``): by default (attention
+families) the prompt streams as fixed 32-token chunks through ONE batched
+prefill program per wave; ``prefill_chunk=0`` (always for the recurrent
+families) prefills the whole prompt at admission, zero-padded to a
+power-of-two bucket (``prefill_into_slot``; on a radix hit only the
+suffix, through the paged verify pass).  Decode runs
 ``k`` greedy microsteps per dispatch with a single device -> host fetch at
 the end; on CUDA the paged layout's plain decode loop is captured once per
 ``k`` as a CUDA graph and replayed (``DecodeGraph``), since its eager form
@@ -54,8 +56,8 @@ the other slots' tokens, idle and PREFILLING slots included, so the engine
 keeps the reference's token vector and decodes every slot, never a
 compacted batch.
 
-Not ported: speculation on a recurrent (Mamba1) target or draft
-(``NotImplementedError``), and the hybrid and frontend families.
+Not ported: speculation on a recurrent (Mamba1 or hybrid) target or draft
+(``NotImplementedError``), and the audio and VLM frontend families.
 """
 from __future__ import annotations
 
@@ -82,6 +84,7 @@ from repro_torch.spec.proposers import (
     ProposeContext,
     ProposerRouter,
 )
+from repro_torch.tree import tree_leaves
 
 _req_counter = itertools.count()
 
@@ -111,8 +114,8 @@ MIN_PREFILL_BUCKET = 8
 _ATTENTION_FAMILIES = T.ATTENTION_FAMILIES
 
 _RECURRENT_SPEC = (
-    "speculation with a recurrent (Mamba1) target or draft is not ported yet "
-    "(ROADMAP: Mamba1 training and recurrent speculation)"
+    "speculation with a recurrent (Mamba1 or hybrid) target or draft is not "
+    "ported yet (ROADMAP: Mamba1 training and recurrent speculation)"
 )
 
 
@@ -1021,7 +1024,9 @@ class InferenceEngine:
         if inj is None:
             return
         if "k" not in self.cache["layers"]:
-            inj.should_fire("engine/nan_logits")  # Mamba1: no KV to poison
+            # the recurrent families: no KV position to poison (the hybrid's
+            # shared K/V included, as the reference's ``"k" in layers`` test)
+            inj.should_fire("engine/nan_logits")
             return
         cands = [i for i in range(self.max_slots) if self._poisonable(i)]
         if not cands or not inj.should_fire("engine/nan_logits"):
@@ -1417,8 +1422,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def kv_cache_bytes(self) -> int:
         """Device bytes of the cache: the KV pools and block tables, or the
-        dense rows (Mamba1: the conv and SSM state)."""
-        tensors = list(self.cache["layers"].values())
+        dense rows (Mamba1: the conv and SSM state; the hybrid: its Mamba2
+        state and the shared block's K/V rows)."""
+        tensors = tree_leaves(self.cache["layers"])
         if self.paged:
             tensors.append(self.cache["block_tables"])
         return sum(t.numel() * t.element_size() for t in tensors)
