@@ -56,7 +56,15 @@ Phases, each printing a line before the last:
                  a non-causal ragged case, the dense decode at group 1 (H =
                  kvH = 32) at the serving lengths and the tile edges, in both
                  dtypes, a NaN in one slot through both, timed in bf16
-                 beside SDPA and the bound (rows ``*_hd80``).
+                 beside SDPA and the bound (rows ``*_hd80``).  Then the
+                 audio / VLM slice's shapes, the same way (rows ``*_hd64``
+                 / ``*_g4``): flash at hd 64 (musicgen-large's training
+                 shape B=4, H=32, S=1024 causal, a ragged causal case and a
+                 monolithic bucket; a NaN in one row), the paged decode and
+                 chunked prefill at musicgen's group 1 (32 heads of 64) and
+                 pixtral-12b's group 4 (32 heads over 8 of 128), the paged
+                 verify and tree verify at musicgen's, the dense decode at
+                 pixtral's, each with a NaN in one slot.
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -174,6 +182,30 @@ Phases, each printing a line before the last:
                  fp32 params + AdamW, bf16 compute, 4 x 1024 tokens, 3
                  steps: finite loss and gradient norm, peak memory, flash
                  forward twice and backward once a cycle and step.
+18. audio / vlm parity -- musicgen-large and pixtral-12b at full width, 2
+                 layers, fp32, impl="cuda" against impl="torch": logits
+                 from stub-frontend embeddings (B=2, S=200); a prefill from
+                 ``params["embed"]``'s rows bit-equal to one from the same
+                 tokens; EngineCore streams on the paged layout (chunked)
+                 and the dense layout (monolithic, fed embeddings), plain
+                 and paired with ``draft_config``'s draft, equal.
+19. musicgen serve -- musicgen-large at full depth, bf16 (6.5 GB), 8 slots,
+                 max_seq 512, phase 7's traffic (EnCodec code ids) on the
+                 paged layout, plain and with ``proposer="auto"``; the
+                 decode step beside its bytes bound, probed first.
+20. pixtral serve -- pixtral-12b at full depth, bf16 (24.5 GB), phase 7's
+                 traffic on the paged layout, the decode step probed first;
+                 then 4 requests on the dense layout with monolithic
+                 prefill (the stub frontend's embeddings through flash).
+21. audio / vlm train -- musicgen-large at full depth and pixtral-12b at 8
+                 of 40 layers, full width, remat "full", fp32 params +
+                 AdamW, bf16 compute, 4 x 1024 stub-frontend embedding
+                 batches, 3 steps: finite loss, every leaf's gradient
+                 non-zero but the unread embedding table's, flash twice
+                 forward and once backward a layer and step; the batch's
+                 host -> device copy timed.
+                 Phases 18-21 each free their weights; they run after
+                 phase 17 and before phase 7.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -189,8 +221,10 @@ kernel's path: the speculative kernels' from the spec serve run -- the
 dense decode's and prefill's also from the dense target serve run --, the dense
 verify and tree verify from the dense target serve run, the scan from the
 ssm serve run, the hd-80 rows' from phases 16 (decode) and 17 (flash),
-the others' from the collocated run; each row also gains
-``launches_<run>`` for the runs of phases 12-14 and 16-17 that launch it)
+the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
+``*_g4`` rows' from phase 20, the others' from the collocated run; each
+row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17
+and 19-21 that launch it; a row with no launch fails the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -309,8 +343,28 @@ FLASH_HD80_CASES = (  # (B, H, Sq, Sk, causal, hd)
 )
 #: zamba2 parity depth: 2 cycles of 6 Mamba2 layers, so the shared block runs twice
 HYBRID_PARITY_LAYERS = 12
+# the audio / VLM slice's attention: musicgen-large's 32 MHA heads of 64 (GQA
+# group 1) and pixtral-12b's 32 heads over 8 kv heads of 128 (group 4), over
+# the serving pool (8 slots, 16-token pages, 32 columns); flash at
+# musicgen's training shape, a ragged causal case and a monolithic bucket
+MG_H, MG_HD = 32, 64
+PX_H, PX_KVH = 32, 8
+FLASH_HD64_CASES = (  # (B, H, Sq, Sk, causal, hd)
+    (TRAIN_B, MG_H, TRAIN_S, TRAIN_S, True, MG_HD),
+    (2, MG_H, 1000, 1000, True, MG_HD),
+    (1, MG_H, 200, 200, True, MG_HD),
+)
+#: audio / VLM parity depth (full width)
+AV_PARITY_LAYERS = 2
+#: pixtral-12b's training depth: 8 of 40 layers at full width (3.52 B
+#: parameters, 56 GB of fp32 params, gradients and AdamW moments; full depth
+#: would need 196 GB)
+PIXTRAL_TRAIN_LAYERS = 8
 
 
+#: the runs whose launches the audio / VLM slice's kernel rows report
+SLICE_ROW_RUNS = {"_hd64": ("musicgen_train", "musicgen_serve", "musicgen_spec_serve"),
+                  "_g4": ("pixtral_serve", "pixtral_dense")}
 #: the kernels each path runs
 SERVE_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
@@ -577,13 +631,6 @@ def _nan_checks():
             return (q, k, v, *extra)
         return make
 
-    def poison_paged(slot, pos):
-        def poison(args):
-            k = args[1].clone()
-            k[int(args[3][slot, pos // PAGE]), pos % PAGE, 1, 5] = float("nan")
-            return (args[0], k, *args[2:])
-        return poison
-
     tree = branching_tree(2, 2)
     anc = torch.tensor(tree_ancestor_masks(tree), device="cuda").expand(B, len(tree)).contiguous()
     # the poisoned slot: dense decode and both prefills slot 2 (length 300,
@@ -593,19 +640,19 @@ def _nan_checks():
     st, cl, vl = i32(PREFILL_STARTS), i32(PREFILL_LENS), i32(VERIFY_LENGTHS)
     cases = (
         ("paged_decode_attention", pdec.paged_decode_attention,
-         pdec.paged_decode_attention_torch, paged((H, HD), plen), poison_paged(1, 100), 1),
+         pdec.paged_decode_attention_torch, paged((H, HD), plen), _poison_paged(1, 100), 1),
         ("paged_prefill_attention", ppre.paged_prefill_attention,
          ppre.paged_prefill_attention_torch, paged((CHUNK, H, HD), st, cl),
-         poison_paged(2, 50), 2),
+         _poison_paged(2, 50), 2),
         ("decode_attention", dd.decode_attention, dd.decode_attention_torch,
          dense((H, HD), dlen), _poison_dense(2, 100), 2),
         ("prefill_attention", dp.prefill_attention, dp.prefill_attention_torch,
          dense((CHUNK, H, HD), st, cl), _poison_dense(2, 50), 2),
         ("paged_verify_attention", pv.paged_verify_attention, pv.paged_verify_attention_torch,
-         paged((5, H, HD), vl), poison_paged(1, 100), 1),
+         paged((5, H, HD), vl), _poison_paged(1, 100), 1),
         ("paged_tree_verify_attention", ptv.paged_tree_verify_attention,
          ptv.paged_tree_verify_attention_torch, paged((len(tree), H, HD), vl, anc),
-         poison_paged(1, 100), 1),
+         _poison_paged(1, 100), 1),
         ("verify_attention", va.verify_attention, va.verify_attention_torch,
          dense((5, H, HD), vl), _poison_dense(1, 100), 1),
         ("tree_verify_attention", tv.tree_verify_attention, tv.tree_verify_attention_torch,
@@ -816,7 +863,7 @@ def phase_kernels():
     flash = _flash_rows()
     _flash_long_rows()
     return (rows + flash + _spec_rows() + _dense_target_rows() + _ssm_rows()
-            + _hd80_rows())
+            + _hd80_rows() + _slice_rows())
 
 
 def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
@@ -1694,6 +1741,262 @@ def _hd80_rows():
                      "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms,
                      bound, by))
     return rows
+
+
+def _slice_rows():
+    """The audio / VLM slice's shapes, each kernel against its plain version
+    in bf16 and fp32 and timed in bf16 beside SDPA and the bound: flash (#5)
+    forward and backward at hd 64 (``FLASH_HD64_CASES``: musicgen-large's
+    training shape B=4, H=32, S=1024 causal, a ragged causal case, a
+    monolithic bucket) with a NaN in one row; the paged decode (#1) and
+    chunked prefill (#2) at musicgen's serving attention (group 1, 32 heads
+    of 64) and pixtral-12b's (32 heads over 8 of 128, group 4), the decode
+    also at the 64-key tile edges, each with a NaN in one slot; the paged
+    verify (#7, T = 5 and a 64-token suffix bucket) and tree verify (#9: a
+    chain and the 31-node tree) at musicgen's; the dense decode (#3) at
+    pixtral's group 4 (its dense-layout serve).  Rows ``*_hd64`` / ``*_g4``."""
+    rows = _flash_rows(FLASH_HD64_CASES, suffix="_hd64")
+    _flash_nan_checks(MG_HD)
+    for suffix, h, kvh, hd in (("_hd64", MG_H, MG_H, MG_HD), ("_g4", PX_H, PX_KVH, HD)):
+        rows.append(_paged_decode_row(suffix, h, kvh, hd))
+        rows.append(_paged_prefill_row(suffix, h, kvh, hd))
+    rows += _paged_verify_rows("_hd64", MG_H, MG_H, MG_HD)
+    rows.append(_dense_decode_row("_g4", PX_H, PX_KVH, HD))
+    return rows
+
+
+def _i32(xs):
+    import torch
+
+    return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+
+def _paged_sdpa(q4, k_pool, v_pool, bt, mask, group):
+    """SDPA's time over the pre-gathered pages (the gather not timed): q4
+    [B, H, T, hd], ``mask`` [B, T, S] of visible keys."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_decode_attention as dec
+
+    kd = dec.gather_pages(k_pool, bt).transpose(1, 2).repeat_interleave(group, 1)
+    vd = dec.gather_pages(v_pool, bt).transpose(1, 2).repeat_interleave(group, 1)
+    return _time_ms(lambda: F.scaled_dot_product_attention(q4, kd, vd,
+                                                           attn_mask=mask[:, None]))
+
+
+def _paged_decode_row(suffix, h, kvh, hd):
+    """#1 at ``h`` / ``kvh`` heads of ``hd``: checked at the serving lengths
+    and the tile edges, a NaN in slot 1, timed at the serving lengths."""
+    import torch
+
+    from repro_torch.kernels import paged_decode_attention as dec
+
+    def make_inputs(lens):
+        def make(dtype):
+            g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=11, hd=hd, kvh=kvh)
+            q = torch.randn((B, h, hd), generator=g, device="cuda").to(dtype)
+            return q, k_pool, v_pool, bt, lens
+        return make
+
+    label = f"paged_decode_attention ({h} / {kvh} heads of {hd}"
+    lengths = _i32(DECODE_LENGTHS)
+    errs = _worst(*[
+        _check_decode(f"{label}{tag})", dec.paged_decode_attention,
+                      dec.paged_decode_attention_torch, make_inputs(lens))
+        for tag, lens in (("", lengths), (", tile edges", _i32(DECODE_EDGE_LENGTHS)))])
+    _check_nan_slot(f"{label})", dec.paged_decode_attention, dec.paged_decode_attention_torch,
+                    make_inputs(lengths), _poison_paged(1, 100), 1)
+    q, k_pool, v_pool, bt, _ = make_inputs(lengths)(torch.bfloat16)
+    k_ms = _time_ms(lambda: dec.paged_decode_attention(q, k_pool, v_pool, bt, lengths))
+    p_ms = _time_ms(lambda: dec.paged_decode_attention_torch(q, k_pool, v_pool, bt, lengths))
+    s = NCOLS * PAGE
+    mask = torch.arange(s, device="cuda")[None, None, :] < lengths[:, None, None]
+    l_ms = _paged_sdpa(q[:, :, None], k_pool, v_pool, bt, mask, h // kvh)
+    needed = [min(n, s) for n in DECODE_LENGTHS]
+    nbytes = (2 * B * h * hd * 2 + 2 * _unique_kv_rows(bt, needed) * kvh * hd * 2
+              + bt.numel() * 4 + B * 4)
+    bound, by = _bound_ms(nbytes, 4 * hd * h * sum(needed), torch.bfloat16)
+    return _row("paged_decode_attention" + suffix, "paged_decode_attention.cu",
+                "src/repro/kernels/paged_decode_attention.py:53", errs, k_ms, p_ms, l_ms,
+                bound, by)
+
+
+def _paged_prefill_row(suffix, h, kvh, hd):
+    """#2 at ``h`` / ``kvh`` heads of ``hd``: 32-token chunks at the serving
+    starts, a NaN in slot 2."""
+    import torch
+
+    from repro_torch.kernels import paged_prefill_attention as pre
+
+    starts, clens = _i32(PREFILL_STARTS), _i32(PREFILL_LENS)
+
+    def make(dtype):
+        g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=12, hd=hd, kvh=kvh)
+        q = torch.randn((B, CHUNK, h, hd), generator=g, device="cuda").to(dtype)
+        return q, k_pool, v_pool, bt, starts, clens
+
+    label = f"paged_prefill_attention ({h} / {kvh} heads of {hd})"
+    errs = _check_kernel(label, pre.paged_prefill_attention, pre.paged_prefill_attention_torch,
+                         make)
+    _check_nan_slot(label, pre.paged_prefill_attention, pre.paged_prefill_attention_torch,
+                    make, _poison_paged(2, 50), 2)
+    q, k_pool, v_pool, bt, _, _ = make(torch.bfloat16)
+    k_ms = _time_ms(lambda: pre.paged_prefill_attention(q, k_pool, v_pool, bt, starts, clens))
+    p_ms = _time_ms(lambda: pre.paged_prefill_attention_torch(q, k_pool, v_pool, bt, starts,
+                                                              clens))
+    s = NCOLS * PAGE
+    t = torch.arange(CHUNK, device="cuda")
+    mask = ((torch.arange(s, device="cuda")[None, None, :]
+             <= (starts[:, None] + t[None, :])[:, :, None])
+            & (t[None, :, None] < clens[:, None, None]))
+    l_ms = _paged_sdpa(q.transpose(1, 2), k_pool, v_pool, bt, mask, h // kvh)
+    needed = [st + c if c else 0 for st, c in zip(PREFILL_STARTS, PREFILL_LENS)]
+    nbytes = (sum(PREFILL_LENS) * h * hd * 2 + B * CHUNK * h * hd * 2
+              + 2 * _unique_kv_rows(bt, needed) * kvh * hd * 2 + bt.numel() * 4 + 2 * B * 4)
+    flops = sum(4 * hd * h * (st + j + 1)
+                for st, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
+    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    return _row("paged_prefill_attention" + suffix, "paged_prefill_attention.cu",
+                "src/repro/kernels/paged_prefill_attention.py:50", errs, k_ms, p_ms, l_ms,
+                bound, by)
+
+
+def _paged_verify_rows(suffix, h, kvh, hd):
+    """#7 (T = 5 and a 64-token suffix bucket) and #9 (a 4-draft chain, bit-
+    equal to #7 at T = 5, and the 31-node tree) at ``h`` / ``kvh`` heads of
+    ``hd``, a NaN in slot 1; timed at T = 5 (both) and the 31-node tree."""
+    import torch
+
+    from repro_torch.kernels import paged_tree_verify_attention as ptv
+    from repro_torch.kernels import paged_verify_attention as pv
+    from repro_torch.spec.tree import branching_tree, linear_chain, tree_ancestor_masks
+
+    vlens = _i32(VERIFY_LENGTHS)
+    cap = NCOLS * PAGE
+
+    def make_inputs(t, lens=vlens, anc=None):
+        def make(dtype):
+            g, k_pool, v_pool, bt = _pool_inputs(dtype, seed=13, hd=hd, kvh=kvh)
+            q = torch.randn((B, t, h, hd), generator=g, device="cuda").to(dtype)
+            args = (q, k_pool, v_pool, bt, lens)
+            return args if anc is None else args + (anc,)
+        return make
+
+    def anc_of(parents):
+        return torch.tensor(tree_ancestor_masks(parents), device="cuda").expand(
+            B, len(parents)).contiguous()
+
+    shape = f"{h} / {kvh} heads of {hd}"
+    verr = _worst(*[
+        _check_kernel(f"paged_verify_attention ({shape}, {tag})", pv.paged_verify_attention,
+                      pv.paged_verify_attention_torch, make_inputs(t, lens))
+        for tag, t, lens in (("T=5", 5, vlens),
+                             ("suffix prefill, T=64", 64, _i32(SUFFIX_LENGTHS[64])))])
+    chain, tree31 = anc_of(linear_chain(4)), anc_of(branching_tree(3, 10))
+    terr = _worst(*[
+        _check_kernel(f"paged_tree_verify_attention ({shape}, {tag})",
+                      ptv.paged_tree_verify_attention, ptv.paged_tree_verify_attention_torch,
+                      make_inputs(n, anc=anc))
+        for tag, n, anc in (("linear_chain(4)", 5, chain), ("31 nodes", 31, tree31))])
+    for dtype in (torch.bfloat16, torch.float32):
+        args = make_inputs(5)(dtype)
+        if not torch.equal(ptv.paged_tree_verify_attention(*args, chain),
+                           pv.paged_verify_attention(*args)):
+            raise AssertionError(f"tree verify over a chain differs from verify ({shape})")
+    _check_nan_slot(f"paged_verify_attention ({shape})", pv.paged_verify_attention,
+                    pv.paged_verify_attention_torch, make_inputs(5), _poison_paged(1, 100), 1)
+    _check_nan_slot(f"paged_tree_verify_attention ({shape})", ptv.paged_tree_verify_attention,
+                    ptv.paged_tree_verify_attention_torch, make_inputs(5, anc=chain),
+                    _poison_paged(1, 100), 1)
+    q, k_pool, v_pool, bt, _ = make_inputs(5)(torch.bfloat16)
+    q31 = make_inputs(31)(torch.bfloat16)[0]
+    kpos = torch.arange(cap, device="cuda")
+
+    def seen(anc, n):
+        """[B, n, cap]: node t sees kpos < lengths - n and its ancestors."""
+        base = (vlens - n)[:, None, None]
+        j = kpos[None, None, :] - base
+        bits = (anc[:, :, None] >> j.clamp(0, 31)) & 1
+        return (kpos < base) | ((j >= 0) & (j < n) & (bits == 1))
+
+    def bound(mask, n):
+        needed = [min(max(x, 0), cap) for x in VERIFY_LENGTHS]
+        nbytes = (2 * B * n * h * hd * 2 + 2 * _unique_kv_rows(bt, needed) * kvh * hd * 2
+                  + bt.numel() * 4 + B * 4)
+        return _bound_ms(nbytes, 4 * hd * h * int(mask.sum()), torch.bfloat16)
+
+    mask5, mask31 = seen(chain, 5), seen(tree31, 31)
+    rows = []
+    for name, src, replaces, errs, kern, plain, extra in (
+        ("paged_verify_attention", "paged_verify_attention.cu",
+         "src/repro/kernels/paged_verify_attention.py:45", verr, pv.paged_verify_attention,
+         pv.paged_verify_attention_torch, ()),
+        ("paged_tree_verify_attention", "paged_tree_verify_attention.cu",
+         "src/repro/kernels/paged_tree_verify_attention.py:45", terr,
+         ptv.paged_tree_verify_attention, ptv.paged_tree_verify_attention_torch, (chain,)),
+    ):
+        k_ms = _time_ms(lambda: kern(q, k_pool, v_pool, bt, vlens, *extra))
+        p_ms = _time_ms(lambda: plain(q, k_pool, v_pool, bt, vlens, *extra))
+        l_ms = _paged_sdpa(q.transpose(1, 2), k_pool, v_pool, bt, mask5, h // kvh)
+        rows.append(_row(name + suffix, src, replaces, errs, k_ms, p_ms, l_ms,
+                         *bound(mask5, 5)))
+    n31_ms = _time_ms(lambda: ptv.paged_tree_verify_attention(q31, k_pool, v_pool, bt, vlens,
+                                                              tree31))
+    l31_ms = _paged_sdpa(q31.transpose(1, 2), k_pool, v_pool, bt, mask31, h // kvh)
+    bound31, _ = bound(mask31, 31)
+    rows[1].update(ms_31_nodes=n31_ms, library_ms_31_nodes=l31_ms, bound_ms_31_nodes=bound31)
+    log(f"kernel paged_tree_verify_attention{suffix} (31 nodes): {n31_ms:.4f} ms, sdpa "
+        f"{l31_ms:.4f} ms, bound {bound31:.4f} ms")
+    return rows
+
+
+def _dense_decode_row(suffix, h, kvh, hd):
+    """#3 at ``h`` / ``kvh`` heads of ``hd`` over 8 dense 512-row slots, at
+    the serving lengths and the tile edges (past S too), a NaN in slot 2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dd
+
+    def make_inputs(lens):
+        def make(dtype):
+            g, k, v = _dense_inputs(dtype, seed=14, hd=hd, kvh=kvh)
+            q = torch.randn((B, h, hd), generator=g, device="cuda").to(dtype)
+            return q, k, v, lens
+        return make
+
+    label = f"decode_attention ({h} / {kvh} heads of {hd}"
+    lengths = _i32(DENSE_LENGTHS)
+    errs = _worst(*[
+        _check_decode(f"{label}{tag})", dd.decode_attention, dd.decode_attention_torch,
+                      make_inputs(lens))
+        for tag, lens in (("", lengths), (", tile edges", _i32(DENSE_EDGE_LENGTHS)))])
+    _check_nan_slot(f"{label})", dd.decode_attention, dd.decode_attention_torch,
+                    make_inputs(lengths), _poison_dense(2, 100), 2)
+    q, k, v, _ = make_inputs(lengths)(torch.bfloat16)
+    k_ms = _time_ms(lambda: dd.decode_attention(q, k, v, lengths))
+    p_ms = _time_ms(lambda: dd.decode_attention_torch(q, k, v, lengths))
+    mask = (torch.arange(DENSE_S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, 1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, 1)
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                           attn_mask=mask))
+    needed = sum(min(max(n, 0), DENSE_S) for n in DENSE_LENGTHS)
+    bound, by = _bound_ms(2 * B * h * hd * 2 + 2 * needed * kvh * hd * 2 + B * 4,
+                          4 * hd * h * needed, torch.bfloat16)
+    return _row("decode_attention" + suffix, "decode_attention.cu",
+                "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms, bound, by)
+
+
+def _poison_paged(slot, pos):
+    """A NaN at K position ``pos`` of ``slot`` (kv head 1) of a paged
+    kernel's (q, k_pool, v_pool, block_tables, ...) arguments, in a copy of
+    the K pool."""
+    def poison(args):
+        k = args[1].clone()
+        k[int(args[3][slot, pos // PAGE]), pos % PAGE, 1, 5] = float("nan")
+        return (args[0], k, *args[2:])
+    return poison
 
 
 def _poison_dense(slot, pos):
@@ -3766,6 +4069,321 @@ def _profile_train(arch="qwen3-1.7b", label="train", remat_policy="none"):
 
 
 # ---------------------------------------------------------------------------
+# 18. audio / VLM parity, 19. musicgen-large serve, 20. pixtral-12b serve,
+# 21. audio / VLM train
+# ---------------------------------------------------------------------------
+
+#: (label, engine keywords, draft-paired, kernels the cuda engine launches:
+#: a draft-paired engine's target verifies every decode step, its draft
+#: proposes on the dense decode and streams chunks through the dense prefill)
+AV_PARITY_ENGINES = (
+    ("paged, chunked", {}, False, SERVE_KERNELS),
+    ("paged, chunked, draft", {}, True,
+     ("paged_prefill_attention", "decode_attention", "prefill_attention",
+      "paged_verify_attention")),
+    ("dense, monolithic", {"kv_page_size": 0, "prefill_chunk": 0}, False,
+     ("flash_attention_fwd", "decode_attention")),
+    ("dense, monolithic, draft", {"kv_page_size": 0, "prefill_chunk": 0}, True,
+     ("flash_attention_fwd", "decode_attention", "verify_attention")),
+)
+
+
+def phase_audio_vlm_parity():
+    """musicgen-large and pixtral-12b at full width and 2 layers, fp32
+    weights, impl="cuda" against impl="torch" on the card: logits from
+    stub-frontend embeddings (B=2, S=200) within LOGITS_ATOL; a 100-token
+    prompt prefilled (padded to its 128 bucket) from ``params["embed"]``'s
+    rows bit-equal to the same tokens' prefill (cuda); ``EngineCore``
+    streams on the paged layout (chunked prefill) and the dense layout
+    (monolithic prefill, whose admissions feed embeddings), plain and
+    paired with ``draft_config``'s draft (``proposer="draft"``), equal, each
+    cuda engine launching its path's kernels and no plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    for arch in ("musicgen-large", "pixtral-12b"):
+        _fresh_phase()
+        t0 = time.monotonic()
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=AV_PARITY_LAYERS)
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        rng = np.random.default_rng(9)
+        emb = torch.tensor(rng.standard_normal((2, 200, cfg.d_model)) * 0.5,
+                           dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            logits = {impl: T.forward(cfg, params, emb, impl=impl,
+                                      compute_dtype=torch.float32)[0]
+                      for impl in ("cuda", "torch")}
+        err = (logits["cuda"] - logits["torch"]).abs().max().item()
+        if not (err <= LOGITS_ATOL and torch.isfinite(logits["cuda"]).all()):
+            raise AssertionError(f"{arch} parity: logits from embeddings differ by {err}")
+        del logits
+
+        buf = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
+        buf[0, :100] = torch.tensor(rng.integers(0, cfg.vocab_size, 100), device="cuda")
+        kw = dict(impl="cuda", compute_dtype=torch.float32, length=100)
+        with torch.no_grad():
+            l_tok, c_tok = T.prefill(cfg, params, buf, 256, **kw)
+            l_emb, c_emb = T.prefill(cfg, params, params["embed"][buf.long()], 256, **kw)
+        same = torch.equal(l_tok, l_emb) and all(
+            torch.equal(c_tok["layers"][n], c_emb["layers"][n]) for n in ("k", "v"))
+        if not same:
+            raise AssertionError(f"{arch} parity: the prefill from embeddings differs from "
+                                 f"the prefill from tokens")
+        del c_tok, c_emb
+
+        spec = SpecDecodeConfig(proposer="draft")
+        dcfg = draft_config(cfg, spec)
+        dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+        prompts = _prompts(np.random.default_rng(10), 6, 24, 80, cfg.vocab_size,
+                           shared_prefix=32, shared_idx=(0, 5))
+        done = []
+        for label, kw, draft, kernels in AV_PARITY_ENGINES:
+            dkw = dict(draft_cfg=dcfg, draft_params=dparams, spec=spec) if draft else {}
+            streams = {}
+            for impl in ("cuda", "torch"):
+                eng = InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                                      compute_dtype=torch.float32, decode_impl=impl,
+                                      **kw, **dkw)
+                ops.reset_launch_counts()
+                reqs, _ = _serve(eng, prompts, max_new=10)
+                counts = ops.launch_counts()
+                _check_finished(f"{arch} parity ({label})", reqs, 10, cfg)
+                streams[impl] = [list(r.output_tokens) for r in reqs]
+                if impl == "cuda":
+                    _require_launches(f"{arch} parity ({label})", counts, kernels)
+                    spec_rounds = eng.spec_rounds
+                del eng
+            if streams["cuda"] != streams["torch"]:
+                raise AssertionError(f"{arch} parity ({label}): streams differ (cuda vs torch)")
+            if draft and spec_rounds <= 0:
+                raise AssertionError(f"{arch} parity ({label}): no spec round")
+            done.append(label)
+        log(f"audio / vlm parity ({arch}, {cfg.num_layers} layers, full width, fp32): logits "
+            f"from embeddings (B=2, S=200) max err {err:.2e} (tol {LOGITS_ATOL:g}); a "
+            f"100-token prompt's prefill from its embedding rows bit-equal to its tokens'; "
+            f"{len(prompts)} requests, streams equal on " + "; ".join(done)
+            + f"; set-up and checks {time.monotonic() - t0:.1f}s")
+        del params, dparams, dkw, emb
+        _end_phase(f"{arch} parity")
+
+
+def _serve_prompts(vocab):
+    """Phase 7's traffic: 16 prompts, four sharing a 64-token prefix."""
+    import numpy as np
+
+    return _prompts(np.random.default_rng(2), 16, 24, 136, vocab, shared_prefix=64,
+                    shared_idx=(0, 13, 14, 15))
+
+
+def phase_musicgen_serve():
+    """musicgen-large at full depth and width (48 layers, 32 MHA heads of
+    64), bf16 weights made on the card (6.5 GB), 8 slots, max_seq 512,
+    paged, 32-token chunks, graph-replayed decode: the decode step probed
+    first, beside its bytes bound; phase 7's 16 ONLINE requests (EnCodec
+    code ids), 32 new tokens each; then the same paired with its 1-layer
+    draft, ``proposer="auto"`` (the router must run the draft and the
+    n-gram lookup).  Every request finishes, every kernel of each path
+    launches, no plain version.  Returns {run: launch counts}."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    _fresh_phase()
+    t_phase = time.monotonic()
+    cfg = configs.get_config("musicgen-large")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    t_start = time.monotonic()
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512,
+                             clock=lambda: time.monotonic() - t_start)
+    torch.cuda.synchronize()
+    log(f"musicgen serve: {cfg.param_count() / 1e9:.3f} B params bf16, KV pool "
+        f"{engine.kv_cache_bytes() / 1e9:.3f} GB, set-up {time.monotonic() - t_phase:.1f}s")
+    prompts = _serve_prompts(cfg.vocab_size)
+    _log_decode_step("musicgen serve", engine, cfg, 8)
+    counts = _serve_and_check("musicgen serve", engine, cfg, prompts, 32, SERVE_KERNELS)
+    graphs = _decode_graph_launches("musicgen serve", engine, cfg)
+    log(f"musicgen serve: the decode graphs captured {graphs} paged decode launches")
+    del engine
+    gc.collect()
+    t_start = time.monotonic()
+    engine = _spec_engine(cfg, params, clock=lambda: time.monotonic() - t_start)
+    spec_counts = _serve_and_check("musicgen spec serve", engine, cfg, prompts, 32,
+                                   SPEC_KERNELS + ("paged_prefill_attention",))
+    m = engine.obs.metrics
+    per = {name: tuple(m.counter(f"spec/proposer/{w}/{name}").value
+                       for w in ("rounds", "accepted", "proposed")) for name in ("draft", "ngram")}
+    if min(r for r, _, _ in per.values()) <= 0:
+        raise AssertionError(f"musicgen spec serve: the router did not run both proposers: "
+                             f"{per}")
+    log(f"musicgen spec serve: spec rounds {engine.spec_rounds}, acceptance "
+        f"{engine.spec_acceptance_rate:.4f}; per proposer (rounds, accepted, proposed) {per}; "
+        f"phase {time.monotonic() - t_phase:.1f}s")
+    del engine, params
+    _end_phase("musicgen serve")
+    return {"musicgen_serve": counts, "musicgen_spec_serve": spec_counts}
+
+
+def phase_pixtral_serve():
+    """pixtral-12b at full depth and width (40 layers, 32 heads over 8 kv
+    heads of 128, vocab 131072), bf16 weights made on the card (24.5 GB), 8
+    slots, max_seq 512: the decode step probed first, beside its bytes
+    bound; phase 7's 16 ONLINE requests (text token ids), 32 new tokens
+    each, paged with 32-token chunks; then 4 of them on the dense layout
+    with monolithic prefill (``kv_page_size=0, prefill_chunk=0``), whose
+    admissions feed the stub frontend's embeddings through the flash
+    kernel (one launch a layer and admission).  Every request finishes,
+    every kernel of each path launches, no plain version.  Returns {run:
+    launch counts}."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    _fresh_phase()
+    t_phase = time.monotonic()
+    cfg = configs.get_config("pixtral-12b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    t_start = time.monotonic()
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512,
+                             clock=lambda: time.monotonic() - t_start)
+    torch.cuda.synchronize()
+    log(f"pixtral serve: {cfg.param_count() / 1e9:.3f} B params bf16, KV pool "
+        f"{engine.kv_cache_bytes() / 1e9:.3f} GB, set-up {time.monotonic() - t_phase:.1f}s")
+    prompts = _serve_prompts(cfg.vocab_size)
+    _log_decode_step("pixtral serve", engine, cfg, 8)
+    counts = _serve_and_check("pixtral serve", engine, cfg, prompts, 32, SERVE_KERNELS)
+    graphs = _decode_graph_launches("pixtral serve", engine, cfg)
+    log(f"pixtral serve: the decode graphs captured {graphs} paged decode launches")
+    del engine
+    gc.collect()
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512, kv_page_size=0,
+                             prefill_chunk=0)
+    ops.reset_launch_counts()
+    reqs, secs = _serve(engine, prompts[:4], 16)
+    dense = ops.launch_counts()
+    _check_finished("pixtral serve, dense monolithic", reqs, 16, cfg)
+    _require_launches("pixtral serve, dense monolithic", dense,
+                      ("flash_attention_fwd", "decode_attention"))
+    if dense["flash_attention_fwd"]["cuda"] != cfg.num_layers * len(reqs):
+        raise AssertionError(f"pixtral serve, dense monolithic: flash launched "
+                             f"{dense['flash_attention_fwd']['cuda']} times ("
+                             f"{cfg.num_layers} a layer and admission expected)")
+    log(f"pixtral serve, dense monolithic: {len(reqs)} requests of "
+        f"{min(map(len, prompts[:4]))}-{max(map(len, prompts[:4]))} tokens, 16 new each, in "
+        f"{secs:.3f}s; launches "
+        f"{json.dumps({k: v['cuda'] for k, v in dense.items() if v['cuda']})}; phase "
+        f"{time.monotonic() - t_phase:.1f}s")
+    del engine, params
+    _end_phase("pixtral serve")
+    return {"pixtral_serve": counts,
+            "pixtral_dense": {name: c["cuda"] for name, c in dense.items()}}
+
+
+def phase_audio_vlm_train():
+    """musicgen-large at full depth and width and pixtral-12b at full width
+    and ``PIXTRAL_TRAIN_LAYERS`` of 40 layers, each under remat "full": fp32
+    params + AdamW, bf16 compute, batch 4 x seq 1024 from the port's
+    ``SyntheticDataset`` (the stub frontend's fp32 embeddings, [4, 1024,
+    d_model]), 3 steps.  Loss and gradient norm finite; every leaf's
+    gradient non-zero (its AdamW first moment) but the embedding table's,
+    which embedding inputs never read (zero, as the reference's); the flash
+    forward twice a layer and step (the recompute), the backward once.  The
+    batch's host -> device copy is timed beside the step.  Returns {run:
+    launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for label, arch, layers in (("musicgen_train", "musicgen-large", None),
+                                ("pixtral_train", "pixtral-12b", PIXTRAL_TRAIN_LAYERS)):
+        _fresh_phase()
+        t_phase = time.monotonic()
+        cfg = configs.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        steps = 3
+        state = init_train_state(T.init_params(cfg,
+                                               torch.Generator(device="cuda").manual_seed(0)))
+        step = make_train_step(cfg, TrainConfig(warmup_steps=2, total_steps=steps + 2,
+                                                remat_policy="full"))
+        ds = SyntheticDataset(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+        torch.cuda.synchronize()
+        name = label.replace("_", " ")
+        log(f"{name}: {arch} at {cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B "
+            f"params; state {torch.cuda.memory_allocated() / 1e9:.2f} GB before the first "
+            f"step")
+        ops.reset_launch_counts()
+        losses, norms, ms, copy_ms, host_ms = [], [], [], [], []
+        for _ in range(steps):
+            t0 = time.monotonic()
+            batch = ds.next_batch()
+            host_ms.append((time.monotonic() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            torch.as_tensor(batch["inputs"], device="cuda")
+            torch.cuda.synchronize()
+            copy_ms.append((time.monotonic() - t0) * 1e3)
+            t0 = time.monotonic()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if batch["inputs"].shape != (TRAIN_B, TRAIN_S, cfg.d_model):
+            raise AssertionError(f"{name}: batch inputs {batch['inputs'].shape}")
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all() and min(norms) > 0):
+            raise AssertionError(f"{name}: losses {losses}, grad norms {norms}")
+        mu = state["opt"]["mu"]
+        if mu["embed"].abs().max().item() != 0:
+            raise AssertionError(f"{name}: the unread embedding table has a gradient")
+        zero = [t for t in tree_leaves(mu)
+                if t is not mu["embed"] and not t.abs().max().item() > 0]
+        if zero:
+            raise AssertionError(f"{name}: {len(zero)} leaves have a zero gradient")
+        _require_launches(name, counts, TRAIN_KERNELS)
+        want = {"flash_attention_fwd": 2 * cfg.num_layers * steps,
+                "flash_attention_bwd": cfg.num_layers * steps}
+        got = {k: counts[k]["cuda"] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: flash launches {got}, expected {want}")
+        log(f"{name} ({arch}, {cfg.num_layers} layers, full width, remat full; fp32 params + "
+            f"AdamW, bf16 compute, B={TRAIN_B} x S={TRAIN_S} embeddings of "
+            f"{cfg.d_model}): steps " + ", ".join(f"{t:.1f}" for t in ms)
+            + " ms; batch host -> device copy " + ", ".join(f"{t:.1f}" for t in copy_ms)
+            + f" ms ({batch['inputs'].nbytes / 1e6:.1f} MB), batch made on the host in "
+            + ", ".join(f"{t:.1f}" for t in host_ms) + " ms; losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+            + ", ".join(f"{x:.4f}" for x in norms) + f"; peak device memory {peak:.2f} GB; "
+            f"flash launches {json.dumps(got)}; phase {time.monotonic() - t_phase:.1f}s")
+        del state, step, mu
+        _end_phase(name)
+        out[label] = {k: c["cuda"] for k, c in counts.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3801,6 +4419,13 @@ def main() -> int:
     phase_hybrid_parity()
     hybrid_launches = {"hybrid_serve": phase_hybrid_serve(),
                        "hybrid_train": phase_hybrid_train()}
+    # phases 18-21, musicgen-large and pixtral-12b, also before any profiler
+    # session
+    phase_audio_vlm_parity()
+    av_launches = {**phase_musicgen_serve(), **phase_pixtral_serve(),
+                   **phase_audio_vlm_train()}
+    slice_launches.update({run: av_launches[run]
+                           for run in ("pixtral_serve", "pixtral_dense", "pixtral_train")})
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()
@@ -3825,6 +4450,16 @@ def main() -> int:
             row["launches"] = train if name.startswith("flash") else serve
             row["launches_hybrid_serve"], row["launches_hybrid_train"] = serve, train
             continue
+        # the audio / VLM slice's rows: the first of their runs that launched
+        # them (flash in the musicgen train run, #1 / #2 in the serve runs,
+        # #7 / #9 in musicgen's spec serve run, #3 in pixtral's dense run)
+        suffix = next((s for s in SLICE_ROW_RUNS if row["name"].endswith(s)), None)
+        if suffix is not None:
+            name = row["name"][: -len(suffix)]
+            runs = {r: av_launches[r].get(name, 0) for r in SLICE_ROW_RUNS[suffix]}
+            row["launches"] = next((n for n in runs.values() if n), 0)
+            row.update({f"launches_{r}": n for r, n in runs.items() if n})
+            continue
         if row["name"] in SPEC_KERNELS:
             row["launches"] = spec_launches[row["name"]]
             if row["name"] in ("prefill_attention", "decode_attention"):
@@ -3841,6 +4476,9 @@ def main() -> int:
         for run, counts in slice_launches.items():
             if counts.get(row["name"]):
                 row[f"launches_{run}"] = counts[row["name"]]
+    idle = [row["name"] for row in rows if not row["launches"] > 0]
+    if idle:
+        raise AssertionError(f"kernels with no launch on their path: {idle}")
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     import torch

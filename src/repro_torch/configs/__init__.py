@@ -1,7 +1,8 @@
-"""Architecture registry of the archs the port runs: the dense family
+"""Architecture registry, the reference's ten archs: the dense family
 (qwen3-1.7b, olmo-1b, qwen2-7b, deepseek-coder-33b), the Mixture-of-Experts
-family (moonshot-v1-16b-a3b, dbrx-132b), Mamba1 (falcon-mamba-7b) and the
-Zamba2 hybrid (zamba2-2.7b).
+family (moonshot-v1-16b-a3b, dbrx-132b), Mamba1 (falcon-mamba-7b), the
+Zamba2 hybrid (zamba2-2.7b), and the dense backbones over stub-frontend
+embeddings: audio (musicgen-large) and VLM (pixtral-12b).
 
 Public ids use dashes (``--arch qwen3-1.7b``); modules use underscores.
 """
@@ -27,6 +28,8 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1p7b",
     "olmo-1b": "olmo_1b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "musicgen-large": "musicgen_large",
+    "pixtral-12b": "pixtral_12b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -2,12 +2,13 @@
 copies of ``repro.configs.base``'s ``ModelConfig``, ``TrainConfig``,
 ``SpecDecodeConfig`` / ``draft_config`` and ``SpecInFConfig``).
 
-Only the fields and derived properties of the families the port runs are
-kept: the ``dense`` family's, the Mixture-of-Experts (``moe``) family's,
-the Mamba1 (``ssm``) family's and the Zamba2 ``hybrid`` family's (Mamba2
-layers with one shared attention + MLP block); the frontend fields
-(``embed_inputs``) return with the slice that runs the audio and VLM
-families.  ``TrainConfig`` keeps the
+``ModelConfig`` keeps every field of the reference's: the ``dense``,
+Mixture-of-Experts (``moe``), Mamba1 (``ssm``) and Zamba2 ``hybrid``
+families' and the stub frontend's (``embed_inputs``: the ``audio`` and
+``vlm`` families take precomputed d_model embeddings, as in the
+reference), and its derived properties but ``padded_for_tp``,
+``attention_free`` and ``sub_quadratic``, which only the reference's mesh
+and shape matrix read.  ``TrainConfig`` keeps the
 reference's fields and defaults except the mesh layout (``zero1``,
 ``fsdp``, ``layout``), which returns with scale-out.  ``SpecInFConfig``
 keeps what the runtime and the collocation planner read (the simulator's
@@ -25,9 +26,11 @@ class ModelConfig:
     """Architecture hyper-parameters for one decoder-style backbone:
     ``dense`` (attention + MLP every layer), ``moe`` (attention + a top-k
     Mixture-of-Experts every layer), ``ssm`` (a Mamba1 block every layer,
-    attention-free) or ``hybrid`` (Mamba2 blocks with ONE shared attention +
+    attention-free), ``hybrid`` (Mamba2 blocks with ONE shared attention +
     MLP block applied before every ``shared_attn_every`` of them, Zamba2
-    style)."""
+    style), ``audio`` (the dense backbone over precomputed EnCodec frame
+    embeddings) or ``vlm`` (the dense backbone over precomputed ViT patch
+    embeddings)."""
 
     name: str
     family: str
@@ -66,6 +69,9 @@ class ModelConfig:
 
     # --- hybrid (Zamba2) ---
     shared_attn_every: int = 0  # the shared attn + MLP block every N layers
+
+    # --- modality frontend ---
+    embed_inputs: bool = False  # True: inputs are precomputed d_model embeddings
 
     tie_embeddings: bool = False
 

@@ -4,9 +4,11 @@ the reference.
 
 A learnable, Zipf-distributed token stream with short-range structure (a
 token is followed by a fixed successor half the time), so training loss
-measurably drops.  Token inputs only (the dense family takes no embedding
-inputs), one host (the reference's host sharding and checkpointable state
-return with scale-out and checkpointing).
+measurably drops.  ``embed_inputs`` configs (audio, VLM) get (embeddings,
+labels) pairs from the reference's stub frontend: a fixed table of
+``min(V, 4096)`` fp32 rows of width d_model, indexed by ``token % rows``.
+One host (the reference's host sharding and checkpointable state return
+with scale-out and checkpointing).
 """
 from __future__ import annotations
 
@@ -33,6 +35,16 @@ class SyntheticDataset:
         ranks = np.arange(1, v + 1, dtype=np.float64)
         self._unigram = (1.0 / ranks) / np.sum(1.0 / ranks)
         self._succ = rng.integers(0, v, size=v, dtype=np.int64)
+        # the stub modality frontend's table (stand-in for EnCodec frames /
+        # ViT patches): the reference draws it anew every batch from the
+        # same seed; drawn once here (at pixtral's width it is 84 MB of
+        # normals), the same values
+        self._frontend = None
+        if self.cfg.embed_inputs:
+            table_rng = np.random.default_rng(self.seed + 7)
+            self._frontend = table_rng.standard_normal(
+                (min(v, 4096), self.cfg.d_model)
+            ).astype(np.float32) * 0.02
 
     def _rng_for(self, step: int) -> np.random.Generator:
         # the reference's seed formula for host 0 of 1
@@ -51,11 +63,14 @@ class SyntheticDataset:
 
     def next_batch(self) -> dict:
         """``{"inputs": [B, S] int32, "labels": [B, S] int32}``, labels the
-        inputs shifted by one."""
+        inputs shifted by one; for an ``embed_inputs`` config the inputs are
+        the frontend's rows, [B, S, d_model] fp32."""
         rng = self._rng_for(self._step)
         self._step += 1
         toks = self._sample_tokens(rng, self.global_batch)
-        return {
-            "inputs": toks[:, :-1].astype(np.int32),
-            "labels": toks[:, 1:].astype(np.int32),
-        }
+        inputs = toks[:, :-1]
+        if self._frontend is not None:
+            inputs = self._frontend[inputs % self._frontend.shape[0]]
+        else:
+            inputs = inputs.astype(np.int32)
+        return {"labels": toks[:, 1:].astype(np.int32), "inputs": inputs}

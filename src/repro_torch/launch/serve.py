@@ -6,6 +6,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --journal j.jsonl --restore
 
@@ -17,9 +19,13 @@ turns on speculation: ``ngram`` verifies host-proposed n-gram trees without
 a draft model, ``draft`` pairs the target with ``draft_config``'s draft
 model, ``auto`` registers both and routes per quantum.  An attention
 family (dense: qwen3-1.7b, olmo-1b, qwen2-7b, deepseek-coder-33b; MoE:
-moonshot-v1-16b-a3b, dbrx-132b) serves on the paged KV layout with chunked
-prefill, its weights made in bf16 on the device (moonshot's 28 B
-parameters are 56 GB there, deepseek-coder-33b's 67 GB); falcon-mamba-7b
+moonshot-v1-16b-a3b, dbrx-132b; audio: musicgen-large; VLM: pixtral-12b)
+serves on the paged KV layout with chunked prefill, its weights made in
+bf16 on the device (moonshot's 28 B parameters are 56 GB there,
+deepseek-coder-33b's 67 GB, pixtral-12b's 24.5 GB); the audio and VLM
+configs' prompts are token ids (EnCodec codes, text) through the
+reference's stub frontend, which embeds a monolithic prefill's tokens
+with the embedding table; falcon-mamba-7b
 (Mamba1) and zamba2-2.7b (Mamba2 layers with a shared attention block) on
 dense rows with monolithic bucket prefill, and without speculation
 (``--proposer`` other than ``none`` raises).  The run is on

@@ -1,10 +1,14 @@
-"""Decoder-only LM, dense, Mixture-of-Experts (``moe``), Mamba1 (``ssm``)
-and Zamba2 hybrid (``hybrid``) families: the training forward and loss
-(dense, MoE and hybrid), and the serving path (all four).
+"""Decoder-only LM, dense, Mixture-of-Experts (``moe``), Mamba1 (``ssm``),
+Zamba2 hybrid (``hybrid``), audio and VLM families: the training forward and
+loss (all but Mamba1), and the serving path (all six).  The audio and VLM
+families are the dense backbone over a stub frontend (``embed_inputs``):
+``forward``, ``lm_loss`` and the monolithic ``prefill`` also take
+precomputed ``[B, S, d_model]`` embeddings in place of tokens, as the
+reference's do.
 
 Counterpart of ``repro.models.transformer`` for what the trainer and the
 serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
-``forward`` / ``lm_loss`` (dense, MoE and hybrid, with remat policies
+``forward`` / ``lm_loss`` (every family but Mamba1, with remat policies
 ``"none"``, ``"dots"`` and ``"full"``), ``init_paged_cache`` and
 ``init_cache`` (dense rows, the Mamba1 conv / SSM state, or the hybrid's
 Mamba2 state per cycle and layer beside the shared block's K/V rows per
@@ -45,10 +49,12 @@ Params = Any
 
 
 #: the families the port runs: attention + MLP, attention + top-k experts,
-#: Mamba1, and Mamba2 layers with a shared attention + MLP block (Zamba2)
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-#: the families whose layers hold attention (a KV cache, paged or dense)
-ATTENTION_FAMILIES = ("dense", "moe")
+#: Mamba1, Mamba2 layers with a shared attention + MLP block (Zamba2), and
+#: the dense layer over audio frame / image patch embeddings
+FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
+#: the families whose layers hold attention (a KV cache, paged or dense);
+#: every one but ``moe`` takes the dense layer
+ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def _require_family(cfg: ModelConfig, families: tuple = FAMILIES) -> None:
@@ -167,6 +173,19 @@ def embed_tokens(
     return params["embed"].to(dtype)[tokens.long()]
 
 
+def input_embeddings(
+    cfg: ModelConfig, params: Params, inputs: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """int tokens [B, S] through the embedding table, or (``embed_inputs``
+    configs) precomputed embeddings [B, S, d] cast to ``dtype``.  Float
+    inputs to any other config raise, as the reference's assert does."""
+    if not inputs.is_floating_point():
+        return embed_tokens(cfg, params, inputs, dtype)
+    if not cfg.embed_inputs:
+        raise ValueError(f"{cfg.name} does not take embedding inputs")
+    return inputs.to(dtype)
+
+
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
@@ -246,7 +265,9 @@ def forward(
     remat_policy: str = "none",
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, dict]:
-    """inputs: int tokens [B, S].  Returns ``(logits [B, S, V], metrics)``.
+    """inputs: int tokens [B, S], or embeddings [B, S, d] for an
+    ``embed_inputs`` config (``input_embeddings``).  Returns ``(logits
+    [B, S, V], metrics)``.
 
     fp32 weights with ``ndim > 1`` are cast to ``compute_dtype`` inside the
     forward (differentiably, so their gradients arrive in fp32).
@@ -262,12 +283,10 @@ def forward(
         raise NotImplementedError(
             "Mamba1 training (a backward of the selective scan) is not ported yet"
         )
-    _require_family(cfg, ("dense", "moe", "hybrid"))
+    _require_family(cfg)
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
-    if inputs.is_floating_point():
-        raise ValueError(f"{cfg.name} takes int tokens, not embeddings")
-    x = embed_tokens(cfg, params, inputs, compute_dtype)
+    x = input_embeddings(cfg, params, inputs, compute_dtype)
     if cfg.family == "hybrid":
         shared = cast_params(params["shared"], compute_dtype)
         body = lambda cfg_, lp, x_, impl_: _hybrid_cycle(cfg_, shared, lp, x_, impl_)
@@ -707,7 +726,8 @@ def prefill(
     cache_dtype: Optional[torch.dtype] = None,
     length: Optional[int] = None,
 ) -> tuple[torch.Tensor, Params]:
-    """Full-sequence prefill.  inputs: [B, S] int tokens.  Returns
+    """Full-sequence prefill.  inputs: [B, S] int tokens, or [B, S, d]
+    embeddings for an ``embed_inputs`` config (``input_embeddings``).  Returns
     ``(last-position logits [B, V], cache)`` with the cache in
     ``cache_dtype`` (default ``compute_dtype``): dense and MoE, K/V
     [L, B, max_seq, kvH, hd] zero-padded past S; Mamba1, the conv and SSM
@@ -730,14 +750,14 @@ def prefill(
     CPU's vector tail).  A bucket of 64 or more tokens runs as it is."""
     _require_family(cfg)
     cache_dtype = cache_dtype or compute_dtype
-    b, s = inputs.shape
+    b, s = inputs.shape[:2]
     if cfg.family == "hybrid":
         length = s if length is None else length
         run = -(-s // SSM.DEFAULT_CHUNK) * SSM.DEFAULT_CHUNK
         inputs = torch.nn.functional.pad(inputs, (0, run - s))
     else:
         run = s
-    x = embed_tokens(cfg, params, inputs, compute_dtype)
+    x = input_embeddings(cfg, params, inputs, compute_dtype)
     layers = cast_params(params["layers"], compute_dtype)
     positions = torch.arange(run, device=x.device).expand(b, run)
 
@@ -850,8 +870,8 @@ def prefill_into_slot(
     reference's ``dynamic_update_index_in_dim``), and set ``index[slot] =
     length``.  The batch axis is 1 of every leaf but the hybrid's Mamba2
     state, whose leaves are [n_cyc, every, B, ...].  inputs: [1, S_bucket]
-    int32.  Returns ``(first generated token [] int32 on the device,
-    cache)``."""
+    int32, or [1, S_bucket, d] embeddings (``prefill``).  Returns ``(first
+    generated token [] int32 on the device, cache)``."""
     layers = cache["layers"]
     cache_dtype = (layers["shared_k"] if cfg.family == "hybrid"
                    else next(iter(layers.values()))).dtype
@@ -882,8 +902,9 @@ def prefill_into_slot_paged(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, Params]:
     """Cold-path prefill straight into the paged pool: ``prefill`` over the
-    [1, S_bucket] prompt against a bucket-sized cache, then the bucket's K/V
-    scattered page by page into the pages of the slot's block-table row, in
+    [1, S_bucket] prompt (tokens, or [1, S_bucket, d] embeddings) against a
+    bucket-sized cache, then the bucket's K/V scattered page by page into
+    the pages of the slot's block-table row, in
     place.  The bucket must be page-aligned.  Pad positions past ``length``
     land on the slot's last page past the index (overwritten before read) or
     on unallocated table entries, which hold the sentinel page.  Returns

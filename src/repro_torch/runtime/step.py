@@ -7,8 +7,11 @@ the parameters and the optimizer state IN PLACE (the reference's jit
 donates them) and returns the same state dict: a full-size model keeps one
 copy of its weights, moments and gradients on the card.  Batches may be
 numpy arrays (``SyntheticDataset``) or tensors; they are moved to the
-step's device.  Every launch goes to the current stream and nothing waits
-for the device: the metrics are device scalars.
+step's device.  ``inputs`` are int tokens [B, S], or for an
+``embed_inputs`` config (audio, VLM) fp32 embeddings [B, S, d_model], which
+go through the copy and the microbatch split unchanged (the reference's
+``abstract_batch``).  Every launch goes to the current stream and nothing
+waits for the device: the metrics are device scalars.
 """
 from __future__ import annotations
 
@@ -69,7 +72,11 @@ def make_train_step(
             cfg, params, inputs, labels,
             remat_policy=tcfg.remat_policy, compute_dtype=compute_dtype,
         )
-        grads = torch.autograd.grad(loss, tree_leaves(params))
+        leaves = tree_leaves(params)
+        # an ``embed_inputs`` config never reads its embedding table here:
+        # its gradient is zero, as JAX's is for an unused leaf
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return loss.detach(), metrics, grads
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:

@@ -1,9 +1,9 @@
 """Continuous-batching greedy inference engine, with speculative decoding.
 
 Counterpart of ``repro.serving.engine.InferenceEngine``, for the dense,
-Mixture-of-Experts, Mamba1 and Zamba2 hybrid families.  Two KV layouts
-(``kv_page_size``): by default (the attention families, dense and MoE) KV
-lives in a shared pool of 16-token physical pages addressed through
+Mixture-of-Experts, Mamba1, Zamba2 hybrid, audio and VLM families.  Two KV
+layouts (``kv_page_size``): by default (the attention families: dense, MoE,
+audio and VLM) KV lives in a shared pool of 16-token physical pages addressed through
 per-slot block tables (``serving/kv_pool.py``), admission reserves a slot's
 worst-case pages and a radix tree serves shared page-aligned prefixes from
 cached pages; ``kv_page_size=0`` (always for the recurrent families, Mamba1
@@ -56,8 +56,14 @@ the other slots' tokens, idle and PREFILLING slots included, so the engine
 keeps the reference's token vector and decodes every slot, never a
 compacted batch.
 
+The audio and VLM families (``embed_inputs``) serve token prompts through
+the reference's stub frontend: a monolithic prefill (target and draft)
+feeds the bucket's rows of the embedding table as precomputed embeddings
+(``_embed_or_pass``); chunked and suffix prefill, decode and verify take
+the token ids, as in the reference.
+
 Not ported: speculation on a recurrent (Mamba1 or hybrid) target or draft
-(``NotImplementedError``), and the audio and VLM frontend families.
+(``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -932,13 +938,22 @@ class InferenceEngine:
         buf[0, : len(tokens)] = tokens
         return torch.tensor(buf, device=self.device)
 
+    def _embed_or_pass(self, params: Any, buf: torch.Tensor) -> torch.Tensor:
+        """A monolithic prefill's inputs: an ``embed_inputs`` config's stub
+        frontend embeds the bucket's tokens through ``params``' table (the
+        reference's ``_embed_or_pass``); any other takes the tokens."""
+        if self.cfg.embed_inputs:
+            return params["embed"][buf.long()].to(self.compute_dtype)
+        return buf
+
     def _draft_prefill(self, slot: int, prompt: np.ndarray) -> None:
         """The draft's dense cache tracks the whole prompt (no prefix pool);
         its first-token output is never fetched.  Its bucket caps at
         ``max_seq``."""
+        buf = self._bucket_buf(prompt, page_aligned=False)
         _, self.draft_cache = T.prefill_into_slot(
             self.draft_cfg, self.draft_params,
-            self._bucket_buf(prompt, page_aligned=False), len(prompt), slot,
+            self._embed_or_pass(self.draft_params, buf), len(prompt), slot,
             self.draft_cache, max_seq=self.max_seq, impl=self.attn_impl,
             compute_dtype=self.compute_dtype,
         )
@@ -964,9 +979,9 @@ class InferenceEngine:
             )
             self.prefill_skipped_tokens += shared
         else:
+            buf = self._embed_or_pass(self.params, self._bucket_buf(prompt))
             tok, self.cache = T.prefill_into_slot_paged(
-                self.cfg, self.params, self._bucket_buf(prompt), n, slot,
-                self.cache, impl=self.attn_impl,
+                self.cfg, self.params, buf, n, slot, self.cache, impl=self.attn_impl,
                 compute_dtype=self.compute_dtype,
             )
         self.prefill_prompt_tokens += n
@@ -984,8 +999,9 @@ class InferenceEngine:
         device)."""
         prompt = np.asarray(req.prompt, np.int32)
         n = len(prompt)
+        buf = self._embed_or_pass(self.params, self._bucket_buf(prompt))
         tok, self.cache = T.prefill_into_slot(
-            self.cfg, self.params, self._bucket_buf(prompt), n, slot, self.cache,
+            self.cfg, self.params, buf, n, slot, self.cache,
             max_seq=self.max_seq, impl=self.attn_impl,
             compute_dtype=self.compute_dtype,
         )

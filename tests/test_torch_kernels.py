@@ -73,6 +73,10 @@ PREFILL_CASES = [
     (3, 2, 16, 14, 2, 16, 8, 4, [0, 9], [16, 11], True),
     # hd 64 (musicgen-large)
     (4, 2, 8, 4, 2, 64, 16, 2, [3, 20], [8, 5], False),
+    # musicgen-large's serving attention: MHA (GQA group 1) at hd 64
+    (5, 2, 8, 4, 4, 64, 16, 2, [3, 20], [8, 5], True),
+    # pixtral-12b's GQA group 4 (32 / 8 heads): C * group = 32 rows a kv head
+    (6, 3, 8, 8, 2, 16, 8, 4, [0, 11, 25], [8, 6, 3], True),
 ]
 
 
@@ -183,6 +187,8 @@ FLASH_CASES = [
     (3, 48, 80, False, 32, 16),
     (4, 8, 8, True, 32, 16),
     (5, 40, 72, False, 32, 64),
+    # causal at hd 64 (musicgen-large's training attention), ragged
+    (6, 100, 100, True, 32, 64),
 ]
 
 

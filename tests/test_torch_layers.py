@@ -34,20 +34,12 @@ def _close(port, ref):
 
 
 def test_smoke_config_matches_reference():
-    """Every field the port keeps (the Mamba1 fields included) equals the
-    reference's, for every arch the port registers, full and smoke size;
-    every field it dropped (MoE, Mamba2 / hybrid, frontend) sits at the
-    reference's default, so the dropped features are off for the arch.
-    The Mamba2-only fields are exempt where the reference does not read
-    them (``ssm_version != 2``): its smoke reduction sets ``ssm_head_dim``
-    for Mamba1 too."""
-    ref_defaults = {
-        f.name: f.default for f in dataclasses.fields(type(JCFG))
-        if f.default is not dataclasses.MISSING
-    }
-    mamba2_only = {"ssm_head_dim"}
-    assert {"ssm_state", "ssm_version", "ssm_expand", "ssm_conv", "dt_rank"} <= {
-        f.name for f in dataclasses.fields(type(CFG))
+    """The port's ``ModelConfig`` has every field of the reference's (the
+    frontend's ``embed_inputs`` returned with the audio and VLM families),
+    and each equals the reference's, for every arch the port registers, full
+    and smoke size."""
+    assert {f.name for f in dataclasses.fields(type(CFG))} == {
+        f.name for f in dataclasses.fields(type(JCFG))
     }
     pairs = [(CFG, JCFG)]
     for arch in configs.ARCH_IDS:
@@ -55,16 +47,7 @@ def test_smoke_config_matches_reference():
         pairs.append((configs.smoke_config(arch), jconfigs.smoke_config(arch)))
     for port, ref in pairs:
         assert (port.resolved_dt_rank, port.d_inner) == (ref.resolved_dt_rank, ref.d_inner)
-        kept = dataclasses.asdict(port)
-        full = dataclasses.asdict(ref)
-        assert kept == {k: full[k] for k in kept}
-        dropped = set(full) - set(kept)
-        assert dropped
-        if ref.ssm_version != 2:
-            dropped -= mamba2_only
-        assert {k: full[k] for k in dropped} == {
-            k: ref_defaults[k] for k in dropped
-        }
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
 def test_init_params_tree_shapes_and_scales_match_reference():

@@ -119,6 +119,10 @@ VERIFY_CASES = [
     (0, 4, 3, 4, 2, 16, 8, 3, [0, 2, 24, 13]),
     (1, 3, 5, 4, 4, 16, 16, 2, [32, 5, 1]),
     (2, 4, 2, 8, 2, 32, 8, 4, [9, 32, 45, 2]),
+    # musicgen-large's verify: MHA (GQA group 1) at hd 64
+    (3, 3, 5, 4, 4, 64, 16, 2, [32, 5, 20]),
+    # pixtral-12b's GQA group 4 (32 / 8 heads)
+    (4, 4, 5, 8, 2, 16, 8, 4, [9, 32, 45, 2]),
 ]
 
 
