@@ -64,7 +64,14 @@ Phases, each printing a line before the last:
                  chunked prefill at musicgen's group 1 (32 heads of 64) and
                  pixtral-12b's group 4 (32 heads over 8 of 128), the paged
                  verify and tree verify at musicgen's, the dense decode at
-                 pixtral's, each with a NaN in one slot.
+                 pixtral's, each with a NaN in one slot.  Last, the scan's
+                 backward (#10b, no TPU counterpart) against autograd of the
+                 plain scan at falcon-mamba's training shape (B = 4, Q =
+                 1024, fp32) and at Q = 200 (and ragged widths), from a
+                 non-zero h0 and final-state gradient, the forward with
+                 checkpoints bit-equal to the serving forward, a NaN in one
+                 batch row staying in that row's gradients; timed beside
+                 the plain backward and its bound.
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -206,6 +213,25 @@ Phases, each printing a line before the last:
                  host -> device copy timed.
                  Phases 18-21 each free their weights; they run after
                  phase 17 and before phase 7.
+22. falcon train -- falcon-mamba-7b at 2 layers, full width, fp32:
+                 ``lm_loss`` and every gradient with impl="cuda" (the scan
+                 kernel with checkpoints and its backward kernel) against
+                 impl="torch"; then 24 of 64 layers at full width under
+                 remat "full", fp32 params + AdamW, bf16 compute, 4 x 1024
+                 tokens, 3 steps: finite loss and gradient norm, peak
+                 memory, 2 forward scans and 1 backward a layer and step.
+23. recurrent spec parity -- falcon-mamba-7b at 2 layers and zamba2-2.7b at
+                 12 of 54, full width, fp32, each with ``draft_config``'s
+                 draft, ``proposer="auto"``: streams cuda == torch == the
+                 plain greedy engine's, drafted > accepted (the state
+                 rollback ran).
+24. recurrent spec serve -- both at full depth, bf16, phase 10's 16
+                 requests of 32 new tokens with ``proposer="auto"``: every
+                 request finishes; the scan once per layer of target and
+                 draft and admission (falcon-mamba), flash once per cycle
+                 of each and admission and the dense decode (zamba2).
+                 Phases 22-24 each free their weights; they run after
+                 phase 21 and before phase 7.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -222,9 +248,10 @@ dense decode's and prefill's also from the dense target serve run --, the dense
 verify and tree verify from the dense target serve run, the scan from the
 ssm serve run, the hd-80 rows' from phases 16 (decode) and 17 (flash),
 the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
-``*_g4`` rows' from phase 20, the others' from the collocated run; each
-row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17
-and 19-21 that launch it; a row with no launch fails the run)
+``*_g4`` rows' from phase 20, the scan backward's from phase 22's
+24-layer run, the others' from the collocated run; each
+row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
+19-21 and 22-24 that launch it; a row with no launch fails the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -329,6 +356,9 @@ SSM_BATCHES = (1, 8)
 SSM_SMALL = ((4, 100), (8, 99), (32, 100))  # (ds, di) at B = 2, Q = 65
 #: fp32 scan kernel vs plain version: relative to max |y| (max |h|)
 SSM_RTOL = 1e-5
+#: fp32 scan backward vs autograd of the plain scan: relative to max |g|
+#: (sums over d_inner and over the steps in another order)
+SSM_GRAD_RTOL = 1e-4
 SPEC_COLLOC_ITERS = 4
 COLLOC_ITERS = 8
 # zamba2-2.7b's shared attention: 32 MHA heads of 80.  Flash (#5) at its
@@ -863,7 +893,7 @@ def phase_kernels():
     flash = _flash_rows()
     _flash_long_rows()
     return (rows + flash + _spec_rows() + _dense_target_rows() + _ssm_rows()
-            + _hd80_rows() + _slice_rows())
+            + _hd80_rows() + _slice_rows() + _ssm_bwd_rows())
 
 
 def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
@@ -1629,15 +1659,17 @@ def _ssm_chained(ss, xi, dt, bm, cm, a, h0, chunk=SSM_Q):
     return torch.cat(ys, dim=1), h
 
 
-def _ssm_bound(q):
-    """Bound of one B = 1 scan of ``q`` steps at the table's widths.  Bytes:
-    xi, dt, y [q, di] and B, C [q, ds] once, A, h0 and h once; ops: per
-    (step, row, state) dt*A, exp, *h, fma with dt*x*B, *C, the sum."""
+def _ssm_bound(q, b=1):
+    """Bound of one scan of ``q`` steps over ``b`` batch rows at the table's
+    widths.  Bytes: xi, dt, y [b, q, di] and B, C [b, q, ds] once, A once,
+    h0 and h [b, di, ds] once; ops: per (row, step, d, state) dt*A, exp,
+    *h, fma with dt*x*B, *C, the sum."""
     import torch
 
-    elems = q * SSM_DI * SSM_DS
-    nbytes = 4 * (3 * q * SSM_DI + 2 * q * SSM_DS + 3 * SSM_DI * SSM_DS)
-    return _bound_ms(nbytes, 7 * elems + q * SSM_DI, torch.float32)
+    elems = b * q * SSM_DI * SSM_DS
+    nbytes = 4 * (3 * b * q * SSM_DI + 2 * b * q * SSM_DS + SSM_DI * SSM_DS
+                  + 2 * b * SSM_DI * SSM_DS)
+    return _bound_ms(nbytes, 7 * elems + b * q * SSM_DI, torch.float32)
 
 
 def _ssm_rows():
@@ -1689,6 +1721,135 @@ def _ssm_rows():
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
         "ms_q256": times[256][0], "plain_ms_q256": times[256][1],
         "bound_ms_q256": times[256][2],
+    }]
+
+
+def _ssm_bwd_bound(b, q, di=SSM_DI, ds=SSM_DS):
+    """Bound of the scan's backward: bytes of xi, dt, gy read and gxi, gdt
+    written [B, Q, di], B, C read and gB, gC written [B, Q, ds], A and gA,
+    h0, the final state's gradient and gh0 once (the forward's checkpoints
+    are the kernel's choice, not the function's); operations, per (batch,
+    step, row, state), the 20 a step back needs: h rebuilt (dt * A, the
+    exponential, a * h, u * B, the sum), g = gy * C + carry, g * h * a, the
+    gu, gdt and gA sums (a product and a sum each), the gB and gC terms with
+    their sums, the carry a * g."""
+    import torch
+
+    nbytes = 4 * (5 * b * q * di + 4 * b * q * ds + 2 * di * ds + 3 * b * di * ds)
+    return _bound_ms(nbytes, 20 * b * q * di * ds, torch.float32)
+
+
+def _ssm_bwd_rows():
+    """The scan's backward kernel (#10b, ``ssm_scan_bwd``; no TPU
+    counterpart: the Pallas scan has no VJP), fp32: at B = 4, Q = 1024 (the
+    falcon-mamba training shape) and Q = 200 (not a multiple of the 16-step
+    checkpoint), d_inner 8192, ssm_state 16, from a non-zero h0 and with a
+    non-zero gradient of the final state, and at the other state widths on a
+    ragged d_inner; each gradient (xi, dt, B, C, A, h0) against autograd of
+    the plain scan within SSM_GRAD_RTOL of its largest value; the forward
+    with checkpoints bit-equal to the serving forward (y, h) with hs[:, 0] ==
+    h0; a NaN in one batch row's xi non-finite exactly where the plain
+    version's gradients are, every other row finite.  Timed at the training
+    shape beside the plain backward (autograd of the step-by-step scan) and
+    the bound; the forward with checkpoints beside the serving forward."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ss
+
+    def plain_graph(args):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        return leaves, ss.ssm_scan_chunk_torch(*leaves)
+
+    def plain_grads(args, gy, gh):
+        leaves, outs = plain_graph(args)
+        return torch.autograd.grad(outs, leaves, (gy, gh))
+
+    names = ("xi", "dt", "B", "C", "A", "h0")
+    cases = [(4, 1024, SSM_DI, SSM_DS), (4, 200, SSM_DI, SSM_DS),
+             (2, 65, 100, 4), (2, 33, 99, 8), (2, 40, 100, 32)]
+    worst = 0.0
+    for b, q, di, ds in cases:
+        args = _ssm_inputs(b, q, seed=9, di=di, ds=ds)
+        g = torch.Generator(device="cuda").manual_seed(10)
+        gy = torch.randn((b, q, di), generator=g, device="cuda")
+        gh = torch.randn((b, di, ds), generator=g, device="cuda")
+        y, h, hs = ss.ssm_scan_fwd(*args)
+        y0, h0 = ss.ssm_scan_chunk(*args)
+        kgrads = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y0) and torch.equal(h, h0) and torch.equal(hs[:, 0], args[5])):
+            raise AssertionError(f"ssm_scan_bwd B={b} Q={q} di={di} ds={ds}: the forward "
+                                 f"with checkpoints differs from the serving forward")
+        pgrads = plain_grads(args, gy, gh)
+        errs = {}
+        for n, k, p in zip(names, kgrads, pgrads):
+            if k.shape != p.shape or not torch.isfinite(k).all():
+                raise AssertionError(f"ssm_scan_bwd B={b} Q={q} {n}: shape {tuple(k.shape)} "
+                                     f"or non-finite values")
+            errs[n] = ((k - p).abs().max() / p.abs().max()).item()
+        log(f"kernel ssm_scan_bwd B={b} Q={q} di={di} ds={ds} fp32: max err / max|g| "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (tol {SSM_GRAD_RTOL:g}); forward with checkpoints bit-equal")
+        if not max(errs.values()) <= SSM_GRAD_RTOL:
+            raise AssertionError(f"ssm_scan_bwd B={b} Q={q} di={di} ds={ds}: {errs}")
+        worst = max(worst, *errs.values())
+        del pgrads, kgrads
+    # a NaN in batch row 1's xi at one (step, row)
+    b, q = 4, 200
+    args = list(_ssm_inputs(b, q, seed=11))
+    args[0][1, 37, 5] = float("nan")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    gy = torch.randn((b, q, SSM_DI), generator=g, device="cuda")
+    gh = torch.randn((b, SSM_DI, SSM_DS), generator=g, device="cuda")
+    _, _, hs = ss.ssm_scan_fwd(*args)
+    kgrads = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
+    pgrads = plain_grads(args, gy, gh)
+    bad = {}
+    for n, k, p in zip(names, kgrads, pgrads):
+        if not torch.equal(torch.isfinite(k), torch.isfinite(p)):
+            raise AssertionError(f"ssm_scan_bwd NaN row: {n} non-finite at "
+                                 f"{int((~torch.isfinite(k)).sum())} places, the plain "
+                                 f"version's at {int((~torch.isfinite(p)).sum())}")
+        bad[n] = int((~torch.isfinite(k)).sum())
+        if n != "A":  # every gradient but A's keeps the batch rows apart
+            rows = [r for r in range(b) if r != 1]
+            if not torch.isfinite(k[rows]).all():
+                raise AssertionError(f"ssm_scan_bwd NaN row: {n} non-finite outside row 1")
+            e = ((k[rows] - p[rows]).abs().max() / p[rows].abs().max()).item()
+            if not e <= SSM_GRAD_RTOL:
+                raise AssertionError(f"ssm_scan_bwd NaN row: {n} rows != 1 err {e}")
+    log(f"kernel ssm_scan_bwd: a NaN in batch row 1's xi at step 37: non-finite gradients "
+        f"exactly where the plain version's are ({json.dumps(bad)}), the other rows finite "
+        f"and within {SSM_GRAD_RTOL:g}")
+    del kgrads, pgrads
+    # times at the training shape
+    b, q = 4, 1024
+    args = _ssm_inputs(b, q, seed=13)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    gy = torch.randn((b, q, SSM_DI), generator=g, device="cuda")
+    gh = torch.randn((b, SSM_DI, SSM_DS), generator=g, device="cuda")
+    _, _, hs = ss.ssm_scan_fwd(*args)
+    k_ms = _time_ms(lambda: ss.ssm_scan_bwd(*args[:5], hs, gy, gh))
+    fwd_ckpt_ms = _time_ms(lambda: ss.ssm_scan_fwd(*args))
+    fwd_ms = _time_ms(lambda: ss.ssm_scan_chunk(*args))
+    leaves, outs = plain_graph(args)
+    p_ms = _time_ms(lambda: torch.autograd.grad(outs, leaves, (gy, gh), retain_graph=True),
+                    reps=5)
+    del leaves, outs
+    bound, by = _ssm_bwd_bound(b, q)
+    fwd_bound, _ = _ssm_bound(q, b)
+    log(f"kernel ssm_scan_bwd (B={b}, Q={q}, di={SSM_DI}, ds={SSM_DS}, fp32): {k_ms:.4f} ms, "
+        f"plain (autograd of the step-by-step scan) {p_ms:.4f} ms, library none, bound "
+        f"{bound:.4f} ms ({by}), {100 * bound / k_ms:.1f}% of it; forward with checkpoints "
+        f"{fwd_ckpt_ms:.4f} ms, serving forward {fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms)")
+    return [{
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:56 (its gradient; the TPU kernel has none)",
+        "launches": 0, "max_abs_err": worst, "err_kind": "relative to max|g|, fp32",
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "ms_fwd_checkpoints": fwd_ckpt_ms, "ms_fwd_serving": fwd_ms,
+        "bound_ms_fwd": fwd_bound,
     }]
 
 
@@ -4384,6 +4545,260 @@ def phase_audio_vlm_train():
 
 
 # ---------------------------------------------------------------------------
+# 22. falcon-mamba train, 23. recurrent spec parity, 24. recurrent spec serve
+# ---------------------------------------------------------------------------
+
+#: falcon-mamba-7b's training depth on one card: 24 of 64 layers at full
+#: width (2.79 B parameters, 44.7 GB of fp32 params, gradients and AdamW
+#: moments; full depth would need 112 GB)
+FALCON_TRAIN_LAYERS = 24
+#: the scan kernels of the Mamba1 training path
+SSM_TRAIN_KERNELS = ("ssm_scan", "ssm_scan_bwd")
+
+
+def _falcon_train_parity():
+    """falcon-mamba-7b at 2 layers, full width, fp32: ``lm_loss`` (B=2,
+    S=200) and every gradient with impl="cuda" (the scan kernel with
+    checkpoints and the backward kernel) against impl="torch" (autograd of
+    the plain scan), the loss within 1e-4 and each gradient within
+    GRAD_RTOL_FP32 of its largest value; the cuda run launches each scan
+    kernel once a layer, the plain versions never."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = dataclasses.replace(configs.get_config("falcon-mamba-7b"), num_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(21)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 201)), device="cuda")
+    res = {}
+    for impl in ("cuda", "torch"):
+        leaves = [p.detach().clone().requires_grad_() for p in tree_leaves(params)]
+        ops.reset_launch_counts()
+        loss, _ = T.lm_loss(cfg, tree_unflatten(params, leaves), toks[:, :-1], toks[:, 1:],
+                            impl=impl, compute_dtype=torch.float32)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        res[impl] = (loss.item(), grads, ops.launch_counts())
+    want = {"ssm_scan": {"cuda": cfg.num_layers, "torch": 0},
+            "ssm_scan_bwd": {"cuda": cfg.num_layers, "torch": 0}}
+    got = {n: res["cuda"][2][n] for n in want}
+    if got != want:
+        raise AssertionError(f"falcon train parity: cuda launches {got}, expected {want}")
+    loss_err = abs(res["cuda"][0] - res["torch"][0])
+    grad_err = max(((k - p).abs().max() / p.abs().max()).item()
+                   for k, p in zip(res["cuda"][1], res["torch"][1]))
+    if not (np.isfinite(res["cuda"][0]) and loss_err <= 1e-4 and grad_err <= GRAD_RTOL_FP32):
+        raise AssertionError(f"falcon train parity: loss {res['cuda'][0]} vs "
+                             f"{res['torch'][0]}, worst gradient error {grad_err}")
+    log(f"falcon train parity (falcon-mamba-7b, 2 layers, full width, fp32, B=2, S=200): loss "
+        f"{res['cuda'][0]:.6f} cuda vs {res['torch'][0]:.6f} torch (|d| {loss_err:.2e}, tol "
+        f"1e-4); worst gradient max err / max|g| {grad_err:.2e} over "
+        f"{len(res['cuda'][1])} leaves (tol {GRAD_RTOL_FP32:g}); cuda launches {json.dumps(got)}")
+
+
+def phase_falcon_train():
+    """falcon-mamba-7b trained on the card: ``_falcon_train_parity`` (2
+    layers, cuda vs torch), then ``FALCON_TRAIN_LAYERS`` of 64 layers at
+    full width under remat "full": fp32 params and AdamW, bf16 compute,
+    batch 4 x seq 1024 Zipf tokens, 3 steps; finite losses and gradient
+    norms, the peak memory, and per layer and step 2 forward scans (the
+    recompute) and 1 backward.  Returns the second run's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    _fresh_phase()
+    _falcon_train_parity()
+    _fresh_phase()
+    cfg = dataclasses.replace(configs.get_config("falcon-mamba-7b"),
+                              num_layers=FALCON_TRAIN_LAYERS)
+    steps = 3
+    state = init_train_state(T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    step = make_train_step(cfg, TrainConfig(warmup_steps=2, total_steps=steps + 2,
+                                            remat_policy="full"))
+    ds = SyntheticDataset(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    log(f"falcon train: falcon-mamba-7b at {cfg.num_layers} of 64 layers, full width, "
+        f"{n_params / 1e9:.3f} B params; state {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"before the first step")
+    ops.reset_launch_counts()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        batch = ds.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all() and min(norms) > 0):
+        raise AssertionError(f"falcon train: losses {losses}, grad norms {norms}")
+    _require_launches("falcon train", counts, SSM_TRAIN_KERNELS)
+    want = {"ssm_scan": 2 * cfg.num_layers * steps, "ssm_scan_bwd": cfg.num_layers * steps}
+    got = {name: counts[name]["cuda"] for name in want}
+    if got != want:
+        raise AssertionError(f"falcon train: scan launches {got}, expected {want}")
+    log(f"falcon train (falcon-mamba-7b, {cfg.num_layers} of 64 layers, full width, remat "
+        f"full; fp32 params + AdamW, bf16 compute, B={TRAIN_B} x S={TRAIN_S}): steps "
+        + ", ".join(f"{t:.1f}" for t in ms) + " ms; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.4f}" for x in norms) + f"; peak device memory {peak:.2f} GB; scan "
+        f"launches {json.dumps(got)} (2 forward, 1 backward a layer and step)")
+    del state, step
+    _end_phase("falcon train")
+    return {"falcon_train": {name: c["cuda"] for name, c in counts.items()}}
+
+
+def phase_recurrent_spec_parity():
+    """Speculation with a recurrent target and draft on the card:
+    falcon-mamba-7b at 2 layers and zamba2-2.7b at ``HYBRID_PARITY_LAYERS``
+    of 54, full width, fp32, each paired with ``draft_config``'s draft
+    (random weights, so most drafts are rejected and the state rollback
+    runs), ``proposer="auto"`` (the draft alone: host proposers need an
+    attention target).  The speculating engine's streams with impl="cuda"
+    equal impl="torch"'s and the plain greedy engine's; drafted > accepted;
+    the cuda engine launches the scan (falcon-mamba's prefills) or the flash
+    and dense decode kernels (zamba2), the plain versions never."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    for arch, layers, kernels in (("falcon-mamba-7b", 2, SSM_KERNELS),
+                                  ("zamba2-2.7b", HYBRID_PARITY_LAYERS, HYBRID_SERVE_KERNELS)):
+        _fresh_phase()
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers)
+        spec = SpecDecodeConfig(proposer="auto")
+        dcfg = draft_config(cfg, spec)
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+        prompts = _prompts(np.random.default_rng(23), 6, 24, 80, cfg.vocab_size, 0, ())
+        streams, stats = {}, {}
+        for name, impl in (("plain", "cuda"), ("spec", "cuda"), ("spec", "torch")):
+            kw = {} if name == "plain" else dict(draft_cfg=dcfg, draft_params=dparams,
+                                                 spec=spec)
+            eng = InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                                  compute_dtype=torch.float32, decode_impl=impl, **kw)
+            ops.reset_launch_counts()
+            reqs, secs = _serve(eng, prompts, max_new=12)
+            counts = ops.launch_counts()
+            streams[name, impl] = [list(r.output_tokens) for r in reqs]
+            stats[name, impl] = (eng.spec_rounds, eng.spec_drafted, eng.spec_accepted)
+            if name == "spec" and impl == "cuda":
+                _require_launches(f"{arch} spec parity", counts, kernels)
+                launched = {k: counts[k]["cuda"] for k in kernels}
+            del eng
+        if not streams["spec", "cuda"] == streams["spec", "torch"] == streams["plain", "cuda"]:
+            raise AssertionError(f"{arch} spec parity: streams differ (cuda, torch, plain)")
+        rounds, drafted, accepted = stats["spec", "cuda"]
+        if stats["spec", "cuda"] != stats["spec", "torch"] or not drafted > accepted:
+            raise AssertionError(f"{arch} spec parity: rounds / drafted / accepted "
+                                 f"{stats['spec', 'cuda']} vs {stats['spec', 'torch']}")
+        log(f"recurrent spec parity ({arch}, {layers} layers, full width, fp32, draft "
+            f"{dcfg.num_layers} layers d_model {dcfg.d_model}): {len(prompts)} requests x 12 "
+            f"tokens, streams equal cuda == torch == plain greedy; rounds / drafted / "
+            f"accepted {stats['spec', 'cuda']}; cuda launches {json.dumps(launched)}")
+        del params, dparams
+        _end_phase(f"{arch} spec parity")
+
+
+def phase_recurrent_spec_serve():
+    """falcon-mamba-7b and zamba2-2.7b at full depth and width, bf16
+    weights made on the card, 8 slots, max_seq 512, paired with
+    ``draft_config``'s draft, ``proposer="auto"``: the ssm serve's 16 ONLINE
+    requests of 25-157 tokens, 32 new tokens each.  Every request finishes;
+    tok/s, TTFT, acceptance and peak memory reported; falcon-mamba's
+    prefills launch the scan once per layer of target and draft and
+    admission, zamba2's the flash forward once per cycle of each and
+    admission, and its decode steps the dense decode.  Returns the launch
+    counts by run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    out = {}
+    for run, arch in (("falcon_spec_serve", "falcon-mamba-7b"),
+                      ("zamba2_spec_serve", "zamba2-2.7b")):
+        _fresh_phase()
+        cfg = configs.get_config(arch)
+        spec = SpecDecodeConfig(proposer="auto")
+        dcfg = draft_config(cfg, spec)
+        t0 = time.monotonic()
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.bfloat16)
+        dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1),
+                                dtype=torch.bfloat16)
+        t_start = time.monotonic()
+        engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512, draft_cfg=dcfg,
+                                 draft_params=dparams, spec=spec,
+                                 clock=lambda: time.monotonic() - t_start)
+        del params, dparams
+        torch.cuda.synchronize()
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                   for n in rng.integers(25, 158, 16)]
+        max_new = 32
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        reqs, secs = _serve(engine, prompts, max_new)
+        counts = ops.launch_counts()
+        _check_finished(f"{arch} spec serve", reqs, max_new, cfg)
+        admissions = len(prompts) + sum(r.preemptions for r in reqs)
+        if cfg.family == "ssm":
+            kernels = SSM_KERNELS
+            want = {"ssm_scan": (cfg.num_layers + dcfg.num_layers) * admissions}
+        else:
+            kernels = HYBRID_SERVE_KERNELS
+            n_cyc = (cfg.num_layers + dcfg.num_layers) // cfg.shared_attn_every
+            want = {"flash_attention_fwd": n_cyc * admissions}
+        _require_launches(f"{arch} spec serve", counts, kernels)
+        got = {name: counts[name]["cuda"] for name in want}
+        if got != want:
+            raise AssertionError(f"{arch} spec serve: launches {got}, expected {want}")
+        if engine.spec_rounds <= 0 or not engine.spec_drafted > engine.spec_accepted:
+            raise AssertionError(f"{arch} spec serve: rounds {engine.spec_rounds}, drafted "
+                                 f"{engine.spec_drafted}, accepted {engine.spec_accepted}")
+        tokens = sum(len(r.output_tokens) for r in reqs)
+        launched = {k: counts[k]["cuda"] for k in kernels}
+        log(f"{arch} spec serve (full depth, bf16, draft {dcfg.num_layers} layers d_model "
+            f"{dcfg.d_model}, proposer auto): set-up {t_start - t0:.1f}s; prompts "
+            f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens; "
+            f"{_serve_summary(engine.obs.metrics, reqs, tokens, secs)}; spec rounds "
+            f"{engine.spec_rounds}, drafted {engine.spec_drafted}, accepted "
+            f"{engine.spec_accepted} (acceptance {engine.spec_acceptance_rate:.3f}); "
+            f"launches {json.dumps(launched)}")
+        out[run] = {name: c["cuda"] for name, c in counts.items()}
+        del engine
+        _end_phase(f"{arch} spec serve")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4426,6 +4841,12 @@ def main() -> int:
                    **phase_audio_vlm_train()}
     slice_launches.update({run: av_launches[run]
                            for run in ("pixtral_serve", "pixtral_dense", "pixtral_train")})
+    # phases 22-24, Mamba1 training and recurrent speculation, also before any
+    # profiler session
+    rec_launches = phase_falcon_train()
+    phase_recurrent_spec_parity()
+    rec_launches.update(phase_recurrent_spec_serve())
+    slice_launches.update(rec_launches)
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()
@@ -4468,6 +4889,8 @@ def main() -> int:
             row["launches"] = dense_launches[row["name"]]
         elif row["name"] in SSM_KERNELS:
             row["launches"] = ssm_launches[row["name"]]
+        elif row["name"] == "ssm_scan_bwd":
+            row["launches"] = rec_launches["falcon_train"][row["name"]]
         else:
             row["launches"] = launches[row["name"]]
             if serve_launches[row["name"]]:

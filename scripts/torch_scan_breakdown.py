@@ -104,11 +104,11 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int ssm_scan_chunk_launch(const void* xi, const void* dt, const void* Bm,
                                      const void* Cm, const void* A, const void* h0, void* y,
-                                     void* h_out, int B, int Q, int di, int ds, int device,
-                                     void* stream) {
+                                     void* h_out, void* hs, int B, int Q, int di, int ds,
+                                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (ds != 16) return cudaErrorInvalidValue;
+  if (ds != 16 || hs != nullptr) return cudaErrorInvalidValue;
   constexpr int kRows = kThreads / 16;
   return kern::launch(ssm_scan_kernel<16>, dim3((di + kRows - 1) / kRows, B), kThreads, 0,
                       stream, static_cast<const float*>(xi), static_cast<const float*>(dt),
@@ -223,7 +223,7 @@ def main() -> int:
         y, h = torch.empty_like(xi), torch.empty_like(h0)
         b, q, di = xi.shape
         err = fn(xi.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), a.data_ptr(),
-                 h0.data_ptr(), y.data_ptr(), h.data_ptr(), b, q, di, bm.shape[-1], 0,
+                 h0.data_ptr(), y.data_ptr(), h.data_ptr(), None, b, q, di, bm.shape[-1], 0,
                  torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
         return y, h

@@ -280,11 +280,12 @@ def draft_config(
     target: ModelConfig, spec: SpecDecodeConfig = SpecDecodeConfig()
 ) -> ModelConfig:
     """A cheap draft model derived from ``target``: same family, vocabulary
-    and head dim, ``spec.draft_layers`` layers, and d_model, d_ff and the
-    head counts scaled by ``spec.draft_width_factor`` (GQA grouping kept
-    exact; a hybrid's depth rounded up to whole cycles and its d_model to
-    whole Mamba2 heads).  For qwen3-1.7b: 1 layer, d_model 1024, 8 q / 8 kv
-    heads of 128, d_ff 3072."""
+    and head dim, ``spec.draft_layers`` layers, and d_model, d_ff, the head
+    counts and an explicit Mamba1 ``dt_rank`` scaled by
+    ``spec.draft_width_factor`` (GQA grouping kept exact; a family without
+    heads keeps none; a hybrid's depth rounded up to whole cycles and its
+    d_model to whole Mamba2 heads), as the reference's.  For qwen3-1.7b: 1
+    layer, d_model 1024, 8 q / 8 kv heads of 128, d_ff 3072."""
     layers = max(1, spec.draft_layers)
     changes: dict = {"name": target.name + "-draft"}
     if target.shared_attn_every:
@@ -294,21 +295,23 @@ def draft_config(
         changes["num_layers"] = min(layers, target.num_layers)
     wf = spec.draft_width_factor
     if wf != 1.0:
-        hd = target.resolved_head_dim
-        heads = max(1, int(round(target.num_heads * wf)))
-        kv = max(1, min(target.num_kv_heads, heads))
-        while heads % kv:  # GQA grouping must stay exact
-            kv -= 1
-        changes.update(
-            num_heads=heads,
-            num_kv_heads=kv,
-            head_dim=hd,
-            d_model=max(hd, int(round(target.d_model * wf))),
-            d_ff=max(16, int(round(target.d_ff * wf))),
-        )
+        if target.num_heads:
+            hd = target.resolved_head_dim
+            heads = max(1, int(round(target.num_heads * wf)))
+            kv = max(1, min(target.num_kv_heads, heads))
+            while heads % kv:  # GQA grouping must stay exact
+                kv -= 1
+            changes.update(num_heads=heads, num_kv_heads=kv, head_dim=hd,
+                           d_model=max(hd, int(round(target.d_model * wf))))
+        else:  # Mamba1: no heads
+            changes["d_model"] = max(16, int(round(target.d_model * wf)))
         if target.ssm_version == 2:  # Mamba2 heads must divide d_inner
             di = target.ssm_expand * changes["d_model"]
             changes["d_model"] = (
                 -(-di // target.ssm_head_dim) * target.ssm_head_dim
             ) // target.ssm_expand
+        if target.d_ff:
+            changes["d_ff"] = max(16, int(round(target.d_ff * wf)))
+        if target.dt_rank:
+            changes["dt_rank"] = max(1, int(round(target.dt_rank * wf)))
     return dataclasses.replace(target, **changes)

@@ -54,7 +54,8 @@ SIGNATURES = {
         ("tree_verify_attention_launch", [_P] * 8 + [_I] * 12 + [_P]),
     ),
     "ssm_scan": (
-        ("ssm_scan_chunk_launch", [_P] * 8 + [_I] * 5 + [_P]),
+        ("ssm_scan_chunk_launch", [_P] * 9 + [_I] * 5 + [_P]),
+        ("ssm_scan_bwd_launch", [_P] * 17 + [_I] * 5 + [_P]),
     ),
     "flash_attention": (
         ("flash_attention_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),

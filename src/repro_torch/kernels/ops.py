@@ -1,7 +1,7 @@
 """Dispatch over the kernels: full-sequence (training and monolithic
 prefill) attention, the dense and paged decode / chunked-prefill cores, the
 dense and paged chunk-verify / tree-verify cores of speculative decoding,
-and the Mamba1 selective-scan chunk.
+and the Mamba1 selective scan (forward and backward).
 
 Same signatures and defined outputs as ``repro.kernels.ops``'s entry
 points.  ``impl``:
@@ -260,13 +260,16 @@ def tree_verify_attention(
 
 def ssm_scan_chunk(xi, dt, B_, C_, A, h0, *, impl: str = "auto"):
     """Q steps of the Mamba1 selective scan (any Q: the engine passes a whole
-    prefill bucket), fp32 in and out (inputs are cast): ``h_t = exp(dt_t *
-    A) * h_{t-1} + (dt_t * xi_t) * B_t``, ``y_t = h_t . C_t``.  xi/dt: [B, Q,
-    di]; B_/C_: [B, Q, ds]; A: [di, ds]; h0: [B, di, ds].  Returns ``(y [B,
-    Q, di], h [B, di, ds])``."""
+    prefill bucket, the trainer a whole sequence), fp32 in and out (inputs
+    are cast): ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * xi_t) * B_t``,
+    ``y_t = h_t . C_t``.  xi/dt: [B, Q, di]; B_/C_: [B, Q, ds]; A: [di, ds];
+    h0: [B, di, ds].  Returns ``(y [B, Q, di], h [B, di, ds])``.
+    Differentiable either way: the kernel through its backward kernel (when
+    autograd needs it; the serving launch otherwise), the plain version by
+    autograd."""
     args = [t.float().contiguous() for t in (xi, dt, B_, C_, A, h0)]
     if _resolve(impl, args[0]) == "cuda":
-        return _ssm.ssm_scan_chunk(*args)
+        return _ssm.selective_scan(*args)
     return _ssm.ssm_scan_chunk_torch(*args)
 
 
@@ -281,6 +284,7 @@ _COUNTS = {
     "verify_attention": _dense_verify.COUNTS,
     "tree_verify_attention": _dense_tree.COUNTS,
     "ssm_scan": _ssm.COUNTS,
+    "ssm_scan_bwd": _ssm.BWD_COUNTS,
     "flash_attention_fwd": _flash.FWD_COUNTS,
     "flash_attention_bwd": _flash.BWD_COUNTS,
 }

@@ -5,6 +5,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --proposer ngram
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --proposer auto
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b --smoke --device cpu
@@ -27,8 +28,10 @@ configs' prompts are token ids (EnCodec codes, text) through the
 reference's stub frontend, which embeds a monolithic prefill's tokens
 with the embedding table; falcon-mamba-7b
 (Mamba1) and zamba2-2.7b (Mamba2 layers with a shared attention block) on
-dense rows with monolithic bucket prefill, and without speculation
-(``--proposer`` other than ``none`` raises).  The run is on
+dense rows with monolithic bucket prefill, speculating with their
+recurrent draft model under ``draft`` / ``auto`` (``ngram``, a host
+proposer, needs an attention family: on these two it registers nothing
+and the run decodes plainly, as the reference's CLI does).  The run is on
 ``cuda`` unless ``--device cpu`` is given;
 without a CUDA device the default raises.  The end-of-run summary reads the
 metrics registry under the reference's stable names; ``--trace PREFIX``

@@ -2,13 +2,15 @@
 
 Counterpart of ``repro.models.ssm``: ``causal_conv`` / ``causal_conv_step``
 (the depthwise causal convolution over a sequence and one decode step);
-Mamba1's serving half -- ``init_mamba1``, ``selective_scan_chunked`` (the
-whole sequence in one ``ops.ssm_scan_chunk``: one kernel launch on CUDA
-tensors, where the reference scans 64-step chunks) and the decode state
-(``mamba1_init_state``, ``mamba1_step``); its training block
-(``mamba1_block``, which needs a backward of the scan) is not ported yet.
-Mamba2, serving and training: ``init_mamba2``, the SSD in its chunked
-matmul form (``_segsum``, ``ssd_chunked``), the full-sequence block
+Mamba1, serving and training -- ``init_mamba1``, ``selective_scan_chunked``
+(the whole sequence in one ``ops.ssm_scan_chunk``: one kernel launch on
+CUDA tensors, where the reference scans 64-step chunks; differentiable,
+through the scan's backward kernel), the full-sequence block
+(``mamba1_block``, the reference's training block; ``mamba1_with_state``
+also returns the decode state a prefill leaves) and the decode state
+(``mamba1_init_state``, ``mamba1_step``).  Mamba2, serving and training:
+``init_mamba2``, the SSD in its chunked matmul form (``_segsum``,
+``ssd_chunked``), the full-sequence block
 (``mamba2_block``; ``mamba2_with_state`` also returns the decode state a
 prefill leaves) and the decode state (``mamba2_init_state``,
 ``mamba2_step``).  ``tail_state`` / ``dt_mask`` make a bucket-padded
@@ -137,6 +139,41 @@ def selective_scan_chunked(
     reference's 64-step chunks (they bound its XLA path's [B, chunk, di,
     ds] state tensor)."""
     return ops.ssm_scan_chunk(xi, dt, B_, C_, A, h0, impl=impl)
+
+
+def mamba1_block(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str = "auto"
+) -> torch.Tensor:
+    """Full-sequence Mamba1 block from a zero state (the reference's
+    training block).  x: [B, S, d]."""
+    return mamba1_with_state(cfg, p, x, impl)[0]
+
+
+def mamba1_with_state(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str = "auto",
+    length: Optional[int] = None,
+) -> tuple[torch.Tensor, Params]:
+    """The Mamba1 block over a sequence (x: [B, S, d]) from a zero state,
+    also returning the decode state after it: the conv window (the last
+    ``conv - 1`` raw inputs before ``length``) and the SSM state.
+    ``length`` marks a bucket-padded prompt's true length: pad steps get
+    dt = 0, so the state is exactly the unpadded prompt's.  The scan runs
+    under ``impl`` (``ops.ssm_scan_chunk``)."""
+    b = x.shape[0]
+    di, ds, dtr = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+    xi_raw, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    conv_state = tail_state(xi_raw, length, cfg.ssm_conv - 1)
+    xi = F.silu(causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
+    dt_r, B_, C_ = torch.split(xi @ p["x_proj"], [dtr, ds, ds], dim=-1)
+    dt = dt_mask(F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float(), length)
+    A = -torch.exp(p["A_log"])
+    h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    y, h_fin = selective_scan_chunked(
+        xi.float(), dt, B_.float(), C_.float(), A, h0, impl=impl,
+    )
+    y = y.to(x.dtype) + p["D"].to(x.dtype) * xi
+    y = y * F.silu(z)
+    return y @ p["out_proj"], {"conv": conv_state, "h": h_fin}
 
 
 def mamba1_init_state(

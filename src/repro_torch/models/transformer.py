@@ -1,6 +1,6 @@
 """Decoder-only LM, dense, Mixture-of-Experts (``moe``), Mamba1 (``ssm``),
 Zamba2 hybrid (``hybrid``), audio and VLM families: the training forward and
-loss (all but Mamba1), and the serving path (all six).  The audio and VLM
+loss, and the serving path (all six).  The audio and VLM
 families are the dense backbone over a stub frontend (``embed_inputs``):
 ``forward``, ``lm_loss`` and the monolithic ``prefill`` also take
 precomputed ``[B, S, d_model]`` embeddings in place of tokens, as the
@@ -8,19 +8,20 @@ reference's do.
 
 Counterpart of ``repro.models.transformer`` for what the trainer and the
 serving engine run: ``init_params``, ``embed_tokens`` / ``unembed``,
-``forward`` / ``lm_loss`` (every family but Mamba1, with remat policies
-``"none"``, ``"dots"`` and ``"full"``), ``init_paged_cache`` and
+``forward`` / ``lm_loss`` (every family, with remat policies ``"none"``,
+``"dots"`` and ``"full"``), ``init_paged_cache`` and
 ``init_cache`` (dense rows, the Mamba1 conv / SSM state, or the hybrid's
 Mamba2 state per cycle and layer beside the shared block's K/V rows per
 cycle), ``decode_step``, the fused
 ``decode_loop``, ``prefill_chunks_into_slots`` on either KV layout,
 monolithic bucket prefill (``prefill``, ``prefill_into_slot``,
 ``prefill_into_slot_paged``, ``prefill_suffix_into_slot``), and
-``decode_chunk``, the speculative
-target's chunk / tree verify pass on either KV layout.  The reference's
-``lax.scan`` over stacked layer weights becomes a Python loop over the
-``[L, ...]`` stacks; its donated caches become in-place updates of the
-cache dict's tensors (documented per function).
+``decode_chunk``, the speculative target's pass: chunk / tree verify on
+either KV layout for the attention families, ``decode_step`` T times with
+the recurrent state captured after each step for Mamba1 and the hybrid.
+The reference's ``lax.scan`` over stacked layer weights becomes a Python
+loop over the ``[L, ...]`` stacks; its donated caches become in-place
+updates of the cache dict's tensors (documented per function).
 
 The hybrid keeps the reference's layout: its Mamba2 layers are stacked
 ``[n_cyc, shared_attn_every, ...]`` and ``params["shared"]`` holds the ONE
@@ -43,7 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
 
@@ -242,6 +243,13 @@ def _dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str) -> tup
     return x + y, aux, dropped
 
 
+def _ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str) -> tuple:
+    """One Mamba1 layer over the full sequence (the scan under ``impl``):
+    ``(x, None, None)`` as ``_dense_layer``."""
+    h = L.norm(cfg, x, p.get("ln"))
+    return x + SSM.mamba1_block(cfg, p["mixer"], h, impl), None, None
+
+
 def _hybrid_cycle(
     cfg: ModelConfig, shared: Params, cyc: Params, x: torch.Tensor, impl: str
 ) -> tuple:
@@ -276,13 +284,10 @@ def forward(
     ``"dots"`` keeps only the outputs of its projection matmuls and
     recomputes the rest (norms, RoPE, attention, activations, the experts'
     batched products).  The hybrid's unit of remat is the cycle (the shared
-    block and its Mamba2 layers), as the reference's.  ``metrics`` holds
-    ``moe_aux`` and ``moe_dropped``, the MoE family's mean over layers
-    (zero for the other families)."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "Mamba1 training (a backward of the selective scan) is not ported yet"
-        )
+    block and its Mamba2 layers), as the reference's.  Mamba1's scan runs
+    the scan kernel and its backward kernel on CUDA (``impl``).
+    ``metrics`` holds ``moe_aux`` and ``moe_dropped``, the MoE family's mean
+    over layers (zero for the other families)."""
     _require_family(cfg)
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
@@ -290,6 +295,8 @@ def forward(
     if cfg.family == "hybrid":
         shared = cast_params(params["shared"], compute_dtype)
         body = lambda cfg_, lp, x_, impl_: _hybrid_cycle(cfg_, shared, lp, x_, impl_)
+    elif cfg.family == "ssm":
+        body = _ssm_layer
     else:
         body = _dense_layer
     auxs, drops = [], []
@@ -499,28 +506,27 @@ def decode_step(
 # ---------------------------------------------------------------------------
 
 
+def recurrent_state_batch_axis(cfg: ModelConfig) -> int:
+    """The batch axis of the recurrent state's leaves
+    (``chunk_recurrent_states``): 1 for Mamba1's ``[L, B, ...]``, 2 for the
+    hybrid's ``[n_cyc, every, B, ...]``.  The per-step stacks of
+    ``decode_chunk`` and ``draft_propose`` carry one more leading step
+    axis."""
+    return 2 if cfg.family == "hybrid" else 1
+
+
 def chunk_recurrent_states(cfg: ModelConfig, layers: Params) -> Optional[Params]:
-    """The rollback-relevant slice of a cache's ``layers``: the conv and SSM
-    state of the Mamba1 family, the hybrid's ``mamba`` state, ``None`` for
-    the attention families, whose rollback is an index rewind."""
+    """The rollback-relevant slice of a cache's ``layers``, as views of its
+    own tensors (the speculative round writes the rolled-back state into
+    them in place): the conv and SSM state of the Mamba1 family, the
+    hybrid's ``mamba`` state, ``None`` for the attention families, whose
+    rollback is an index rewind."""
     _require_family(cfg)
     if cfg.family == "ssm":
         return layers
     if cfg.family == "hybrid":
         return layers["mamba"]
     return None
-
-
-def merge_recurrent_states(cfg: ModelConfig, layers: Params, states) -> Params:
-    """Inverse of ``chunk_recurrent_states``: graft recurrent state back into
-    a cache's ``layers`` (the Mamba1 layers are that state; the hybrid's
-    is its ``mamba`` entry)."""
-    _require_family(cfg)
-    if cfg.family == "ssm":
-        return states
-    if cfg.family == "hybrid":
-        return dict(layers, mamba=states)
-    return layers
 
 
 def decode_chunk(
@@ -534,27 +540,37 @@ def decode_chunk(
     logits_at: Optional[int] = None,
     anc: Optional[torch.Tensor] = None,
     depths: Optional[torch.Tensor] = None,
-) -> tuple[torch.Tensor, Params, None]:
-    """Score a T = gamma + 1 speculative chunk in ONE pass over the paged or
-    dense cache.  tokens: [B, T] int32, the current token plus gamma draft
-    tokens.  Returns ``(logits [B, T, V], cache, None)``: every layer writes
-    the chunk's K/V in place (paged: ``attention_verify_paged``; dense:
-    ``attention_verify``), the returned cache's ``index`` is advanced by T,
-    and the third item (the recurrent families' per-step states) is
-    ``None``.
+) -> tuple[torch.Tensor, Params, Optional[Params]]:
+    """Score a T = gamma + 1 speculative chunk.  tokens: [B, T] int32, the
+    current token plus gamma draft tokens.  Returns ``(logits [B, T, V],
+    cache, chunk_states)`` with the returned cache's ``index`` advanced by
+    T.
+
+    The attention families score the chunk in ONE pass over the paged or
+    dense cache: every layer writes the chunk's K/V in place (paged:
+    ``attention_verify_paged``; dense: ``attention_verify``), and
+    ``chunk_states`` is ``None`` (their rollback is an index rewind).  The
+    recurrent families (Mamba1, hybrid) cannot score the steps in parallel:
+    they run ``decode_step`` T times, writing the state in place, and
+    ``chunk_states`` holds a copy of the recurrent state
+    (``chunk_recurrent_states``) after each step, stacked on a new leading
+    axis of T, from which acceptance selects each slot's state
+    (``spec.rollback``).
 
     ``logits_at`` (an int, clamped into [0, T - 1]) restricts the
     unembedding to one chunk position: logits come back [B, 1, V] (the
     suffix prefill needs only its last real position).
 
-    Tree mode: ``anc`` [B, T] int32 ancestor bitmasks and ``depths`` [T]
-    int32 node depths turn the rows into packed-tree nodes (node 0 = the
-    current token) verified by the tree kernel.  Speculation on a recurrent
-    (Mamba1 or hybrid) target is not ported."""
+    Tree mode (attention families only): ``anc`` [B, T] int32 ancestor
+    bitmasks and ``depths`` [T] int32 node depths turn the rows into
+    packed-tree nodes (node 0 = the current token) verified by the tree
+    kernel."""
     if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            "speculation on a recurrent (Mamba1 or hybrid) target is not ported yet"
-        )
+        if anc is not None:
+            raise ValueError(
+                f"tree verification needs an attention family, got {cfg.family!r}")
+        return _recurrent_chunk(cfg, params, tokens, cache, compute_dtype, attn_impl,
+                                logits_at)
     _require_attention(cfg)
     t = tokens.shape[1]
     x = embed_tokens(cfg, params, tokens, compute_dtype)  # [B, T, d]
@@ -584,6 +600,27 @@ def decode_chunk(
         j = min(max(int(logits_at), 0), t - 1)
         x = x[:, j: j + 1]
     return unembed(cfg, params, x), dict(cache, index=idx + t), None
+
+
+def _recurrent_chunk(cfg, params, tokens, cache, compute_dtype, attn_impl, logits_at):
+    """``decode_chunk`` of a recurrent family: T decode steps, the state
+    copied after each into a [T, ...] stack (``decode_step`` overwrites it
+    in place)."""
+    t = tokens.shape[1]
+    live = chunk_recurrent_states(cfg, cache["layers"])
+    states = tree_map(lambda v: v.new_empty((t, *v.shape)), live)
+    logits = []
+    for j in range(t):
+        lj, cache = decode_step(cfg, params, tokens[:, j], cache,
+                                compute_dtype=compute_dtype, attn_impl=attn_impl)
+        logits.append(lj)
+        for stack, v in zip(tree_leaves(states), tree_leaves(live)):
+            stack[j].copy_(v)
+    logits = torch.stack(logits, dim=1)
+    if logits_at is not None:
+        j = min(max(int(logits_at), 0), t - 1)
+        logits = logits[:, j: j + 1]
+    return logits, cache, states
 
 
 def decode_loop(
@@ -770,7 +807,7 @@ def prefill(
         for i in range(cfg.num_layers):
             lp = _layer(layers, i)
             h = L.norm(cfg, x, lp.get("ln"))
-            y, st = _mamba1_with_state(cfg, lp["mixer"], h, impl, length=length)
+            y, st = SSM.mamba1_with_state(cfg, lp["mixer"], h, impl, length=length)
             x = x + y
             conv.append(st["conv"])
             hs.append(st["h"])
@@ -830,27 +867,6 @@ def _attn_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
     q, k, v = L._project_qkv(cfg, p, h, positions)
     out = ops.attention(q, k, v, causal=True, impl=impl)
     return L._out_proj(cfg, p, out), k, v
-
-
-def _mamba1_with_state(cfg, p, x, impl, length=None):
-    """The Mamba1 block over a sequence (x: [B, S, d]), also returning the
-    final conv and SSM state."""
-    b = x.shape[0]
-    di, ds, dtr = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank
-    xi_raw, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    conv_state = SSM.tail_state(xi_raw, length, cfg.ssm_conv - 1)
-    xi = torch.nn.functional.silu(SSM.causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
-    dt_r, B_, C_ = torch.split(xi @ p["x_proj"], [dtr, ds, ds], dim=-1)
-    dt = torch.nn.functional.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float()
-    dt = SSM.dt_mask(dt, length)
-    A = -torch.exp(p["A_log"])
-    h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
-    y, h_fin = SSM.selective_scan_chunked(
-        xi.float(), dt, B_.float(), C_.float(), A, h0, impl=impl,
-    )
-    y = y.to(x.dtype) + p["D"].to(x.dtype) * xi
-    y = y * torch.nn.functional.silu(z)
-    return y @ p["out_proj"], {"conv": conv_state, "h": h_fin}
 
 
 def prefill_into_slot(

@@ -62,8 +62,13 @@ feeds the bucket's rows of the embedding table as precomputed embeddings
 (``_embed_or_pass``); chunked and suffix prefill, decode and verify take
 the token ids, as in the reference.
 
-Not ported: speculation on a recurrent (Mamba1 or hybrid) target or draft
-(``NotImplementedError``).
+Speculation pairs any target with any draft of its vocabulary, as the
+reference's: a recurrent (Mamba1 or hybrid) target verifies a draft chunk
+by ``decode_step`` T times, and a recurrent target or draft rolls its state
+back from the per-step copies (``spec.rollback``).  Host proposers need an
+attention target (tree verification), so ``proposer="ngram"`` or
+``"auto"`` registers no n-gram lookup on a recurrent one; a draft that
+streams chunked prefill needs an attention family too.
 """
 from __future__ import annotations
 
@@ -118,11 +123,6 @@ MIN_PREFILL_BUCKET = 8
 
 #: families whose layers hold attention (paged KV and chunked prefill apply)
 _ATTENTION_FAMILIES = T.ATTENTION_FAMILIES
-
-_RECURRENT_SPEC = (
-    "speculation with a recurrent (Mamba1 or hybrid) target or draft is not "
-    "ported yet (ROADMAP: Mamba1 training and recurrent speculation)"
-)
 
 
 class DecodeGraph:
@@ -267,12 +267,6 @@ class InferenceEngine:
         attention = cfg.family in _ATTENTION_FAMILIES
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params without draft_cfg")
-        if draft_params is not None and not (
-            attention and draft_cfg.family in _ATTENTION_FAMILIES
-        ):
-            raise NotImplementedError(_RECURRENT_SPEC)
-        if not attention and spec is not None and spec.proposer == "ngram":
-            raise NotImplementedError(_RECURRENT_SPEC)
         # the counter views' cells live in ``self.obs.metrics``: build it first
         self.obs = Observability()
         self.fault_injector = fault_injector
@@ -299,6 +293,11 @@ class InferenceEngine:
             prefill_chunk = DEFAULT_PREFILL_CHUNK if attention else 0
         if prefill_chunk and not attention:
             raise ValueError(f"chunked prefill needs an attention family, not {cfg.family!r}")
+        if prefill_chunk and draft_params is not None and (
+                draft_cfg.family not in _ATTENTION_FAMILIES):
+            # the reference's chunk program asserts this at the first wave
+            raise ValueError(f"chunked prefill needs an attention draft, not "
+                             f"{draft_cfg.family!r} (pass prefill_chunk=0)")
         self.prefill_chunk = prefill_chunk
         #: per-slot prompt tokens still to stream while PREFILLING (target and
         #: draft progress differ under prefix hits: the draft has no prefix
@@ -379,10 +378,12 @@ class InferenceEngine:
             )
 
         # --- pluggable proposers + routing -------------------------------
-        #: ``spec_cfg.proposer``: "auto" registers the draft model and the
-        #: n-gram lookup on a draft-paired engine (nothing on a plain one);
-        #: "draft" / "ngram" pin one ("ngram" speculates without a draft
-        #: model); "none" disables routing
+        #: ``spec_cfg.proposer``: "auto" registers the draft model and (on an
+        #: attention family) the n-gram lookup on a draft-paired engine
+        #: (nothing on a plain one); "draft" / "ngram" pin one ("ngram"
+        #: speculates without a draft model; on a recurrent family it
+        #: registers nothing and the engine decodes plainly, as the
+        #: reference's); "none" disables routing
         self._proposers: dict = {}
         self._router: Optional[ProposerRouter] = None
         #: per-slot (accepted, proposed) of the LAST fused spec loop
@@ -393,7 +394,7 @@ class InferenceEngine:
                 self._proposers["draft"] = DraftModelProposer(
                     draft_cost_ratio=self.spec_cfg.draft_cost_ratio
                 )
-            if pchoice == "ngram" or (pchoice == "auto" and self.spec_enabled):
+            if attention and (pchoice == "ngram" or (pchoice == "auto" and self.spec_enabled)):
                 self._proposers["ngram"] = NgramProposer(
                     order=self.spec_cfg.ngram_order
                 )
@@ -419,9 +420,11 @@ class InferenceEngine:
     def register_proposer(self, proposer) -> None:
         """Attach another candidate source (e.g. a corpus-backed
         ``StaticSuffixProposer``) and rebuild the router over the new set.
-        Host proposers need an attention family (tree verification)."""
+        Host proposers need an attention family (tree verification needs
+        parallel position scoring), as the reference asserts."""
         if proposer.kind == "host" and self.cfg.family not in _ATTENTION_FAMILIES:
-            raise NotImplementedError(_RECURRENT_SPEC)
+            raise ValueError(f"host proposers need an attention family, not "
+                             f"{self.cfg.family!r}")
         self._proposers[proposer.name] = proposer
         self._rebuild_router()
 

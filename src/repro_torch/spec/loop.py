@@ -8,12 +8,15 @@ Round anatomy (per slot, ragged over the batch):
   2. the target scores the ``gamma + 1`` chunk in one pass
      (``transformer.decode_chunk`` -> the paged or dense chunk-verify kernel)
   3. acceptance keeps the longest admissible prefix (``spec.verify``)
-  4. both caches rewind to ``index + accepted + 1`` (``spec.rollback``)
+  4. both caches rewind to ``index + accepted + 1``; a recurrent model's
+     state is selected from its per-step stack (``spec.rollback``) and
+     written back into the cache's own tensors
 
 A slot is active while its budget holds and its cache can still fit a whole
-chunk (``index + gamma < max_seq``); frozen slots keep token, index and
-budget.  A frozen slot's region may still receive (ignored) chunk writes,
-harmless under the stale-overwrite invariant.
+chunk (``index + gamma < max_seq``); frozen slots keep token, index, budget
+and recurrent state (a copy taken before the round: the draft and the chunk
+overwrite the state in place).  A frozen slot's KV region may still receive
+(ignored) chunk writes, harmless under the stale-overwrite invariant.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.models import transformer as T
 from repro_torch.spec.draft import draft_propose
 from repro_torch.spec.rollback import rollback_recurrent
 from repro_torch.spec.verify import greedy_accept, sampled_accept, simulated_accept
+from repro_torch.tree import tree_leaves, tree_map
 
 MODES = ("greedy", "simulated", "sample")
 
@@ -57,8 +61,8 @@ def spec_round(
     tokens, cache, dcache, rem = carry
     idx0 = cache["index"]
     active = (rem > 0) & (idx0 + gamma < max_seq)
-    old_t = T.chunk_recurrent_states(cfg, cache["layers"])
-    old_d = T.chunk_recurrent_states(draft_cfg, dcache["layers"])
+    old_t = _copy(T.chunk_recurrent_states(cfg, cache["layers"]))
+    old_d = _copy(T.chunk_recurrent_states(draft_cfg, dcache["layers"]))
 
     d_toks, d_probs, dcache, d_states = draft_propose(
         draft_cfg, draft_params, tokens, dcache, gamma=gamma,
@@ -81,22 +85,12 @@ def spec_round(
     n_out = torch.where(active, a + 1, torch.zeros_like(a))
     new_idx = torch.where(active, idx0 + a + 1, idx0).to(torch.int32)
     tokens = torch.where(active, nxt, tokens)
-    cache = dict(
-        cache, index=new_idx,
-        layers=T.merge_recurrent_states(
-            cfg, cache["layers"],
-            rollback_recurrent(cfg, t_states, a, active, old_t),
-        ),
-    )
-    dcache = dict(
-        # its own tensor: the engine re-pins a PREFILLING slot's draft index
-        # in place, which must not move the target's
-        dcache, index=new_idx.clone(),
-        layers=T.merge_recurrent_states(
-            draft_cfg, dcache["layers"],
-            rollback_recurrent(draft_cfg, d_states, a, active, old_d),
-        ),
-    )
+    cache = dict(cache, index=new_idx)
+    _rewind(cfg, cache["layers"], t_states, a, active, old_t)
+    # its own index tensor: the engine re-pins a PREFILLING slot's draft
+    # index in place, which must not move the target's
+    dcache = dict(dcache, index=new_idx.clone())
+    _rewind(draft_cfg, dcache["layers"], d_states, a, active, old_d)
     rem = rem - n_out
     out = torch.where(active[:, None], out, torch.zeros_like(out))
     # acceptance stats use the unclamped run: a budget cut is not a draft
@@ -104,6 +98,22 @@ def spec_round(
     accepted = torch.where(active, a_match, torch.zeros_like(a_match))
     proposed = active.to(torch.int32) * gamma
     return (tokens, cache, dcache, rem), (out, n_out, accepted, proposed, bad)
+
+
+def _copy(states):
+    return None if states is None else tree_map(torch.clone, states)
+
+
+def _rewind(cfg: ModelConfig, layers, step_states, sel, active, old) -> None:
+    """Write each slot's rolled-back recurrent state into the cache's own
+    tensors, in place (the engine's journal, snapshot and scrub hold them);
+    nothing for an attention family."""
+    if step_states is None:
+        return
+    new = rollback_recurrent(cfg, step_states, sel, active, old)
+    for dst, src in zip(tree_leaves(T.chunk_recurrent_states(cfg, layers)),
+                        tree_leaves(new)):
+        dst.copy_(src)
 
 
 def spec_decode_loop(

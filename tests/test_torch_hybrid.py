@@ -323,12 +323,19 @@ def test_recurrent_states_select_and_graft_the_mamba_entry():
     layers = T.init_cache(CFG, 2, 8, torch.float32, "cpu")["layers"]
     st = T.chunk_recurrent_states(CFG, layers)
     assert st is layers["mamba"]
-    new = {k: v + 1 for k, v in st.items()}
-    merged = T.merge_recurrent_states(CFG, layers, new)
-    assert merged["mamba"] is new and merged["shared_k"] is layers["shared_k"]
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        T.decode_chunk(CFG, PARAMS, torch.zeros((2, 3), dtype=torch.int32),
-                       T.init_cache(CFG, 2, 8, torch.float32, "cpu"))
+    # decode_chunk writes the mamba entry in place (the rollback grafts the
+    # selected step back into these tensors) and captures it after each of
+    # its T steps, the batch on axis 3 of the stack ([T, n_cyc, every, B, ...])
+    cache = T.init_cache(CFG, 2, 8, torch.float32, "cpu")
+    _, out, states = T.decode_chunk(CFG, PARAMS, torch.zeros((2, 3), dtype=torch.int32),
+                                    cache, compute_dtype=torch.float32)
+    assert T.recurrent_state_batch_axis(CFG) == 2
+    assert states.keys() == cache["layers"]["mamba"].keys()
+    for name, stack in states.items():
+        live = out["layers"]["mamba"][name]
+        assert live is cache["layers"]["mamba"][name]
+        assert stack.shape == (3, *live.shape) and stack.shape[3] == 2
+        assert torch.equal(stack[-1], live) and not torch.equal(stack[0], stack[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ Mamba2 state per cycle and layer, the shared block's K/V rows per cycle),
 monolithic dt-masked bucket prefill, an ONLINE arrival that preempts an
 OFFLINE request.  Token streams, finish reasons, ``StepOutputs`` and the
 engine counters must equal the reference's exactly (greedy, fp32).  Also:
-the layouts and speculation the port refuses for the hybrid (as for
-Mamba1), the NaN fault point staying inert on its cache (the reference's
+the layouts and proposers the port refuses for the hybrid, as the
+reference does, and the draft pairings it serves; the NaN fault point staying inert on its cache (the reference's
 ``"k" in layers`` rule), and the cache's bytes."""
 import dataclasses
 
@@ -121,31 +121,47 @@ def test_engine_core_matches_reference():
 
 
 def test_engine_refuses_speculation_and_paged_layouts_on_the_hybrid():
-    """A hybrid target with a draft model or the n-gram proposer, a
-    hybrid draft, and host proposers on a plain hybrid engine all raise
-    ``NotImplementedError``; paged KV and chunked prefill raise
-    ``ValueError``."""
+    """What the reference refuses on the hybrid stays refused: host
+    proposers (``register_proposer`` of an n-gram lookup asserts an
+    attention family there), paged KV, chunked prefill, and a hybrid draft
+    streaming an attention target's chunked prefill (the reference's chunk
+    program asserts at the first wave; the port refuses at construction).
+    The draft pairings it accepts serve here with the plain greedy engine's
+    streams: the hybrid with its own ``draft_config`` draft or an attention
+    draft, and an attention target with a hybrid draft on monolithic
+    prefill; ``proposer="ngram"`` registers nothing on the hybrid."""
     kw = dict(compute_dtype=torch.float32, device="cpu", max_slots=2, max_seq=32)
     dcfg = draft_config(configs.smoke_config("qwen3-1.7b"))
     dparams = T.init_params(dcfg, torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TEngine(CFG, PARAMS, draft_cfg=dcfg, draft_params=dparams, **kw)
     hcfg = draft_config(CFG)
     assert hcfg.family == "hybrid" and hcfg.num_layers % hcfg.shared_attn_every == 0
     hparams = T.init_params(hcfg, torch.Generator().manual_seed(2))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TEngine(CFG, PARAMS, draft_cfg=hcfg, draft_params=hparams, **kw)
     qcfg = configs.smoke_config("qwen3-1.7b")
     qparams = T.init_params(qcfg, torch.Generator().manual_seed(3))
     qdraft = dataclasses.replace(hcfg, vocab_size=qcfg.vocab_size)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TEngine(qcfg, qparams, draft_cfg=qdraft,
-                draft_params=T.init_params(qdraft, torch.Generator().manual_seed(4)), **kw)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TEngine(CFG, PARAMS, spec=SpecDecodeConfig(proposer="ngram"), **kw)
+    qdparams = T.init_params(qdraft, torch.Generator().manual_seed(4))
+
+    def stream(eng):
+        r = eng.core.submit(np.arange(9), tserving.SamplingParams(max_new_tokens=7))
+        while eng.core.has_unfinished:
+            eng.core.step()
+        return list(r.output_tokens), eng.spec_rounds
+
+    plain_h = stream(TEngine(CFG, PARAMS, **kw))[0]
+    for d, p in ((hcfg, hparams), (dcfg, dparams)):
+        toks, rounds = stream(TEngine(CFG, PARAMS, draft_cfg=d, draft_params=p, **kw))
+        assert toks == plain_h and rounds > 0
+    plain_q = stream(TEngine(qcfg, qparams, prefill_chunk=0, **kw))[0]
+    toks, rounds = stream(TEngine(qcfg, qparams, draft_cfg=qdraft, draft_params=qdparams,
+                                  prefill_chunk=0, **kw))
+    assert toks == plain_q and rounds > 0
+    with pytest.raises(ValueError, match="attention draft"):
+        TEngine(qcfg, qparams, draft_cfg=qdraft, draft_params=qdparams, **kw)
+    ngram = TEngine(CFG, PARAMS, spec=SpecDecodeConfig(proposer="ngram"), **kw)
+    assert ngram._proposers == {} and not ngram.host_spec_enabled
     eng = TEngine(CFG, PARAMS, **kw)  # "auto" on a plain engine registers nothing
     assert not eng.spec_enabled and not eng.host_spec_enabled
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(ValueError, match="attention family"):
         eng.register_proposer(NgramProposer())
     with pytest.raises(ValueError, match="paged KV"):
         TEngine(CFG, PARAMS, kv_page_size=16, **kw)

@@ -29,6 +29,7 @@ from repro.models import ssm as JSSM
 from repro.models import transformer as JT
 from repro.serving import core as jserving
 from repro.serving.engine import InferenceEngine as JEngine
+from repro.spec.proposers import NgramProposer as JNgramProposer
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import SpecDecodeConfig, draft_config
@@ -381,16 +382,40 @@ def test_engine_core_matches_reference():
 
 
 def test_engine_refuses_speculation_on_the_recurrent_family():
+    """What the reference refuses on Mamba1 stays refused: host proposers
+    (``register_proposer`` of an n-gram lookup asserts an attention family
+    there), paged KV and chunked prefill.  A draft pairing (an attention
+    draft, or Mamba1's own ``draft_config``) is accepted and "auto"
+    registers the draft alone; ``proposer="ngram"`` registers nothing, so
+    the engine decodes plainly, as the reference's does."""
     kw = dict(compute_dtype=torch.float32, device="cpu", max_slots=2, max_seq=32)
+    jkw = dict(compute_dtype=jnp.float32, max_slots=2, max_seq=32)
+    jparams = jax.tree.map(jnp.asarray, NP_PARAMS)
     dcfg = draft_config(configs.smoke_config("qwen3-1.7b"))
     dparams = T.init_params(dcfg, torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        TEngine(CFG, PARAMS, draft_cfg=dcfg, draft_params=dparams, **kw)
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        TEngine(CFG, PARAMS, spec=SpecDecodeConfig(proposer="ngram"), **kw)
-    eng = TEngine(CFG, PARAMS, **kw)  # "auto" on a plain engine registers nothing
-    assert not eng.spec_enabled and not eng.host_spec_enabled
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        eng.register_proposer(NgramProposer())
+    own = draft_config(CFG)
+    for draft, params in ((dcfg, dparams), (own, T.init_params(own, torch.Generator()))):
+        eng = TEngine(CFG, PARAMS, draft_cfg=draft, draft_params=params, **kw)
+        assert eng.spec_enabled and not eng.host_spec_enabled
+        assert list(eng._proposers) == ["draft"]
+    ngram = TEngine(CFG, PARAMS, spec=SpecDecodeConfig(proposer="ngram"), **kw)
+    jngram = JEngine(JCFG, jparams, spec=jconfigs.SpecDecodeConfig(proposer="ngram"), **jkw)
+    assert ngram._proposers == jngram._proposers == {}
+    assert ngram.proposer_router is None and not ngram.host_spec_enabled
+    plain = TEngine(CFG, PARAMS, **kw)  # "auto" on a plain engine registers nothing
+    assert not plain.spec_enabled and not plain.host_spec_enabled
+    streams = []
+    for eng in (ngram, plain):
+        r = eng.core.submit(np.arange(7), tserving.SamplingParams(max_new_tokens=6))
+        while eng.core.has_unfinished:
+            assert eng.core.step().gamma is None  # no speculation
+        streams.append(list(r.output_tokens))
+    assert streams[0] == streams[1] and len(streams[0]) == 6
+    with pytest.raises(ValueError, match="attention family"):
+        plain.register_proposer(NgramProposer())
+    with pytest.raises(AssertionError, match="attention family"):
+        JEngine(JCFG, jparams, **jkw).register_proposer(JNgramProposer())
     with pytest.raises(ValueError):
         TEngine(CFG, PARAMS, kv_page_size=16, **kw)
+    with pytest.raises(ValueError, match="chunked prefill"):
+        TEngine(CFG, PARAMS, prefill_chunk=32, **kw)
