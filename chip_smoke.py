@@ -67,11 +67,14 @@ Phases, each printing a line before the last:
                  pixtral's, each with a NaN in one slot.  Last, the scan's
                  backward (#10b, no TPU counterpart) against autograd of the
                  plain scan at falcon-mamba's training shape (B = 4, Q =
-                 1024, fp32) and at Q = 200 (and ragged widths), from a
-                 non-zero h0 and final-state gradient, the forward with
-                 checkpoints bit-equal to the serving forward, a NaN in one
-                 batch row staying in that row's gradients; timed beside
-                 the plain backward and its bound.
+                 1024, fp32) and at Q = 200 (and ragged widths, and a
+                 d_inner whose last thread-block cluster is partly empty),
+                 from a non-zero h0 and final-state gradient, two launches
+                 bit-equal, the forward with checkpoints bit-equal to the
+                 serving forward, a NaN in one batch row (at step 37, and
+                 at the last step) staying in that row's gradients; timed
+                 beside the plain backward and its bound, with each
+                 instantiation's registers and spills from ``ptxas``.
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -462,6 +465,8 @@ def phase_device():
 
 
 def phase_build():
+    """Builds every kernel library; returns ``{name: compiler output}``
+    (``ptxas -v`` included) for the libraries it built."""
     from repro_torch.kernels import build
 
     t0 = time.monotonic()
@@ -471,6 +476,7 @@ def phase_build():
         log(f"build {name}: {secs:.1f}s; ptxas: {' | '.join(usage)}")
     log(f"build: {len(built)} libraries in {time.monotonic() - t0:.1f}s "
         f"into {build.BUILD_DIR}")
+    return {name: out for name, (_, out) in built.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -748,9 +754,10 @@ def _one_tile_per_cta_ms(fn):
         dd.DECODE_TILES_PER_CTA = default
 
 
-def phase_kernels():
+def phase_kernels(build_logs):
     """Returns the kernel rows of the final ``kernels`` line (launches are
-    filled in by the serve phase)."""
+    filled in by the serve phase); ``build_logs``: phase 2's compiler
+    output by library."""
     import torch
     import torch.nn.functional as F
 
@@ -893,7 +900,7 @@ def phase_kernels():
     flash = _flash_rows()
     _flash_long_rows()
     return (rows + flash + _spec_rows() + _dense_target_rows() + _ssm_rows()
-            + _hd80_rows() + _slice_rows() + _ssm_bwd_rows())
+            + _hd80_rows() + _slice_rows() + _ssm_bwd_rows(build_logs.get("ssm_scan", "")))
 
 
 def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
@@ -1739,19 +1746,51 @@ def _ssm_bwd_bound(b, q, di=SSM_DI, ds=SSM_DS):
     return _bound_ms(nbytes, 20 * b * q * di * ds, torch.float32)
 
 
-def _ssm_bwd_rows():
+def _ptxas_usage(log_text, kernel):
+    """{(template arguments): (registers, spill store bytes, spill load
+    bytes)} of each instantiation of ``kernel`` in ``ptxas -v`` output."""
+    import re
+
+    usage, current = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            args = re.search(kernel + r"I(.*?)EEv", m.group(1))
+            current = tuple(re.findall(r"Li(\d+)E", args.group(1))) if args else None
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage[current] = (None, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[current] = (int(m.group(1)), *usage.get(current, (None, None, None))[1:])
+    return usage
+
+
+def _ssm_bwd_rows(ptxas_log=""):
     """The scan's backward kernel (#10b, ``ssm_scan_bwd``; no TPU
     counterpart: the Pallas scan has no VJP), fp32: at B = 4, Q = 1024 (the
     falcon-mamba training shape) and Q = 200 (not a multiple of the 16-step
-    checkpoint), d_inner 8192, ssm_state 16, from a non-zero h0 and with a
-    non-zero gradient of the final state, and at the other state widths on a
-    ragged d_inner; each gradient (xi, dt, B, C, A, h0) against autograd of
-    the plain scan within SSM_GRAD_RTOL of its largest value; the forward
-    with checkpoints bit-equal to the serving forward (y, h) with hs[:, 0] ==
-    h0; a NaN in one batch row's xi non-finite exactly where the plain
-    version's gradients are, every other row finite.  Timed at the training
-    shape beside the plain backward (autograd of the step-by-step scan) and
-    the bound; the forward with checkpoints beside the serving forward."""
+    tile), d_inner 8192, ssm_state 16, from a non-zero h0 and with a
+    non-zero gradient of the final state, at the other state widths on a
+    ragged d_inner (Q = 65 and 33: a last 8-step part of one step; Q = 40: a
+    last tile of one part), and at d_inner 2400 (75 CTAs of 32 rows: the last
+    8-CTA cluster holds 3 live CTAs and 5 past d_inner); each gradient (xi,
+    dt, B, C, A, h0) against autograd of the plain scan within
+    SSM_GRAD_RTOL of its largest value, and bit-equal over two launches (the
+    sums across CTAs take a fixed order); the forward with checkpoints
+    bit-equal to the serving forward (y, h) with hs[:, 0] == h0; a NaN in one
+    batch row's xi (at step 37, and at the last step) non-finite exactly
+    where the plain version's gradients are, every other row finite.  Timed
+    at the training shape beside the plain backward (autograd of the
+    step-by-step scan) and the bound; the forward with checkpoints beside the
+    serving forward; the registers and spills of every instantiation from
+    phase 2's ``ptxas -v`` output of the scan library, ``ptxas_log``.  The
+    split between the main kernel and the partials' sum comes from the
+    profiler at the end of the run
+    (``_ssm_bwd_by_kernel``)."""
     import torch
 
     from repro_torch.kernels import ssm_scan as ss
@@ -1766,7 +1805,7 @@ def _ssm_bwd_rows():
 
     names = ("xi", "dt", "B", "C", "A", "h0")
     cases = [(4, 1024, SSM_DI, SSM_DS), (4, 200, SSM_DI, SSM_DS),
-             (2, 65, 100, 4), (2, 33, 99, 8), (2, 40, 100, 32)]
+             (2, 65, 100, 4), (2, 33, 99, 8), (2, 40, 100, 32), (2, 72, 2400, SSM_DS)]
     worst = 0.0
     for b, q, di, ds in cases:
         args = _ssm_inputs(b, q, seed=9, di=di, ds=ds)
@@ -1776,7 +1815,14 @@ def _ssm_bwd_rows():
         y, h, hs = ss.ssm_scan_fwd(*args)
         y0, h0 = ss.ssm_scan_chunk(*args)
         kgrads = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
+        again = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
         torch.cuda.synchronize()
+        if not all(torch.equal(k, k2) for k, k2 in zip(kgrads, again)):
+            raise AssertionError(f"ssm_scan_bwd B={b} Q={q} di={di} ds={ds}: two launches "
+                                 f"differ: " + ", ".join(
+                                     n for n, k, k2 in zip(names, kgrads, again)
+                                     if not torch.equal(k, k2)))
+        del again
         if not (torch.equal(y, y0) and torch.equal(h, h0) and torch.equal(hs[:, 0], args[5])):
             raise AssertionError(f"ssm_scan_bwd B={b} Q={q} di={di} ds={ds}: the forward "
                                  f"with checkpoints differs from the serving forward")
@@ -1789,38 +1835,42 @@ def _ssm_bwd_rows():
             errs[n] = ((k - p).abs().max() / p.abs().max()).item()
         log(f"kernel ssm_scan_bwd B={b} Q={q} di={di} ds={ds} fp32: max err / max|g| "
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
-            + f" (tol {SSM_GRAD_RTOL:g}); forward with checkpoints bit-equal")
+            + f" (tol {SSM_GRAD_RTOL:g}); two launches bit-equal; forward with checkpoints "
+            f"bit-equal")
         if not max(errs.values()) <= SSM_GRAD_RTOL:
             raise AssertionError(f"ssm_scan_bwd B={b} Q={q} di={di} ds={ds}: {errs}")
         worst = max(worst, *errs.values())
         del pgrads, kgrads
-    # a NaN in batch row 1's xi at one (step, row)
+    # a NaN in one batch row's xi at one (step, row): mid-sequence, and at
+    # the last step (whose state only the last tile's steps past Q carry on)
     b, q = 4, 200
-    args = list(_ssm_inputs(b, q, seed=11))
-    args[0][1, 37, 5] = float("nan")
-    g = torch.Generator(device="cuda").manual_seed(12)
-    gy = torch.randn((b, q, SSM_DI), generator=g, device="cuda")
-    gh = torch.randn((b, SSM_DI, SSM_DS), generator=g, device="cuda")
-    _, _, hs = ss.ssm_scan_fwd(*args)
-    kgrads = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
-    pgrads = plain_grads(args, gy, gh)
-    bad = {}
-    for n, k, p in zip(names, kgrads, pgrads):
-        if not torch.equal(torch.isfinite(k), torch.isfinite(p)):
-            raise AssertionError(f"ssm_scan_bwd NaN row: {n} non-finite at "
-                                 f"{int((~torch.isfinite(k)).sum())} places, the plain "
-                                 f"version's at {int((~torch.isfinite(p)).sum())}")
-        bad[n] = int((~torch.isfinite(k)).sum())
-        if n != "A":  # every gradient but A's keeps the batch rows apart
-            rows = [r for r in range(b) if r != 1]
-            if not torch.isfinite(k[rows]).all():
-                raise AssertionError(f"ssm_scan_bwd NaN row: {n} non-finite outside row 1")
-            e = ((k[rows] - p[rows]).abs().max() / p[rows].abs().max()).item()
-            if not e <= SSM_GRAD_RTOL:
-                raise AssertionError(f"ssm_scan_bwd NaN row: {n} rows != 1 err {e}")
-    log(f"kernel ssm_scan_bwd: a NaN in batch row 1's xi at step 37: non-finite gradients "
-        f"exactly where the plain version's are ({json.dumps(bad)}), the other rows finite "
-        f"and within {SSM_GRAD_RTOL:g}")
+    for nan_row, nan_step in ((1, 37), (2, q - 1)):
+        args = list(_ssm_inputs(b, q, seed=11))
+        args[0][nan_row, nan_step, 5] = float("nan")
+        g = torch.Generator(device="cuda").manual_seed(12)
+        gy = torch.randn((b, q, SSM_DI), generator=g, device="cuda")
+        gh = torch.randn((b, SSM_DI, SSM_DS), generator=g, device="cuda")
+        _, _, hs = ss.ssm_scan_fwd(*args)
+        kgrads = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
+        pgrads = plain_grads(args, gy, gh)
+        bad = {}
+        for n, k, p in zip(names, kgrads, pgrads):
+            if not torch.equal(torch.isfinite(k), torch.isfinite(p)):
+                raise AssertionError(f"ssm_scan_bwd NaN at row {nan_row}, step {nan_step}: {n} "
+                                     f"non-finite at {int((~torch.isfinite(k)).sum())} places, "
+                                     f"the plain version's at {int((~torch.isfinite(p)).sum())}")
+            bad[n] = int((~torch.isfinite(k)).sum())
+            if n != "A":  # every gradient but A's keeps the batch rows apart
+                rows = [r for r in range(b) if r != nan_row]
+                if not torch.isfinite(k[rows]).all():
+                    raise AssertionError(f"ssm_scan_bwd NaN row: {n} non-finite outside row "
+                                         f"{nan_row}")
+                e = ((k[rows] - p[rows]).abs().max() / p[rows].abs().max()).item()
+                if not e <= SSM_GRAD_RTOL:
+                    raise AssertionError(f"ssm_scan_bwd NaN row: {n} other rows err {e}")
+        log(f"kernel ssm_scan_bwd: a NaN in batch row {nan_row}'s xi at step {nan_step}: "
+            f"non-finite gradients exactly where the plain version's are ({json.dumps(bad)}), "
+            f"the other rows finite and within {SSM_GRAD_RTOL:g}")
     del kgrads, pgrads
     # times at the training shape
     b, q = 4, 1024
@@ -1838,10 +1888,15 @@ def _ssm_bwd_rows():
     del leaves, outs
     bound, by = _ssm_bwd_bound(b, q)
     fwd_bound, _ = _ssm_bound(q, b)
+    usage = {f"ds{a[0]}_v{a[1]}": u for a, u in sorted(
+        _ptxas_usage(ptxas_log, "ssm_scan_bwd_kernel").items(),
+        key=lambda kv: tuple(map(int, kv[0])))}
     log(f"kernel ssm_scan_bwd (B={b}, Q={q}, di={SSM_DI}, ds={SSM_DS}, fp32): {k_ms:.4f} ms, "
         f"plain (autograd of the step-by-step scan) {p_ms:.4f} ms, library none, bound "
         f"{bound:.4f} ms ({by}), {100 * bound / k_ms:.1f}% of it; forward with checkpoints "
-        f"{fwd_ckpt_ms:.4f} ms, serving forward {fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms)")
+        f"{fwd_ckpt_ms:.4f} ms, serving forward {fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms); "
+        f"ptxas (registers, spill store / load bytes): "
+        + (", ".join(f"{k} {u}" for k, u in usage.items()) or "not measured (no build log)"))
     return [{
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -1849,8 +1904,37 @@ def _ssm_bwd_rows():
         "launches": 0, "max_abs_err": worst, "err_kind": "relative to max|g|, fp32",
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
         "ms_fwd_checkpoints": fwd_ckpt_ms, "ms_fwd_serving": fwd_ms,
-        "bound_ms_fwd": fwd_bound,
+        "bound_ms_fwd": fwd_bound, "bound_share": bound / k_ms,
+        "ptxas": {k: {"registers": u[0], "spill_stores": u[1], "spill_loads": u[2]}
+                  for k, u in usage.items()},
     }]
+
+
+def _ssm_bwd_by_kernel(row):
+    """The scan backward's two kernels one by one at the training shape
+    (B = 4, Q = 1024, fp32), from ``torch.profiler`` with the L2 flushed
+    before each call: the main kernel (``ssm_scan_bwd_kernel``) and the sum
+    of the clusters' gB / gC partials and the batch rows' gA
+    (``sum_partials_kernel``).  Runs with the other profiler sessions at the
+    end of the run."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ss
+
+    b, q = 4, 1024
+    args = _ssm_inputs(b, q, seed=13)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    gy = torch.randn((b, q, SSM_DI), generator=g, device="cuda")
+    gh = torch.randn((b, SSM_DI, SSM_DS), generator=g, device="cuda")
+    _, _, hs = ss.ssm_scan_fwd(*args)
+    parts = _kernel_ms_by_name(lambda: ss.ssm_scan_bwd(*args[:5], hs, gy, gh),
+                               ("ssm_scan_bwd_kernel", "sum_partials_kernel"))
+    row["kernels_ms"] = parts
+    main = parts["ssm_scan_bwd_kernel"]
+    log("kernel ssm_scan_bwd by kernel (median of 30, profiler): " + ", ".join(
+        f"{n} {t:.4f} ms" if t is not None else f"{n} not measured" for n, t in parts.items())
+        + (f"; main kernel {100 * row['bound_ms'] / main:.1f}% of the whole function's bound"
+           if main else ""))
 
 
 def _hd80_rows():
@@ -4818,8 +4902,7 @@ def main() -> int:
         )
     t_start = time.monotonic()
     phase_device()
-    phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels(phase_build())
     phase_parity()
     launches, colloc = phase_collocated()
     phase_chaos(colloc)  # before any profiler session, as phase 5
@@ -4857,6 +4940,7 @@ def main() -> int:
     _profile_train()
     _profile_train("zamba2-2.7b", "hybrid train", "full")
     _flash_bwd_by_kernel(next(r for r in rows if r["name"] == "flash_attention_bwd"))
+    _ssm_bwd_by_kernel(next(r for r in rows if r["name"] == "ssm_scan_bwd"))
     _verify_by_kernel(rows)
     _decode_by_kernel(rows)
     for row in rows:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the Mamba1 selective-scan kernel's time goes, on one GPU.
+"""Where the Mamba1 selective-scan kernels' time goes, on one GPU.
 
-    python3 scripts/torch_scan_breakdown.py
+    python3 scripts/torch_scan_breakdown.py             # the forward
+    python3 scripts/torch_scan_breakdown.py --backward  # the backward
 
 Builds patched copies of ``src/repro_torch/kernels/csrc`` into
 ``build/scan_breakdown/<variant>/`` (one ``nvcc`` each, all started
@@ -41,8 +42,49 @@ version (``chip_smoke.SSM_RTOL``):
 * ``tile32`` / ``tile64`` -- 32-step tiles in a ring of 3, 64-step tiles in a
                          ring of 2.
 
-Also prints the compiler's register and spill lines for the kernel.  Needs
-a CUDA device and ``nvcc``; it imports nothing of JAX.
+With ``--backward`` it builds patched copies of the backward into
+``build/scan_breakdown/bwd_<variant>/`` the same way and times each
+variant's ``ssm_scan_bwd_launch`` (its main kernel and the partials' sum)
+in turns at the training shape (B = 4, Q = 1024, d_inner 8192, ssm_state
+16, from the forward's checkpoints); the variants that are right are first
+held to autograd of the plain scan (``chip_smoke.SSM_GRAD_RTOL``, B = 2,
+Q = 65, d_inner 100):
+
+* ``kernel``       -- the backward as it is;
+* ``terms``        -- the first design (``scripts/ssm_scan_bwd_terms.cu``: 4
+                      lanes of 4 states a row, each exponential taken twice,
+                      the gB / gC terms summed through shared-memory buffers,
+                      one partial row per CTA);
+* ``no_exp``       -- decay 1 in the recompute (wrong on purpose);
+* ``no_partials``  -- the cluster's gB / gC partial rows not stored, so no
+                      DSMEM load either (wrong on purpose);
+* ``no_cluster``   -- no cluster barrier and no DSMEM sum (wrong on purpose);
+* ``no_row_sum``   -- gB / gC not summed over a warp's row pairs by shuffles
+                      (wrong on purpose);
+* ``no_gu_sum``    -- gu / gdt not summed over a row pair's lanes (wrong on
+                      purpose);
+* ``no_stores``    -- gxi / gdt not stored (wrong on purpose);
+* ``clocks``       -- thread 0 of each CTA sums ``clock64()`` cycles by phase
+                      of the tile loop (copies, barriers, recompute, walk
+                      back, cluster exchange, warp sums, arrive, stores),
+                      printed as cycles a tile (its time is not the kernel's);
+* ``arrive_relaxed`` -- the cluster arrive without release semantics (wrong
+                      on purpose: the cost of the release);
+* ``no_copy_wait`` -- no wait for a tile's copies (wrong on purpose: whether
+                      the copies arrive late);
+* ``no_copies``    -- no copies at all: the tiles are walked as shared memory
+                      holds them (wrong on purpose: the copies' issue and
+                      their device-memory reads);
+* ``hoisted``      -- the copies' addresses hoisted out of the tile loop by
+                      the compiler (the kernel makes them opaque);
+* ``group4_ring2`` -- the cluster exchange every 4 tiles, a 2-tile ring;
+* ``cluster4``     -- clusters of 4 CTAs (64 partial rows at d_inner 8192);
+* ``empty``        -- the main kernel returns at once (its launch and the
+                      partials' sum).
+
+Also prints the compiler's register and spill lines for the kernel (and,
+with ``--backward``, for the first design and ``hoisted``).  Needs a CUDA
+device and ``nvcc``; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -169,17 +211,84 @@ VARIANTS = {
 }
 
 
-def build_variants():
+# The backward's variants: text in ssm_scan.cu and its replacement.
+TERMS = os.path.join(ROOT, "scripts", "ssm_scan_bwd_terms.cu")
+BWD_EXP = """              dec[t][w][s] = ex2(dtw[w] * a2[w][s]);
+"""
+BWD_ROW_SUM = """              rv[q] = tv[q] + __shfl_xor_sync(0xffffffffu, tv[q + N / 2], 16);
+            reduce_scatter_lanes<LPR, RPW / 2>(rv, lane);
+"""
+BWD_TAIL = "#pragma unroll\n  for (int w = 0; w < 2; ++w) {\n    if (d + w < di) {"
+BWD_CLUSTER = (("      hop::cluster_wait();\n      part_at = cluster_sum(gs, part);\n", ""),
+               ("      if (group_end) hop::cluster_arrive();\n", ""),
+               ("  hop::cluster_arrive();  // no CTA exits", "  // no CTA exits"),
+               ("  hop::cluster_wait();\n" + BWD_TAIL, BWD_TAIL))
+# clock64() at the tile loop's phase boundaries, summed by thread 0 of each
+# CTA and written past the partial rows the kernel uses
+CLOCK_PHASES = ("copy wait", "barrier", "recompute", "walk back", "barrier", "cluster wait",
+                "cluster sum", "warp sums", "arrive", "stores")
+BWD_CLOCKS = (
+    ("template <int NS, int V>\n__global__ void __launch_bounds__(BwdPlan<NS>",
+     "#define CLK(p) if (tid == 0) { const long long c_ = clock64(); s_clk[p] += c_ - c_last; "
+     "c_last = c_; }\ntemplate <int NS, int V>\n__global__ void __launch_bounds__(BwdPlan<NS>"),
+    ("  const int rank = (int)hop::cluster_ctarank();\n",
+     "  const int rank = (int)hop::cluster_ctarank();\n  __shared__ long long s_clk[10];\n"
+     "  if (tid < 10) s_clk[tid] = 0;\n  long long c_last = clock64();\n"),
+    ("      hop::cp_async_wait<kBwdStages - 1>();  // tile k landed for this thread\n"
+     "      __syncthreads();                       // ... and for every thread\n",
+     "      hop::cp_async_wait<kBwdStages - 1>();\n      CLK(0)\n      __syncthreads();\n"
+     "      CLK(1)\n"),
+    ("        const int pos0 = j * kCkpt;\n", "        CLK(3)\n        const int pos0 = j * kCkpt;\n"),
+    ("        // back through the part\n", "        CLK(2)\n        // back through the part\n"),
+    ("      __syncthreads();  // the gxi / gdt tiles and the warps' sums are whole; the stage is free\n",
+     "      CLK(3)\n      __syncthreads();\n      CLK(4)\n"),
+    ("      hop::cluster_wait();\n      part_at = cluster_sum(gs, part);\n",
+     "      hop::cluster_wait();\n      CLK(5)\n      part_at = cluster_sum(gs, part);\n      CLK(6)\n"),
+    ("      if (group_end) hop::cluster_arrive();\n",
+     "      CLK(7)\n      if (group_end) hop::cluster_arrive();\n      CLK(8)\n"),
+    ("          gdt[o] = s_od[pos * kBwdRows + c];\n        }\n      }\n    }\n  }\n",
+     "          gdt[o] = s_od[pos * kBwdRows + c];\n        }\n      }\n    }\n    CLK(9)\n  }\n"),
+    (BWD_TAIL,
+     "  if (tid == 0) {\n    long long* out = reinterpret_cast<long long*>(\n"
+     "        gBp + (size_t)gridDim.z / kCluster * nb * Q * NS) + ((size_t)cta * nb + b) * 10;\n"
+     "    for (int p = 0; p < 10; ++p) out[p] = s_clk[p];\n  }\n" + BWD_TAIL),
+)
+BWD_VARIANTS = {
+    "kernel": (True, []),
+    "terms": (True, None),
+    "no_exp": (False, [(BWD_EXP, "              dec[t][w][s] = 1.f;\n")]),
+    "no_partials": (False, [("    if (part_at != nullptr) *reinterpret_cast<float4*>(part_at) = part;\n", "")]),
+    "no_cluster": (False, list(BWD_CLUSTER)),
+    "no_row_sum": (False, [(BWD_ROW_SUM, "              rv[q] = tv[q] + tv[q + N / 2];\n")]),
+    "no_gu_sum": (False, [("            reduce_scatter_lanes<1, LPR>(gv, lane);\n", "")]),
+    "no_stores": (False, [("      if (i2 < kBwdTile * RC && t >= pj && d0 + c < di) {", "      if (false) {")]),
+    "clocks": (False, list(BWD_CLOCKS)),
+    "arrive_relaxed": (False, [("      if (group_end) hop::cluster_arrive();\n",
+                                "      if (group_end) asm volatile(\"barrier.cluster.arrive.relaxed;\\n\" ::: \"memory\");\n")]),
+    "no_copy_wait": (False, [("      hop::cp_async_wait<kBwdStages - 1>();  // tile k landed for this thread\n", "")]),
+    "no_copies": (False, [("    int tid = threadIdx.x;\n    asm(\"\" : \"+r\"(tid));\n", "    return;\n    int tid = threadIdx.x;\n")]),
+    "hoisted": (True, [("    int tid = threadIdx.x;\n    asm(\"\" : \"+r\"(tid));\n", "")]),
+    "group4_ring2": (True, [("constexpr int kGroup = 2;", "constexpr int kGroup = 4;"),
+                            ("constexpr int kBwdStages = 3;", "constexpr int kBwdStages = 2;")]),
+    "cluster4": (True, [("constexpr int kCluster = 8;", "constexpr int kCluster = 4;")]),
+    "empty": (False, [("  using P = BwdPlan<NS>;\n  constexpr int LPR", "  if (Q >= 0) return;\n  using P = BwdPlan<NS>;\n  constexpr int LPR")]),
+}
+
+
+def build_variants(variants, prefix="", show=("kernel",)):
+    """Build each variant's library (one ``nvcc`` each, all started
+    together); returns {name: ctypes.CDLL}.  A variant whose patches are
+    None is a whole other source: ``per_step_loads`` or ``terms``."""
     from repro_torch.kernels import build
 
     nvcc, procs = build._nvcc(), {}
-    for name, (_, patches) in VARIANTS.items():
-        d = os.path.join(OUT, name)
+    for name, (_, patches) in variants.items():
+        d = os.path.join(OUT, prefix + name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(SRC, d)
         path = os.path.join(d, f"{LIB}.cu")
         if patches is None:
-            text = PER_STEP_LOADS
+            text = PER_STEP_LOADS if name == "per_step_loads" else open(TERMS).read()
         else:
             text = open(path).read()
             for old, new in patches:
@@ -191,20 +300,86 @@ def build_variants():
         cmd = [nvcc, *build.NVCC_FLAGS, "-o", so, path]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
-    fns = {}
+    libs = {}
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        if name == "kernel":
+        if name in show:
             for line in log.splitlines():
                 if "Used" in line or "spill" in line or "Compiling entry" in line:
-                    print(f"ptxas {line.strip()}")
-        fn = getattr(ctypes.CDLL(so), f"{LIB}_chunk_launch")
-        fn.argtypes = build.SIGNATURES[LIB][0][1]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+                    print(f"ptxas {name}: {line.strip()}")
+        lib = ctypes.CDLL(so)
+        for fn_name, argtypes in build.SIGNATURES[LIB]:
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def main_backward(cs, ss) -> int:
+    """Times the backward's variants at the training shape (module doc)."""
+    import torch
+
+    libs = build_variants(BWD_VARIANTS, prefix="bwd_", show=("kernel", "terms", "hoisted"))
+
+    def bwd(lib, args, hs, gy, gh):
+        xi, dt, bm, cm, a, _ = args
+        b, q, di = xi.shape
+        ds = bm.shape[-1]
+        outs = [torch.empty_like(t) for t in args]
+        parts = -(-di // ss.ROWS_PER_CTA)  # the first design's count, the most either needs
+        gbp = torch.empty((parts, b, q, ds), device="cuda")
+        gcp, gap = torch.empty_like(gbp), torch.empty((b, di, ds), device="cuda")
+        err = lib.ssm_scan_bwd_launch(
+            *(t.data_ptr() for t in (xi, dt, bm, cm, a, hs, gy, gh, *outs, gbp, gcp, gap)),
+            b, q, di, ds, 0, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return outs
+
+    def case(b, q, di, seed):
+        args = cs._ssm_inputs(b, q, seed=seed, di=di)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        gy = torch.randn((b, q, di), generator=g, device="cuda")
+        gh = torch.randn((b, di, cs.SSM_DS), generator=g, device="cuda")
+        return args, ss.ssm_scan_fwd(*args)[2], gy, gh
+
+    args, hs, gy, gh = case(2, 65, 100, seed=15)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    ref = torch.autograd.grad(ss.ssm_scan_chunk_torch(*leaves), leaves, (gy, gh))
+    for name, (right, _) in BWD_VARIANTS.items():
+        if right:
+            errs = [((k - p).abs().max() / p.abs().max()).item()
+                    for k, p in zip(bwd(libs[name], args, hs, gy, gh), ref)]
+            print(f"{name:12s} B=2 Q=65 di=100: max err / max|g| {max(errs):.2e}")
+            if not max(errs) <= cs.SSM_GRAD_RTOL:
+                raise SystemExit(f"{name}: errors {errs} > {cs.SSM_GRAD_RTOL}")
+    b, q = 4, 1024
+    args, hs, gy, gh = case(b, q, cs.SSM_DI, seed=13)
+    names = list(BWD_VARIANTS)
+    for rnd, order in enumerate((names, names[::-1])):  # in turns
+        for name in order:
+            ms = cs._time_ms(lambda: bwd(libs[name], args, hs, gy, gh))
+            print(f"round {rnd} bwd {name:12s} B={b} Q={q} {ms:.4f} ms", flush=True)
+    bound, by = cs._ssm_bwd_bound(b, q)
+    print(f"bound B={b} Q={q}: {bound:.4f} ms ({by})")
+    # the clocks variant's cycles a tile by phase, thread 0 of each CTA
+    xi, dt, bm, cm, a, _ = args
+    ncta = ss.bwd_partials(cs.SSM_DI) * ss.CLUSTER_CTAS
+    outs = [torch.empty_like(t) for t in args]
+    gbp = torch.zeros(((cs.SSM_DI // ss.ROWS_PER_CTA), b, q, cs.SSM_DS), device="cuda")
+    gcp, gap = torch.empty_like(gbp), torch.empty((b, cs.SSM_DI, cs.SSM_DS), device="cuda")
+    assert libs["clocks"].ssm_scan_bwd_launch(
+        *(t.data_ptr() for t in (xi, dt, bm, cm, a, hs, gy, gh, *outs, gbp, gcp, gap)),
+        b, q, cs.SSM_DI, cs.SSM_DS, 0, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    off = ss.bwd_partials(cs.SSM_DI) * b * q * cs.SSM_DS
+    clk = gbp.flatten()[off: off + 2 * ncta * b * 10].view(torch.int64).view(ncta * b, 10)
+    mean = (clk.double() / -(-q // 16)).mean(0).tolist()  # the backward's 16-step tiles
+    print("clock64 cycles a tile (thread 0, mean over CTAs): " + ", ".join(
+        f"{n} {c:.0f}" for n, c in zip(CLOCK_PHASES, mean)) + f"; sum {sum(mean):.0f}")
+    return 0
 
 
 def main() -> int:
@@ -217,7 +392,9 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    fns = build_variants()
+    if "--backward" in sys.argv[1:]:
+        return main_backward(cs, ss)
+    fns = {name: lib.ssm_scan_chunk_launch for name, lib in build_variants(VARIANTS).items()}
 
     def scan(fn, xi, dt, bm, cm, a, h0):
         y, h = torch.empty_like(xi), torch.empty_like(h0)

@@ -305,6 +305,15 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// The two halves of cluster_sync, for work between them: every thread of
+// every CTA of the cluster calls them in turn, arrive first.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // The same barrier with a relaxed arrive, which does not wait for this
 // thread's earlier writes (to device memory, say) to complete: for keeping
 // every CTA's shared memory alive until its peers are done reading it,

@@ -17,12 +17,17 @@ inputs and outputs, with the exponentials close behind.
 
 The TPU kernel has no backward (the reference differentiates its XLA
 chunk).  Training runs ``SelectiveScan``: its forward launches the same
-kernel, which also writes the state entering every 16-step tile
+kernel, which also writes the state entering every 8th step
 (``ssm_scan_fwd``; the serving launch writes none), and its backward
-launches ``ssm_scan_bwd``, which walks the tiles in reverse, recomputing
-each tile's states from its checkpoint with the forward's own arithmetic,
-and sums the d_inner-wide gradients of B and C (and A's over the batch)
-from per-CTA partials in a second, deterministic kernel.
+launches ``ssm_scan_bwd``, which walks 16-step tiles in reverse, each as
+two 8-step parts recomputed from their checkpoints with the forward's own
+arithmetic, keeping their decays for the walk back (a lane holds 2 states
+of 2 rows: 8 lanes a row pair at ds 16).  The d_inner-wide gradients of B
+and C sum over a lane's rows in registers, over a warp's row pairs by
+shuffles, over a CTA's warps in shared memory and over a thread-block
+cluster of 8 CTAs (256 rows) in distributed shared memory, one partial row
+per cluster; a second kernel sums those partials (and A's over the batch)
+in a fixed order, so the gradients are deterministic.
 
 The plain version is the naive sequential scan of the reference's
 ``kernels/ref.py`` ``ssm_scan_chunk_ref``, differentiable by autograd (on
@@ -42,10 +47,19 @@ COUNTS = {"cuda": 0, "torch": 0}
 BWD_COUNTS = {"cuda": 0, "torch": 0}
 #: state widths the kernel is built for (lanes of one d_inner row)
 STATE_WIDTHS = (4, 8, 16, 32)
-#: steps between the forward's state checkpoints (the kernel's tile)
-CHECKPOINT_STEPS = 16
-#: d_inner rows a CTA (the backward's partial sums, one per CTA)
+#: steps between the forward's state checkpoints (the backward's parts)
+CHECKPOINT_STEPS = 8
+#: d_inner rows a CTA
 ROWS_PER_CTA = 32
+#: CTAs of a thread-block cluster in the backward (one partial gB / gC row each)
+CLUSTER_CTAS = 8
+
+
+def bwd_partials(di: int) -> int:
+    """Partial gB / gC rows the backward sums: one per cluster of
+    ``CLUSTER_CTAS`` CTAs of ``ROWS_PER_CTA`` rows (the last cluster padded
+    with CTAs past d_inner)."""
+    return -(-(-(-di // ROWS_PER_CTA)) // CLUSTER_CTAS)
 
 
 def ssm_scan_chunk_torch(xi, dt, B_, C_, A, h0):
@@ -95,8 +109,8 @@ def ssm_scan_chunk(xi, dt, B_, C_, A, h0):
 
 
 def ssm_scan_fwd(xi, dt, B_, C_, A, h0):
-    """The kernel with checkpoints: ``(y, h, hs)``, ``hs [B, ceil(Q / 16),
-    di, ds]`` the state entering each 16-step tile (``hs[:, 0] == h0``).
+    """The kernel with checkpoints: ``(y, h, hs)``, ``hs [B, ceil(Q / 8),
+    di, ds]`` the state entering every 8th step (``hs[:, 0] == h0``).
     y and h are bit-equal to ``ssm_scan_chunk``'s."""
     b, q, di = xi.shape
     n = -(-q // CHECKPOINT_STEPS)
@@ -125,8 +139,7 @@ def ssm_scan_bwd(xi, dt, B_, C_, A, hs, gy, gh=None):
     gxi, gdt = torch.empty_like(xi), torch.empty_like(dt)
     gB, gC = torch.empty_like(B_), torch.empty_like(C_)
     gA, gh0 = torch.empty_like(A), h0_like
-    nbx = -(-di // ROWS_PER_CTA)
-    gBp = torch.empty((nbx, b, q, ds), dtype=torch.float32, device=xi.device)
+    gBp = torch.empty((bwd_partials(di), b, q, ds), dtype=torch.float32, device=xi.device)
     gCp = torch.empty_like(gBp)
     gAp = torch.empty((b, di, ds), dtype=torch.float32, device=xi.device)
     lib = build.load("ssm_scan")
