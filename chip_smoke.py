@@ -74,7 +74,11 @@ Phases, each printing a line before the last:
                  serving forward, a NaN in one batch row (at step 37, and
                  at the last step) staying in that row's gradients; timed
                  beside the plain backward and its bound, with each
-                 instantiation's registers and spills from ``ptxas``.
+                 instantiation's registers and spills from ``ptxas``.  Last,
+                 olmo-1b's serving attention (rows ``*_g1``): the paged
+                 decode and chunked prefill at group 1, H = kvH = 16 heads of
+                 128, in both dtypes (the decode also at the tile edges), a
+                 NaN in one slot, timed in bf16 beside SDPA and the bound.
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -235,6 +239,33 @@ Phases, each printing a line before the last:
                  of each and admission and the dense decode (zamba2).
                  Phases 22-24 each free their weights; they run after
                  phase 21 and before phase 7.
+25. olmo parity -- olmo-1b (16 MHA heads of 128, a non-parametric
+                 LayerNorm, tied embeddings) at 2 layers, full width, fp32,
+                 impl="cuda" against impl="torch": model steps and the fused
+                 loop (``_model_step_parity``), EngineCore streams on the
+                 paged layout (decode graphs: one paged decode launch a
+                 layer and step), ``lm_loss`` and every gradient (flash once
+                 a layer each way).
+26. olmo serve -- olmo-1b at full depth, bf16, a ``CONFIG_SERVES`` row (8
+                 slots, 8 requests of 16 tokens): every request finishes,
+                 both paged kernels launch; the decode step beside its bytes
+                 bound (the tied table read once, as the unembedding).
+27. olmo train -- the training CLI (``repro_torch.launch.train.main``) at
+                 olmo-1b's full depth (1.18 B params, fp32 + AdamW, bf16
+                 compute, remat "full", 4 x 1024, 6 steps), plain and with
+                 ``--collocate``: finite losses, the flash forward twice and
+                 the backward once a layer and step (the collocated run's
+                 two calibration steps included), the plain versions never;
+                 step times and peak memory logged.  Then the ``Trainer`` at
+                 2 of 16 layers, full width, ``grad_compression="int8_ef"``:
+                 a checkpoint every 2 steps (~3.8 GB each, in a temporary
+                 directory), a failure injected at step 5; the losses after
+                 the restore equal the uninterrupted run's within 1e-6
+                 relative (bit-equality printed); the EF identity
+                 ``deq + err_new == g + err_old`` exact on every leaf; the
+                 saves' and the restore's seconds and bytes logged.
+                 Phases 25-27 each free their weights; they run after
+                 phase 24 and before phase 7, each timed.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -252,9 +283,10 @@ verify and tree verify from the dense target serve run, the scan from the
 ssm serve run, the hd-80 rows' from phases 16 (decode) and 17 (flash),
 the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
 ``*_g4`` rows' from phase 20, the scan backward's from phase 22's
-24-layer run, the others' from the collocated run; each
+24-layer run, the ``*_g1`` rows' from phase 26, the others' from the
+collocated run; each
 row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
-19-21 and 22-24 that launch it; a row with no launch fails the run)
+19-21, 22-24 and 26-27 that launch it; a row with no launch fails the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -389,6 +421,8 @@ FLASH_HD64_CASES = (  # (B, H, Sq, Sk, causal, hd)
 )
 #: audio / VLM parity depth (full width)
 AV_PARITY_LAYERS = 2
+#: olmo-1b's attention: 16 MHA heads of 128 (GQA group 1)
+OLMO_H = 16
 #: pixtral-12b's training depth: 8 of 40 layers at full width (3.52 B
 #: parameters, 56 GB of fp32 params, gradients and AdamW moments; full depth
 #: would need 196 GB)
@@ -397,7 +431,8 @@ PIXTRAL_TRAIN_LAYERS = 8
 
 #: the runs whose launches the audio / VLM slice's kernel rows report
 SLICE_ROW_RUNS = {"_hd64": ("musicgen_train", "musicgen_serve", "musicgen_spec_serve"),
-                  "_g4": ("pixtral_serve", "pixtral_dense")}
+                  "_g4": ("pixtral_serve", "pixtral_dense"),
+                  "_g1": ("olmo_serve", "olmo_collocate")}
 #: the kernels each path runs
 SERVE_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
@@ -900,7 +935,8 @@ def phase_kernels(build_logs):
     flash = _flash_rows()
     _flash_long_rows()
     return (rows + flash + _spec_rows() + _dense_target_rows() + _ssm_rows()
-            + _hd80_rows() + _slice_rows() + _ssm_bwd_rows(build_logs.get("ssm_scan", "")))
+            + _hd80_rows() + _slice_rows() + _ssm_bwd_rows(build_logs.get("ssm_scan", ""))
+            + _olmo_rows())
 
 
 def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
@@ -2008,6 +2044,16 @@ def _slice_rows():
     rows += _paged_verify_rows("_hd64", MG_H, MG_H, MG_HD)
     rows.append(_dense_decode_row("_g4", PX_H, PX_KVH, HD))
     return rows
+
+
+def _olmo_rows():
+    """olmo-1b's serving attention, 16 MHA heads of 128 (GQA group 1): the
+    paged decode (#1) at the serving lengths and the tile edges and the
+    chunked prefill (#2), each against its plain version in both dtypes with
+    a NaN in one slot, timed in bf16 beside SDPA and the bound.  Rows
+    ``*_g1``."""
+    return [_paged_decode_row("_g1", OLMO_H, OLMO_H, HD),
+            _paged_prefill_row("_g1", OLMO_H, OLMO_H, HD)]
 
 
 def _i32(xs):
@@ -3616,9 +3662,10 @@ def _end_phase(label):
 
 def _decode_weight_bytes(cfg):
     """bf16 bytes one decode step must read: every weight but the embedding
-    table (of which it reads one row a slot); for the MoE family every
-    expert, since the capacity dispatch runs each expert over its whole
-    buffer every step."""
+    table (of which it reads one row a slot); a tied table (qwen3-1.7b,
+    olmo-1b) is the unembedding too and counts once, an untied one's
+    ``lm_head`` counts once; for the MoE family every expert, since the
+    capacity dispatch runs each expert over its whole buffer every step."""
     return 2 * (cfg.param_count() - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
 
 
@@ -4008,23 +4055,28 @@ CONFIG_SERVES = (
     ("qwen2_serve", "qwen2-7b", None, 8, 8),
     ("deepseek_serve", "deepseek-coder-33b", None, 4, 4),
 )
+#: phase 26's row: olmo-1b at full depth
+OLMO_SERVES = (("olmo_serve", "olmo-1b", None, 8, 8),)
 
 
-def phase_config_serves():
-    """dbrx-132b at full width and 4 of 40 layers (its 264 GB of bf16
-    weights do not fit the card), qwen2-7b and deepseek-coder-33b at full
-    depth and width, each in bf16 (weights made on the card), one at a time:
-    every request finishes and both paged kernels launch; the decode step
-    beside its bound.  Returns {run label: launch counts}."""
+def phase_config_serves(rows=CONFIG_SERVES):
+    """Phase 14: dbrx-132b at full width and 4 of 40 layers (its 264 GB of
+    bf16 weights do not fit the card), qwen2-7b and deepseek-coder-33b at
+    full depth and width; phase 26: olmo-1b at full depth (``OLMO_SERVES``).
+    Each in bf16 (weights made on the card), one at a time: every request
+    finishes and both paged kernels launch; the decode step beside its
+    bound, whose bytes are the engine's weights less one table when the
+    embedding is untied.  Returns {run label: launch counts}."""
     import numpy as np
     import torch
 
     from repro_torch import configs
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.tree import tree_leaves
 
     out = {}
-    for label, arch, layers, slots, n_req in CONFIG_SERVES:
+    for label, arch, layers, slots, n_req in rows:
         _fresh_phase()
         cfg = configs.get_config(arch)
         if layers is not None:
@@ -4038,9 +4090,15 @@ def phase_config_serves():
         del params
         torch.cuda.synchronize()
         name = label.replace("_", " ")
+        weights = 2 * sum(p.numel() for p in tree_leaves(engine.params))  # at bf16
+        table = 0 if cfg.tie_embeddings else 2 * cfg.vocab_size * cfg.d_model
+        if _decode_weight_bytes(cfg) != weights - table:
+            raise AssertionError(f"{name}: the decode bound counts {_decode_weight_bytes(cfg)} "
+                                 f"bytes, the engine holds {weights} (table {table})")
         log(f"{name}: {arch} at {cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B "
             f"params bf16, KV pool {engine.kv_cache_bytes() / 1e9:.3f} GB, set-up "
-            f"{time.monotonic() - t0:.1f}s")
+            f"{time.monotonic() - t0:.1f}s; decode bound bytes {weights - table} = the "
+            f"engine's weights{' (tied table once)' if cfg.tie_embeddings else ' less one table'}")
         prompts = _prompts(np.random.default_rng(6), n_req, 24, 136, cfg.vocab_size, 0, ())
         _log_decode_step(name, engine, cfg, slots)
         out[label] = _serve_and_check(name, engine, cfg, prompts, 16, SERVE_KERNELS)
@@ -4887,6 +4945,266 @@ def phase_recurrent_spec_serve():
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# 25. olmo parity, 26. olmo serve (``phase_config_serves(OLMO_SERVES)``),
+# 27. olmo train (the training CLI and the Trainer)
+# ---------------------------------------------------------------------------
+
+#: the CLI's training run: olmo-1b at full depth, 6 steps
+OLMO_TRAIN_STEPS = 6
+#: the Trainer cycle's depth: 2 of 16 layers at full width (a checkpoint of
+#: its fp32 params, AdamW moments and error-feedback buffers is ~3.8 GB; at
+#: full depth it would be ~19 GB)
+OLMO_CYCLE_LAYERS = 2
+#: the cycle's losses after the restore against the uninterrupted run's: the
+#: same kernels on the same inputs from the same state
+OLMO_RESUME_RTOL = 1e-6
+
+
+def phase_olmo_parity():
+    """olmo-1b at 2 layers, full width, fp32, impl="cuda" against
+    impl="torch": ``_model_step_parity``; EngineCore streams on the paged
+    layout equal, the cuda engine launching both paged kernels (its decode
+    graphs one paged decode a layer and step); ``lm_loss`` (B=2, S=256)
+    within 1e-5 relative and every gradient within GRAD_RTOL_FP32 of its
+    largest value, the cuda run launching flash once a layer each way."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    t_phase = time.monotonic()
+    _fresh_phase()
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), num_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(25)
+    _model_step_parity("olmo parity model", cfg, params, rng)
+
+    streams = {}
+    for impl in ("cuda", "torch"):
+        eng = InferenceEngine(cfg, params, max_slots=4, max_seq=256,
+                              compute_dtype=torch.float32, decode_impl=impl)
+        prompts = _prompts(np.random.default_rng(26), 6, 24, 80, cfg.vocab_size,
+                           shared_prefix=32, shared_idx=(0, 5))
+        ops.reset_launch_counts()
+        reqs, _ = _serve(eng, prompts, max_new=8)
+        streams[impl] = [list(r.output_tokens) for r in reqs]
+        if impl == "cuda":
+            _require_launches("olmo parity engine", ops.launch_counts(), SERVE_KERNELS)
+            graphs = _decode_graph_launches("olmo parity engine", eng, cfg)
+        del eng
+    if streams["cuda"] != streams["torch"]:
+        raise AssertionError("olmo parity: EngineCore token streams differ (cuda vs torch)")
+    log(f"olmo parity engine: {len(streams['cuda'])} requests, token streams equal; the "
+        f"cuda engine's decode graphs captured {graphs} paged decode launches (k: launches)")
+
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 257)), dtype=torch.int32,
+                        device="cuda")
+    res = {}
+    for impl in ("cuda", "torch"):
+        leaves = [p.detach().clone().requires_grad_() for p in tree_leaves(params)]
+        ops.reset_launch_counts()
+        loss, _ = T.lm_loss(cfg, tree_unflatten(params, leaves), toks[:, :-1], toks[:, 1:],
+                            impl=impl, compute_dtype=torch.float32)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        res[impl] = (loss.detach(), grads, ops.launch_counts())
+    _require_launches("olmo parity train", res["cuda"][2], TRAIN_KERNELS)
+    got = {n: res["cuda"][2][n]["cuda"] for n in TRAIN_KERNELS}
+    if got != {n: cfg.num_layers for n in TRAIN_KERNELS}:
+        raise AssertionError(f"olmo parity train: flash launches {got}, one a layer expected")
+    loss_err = (res["cuda"][0] - res["torch"][0]).abs().item()
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(res["cuda"][1], res["torch"][1]))
+    if not (torch.isfinite(res["cuda"][0]) and loss_err <= 1e-5 * res["torch"][0].abs().item()):
+        raise AssertionError(f"olmo parity: lm_loss differs by {loss_err}")
+    if not grad_err <= GRAD_RTOL_FP32:
+        raise AssertionError(f"olmo parity: gradients differ by {grad_err} of max|g|")
+    log(f"olmo parity train (2 layers, full width, fp32, B=2, S=256): loss "
+        f"{res['torch'][0].item():.6f}, |d| {loss_err:.2e} (tol 1e-5 relative); gradients "
+        f"max err / max|g| {grad_err:.2e} over {len(res['cuda'][1])} leaves (tol "
+        f"{GRAD_RTOL_FP32:g}); cuda launches {json.dumps(got)}")
+    del params, res
+    _end_phase("olmo parity")
+    log(f"olmo parity: {time.monotonic() - t_phase:.1f}s")
+
+
+def _olmo_cli_runs():
+    """The training CLI at olmo-1b's full depth, plain and ``--collocate``;
+    returns {run label: launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    cfg = configs.get_config("olmo-1b")
+    argv = ["--arch", "olmo-1b", "--seq-len", str(TRAIN_S), "--global-batch", str(TRAIN_B),
+            "--steps", str(OLMO_TRAIN_STEPS)]
+    out = {}
+    for label, extra in (("olmo_train", []), ("olmo_collocate", ["--collocate"])):
+        name = label.replace("_", " ")
+        _fresh_phase()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        result = train_cli.main(argv + extra)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if extra:
+            # measure_dp_profile's two calibration steps train too
+            losses, steps = result.train_losses, result.train_iterations + 2
+            kernels = TRAIN_KERNELS + SERVE_KERNELS
+            detail = (f"{result.offline_tokens_generated} offline tokens in "
+                      f"{result.offline_microsteps} microsteps; phases "
+                      f"{json.dumps(result.phase_counts)}")
+            if not result.offline_tokens_generated > 0:
+                raise AssertionError(f"{name}: no offline tokens in the bubbles")
+        else:
+            losses, steps = result.losses, result.steps
+            kernels = TRAIN_KERNELS
+            detail = "steps " + ", ".join(f"{t * 1e3:.1f}" for t in result.step_times_s) + " ms"
+        if len(losses) != OLMO_TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: losses {losses}")
+        _require_launches(name, counts, kernels)
+        want = {"flash_attention_fwd": 2 * cfg.num_layers * steps,
+                "flash_attention_bwd": cfg.num_layers * steps}
+        got = {n: counts[n]["cuda"] for n in want}
+        if got != want:
+            raise AssertionError(f"{name}: flash launches {got}, expected {want} (remat "
+                                 f"full: forward twice, backward once a layer and step)")
+        log(f"{name} (olmo-1b CLI, full depth, {cfg.param_count() / 1e9:.3f} B params, fp32 "
+            f"+ AdamW, bf16 compute, remat full, B={TRAIN_B} x S={TRAIN_S}): {secs:.1f}s "
+            f"(set-up included); {detail}; losses " + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; peak device memory {peak:.2f} GB; launches "
+            f"{json.dumps({k: v['cuda'] for k, v in counts.items() if v['cuda']})}")
+        out[label] = {n: c["cuda"] for n, c in counts.items()}
+        del result
+        _end_phase(name)
+    return out
+
+
+def _olmo_trainer_cycle():
+    """The ``Trainer`` at ``OLMO_CYCLE_LAYERS`` of 16 layers, full width,
+    ``grad_compression="int8_ef"``, remat "full", 4 x 1024: an uninterrupted
+    run of ``OLMO_TRAIN_STEPS`` with every EF call checked
+    (``deq + err_new == g + err_old`` exactly), then the same run
+    checkpointing every 2 steps into a temporary directory with a failure
+    injected at step 5: one restore, the losses equal the uninterrupted
+    run's within OLMO_RESUME_RTOL."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.optim import ef_int8_compress_decompress
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime import step as step_module
+    from repro_torch.tree import tree_leaves
+
+    _fresh_phase()
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), num_layers=OLMO_CYCLE_LAYERS)
+    tcfg = TrainConfig(warmup_steps=2, total_steps=OLMO_TRAIN_STEPS + 2, remat_policy="full",
+                       grad_compression="int8_ef")
+    kw = dict(seq_len=TRAIN_S, global_batch=TRAIN_B)
+
+    ef_errs = []
+
+    def checked_ef(g, err):
+        want = g.float() + err  # before the step writes the new residual
+        deq, new_err = ef_int8_compress_decompress(g, err)
+        ef_errs.append((deq + new_err - want).abs().max().item())
+        return deq, new_err
+
+    step_module.ef_int8_compress_decompress = checked_ef
+    try:
+        clean = Trainer(cfg, tcfg, **kw)
+        clean_report = clean.train(OLMO_TRAIN_STEPS)
+    finally:
+        step_module.ef_int8_compress_decompress = ef_int8_compress_decompress
+    n_leaves = len(tree_leaves(clean.state["params"]))
+    if len(ef_errs) != n_leaves * OLMO_TRAIN_STEPS or max(ef_errs) != 0.0:
+        raise AssertionError(f"olmo trainer: EF identity off by {max(ef_errs)} over "
+                             f"{len(ef_errs)} calls ({n_leaves} leaves x {OLMO_TRAIN_STEPS})")
+
+    with tempfile.TemporaryDirectory(prefix="olmo_ckpt_") as ckpt_dir:
+        trainer = Trainer(cfg, tcfg, checkpoint_dir=ckpt_dir, checkpoint_every=2, **kw)
+        ck = trainer.ckpt
+        ck.keep = 2  # the disk holds two ~3.8 GB checkpoints and one being written
+        saves, restores = [], []
+        save, restore = ck.save, ck.restore
+
+        def timed_save(step, tree, blocking=True):
+            t0 = time.monotonic()
+            save(step, tree, blocking=blocking)
+            saves.append((step, blocking, time.monotonic() - t0))
+
+        def timed_restore(template=None, step=None):
+            t0 = time.monotonic()
+            got = restore(template, step)
+            restores.append(time.monotonic() - t0)
+            return got
+
+        ck.save, ck.restore = timed_save, timed_restore
+        fired = []
+
+        def fail_once_at_5(step_no):
+            if step_no == 5 and not fired:
+                fired.append(step_no)
+                return True
+            return False
+
+        trainer.fail_hook = fail_once_at_5
+        report = trainer.train(OLMO_TRAIN_STEPS)
+        ckpt_bytes = os.path.getsize(
+            os.path.join(ckpt_dir, f"step_{ck.latest_step():08d}", "arrays.npz"))
+    if fired != [5] or report.restores != 1 or len(restores) != 1:
+        raise AssertionError(f"olmo trainer: fired {fired}, restores {report.restores}")
+    # steps 0-4, then step 4 again from its checkpoint, then step 5
+    ours = np.array(report.losses)
+    ref = np.array(clean_report.losses[:5] + clean_report.losses[4:])
+    rel = float(np.max(np.abs(ours - ref) / np.abs(ref)))
+    if not (np.isfinite(ours).all() and rel <= OLMO_RESUME_RTOL):
+        raise AssertionError(f"olmo trainer: losses {report.losses} against the "
+                             f"uninterrupted {clean_report.losses} ({rel:.2e} relative)")
+    bit_equal = report.losses[5:] == clean_report.losses[4:]
+    state_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                    for a, b in zip(tree_leaves(trainer.state["params"]),
+                                    tree_leaves(clean.state["params"])))
+    log(f"olmo trainer (olmo-1b at {cfg.num_layers} of 16 layers, full width, int8_ef, remat "
+        f"full, B={TRAIN_B} x S={TRAIN_S}): uninterrupted losses "
+        + ", ".join(f"{x:.6f}" for x in clean_report.losses) + "; steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in clean_report.step_times_s)
+        + f" ms; EF identity exact over {len(ef_errs)} leaf calls; failure at step 5 -> "
+        f"restored step 4, losses after the restore max rel diff {rel:.2e} (tol "
+        f"{OLMO_RESUME_RTOL:g}), bit-equal {bit_equal}; final params max rel diff "
+        f"{state_err:.2e}; straggler events {report.straggler_events}")
+    log(f"olmo trainer checkpoints: {ckpt_bytes / 1e9:.3f} GB each (arrays.npz); saves "
+        + ", ".join(f"step {s} {'blocking' if b else 'async (host copy)'} {t:.2f}s"
+                    for s, b, t in saves)
+        + f"; restore {restores[0]:.2f}s")
+    del clean, trainer
+    _end_phase("olmo trainer")
+
+
+def phase_olmo_train():
+    """Phase 27: ``_olmo_cli_runs``, then ``_olmo_trainer_cycle``.  Returns
+    {run label: launch counts} of the CLI runs."""
+    t_phase = time.monotonic()
+    out = _olmo_cli_runs()
+    _olmo_trainer_cycle()
+    log(f"olmo train: {time.monotonic() - t_phase:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -4930,6 +5248,15 @@ def main() -> int:
     phase_recurrent_spec_parity()
     rec_launches.update(phase_recurrent_spec_serve())
     slice_launches.update(rec_launches)
+    # phases 25-27, olmo-1b and the training entry point, also before any
+    # profiler session
+    phase_olmo_parity()
+    t_serve = time.monotonic()
+    olmo_launches = phase_config_serves(OLMO_SERVES)
+    log(f"olmo serve: {time.monotonic() - t_serve:.1f}s")
+    olmo_launches.update(phase_olmo_train())
+    slice_launches.update(olmo_launches)
+    row_runs = {**av_launches, **olmo_launches}
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()
@@ -4955,13 +5282,14 @@ def main() -> int:
             row["launches"] = train if name.startswith("flash") else serve
             row["launches_hybrid_serve"], row["launches_hybrid_train"] = serve, train
             continue
-        # the audio / VLM slice's rows: the first of their runs that launched
-        # them (flash in the musicgen train run, #1 / #2 in the serve runs,
-        # #7 / #9 in musicgen's spec serve run, #3 in pixtral's dense run)
+        # the audio / VLM and olmo slices' rows: the first of their runs that
+        # launched them (flash in the musicgen train run, #1 / #2 in the serve
+        # runs, #7 / #9 in musicgen's spec serve run, #3 in pixtral's dense
+        # run)
         suffix = next((s for s in SLICE_ROW_RUNS if row["name"].endswith(s)), None)
         if suffix is not None:
             name = row["name"][: -len(suffix)]
-            runs = {r: av_launches[r].get(name, 0) for r in SLICE_ROW_RUNS[suffix]}
+            runs = {r: row_runs[r].get(name, 0) for r in SLICE_ROW_RUNS[suffix]}
             row["launches"] = next((n for n in runs.values() if n), 0)
             row.update({f"launches_{r}": n for r, n in runs.items() if n})
             continue

@@ -92,10 +92,11 @@ def _from_host(arr: np.ndarray, meta: dict, like: Any = None) -> Any:
     if meta.get("kind") != "tensor":
         return arr
     dtype = _TORCH_DTYPES[meta["dtype"]]
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)  # a 0-d array stays 0-d
     if dtype == torch.bfloat16:
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     if isinstance(like, torch.Tensor):
         t = t.to(like.device)
     return t
@@ -162,6 +163,10 @@ class Checkpointer:
                 if m.get("complete"):
                     steps.append(int(m["step"]))
         return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
 
     def restore(self, template: Optional[dict] = None,
                 step: Optional[int] = None) -> tuple[dict, int]:

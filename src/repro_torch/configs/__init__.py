@@ -12,7 +12,9 @@ import dataclasses
 import importlib
 
 from repro_torch.configs.base import (
+    SHAPES,
     ModelConfig,
+    ShapeConfig,
     SpecDecodeConfig,
     SpecInFConfig,
     TrainConfig,
@@ -72,7 +74,9 @@ def smoke_config(arch: str) -> ModelConfig:
 
 __all__ = [
     "ARCH_IDS",
+    "SHAPES",
     "ModelConfig",
+    "ShapeConfig",
     "SpecDecodeConfig",
     "SpecInFConfig",
     "TrainConfig",

@@ -8,7 +8,8 @@ families' and the stub frontend's (``embed_inputs``: the ``audio`` and
 ``vlm`` families take precomputed d_model embeddings, as in the
 reference), and its derived properties but ``padded_for_tp``,
 ``attention_free`` and ``sub_quadratic``, which only the reference's mesh
-and shape matrix read.  ``TrainConfig`` keeps the
+and shape matrix read.  ``ShapeConfig`` and the four assigned input
+shapes are the reference's.  ``TrainConfig`` keeps the
 reference's fields and defaults except the mesh layout (``zero1``,
 ``fsdp``, ``layout``), which returns with scale-out.  ``SpecInFConfig``
 keeps what the runtime and the collocation planner read (the simulator's
@@ -195,6 +196,31 @@ class ModelConfig:
         return n + l * per_layer
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (assigned shape set for the LM family)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4
@@ -209,7 +235,7 @@ class TrainConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat_policy: str = "none"  # "none" | "dots" | "full"
-    grad_compression: str = "none"  # "none" ("int8_ef" is not ported yet)
+    grad_compression: str = "none"  # "none" | "int8_ef" (local error feedback)
     microbatches: int = 1  # gradient accumulation
     seed: int = 0
 

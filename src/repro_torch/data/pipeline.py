@@ -7,8 +7,10 @@ token is followed by a fixed successor half the time), so training loss
 measurably drops.  ``embed_inputs`` configs (audio, VLM) get (embeddings,
 labels) pairs from the reference's stub frontend: a fixed table of
 ``min(V, 4096)`` fp32 rows of width d_model, indexed by ``token % rows``.
-One host (the reference's host sharding and checkpointable state return
-with scale-out and checkpointing).
+As in the reference, each of ``host_count`` hosts draws only its
+``local_batch`` rows of the global batch (from its own seed), and
+``state()`` / ``restore()`` carry the stream's position through a
+checkpoint, so a resumed job sees the same batches.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 
 @dataclasses.dataclass
@@ -24,10 +26,16 @@ class SyntheticDataset:
     cfg: ModelConfig
     seq_len: int
     global_batch: int
+    host_index: int = 0
+    host_count: int = 1
     seed: int = 0
     _step: int = 0
 
     def __post_init__(self):
+        if self.global_batch % self.host_count:
+            raise ValueError(f"global batch {self.global_batch} does not split over "
+                             f"{self.host_count} hosts")
+        self.local_batch = self.global_batch // self.host_count
         v = self.cfg.vocab_size
         rng = np.random.default_rng(self.seed)
         # Zipf unigram table + a sticky successor table: token t is followed
@@ -47,8 +55,9 @@ class SyntheticDataset:
             ).astype(np.float32) * 0.02
 
     def _rng_for(self, step: int) -> np.random.Generator:
-        # the reference's seed formula for host 0 of 1
-        return np.random.default_rng((self.seed * 1_000_003 + step) * 4096)
+        return np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 4096 + self.host_index
+        )
 
     def _sample_tokens(self, rng: np.random.Generator, batch: int) -> np.ndarray:
         s = self.seq_len + 1
@@ -62,15 +71,49 @@ class SyntheticDataset:
         return toks
 
     def next_batch(self) -> dict:
-        """``{"inputs": [B, S] int32, "labels": [B, S] int32}``, labels the
-        inputs shifted by one; for an ``embed_inputs`` config the inputs are
-        the frontend's rows, [B, S, d_model] fp32."""
+        """``{"inputs": [B, S] int32, "labels": [B, S] int32}`` over this
+        host's ``B = local_batch`` rows, labels the inputs shifted by one;
+        for an ``embed_inputs`` config the inputs are the frontend's rows,
+        [B, S, d_model] fp32."""
         rng = self._rng_for(self._step)
         self._step += 1
-        toks = self._sample_tokens(rng, self.global_batch)
+        toks = self._sample_tokens(rng, self.local_batch)
         inputs = toks[:, :-1]
         if self._frontend is not None:
             inputs = self._frontend[inputs % self._frontend.shape[0]]
         else:
             inputs = inputs.astype(np.int32)
         return {"labels": toks[:, 1:].astype(np.int32), "inputs": inputs}
+
+    # -- checkpointable state ------------------------------------------------
+    def state(self) -> dict:
+        return {"step": self._step}
+
+    def restore(self, state: dict) -> None:
+        self._step = int(state["step"])
+
+
+def make_train_iterator(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    *,
+    host_index: int = 0,
+    host_count: int = 1,
+    seed: int = 0,
+):
+    """``(dataset, endless iterator of its batches)`` at ``shape``'s
+    sequence length and global batch."""
+    ds = SyntheticDataset(
+        cfg,
+        seq_len=shape.seq_len,
+        global_batch=shape.global_batch,
+        host_index=host_index,
+        host_count=host_count,
+        seed=seed,
+    )
+
+    def it():
+        while True:
+            yield ds.next_batch()
+
+    return ds, it()

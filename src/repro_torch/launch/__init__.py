@@ -1,1 +1,1 @@
-"""Entry points of the port (``serve``)."""
+"""Entry points of the port (``serve``, ``train``)."""

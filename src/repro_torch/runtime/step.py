@@ -2,7 +2,12 @@
 global-norm clip -> schedule -> AdamW (what ``repro.runtime.step``'s
 ``make_train_step`` does, without the mesh and its sharding specs).
 
-The state is ``{"params", "opt"}`` as in the reference.  The step updates
+The state is ``{"params", "opt"}`` as in the reference, plus ``"err"``
+(fp32 error-feedback buffers shaped like the params) under
+``grad_compression="int8_ef"``: there each fp32 gradient leaf is quantized
+to int8 and dequantized with error feedback
+(``optim.ef_int8_compress_decompress``) before the clip, as the
+reference's step does at world size 1.  The step updates
 the parameters and the optimizer state IN PLACE (the reference's jit
 donates them) and returns the same state dict: a full-size model keeps one
 copy of its weights, moments and gradients on the card.  Batches may be
@@ -22,19 +27,32 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, make_schedule
+from repro_torch.optim import (
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    ef_int8_compress_decompress,
+    make_schedule,
+)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
 
+GRAD_COMPRESSIONS = ("none", "int8_ef")
 
-def init_train_state(params: Tree) -> dict:
+
+def init_train_state(params: Tree, tcfg: Optional[TrainConfig] = None) -> dict:
     """``{"params", "opt"}`` over a trainable copy of ``params`` with fresh
-    AdamW state.  The step updates the copy in place, so the caller's
-    tensors (and an engine built on them) keep the initial weights, as the
-    reference's immutable arrays do."""
+    AdamW state, and ``"err"`` (fp32 zeros shaped like the params) when
+    ``tcfg.grad_compression == "int8_ef"``.  The step updates the copy in
+    place, so the caller's tensors (and an engine built on them) keep the
+    initial weights, as the reference's immutable arrays do."""
     own = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
-    return {"params": own, "opt": adamw_init(own)}
+    state = {"params": own, "opt": adamw_init(own)}
+    if tcfg is not None and tcfg.grad_compression == "int8_ef":
+        state["err"] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), own)
+    return state
 
 
 def _microbatch(x: torch.Tensor, n_micro: int, j: int) -> torch.Tensor:
@@ -57,11 +75,12 @@ def make_train_step(
     ``moe_aux``, ``grad_norm`` and ``lr`` (fp32 scalar tensors).  The device
     is ``cuda`` unless the caller passes one; attention runs the flash
     kernels on CUDA and their plain version on the CPU."""
-    if tcfg.grad_compression != "none":
+    if tcfg.grad_compression not in GRAD_COMPRESSIONS:
         raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} is scale-out work, "
-            "not ported yet"
+            f"grad_compression={tcfg.grad_compression!r}: the port has "
+            f"{GRAD_COMPRESSIONS}"
         )
+    int8_ef = tcfg.grad_compression == "int8_ef"
     device = resolve_device(device)
     schedule = make_schedule(tcfg)
     compute_dtype = getattr(torch, tcfg.compute_dtype)
@@ -105,6 +124,16 @@ def make_train_step(
                 acc.div_(n_micro)
             loss = torch.stack(losses).mean()
             ce, aux = torch.stack(ces).mean(), torch.stack(auxes).mean()
+        if int8_ef:
+            if "err" not in state:
+                raise ValueError("grad_compression='int8_ef' needs state['err']: build "
+                                 "the state with init_train_state(params, tcfg)")
+            with torch.no_grad():
+                for i, err in enumerate(tree_leaves(state["err"])):
+                    # the dequantized gradient replaces the gradient; the
+                    # residual is the next step's error feedback
+                    grads[i], new_err = ef_int8_compress_decompress(grads[i], err)
+                    err.copy_(new_err)
         grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads), tcfg.grad_clip_norm)
         lr = schedule(opt["step"])
         adamw_update(grads, opt, params, lr=lr, cfg=tcfg)

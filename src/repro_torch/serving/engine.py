@@ -73,6 +73,7 @@ streams chunked prefill needs an attention family too.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import math
 import time
@@ -155,8 +156,18 @@ class DecodeGraph:
         stream.wait_stream(side)
         before = ops.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = T.decode_loop(cfg, params, self.tokens, self.cache, self.remaining, **kw)
+        # no cyclic collection during the capture: one could free a dead
+        # engine's graphs, and destroying a graph while a stream captures
+        # invalidates the capture (cudaErrorStreamCaptureInvalidated)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = T.decode_loop(cfg, params, self.tokens, self.cache, self.remaining,
+                                         **kw)
+        finally:
+            if collecting:
+                gc.enable()
         after = ops.launch_counts()
         self.launches = {n: after[n]["cuda"] - before[n]["cuda"] for n in after}
         ops.add_launch_counts({n: -c for n, c in self.launches.items()})

@@ -1,8 +1,9 @@
 """The port stands alone: no module under ``src/repro_torch/``, nor
-``chip_smoke.py``, nor the port's card scripts (``scripts/torch_*.py``)
-imports ``jax``, ``jaxlib`` or the reference package
-``repro`` (``repro_torch`` is allowed), and importing the serving core, the
-speculative decoding package, the filling runtime, the train step, the
+``chip_smoke.py``, nor the port's card scripts (``scripts/torch_*.py``) and
+examples (``examples/torch_*.py``) imports ``jax``, ``jaxlib`` or the
+reference package ``repro`` (``repro_torch`` is allowed), and importing
+the serving core, the speculative decoding package, the filling runtime,
+the train step, the trainer, the train CLI, the gradient compression, the
 Mamba1 and MoE models and the dense verify / tree-verify / scan kernels
 pulls no JAX into a fresh interpreter."""
 import ast
@@ -16,7 +17,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "scripts").glob("torch_*.py")))
+         + sorted((ROOT / "scripts").glob("torch_*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -37,9 +39,11 @@ def test_walk_covers_the_port():
                 "models/ssm.py", "kernels/verify_attention.py",
                 "kernels/tree_verify_attention.py", "kernels/ssm_scan.py",
                 "configs/falcon_mamba_7b.py", "models/moe.py",
-                "configs/moonshot_v1_16b_a3b.py", "configs/dbrx_132b.py"):
+                "configs/moonshot_v1_16b_a3b.py", "configs/dbrx_132b.py",
+                "runtime/trainer.py", "launch/train.py", "optim/compression.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
     assert ROOT / "scripts" / "torch_scan_breakdown.py" in FILES
+    assert ROOT / "examples" / "torch_quickstart.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -62,6 +66,8 @@ def test_serving_core_import_pulls_no_jax():
         "import repro_torch.kernels.tree_verify_attention; "
         "import repro_torch.configs.falcon_mamba_7b; "
         "import repro_torch.models.moe; import repro_torch.configs.dbrx_132b; "
+        "import repro_torch.runtime.trainer; import repro_torch.launch.train; "
+        "import repro_torch.optim.compression; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )

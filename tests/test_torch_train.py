@@ -266,8 +266,8 @@ def test_microbatched_step_matches_one_batch():
 
 def test_train_step_refuses_what_is_not_ported():
     cfg = configs.smoke_config("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="int8_ef"):
-        make_train_step(cfg, TrainConfig(grad_compression="int8_ef"), device="cpu")
+    with pytest.raises(NotImplementedError, match="powersgd"):
+        make_train_step(cfg, TrainConfig(grad_compression="powersgd"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_train_step(cfg, TrainConfig())
