@@ -266,6 +266,32 @@ Phases, each printing a line before the last:
                  saves' and the restore's seconds and bytes logged.
                  Phases 25-27 each free their weights; they run after
                  phase 24 and before phase 7, each timed.
+28. policies  -- right after phase 6, over phase 5's measured DP profile
+                 (its bubbles synthetic: comm_s = compute_s / 2, one card
+                 has no collective) and microstep, plus one online service
+                 time measured on an idle engine (a 40-token prompt, 8 new
+                 tokens, after a warm-up): ``core.simulator.simulate`` for
+                 SpecInF, MPS, TGS, Co-Exec and Exclusive, 30 simulated
+                 seconds each, one offline instance (SpecInF also at 2 and
+                 4) and 600 Poisson online requests over 3 instances.
+                 Asserts: inputs and results finite (an online p95 NaN only
+                 where a policy served none), each ``train_throughput_norm``
+                 in (0, 1 + 1e-9], Exclusive's ``offline_norm`` within 5 %
+                 of its normalisation point (the microstep over its whole
+                 ticks), a repeat of the SpecInF run equal.  Prints each
+                 policy's numbers, the two headline ratios (SpecInF / TGS
+                 offline throughput, 1 - SpecInF p95 / MPS p95), the paper's
+                 orderings (not asserted: the calibration was fitted to the
+                 paper's A100) and the analytic H100 profiles beside the
+                 measured step (MFU) and microstep.
+29. online serving -- after phase 27: ``examples/torch_online_serving.py``'s
+                 ``run`` at olmo-1b's full depth and width (remat "full",
+                 4 x 1024) over the profile and microstep it measures, 12
+                 iterations under ``SpecInFRuntime(busy_hold_ms=5)`` and 12
+                 Poisson ONLINE requests.  Asserts: all 12 served, finite
+                 losses, the paged decode / prefill and the flash forward /
+                 backward launched.  Prints p95 latency and TTFT (virtual),
+                 the wall time and the peak memory.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -286,7 +312,7 @@ the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
 24-layer run, the ``*_g1`` rows' from phase 26, the others' from the
 collocated run; each
 row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
-19-21, 22-24 and 26-27 that launch it; a row with no launch fails the run)
+19-21, 22-24, 26-27 and 29 that launch it; a row with no launch fails the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -3632,6 +3658,170 @@ def _chaos_full_depth(colloc, tmpdir):
 
 
 # ---------------------------------------------------------------------------
+# 28. the sharing policies on the card's profile
+# ---------------------------------------------------------------------------
+
+#: simulated seconds of each timeline run (the reference tests' length)
+POLICY_SIM_S = 30.0
+#: the online service-time probe: one ONLINE request on an idle engine
+SERVICE_PROMPT, SERVICE_NEW = 40, 8
+
+
+def _sim_fields(res):
+    """A ``SimResult``'s fields, NaN made comparable (a run serving no
+    online request has NaN latencies)."""
+    return {k: ("nan" if isinstance(v, float) and math.isnan(v) else v)
+            for k, v in dataclasses.asdict(res).items()}
+
+
+def phase_policies(colloc):
+    """Phase 28: the reference's timeline simulator (``core.simulator``) runs
+    MPS, TGS, Co-Exec, Exclusive and SpecInF over the DP profile and the
+    microstep that phase 5 measured on the card (qwen3-1.7b at full depth,
+    B=4 x S=1024), and over one online service time measured here.  Host
+    only but the service probe.  Asserts: every input and result finite
+    (an online p95 is NaN only where a policy served no request), every
+    ``train_throughput_norm`` in (0, 1 + 1e-9], Exclusive's ``offline_norm``
+    within 5 % of its normalisation point, a repeat of the SpecInF run equal
+    to the first.  The paper's orderings and the two headline ratios are
+    printed, not asserted: ``Calibration``'s constants were fitted to the
+    paper's A100, not to this card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SpecInFConfig
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.baselines import ALL_POLICIES
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.profiles import (
+        analytic_inference_profile,
+        analytic_iteration,
+        train_flops,
+    )
+    from repro_torch.core.queues import RequestQueue, poisson_arrivals
+    from repro_torch.serving.core import Priority, SamplingParams
+    from repro_torch.serving.engine import InferenceEngine
+
+    t_phase = time.monotonic()
+    cfg, profile, microstep_s = colloc["cfg"], colloc["profile"], colloc["microstep_s"]
+
+    # one online service time on an idle engine, after one untimed warm-up
+    eng = InferenceEngine(cfg, colloc["eparams"], max_slots=8, max_seq=512)
+    rng = np.random.default_rng(28)
+    secs = []
+    for _ in range(2):
+        req = eng.core.submit(rng.integers(0, cfg.vocab_size, SERVICE_PROMPT).astype(np.int32),
+                              SamplingParams(max_new_tokens=SERVICE_NEW),
+                              priority=Priority.ONLINE)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        while eng.core.has_unfinished:
+            eng.core.step()
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        if len(req.output_tokens) != SERVICE_NEW:
+            raise AssertionError(f"policies: the service probe returned {req.output_tokens}")
+    service_s = secs[1]
+    del eng
+
+    tokens = TRAIN_B * TRAIN_S
+    analytic = analytic_iteration(cfg, seq_len=TRAIN_S, per_device_batch=TRAIN_B,
+                                  num_devices=1, mode="dp", hw=H100)
+    mfu = train_flops(cfg, tokens) / (profile.compute_s * H100.peak_flops)
+    decode = analytic_inference_profile(cfg, batch=4, seq_or_context=512, hw=H100)
+    inputs = (profile.compute_s, profile.bubble_s, microstep_s, service_s, analytic.compute_s,
+              mfu, decode.min_exec_time_s)
+    if not all(math.isfinite(x) and x > 0 for x in inputs):
+        raise AssertionError(f"policies: inputs {inputs}")
+    log(f"policies inputs (qwen3-1.7b, full depth, B={TRAIN_B} x S={TRAIN_S}, phase 5's "
+        f"measure_dp_profile): train step compute {profile.compute_s * 1e3:.3f} ms; "
+        f"bubbles SYNTHETIC (one card has no collective: comm_s = compute_s / 2, overlap "
+        f"0.3): {profile.bubble_s * 1e3:.3f} ms of a {profile.iteration_s * 1e3:.3f} ms "
+        f"iteration ({profile.bubble_fraction:.4f}), longest {profile.max_bubble_s * 1e3:.3f}"
+        f" ms; decode microstep {microstep_s * 1e3:.4f} ms (4 slots); online service "
+        f"{service_s * 1e3:.3f} ms ({SERVICE_PROMPT}-token prompt, {SERVICE_NEW} new, idle "
+        f"engine; warm-up {secs[0] * 1e3:.1f} ms)")
+    log(f"policies analytic vs measured (H100 spec: {H100.peak_flops:.3g} FLOP/s, "
+        f"{H100.hbm_bandwidth:.3g} B/s): train compute {analytic.compute_s * 1e3:.3f} ms at "
+        f"the assumed MFU {H100.mfu_assumption} vs {profile.compute_s * 1e3:.3f} ms measured "
+        f"= MFU {mfu:.4f} ({train_flops(cfg, tokens) / 1e12:.3f} TFLOP a step); decode "
+        f"microstep (batch 4, context 512, bytes bound) {decode.min_exec_time_s * 1e3:.4f} "
+        f"ms vs {microstep_s * 1e3:.4f} ms measured ({microstep_s / decode.min_exec_time_s:.2f}x)")
+
+    spec_cfg, cal = SpecInFConfig(busy_hold_ms=0.0), sim.Calibration()
+
+    def run(policy, offline=0, online=False):
+        kw = {}
+        if online:
+            kw = dict(online_queue=RequestQueue(poisson_arrivals(
+                mean_interval_s=2 * service_s, num_requests=600, service_s=service_s,
+                seed=0)), online_instances=3)
+        return sim.simulate(profile, sim.make_policy(policy, spec_cfg), duration_s=POLICY_SIM_S,
+                            offline_instances=offline, offline_microstep_s=microstep_s,
+                            cal=cal, specinf_cfg=spec_cfg, **kw)
+
+    t0 = time.monotonic()
+    offline = {p: run(p, offline=1) for p in ALL_POLICIES}
+    scaling = {m: run("specinf", offline=m) for m in (2, 4)}
+    online = {p: run(p, online=True) for p in ALL_POLICIES}
+    repeat = run("specinf", offline=1)
+    sim_s = time.monotonic() - t0
+
+    for label, res in [*((f"offline {p}", r) for p, r in offline.items()),
+                       *((f"offline specinf x{m}", r) for m, r in scaling.items()),
+                       *((f"online {p}", r) for p, r in online.items())]:
+        f = _sim_fields(res)
+        nans = [k for k, v in f.items() if v == "nan"
+                and not (k.startswith("online_") and res.online_served == 0)]
+        finite = all(math.isfinite(v) for v in f.values() if isinstance(v, float))
+        if nans or not finite or not 0 < res.train_throughput_norm <= 1 + 1e-9:
+            raise AssertionError(f"policies {label}: {f}")
+        log(f"policies {label}: train_throughput_norm {res.train_throughput_norm!r}, "
+            f"offline_norm {res.offline_norm!r} ({res.offline_completed} microsteps), "
+            f"online_p95_s {res.online_p95_s!r} ({res.online_served} served), "
+            f"online_mean_s {res.online_mean_s!r}")
+    # Exclusive's offline_norm against its normalisation point: an instance
+    # takes ceil(microstep / tick) whole ticks, so the point is
+    # microstep / (ceil(microstep / tick) * tick), 1 where the microstep is
+    # a whole number of ticks (the reference tests' 10 ms)
+    tick = cal.tick_s
+    point = microstep_s / (math.ceil(microstep_s / tick - 1e-9) * tick)
+    excl = offline["exclusive"].offline_norm
+    if not abs(excl / point - 1.0) <= 0.05:
+        raise AssertionError(f"policies: Exclusive's offline_norm {excl} against its "
+                             f"normalisation point {point}")
+    if _sim_fields(repeat) != _sim_fields(offline["specinf"]):
+        raise AssertionError("policies: a repeat of the SpecInF run differs from the first")
+    spec_off, tgs_off = (offline[p].offline_throughput_per_s for p in ("specinf", "tgs"))
+    tgs_ratio = spec_off / tgs_off if tgs_off > 0 else math.inf
+    spec_p95, mps_p95 = online["specinf"].online_p95_s, online["mps"].online_p95_s
+    p95_cut = 1.0 - spec_p95 / mps_p95  # NaN where SpecInF served no online request
+    # the longest service SpecInF's pull gate admits on this profile: the
+    # longest bubble must hold 1.15 x the 3 instances' drag x the service
+    gate_s = profile.max_bubble_s / (1.15 * (1 + 2 * cal.multi_instance_drag))
+    orderings = {
+        "specinf train >= 0.93": offline["specinf"].train_throughput_norm >= 0.93,
+        "co-exec train < specinf": (offline["co-exec"].train_throughput_norm
+                                    < offline["specinf"].train_throughput_norm),
+        "specinf offline > tgs": spec_off > tgs_off,
+        "specinf offline > mps": spec_off > offline["mps"].offline_throughput_per_s,
+        "specinf offline_norm in [0.15, 1]": 0.15 <= offline["specinf"].offline_norm <= 1.0,
+        "specinf p95 < co-exec, mps": (spec_p95 < online["co-exec"].online_p95_s
+                                       and spec_p95 < mps_p95),
+        "x4 < 4 x1": (scaling[4].offline_throughput_per_s
+                      < 4 * offline["specinf"].offline_throughput_per_s),
+    }
+    log(f"policies headline: SpecInF / TGS offline throughput {tgs_ratio!r} (paper: up to "
+        f"14x); 1 - SpecInF p95 / MPS p95 = {p95_cut!r} (paper: 67 % lower; SpecInF's "
+        f"gate admits services up to {gate_s * 1e3:.3f} ms here, the service is "
+        f"{service_s * 1e3:.3f} ms); Exclusive "
+        f"offline_norm {excl!r} against its point {point!r} (tick {tick * 1e3:g} ms); "
+        f"paper orderings (printed, not asserted) {json.dumps(orderings)}; repeat equal; "
+        f"{len(offline) + len(scaling) + len(online) + 1} timelines of {POLICY_SIM_S:g} s "
+        f"simulated in {sim_s:.2f}s; phase {time.monotonic() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # 11. MoE parity, 12. MoE serve, 13. MoE train, 14. the other configs' serves
 # ---------------------------------------------------------------------------
 
@@ -5205,6 +5395,71 @@ def phase_olmo_train():
     return out
 
 
+# ---------------------------------------------------------------------------
+# 29. online serving at full width
+# ---------------------------------------------------------------------------
+
+#: the online example's iterations and Poisson ONLINE requests
+ONLINE_ITERS = ONLINE_REQUESTS = 12
+
+
+def phase_online_serving():
+    """Phase 29: ``examples/torch_online_serving.py``'s ``run`` at olmo-1b's
+    full depth and width (phases 25-27's config; fp32 params + AdamW, bf16
+    compute, remat "full", B=4 x S=1024) over the profile and microstep
+    ``measure_dp_profile`` takes here, ``ONLINE_ITERS`` iterations under
+    ``SpecInFRuntime`` with ``busy_hold_ms=5``, ``ONLINE_REQUESTS`` Poisson
+    ONLINE arrivals.  Asserts: every request served, finite losses, the
+    paged decode and prefill and the flash forward and backward launched
+    (plain versions never).  Prints p95 latency / TTFT (virtual), the wall
+    time and the peak memory.  Returns the run's launch counts."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels import ops
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_online_serving", os.path.join(ROOT, "examples", "torch_online_serving.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = configs.get_config("olmo-1b")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=ONLINE_ITERS + 2,
+                       remat_policy="full")
+    _fresh_phase()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    m, reqs, profile, microstep_s = example.run(
+        cfg, "cuda", tcfg=tcfg, seq_len=TRAIN_S, global_batch=TRAIN_B, max_seq=256,
+        iterations=ONLINE_ITERS, num_requests=ONLINE_REQUESTS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    losses = m.train_losses
+    if not (m.online_served == len(reqs) == ONLINE_REQUESTS
+            and all(r.state.finished and len(r.output_tokens) == 4 for r in reqs)):
+        raise AssertionError(f"online serving: {m.online_served} of {len(reqs)} served")
+    if len(losses) != ONLINE_ITERS or not np.isfinite(losses).all():
+        raise AssertionError(f"online serving: losses {losses}")
+    _require_launches("online serving", counts, SERVE_KERNELS + TRAIN_KERNELS)
+    log(f"online serving (olmo-1b, full depth, remat full, B={TRAIN_B} x S={TRAIN_S}, "
+        f"busy_hold_ms 5): {m.online_served}/{len(reqs)} served; p95 latency "
+        f"{m.p95_latency_s() * 1e3:.3f} ms, p95 TTFT {m.p95_ttft_s() * 1e3:.3f} ms (virtual); "
+        f"measured train step {profile.compute_s * 1e3:.1f} ms, microstep "
+        f"{microstep_s * 1e3:.3f} ms (2 slots); {m.offline_tokens_generated} offline tokens; "
+        f"phases {json.dumps(m.phase_counts)}; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; virtual {m.virtual_time_s:.3f}s; wall {wall:.1f}s (set-up and two calibration "
+        f"steps included); peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
+        f" launches {json.dumps({k: v['cuda'] for k, v in counts.items() if v['cuda']})}")
+    del m, reqs
+    _end_phase("online serving")
+    return {n: c["cuda"] for n, c in counts.items()}
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -5224,6 +5479,7 @@ def main() -> int:
     phase_parity()
     launches, colloc = phase_collocated()
     phase_chaos(colloc)  # before any profiler session, as phase 5
+    phase_policies(colloc)  # phase 28, over phase 5's measured profile
     del colloc
     # phases 11-14 before phase 7's first profiler session: after one, every
     # launch costs more on the host
@@ -5256,6 +5512,9 @@ def main() -> int:
     log(f"olmo serve: {time.monotonic() - t_serve:.1f}s")
     olmo_launches.update(phase_olmo_train())
     slice_launches.update(olmo_launches)
+    # phase 29, the online example at olmo-1b's full width, also before any
+    # profiler session
+    slice_launches["online_serving"] = phase_online_serving()
     row_runs = {**av_launches, **olmo_launches}
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()

@@ -252,6 +252,9 @@ class SpecInFConfig:
     token_seed: float = 1.0  # tokens restart from this after a zero
     window_ms: float = 2.0  # monitor sliding-window period (paper: 2ms)
     window_len: int = 64  # sliding-window capacity
+    #: per-instance busy hold after an online pull, read by the timeline
+    #: simulator (``core.simulator``); 0 = no hold
+    busy_hold_ms: float = 25.0
     #: Principle-I memory budget: one NVIDIA H100 SXM's 80 GB of HBM3
     #: (data sheet)
     hbm_limit_bytes: int = 80 * 10**9

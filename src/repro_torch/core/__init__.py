@@ -6,8 +6,14 @@ engine (counterpart of ``repro.core``).
   * plan_collocation         -- Principles I & II (§3.2)
   * IterationProfile         -- the training iteration's compute / bubble
                                 segments (dp / mp / pp shapes; a dp one
-                                measured on the device)
+                                measured on the device, or analytic over a
+                                ``core.hardware.HardwareSpec``)
   * SpecInFRuntime           -- speculative filling over real compute
+  * simulator / baselines    -- calibrated timeline evaluation vs MPS / TGS /
+                                Co-Exec / Exclusive over ``core.queues``'
+                                Poisson arrivals; import them from their
+                                modules (the simulator's ``SpecInFPolicy`` is
+                                not the runtime's, exported here)
 """
 from repro_torch.core.bubble_monitor import BubbleMonitor
 from repro_torch.core.collocation import (

@@ -280,8 +280,16 @@ def test_specinf_config_budgets_the_h100():
     shared = {f.name for f in dataclasses.fields(SpecInFConfig)} - {"hbm_limit_bytes"}
     jdef = {f.name: f.default for f in dataclasses.fields(JSpecInFConfig)}
     assert {n: getattr(cfg, n) for n in shared} == {n: jdef[n] for n in shared}
-    # left behind: the simulator's busy hold
-    assert set(jdef) - shared == {"hbm_limit_bytes", "busy_hold_ms"}
+    # the one deliberate difference: the H100's 80 GB against the v5e's 16 GiB
+    assert set(jdef) - shared == {"hbm_limit_bytes"}
+
+
+def test_busy_hold_ms_constructs_in_both_packages():
+    ours, ref = SpecInFConfig(busy_hold_ms=5.0), JSpecInFConfig(busy_hold_ms=5.0)
+    assert ours.busy_hold_ms == ref.busy_hold_ms == 5.0
+    ours, ref = dataclasses.asdict(ours), dataclasses.asdict(ref)
+    assert ours.pop("hbm_limit_bytes") != ref.pop("hbm_limit_bytes")
+    assert ours == ref
 
 
 # ---------------------------------------------------------------------------

@@ -40,10 +40,14 @@ def test_walk_covers_the_port():
                 "kernels/tree_verify_attention.py", "kernels/ssm_scan.py",
                 "configs/falcon_mamba_7b.py", "models/moe.py",
                 "configs/moonshot_v1_16b_a3b.py", "configs/dbrx_132b.py",
-                "runtime/trainer.py", "launch/train.py", "optim/compression.py"):
+                "runtime/trainer.py", "launch/train.py", "optim/compression.py",
+                "core/simulator.py", "core/baselines.py", "core/queues.py",
+                "core/hardware.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
     assert ROOT / "scripts" / "torch_scan_breakdown.py" in FILES
     assert ROOT / "examples" / "torch_quickstart.py" in FILES
+    assert ROOT / "scripts" / "torch_check_chaos.py" in FILES
+    assert ROOT / "examples" / "torch_online_serving.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -68,6 +72,7 @@ def test_serving_core_import_pulls_no_jax():
         "import repro_torch.models.moe; import repro_torch.configs.dbrx_132b; "
         "import repro_torch.runtime.trainer; import repro_torch.launch.train; "
         "import repro_torch.optim.compression; "
+        "import repro_torch.core.simulator; import repro_torch.core.baselines; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )
