@@ -292,6 +292,22 @@ Phases, each printing a line before the last:
                  losses, the paged decode / prefill and the flash forward /
                  backward launched.  Prints p95 latency and TTFT (virtual),
                  the wall time and the peak memory.
+30. scale out -- after phase 29, one rank over NCCL (a ``FileStore`` in a
+                 temporary directory): olmo-1b at full depth and width under
+                 the train CLI's non-smoke settings (FSDP + ZeRO-1, remat
+                 "full", fp32 params + AdamW, bf16 compute, 4 x 1024) through
+                 a ``Trainer`` on ``make_dev_mesh()``, 3 steps against
+                 ``make_train_step`` without a mesh from the same seed and
+                 batches: losses, grad norms and every parameter and moment
+                 bit-equal; then ``Trainer.remesh`` onto ("pod", "data") =
+                 (1, 1) and one more step, bit-equal.  Prints both step
+                 times, the peak memory and the collectives of each step.
+31. collocated step -- ``make_collocated_step`` over phase 30's step and
+                 k = 0, 2, 8 greedy bf16 ``decode_step``s of its weights on 8
+                 dense rows (the dense decode #3), the chain on a second
+                 stream: the train result bit-equal across k and to the
+                 step alone, the tokens equal to the eager chain's.  Prints
+                 fused[k]'s time beside the step and the chain alone.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -312,7 +328,7 @@ the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
 24-layer run, the ``*_g1`` rows' from phase 26, the others' from the
 collocated run; each
 row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
-19-21, 22-24, 26-27 and 29 that launch it; a row with no launch fails the run)
+19-21, 22-24, 26-27 and 29-31 that launch it; a row with no launch fails the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -474,6 +490,14 @@ def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
 
 
+def _card() -> str:
+    """``nvidia-smi``'s name and power limit of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def _require_launches(phase, counts, kernels):
     """Every kernel of the path launched in the phase's run, and no plain
     version ran in it."""
@@ -508,11 +532,7 @@ def phase_device():
 
     if not torch.cuda.is_available():
         raise SystemExit("[smoke] FAIL: no CUDA device (torch.cuda.is_available() is False)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(_card(), flush=True)
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -5460,6 +5480,253 @@ def phase_online_serving():
     return {n: c["cuda"] for n, c in counts.items()}
 
 
+# ---------------------------------------------------------------------------
+# 30. the sharded train step at world size 1 over NCCL, 31. the fused
+# collocated step
+# ---------------------------------------------------------------------------
+
+#: phase 30's steps on each side (then one more after the remesh)
+SCALE_STEPS = 3
+#: phase 31's decode chain lengths, its dense rows (8 slots of 512) and the
+#: lengths they hold when the chain starts
+COLLOC_KS = (0, 2, 8)
+COLLOC_SLOTS, COLLOC_MAX_SEQ = 8, 512
+COLLOC_LENGTHS = (100, 200, 37, 500, 1, 256, 64, 300)
+
+
+def _timed(fn, *args):
+    """``(fn(*args), seconds)`` between two device synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _equal_trees(label, got, want):
+    """Every leaf of ``got`` bit-equal to ``want``'s."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} leaves against {len(b)}")
+    bad = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x.detach(), y.detach())]
+    if bad:
+        raise AssertionError(f"{label}: leaves {bad} of {len(a)} differ")
+    return len(a)
+
+
+def phase_sharded_step(mesh):
+    """Phase 30: olmo-1b at full width and depth under the train CLI's
+    non-smoke settings (FSDP, ZeRO-1, remat "full", fp32 params + AdamW,
+    bf16 compute, 4 x 1024 tokens) through a ``Trainer`` on ``mesh`` (one
+    rank over NCCL: every collective an identity), ``SCALE_STEPS`` steps
+    from the seed's state and batches against ``make_train_step(cfg,
+    tcfg)`` without a mesh: losses, grad norms and every parameter and
+    moment bit-equal.  Then ``Trainer.remesh`` onto a ("pod", "data") =
+    (1, 1) mesh and one more step on each side, bit-equal.  Prints both
+    step times, the peak memory (both states resident), the collectives of
+    each sharded step.  Returns ``(launch counts of the sharded steps,
+    trainer)``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import Trainer, init_train_state, make_train_step
+
+    t_phase = time.monotonic()
+    _fresh_phase()
+    cfg = configs.get_config("olmo-1b")
+    tcfg = TrainConfig(warmup_steps=2, total_steps=SCALE_STEPS + 8, remat_policy="full",
+                       fsdp=True, zero1=True)
+    trainer = Trainer(cfg, tcfg, mesh, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    plain = make_train_step(cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+    state = init_train_state(T.init_params(cfg, gen), tcfg)
+    ds = SyntheticDataset(cfg=cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=tcfg.seed)
+    batches = [ds.next_batch() for _ in range(SCALE_STEPS + 1)]
+
+    plain_m, plain_t = [], []
+    for b in batches[:SCALE_STEPS]:
+        (state, m), dt = _timed(plain, state, b)
+        plain_m.append(m)
+        plain_t.append(dt)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sharded_m, sharded_t, colls = [], [], []
+    for _ in range(SCALE_STEPS):
+        (trainer.state, m), dt = _timed(trainer.step_fn, trainer.state, trainer._batch())
+        sharded_m.append(m)
+        sharded_t.append(dt)
+        colls.append(dict(trainer.step_fn.last_collectives))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, (a, b) in enumerate(zip(sharded_m, plain_m)):
+        _equal_trees(f"scale out step {i} metrics", a, b)
+    n_leaves = _equal_trees("scale out state", trainer.state, state)
+    _require_launches("scale out", counts, TRAIN_KERNELS)
+    want = {"flash_attention_fwd": 2 * cfg.num_layers * SCALE_STEPS,
+            "flash_attention_bwd": cfg.num_layers * SCALE_STEPS}
+    got = {n: counts[n]["cuda"] for n in want}
+    if got != want:
+        raise AssertionError(f"scale out: flash launches {got}, expected {want}")
+    if not all(c == colls[0] and c.get("all_reduce") for c in colls):
+        raise AssertionError(f"scale out: collectives a step {colls}")
+
+    live = trainer.state
+    trainer.remesh(make_mesh((1, 1), ("pod", "data"), device="cuda"))
+    if trainer.state is not live:
+        raise AssertionError("scale out: remesh replaced the state's dict")
+    (state, m), _ = _timed(plain, state, batches[SCALE_STEPS])
+    report = trainer.train(1)
+    if report.losses != [m["loss"].item()]:
+        raise AssertionError(f"scale out: after remesh loss {report.losses} against "
+                             f"{m['loss'].item()}")
+    _equal_trees("scale out state after remesh", trainer.state, state)
+    log(f"scale out ({_card()}; olmo-1b full depth, {cfg.param_count() / 1e9:.3f} B params, "
+        f"fp32 + AdamW, bf16 compute, remat full, FSDP + ZeRO-1, B={TRAIN_B} x S={TRAIN_S}, "
+        f"mesh {mesh.shape} over NCCL): {SCALE_STEPS} steps bit-equal to the unsharded step "
+        f"(losses " + ", ".join(f"{x['loss'].item():.6f}" for x in sharded_m)
+        + ", grad norms " + ", ".join(f"{x['grad_norm'].item():.6f}" for x in sharded_m)
+        + f"; {n_leaves} state leaves); step ms sharded "
+        + ", ".join(f"{t * 1e3:.1f}" for t in sharded_t) + " / unsharded "
+        + ", ".join(f"{t * 1e3:.1f}" for t in plain_t)
+        + f"; peak device memory {peak:.2f} GB (both states resident); collectives a "
+        f"step {json.dumps(colls[0])}; remesh onto {trainer.mesh.shape}: the next step's loss "
+        f"{report.losses[0]:.6f} and state bit-equal, {report.step_times_s[0] * 1e3:.1f} ms; "
+        f"launches {json.dumps(got)}")
+    del state, plain_m, sharded_m
+    _end_phase("scale out")
+    log(f"scale out: {time.monotonic() - t_phase:.1f}s")
+    return {n: c["cuda"] for n, c in counts.items()}, trainer
+
+
+def phase_collocated_step(trainer):
+    """Phase 31: ``make_collocated_step`` over phase 30's sharded step and
+    k in ``COLLOC_KS`` greedy ``T.decode_step`` microsteps of the trainer's
+    weights cast to bf16 (as an engine casts them) on dense rows
+    (``COLLOC_SLOTS`` of ``COLLOC_MAX_SEQ``, random K / V at
+    ``COLLOC_LENGTHS``), the chain on a second stream.  Each k starts from
+    the same state and batch: the train result (metrics, every parameter
+    and moment) is bit-equal across k and to the step run alone, and the
+    k-step tokens equal k eager decode steps'.  Prints fused[k]'s time
+    beside the step alone plus the k decode steps alone (the overlap; not
+    asserted; the second of two rounds, each step and chain also timed
+    alone in it).  Returns the timed round's fused launch counts."""
+    import torch
+
+    from repro_torch.core import make_collocated_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    t_phase = time.monotonic()
+    _fresh_phase()
+    cfg = trainer.cfg
+    state = trainer.state
+    base = tree_map(lambda t: t.detach().clone(), state)
+    infer = T.cast_params(tree_map(lambda t: t.detach().clone(), trainer.full_state()["params"]),
+                          torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cache0 = T.init_cache(cfg, COLLOC_SLOTS, COLLOC_MAX_SEQ, torch.bfloat16, device="cuda")
+    for name in ("k", "v"):
+        cache0["layers"][name].copy_(torch.randn(cache0["layers"][name].shape, generator=gen,
+                                                 device="cuda"))
+    cache0["index"] = torch.tensor(COLLOC_LENGTHS, dtype=torch.int32, device="cuda")
+    tokens0 = torch.arange(1, COLLOC_SLOTS + 1, dtype=torch.int32, device="cuda")
+    batch = trainer._batch()
+
+    def decode(p, t, c):
+        return T.decode_step(cfg, p, t, c, compute_dtype=torch.bfloat16)
+
+    def fresh_cache():
+        return tree_map(lambda t: t.clone(), cache0)
+
+    @torch.no_grad()
+    def reset():
+        tree_map(lambda live, b: live.copy_(b), state, base)
+
+    def chain(k):
+        t, c = tokens0, fresh_cache()
+        for _ in range(k):
+            logits, c = decode(infer, t, c)
+            t = torch.argmax(logits, dim=-1).to(torch.int32)
+        return t
+
+    fused = make_collocated_step(trainer.step_fn, decode, k_buckets=COLLOC_KS)
+    reset()
+    (_, alone_m), alone_s = _timed(trainer.step_fn, state, batch)
+    alone_m = {k: v.clone() for k, v in alone_m.items()}
+    ref = tree_map(lambda t: t.detach().clone(), state)
+    for attempt in range(2):  # the first round warms both streams up; the second is timed
+        reset()
+        _, alone_s = _timed(trainer.step_fn, state, batch)
+        chains = {k: _timed(chain, k) for k in COLLOC_KS}
+        ops.reset_launch_counts()
+        rows = {}
+        for k in COLLOC_KS:
+            reset()
+            cache = fresh_cache()
+            (_, m, toks, _), rows[k] = _timed(fused[k], state, batch, infer, tokens0, cache)
+            _equal_trees(f"collocated step k={k} metrics", m, alone_m)
+            _equal_trees(f"collocated step k={k} state", state, ref)
+            if not torch.equal(toks, chains[k][0]):
+                raise AssertionError(f"collocated step k={k}: tokens {toks.tolist()} against "
+                                     f"the eager chain's {chains[k][0].tolist()}")
+        counts = ops.launch_counts()
+    _require_launches("collocated step", counts, TRAIN_KERNELS + ("decode_attention",))
+    want = {"flash_attention_fwd": 2 * cfg.num_layers * len(COLLOC_KS),
+            "flash_attention_bwd": cfg.num_layers * len(COLLOC_KS),
+            "decode_attention": cfg.num_layers * sum(COLLOC_KS)}
+    got = {n: counts[n]["cuda"] for n in want}
+    if got != want:
+        raise AssertionError(f"collocated step: launches {got}, expected {want}")
+    log(f"collocated step ({_card()}; phase 30's sharded olmo-1b step + k greedy bf16 decode "
+        f"steps on {COLLOC_SLOTS} dense rows of {COLLOC_MAX_SEQ}): train result bit-equal "
+        f"across k = {list(COLLOC_KS)} and to the step alone, tokens equal to the eager "
+        "chain's; ms fused / step alone + k decode steps alone: " + "; ".join(
+            f"k={k} {rows[k] * 1e3:.1f} / {alone_s * 1e3:.1f} + {chains[k][1] * 1e3:.1f} = "
+            f"{(alone_s + chains[k][1]) * 1e3:.1f}" for k in COLLOC_KS)
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{json.dumps(got)}")
+    del base, ref, infer, cache0
+    _end_phase("collocated step")
+    log(f"collocated step: {time.monotonic() - t_phase:.1f}s")
+    return {n: c["cuda"] for n, c in counts.items()}
+
+
+def phase_scale_out():
+    """Phases 30 and 31 in one process group: one rank over NCCL, joined
+    through a ``FileStore`` in a temporary directory.  Returns {run label:
+    launch counts}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    store = tempfile.mkdtemp(prefix="scale_out_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        scale, trainer = phase_sharded_step(make_dev_mesh(device="cuda"))
+        colloc = phase_collocated_step(trainer)
+        del trainer
+        _end_phase("scale out + collocated step")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return {"scale_out": scale, "collocated_step": colloc}
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -5515,6 +5782,9 @@ def main() -> int:
     # phase 29, the online example at olmo-1b's full width, also before any
     # profiler session
     slice_launches["online_serving"] = phase_online_serving()
+    # phases 30-31, the sharded train step over NCCL and the fused collocated
+    # step, also before any profiler session
+    slice_launches.update(phase_scale_out())
     row_runs = {**av_launches, **olmo_launches}
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()

@@ -10,8 +10,8 @@ reference), and its derived properties but ``padded_for_tp``,
 ``attention_free`` and ``sub_quadratic``, which only the reference's mesh
 and shape matrix read.  ``ShapeConfig`` and the four assigned input
 shapes are the reference's.  ``TrainConfig`` keeps the
-reference's fields and defaults except the mesh layout (``zero1``,
-``fsdp``, ``layout``), which returns with scale-out.  ``SpecInFConfig``
+reference's fields and defaults (the mesh layout ``zero1``, ``fsdp`` and
+``layout`` is read only by a train step built on a mesh).  ``SpecInFConfig``
 keeps what the runtime and the collocation planner read (the simulator's
 busy hold and the revocation knob stay behind) and budgets the H100's
 memory.
@@ -235,6 +235,9 @@ class TrainConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat_policy: str = "none"  # "none" | "dots" | "full"
+    zero1: bool = False  # shard optimizer state over the data axis
+    fsdp: bool = True  # additionally shard big params over the data axis
+    layout: str = "tp"  # "tp" | "dp256" (model axis joins data parallelism)
     grad_compression: str = "none"  # "none" | "int8_ef" (local error feedback)
     microbatches: int = 1  # gradient accumulation
     seed: int = 0

@@ -9,6 +9,8 @@ engine (counterpart of ``repro.core``).
                                 measured on the device, or analytic over a
                                 ``core.hardware.HardwareSpec``)
   * SpecInFRuntime           -- speculative filling over real compute
+  * make_collocated_step     -- the fused train step + k decode microsteps
+                                (``pick_bucket`` sizes k from a grant)
   * simulator / baselines    -- calibrated timeline evaluation vs MPS / TGS /
                                 Co-Exec / Exclusive over ``core.queues``'
                                 Poisson arrivals; import them from their
@@ -22,7 +24,13 @@ from repro_torch.core.collocation import (
     TrainingProfile,
     plan_collocation,
 )
-from repro_torch.core.filling import FillingMetrics, SpecInFPolicy, SpecInFRuntime
+from repro_torch.core.filling import (
+    FillingMetrics,
+    SpecInFPolicy,
+    SpecInFRuntime,
+    make_collocated_step,
+    pick_bucket,
+)
 from repro_torch.core.profiles import (
     IterationProfile,
     dp_profile,
@@ -51,8 +59,10 @@ __all__ = [
     "Status",
     "TrainingProfile",
     "dp_profile",
+    "make_collocated_step",
     "measure_dp_profile",
     "mp_profile",
+    "pick_bucket",
     "plan_collocation",
     "pp_profile",
 ]

@@ -25,8 +25,10 @@ microsteps, so a revoked quantum yields within one sub-dispatch.  A
 ``journal`` is replayed into the core before fresh submissions and then
 attached.
 
-Not in this slice: ``make_collocated_step``, the fused train + decode
-program.
+``make_collocated_step`` is the fused alternative: one call runs the train
+step and k greedy decode microsteps, the chain on a second CUDA stream so
+that it can overlap the step's collectives (``pick_bucket`` sizes k from
+an Algorithm-1 grant).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import math
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import SpecInFConfig
 from repro_torch.core.bubble_monitor import BubbleMonitor
@@ -55,6 +58,7 @@ from repro_torch.serving.core import (
 )
 from repro_torch.serving.engine import InferenceEngine, Request
 from repro_torch.spec.controller import AdaptiveGammaController
+from repro_torch.tree import tree_leaves
 
 
 class FillingMetrics:
@@ -480,3 +484,69 @@ class SpecInFRuntime:
                     self._fill_bubble(dur)
             self.metrics.train_iterations += 1
         return self.metrics
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper: fused collocated step (bucketed k)
+# ---------------------------------------------------------------------------
+
+
+def make_collocated_step(
+    train_step_fn: Callable,
+    decode_step_fn: Callable,
+    *,
+    k_buckets: tuple[int, ...] = (0, 1, 2, 4, 8),
+    decode_loop_fn: Optional[Callable] = None,
+) -> dict:
+    """``{k: fn}`` where ``fn(train_state, batch, infer_params, tokens,
+    cache) -> (train_state, metrics, tokens, cache)`` runs the train step
+    and a chain of k greedy decode microsteps that has no data dependence
+    on it (the reference's fused program).
+
+    On CUDA the chain runs on a second stream, ordered after the work
+    queued before the call and joined by the current stream before the
+    call returns, so the device can overlap it with the train step's
+    kernels and collectives; on the CPU the two run in sequence.  The
+    train step is untouched by the chain.  Pass ``decode_loop_fn(params,
+    tokens, cache, k) -> (tokens, cache)`` to supply a custom loop; by
+    default the chain feeds each step's argmax to the next
+    ``decode_step_fn(params, tokens, cache) -> (logits, cache)``."""
+    if decode_loop_fn is None:
+
+        def decode_loop_fn(params, tokens, cache, k):
+            for _ in range(k):
+                logits, cache = decode_step_fn(params, tokens, cache)
+                tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            return tokens, cache
+
+    streams: dict = {}  # device -> the chain's stream, made at the first call
+
+    def fused(k):
+        def fn(train_state, batch, infer_params, tokens, cache):
+            if tokens.device.type != "cuda":
+                new_state, metrics = train_step_fn(train_state, batch)
+                t, c = decode_loop_fn(infer_params, tokens, cache, k)
+                return new_state, metrics, t, c
+            main = torch.cuda.current_stream(tokens.device)
+            side = streams.setdefault(tokens.device, torch.cuda.Stream(tokens.device))
+            side.wait_stream(main)
+            new_state, metrics = train_step_fn(train_state, batch)
+            with torch.cuda.stream(side):
+                t, c = decode_loop_fn(infer_params, tokens, cache, k)
+            main.wait_stream(side)
+            # made on the chain's stream, read on the caller's from now on
+            for x in (t, *tree_leaves(c)):
+                x.record_stream(main)
+            return new_state, metrics, t, c
+
+        return fn
+
+    return {k: fused(k) for k in k_buckets}
+
+
+def pick_bucket(tokens: float, microstep_tokens: float, buckets=(0, 1, 2, 4, 8)) -> int:
+    """Largest bucket affordable under the current Algorithm-1 token grant.
+
+    Thin wrapper over ``serving.core.largest_bucket`` (one bucket-floor
+    implementation); a leading 0 bucket means "grant affords nothing"."""
+    return largest_bucket(int(tokens // max(microstep_tokens, 1e-9)), buckets)

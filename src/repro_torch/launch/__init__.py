@@ -1,1 +1,2 @@
-"""Entry points of the port (``serve``, ``train``)."""
+"""Entry points of the port (``serve``, ``train``) and the device meshes
+they run over (``mesh``)."""

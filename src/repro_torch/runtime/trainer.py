@@ -1,5 +1,4 @@
-"""Fault-tolerant training loop at world size 1 (counterpart of
-``repro.runtime.trainer``, without the mesh).
+"""Fault-tolerant training loop (counterpart of ``repro.runtime.trainer``).
 
   * checkpoint / restart -- a checkpoint every ``checkpoint_every`` steps
     (written on a thread after a synchronous host copy); when a step fails
@@ -11,10 +10,22 @@
     ``specinf_backoff`` turns into SpecInF's filling backoff: the
     collocated-inference token ceiling is halved so the training step is
     not contended while it recovers
+  * elastic re-mesh -- ``remesh(new_mesh)`` rebuilds the step on another
+    mesh over the same ranks (or on none) and re-shards the live state
+
+On a ``mesh`` (``launch.mesh``) every rank runs the loop: each builds the
+same full initial state from the seed and keeps its shards
+(``ShardedTrainStep.init_state``), draws the same global batch and feeds
+the step its own rows.  A checkpoint is the full state, all-gathered:
+rank 0 writes it while the others wait at a barrier, and a restore reads
+it on every rank and re-slices it onto the live mesh.  A failure must be
+seen by every rank (a step that fails on one rank only leaves the others
+in a collective).
 
 The port's step updates the state IN PLACE, and whoever holds the state
 (``SpecInFRuntime``, the CLI) holds its tensors: a restore or a restart
-copies into the live tensors and never rebinds them.
+copies into the live tensors and never rebinds them.  A remesh changes the
+shards' shapes, so it puts the new tensors into the live state's dicts.
 
 One deliberate difference from the reference (ROADMAP C11): a failure that
 repeats at the same step right after a restore is raised, not retried.  The
@@ -30,6 +41,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -64,11 +76,21 @@ def _copy_into(live: dict, new: dict) -> None:
     tree_map(copy, live, new)
 
 
+def _rebind_into(live: dict, new: dict) -> None:
+    """Put every leaf of ``new`` into ``live``'s dicts (shapes may change)."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _rebind_into(live.setdefault(k, {}), v)
+        else:
+            live[k] = v
+
+
 class Trainer:
     def __init__(
         self,
         cfg: ModelConfig,
         tcfg: TrainConfig,
+        mesh=None,
         *,
         seq_len: int,
         global_batch: int,
@@ -80,10 +102,10 @@ class Trainer:
         host_count: int = 1,
         device: Optional[str | torch.device] = None,
     ):
-        self.cfg, self.tcfg = cfg, tcfg
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.seq_len, self.global_batch = seq_len, global_batch
         self.device = resolve_device(device)
-        self.step_fn = make_train_step(cfg, tcfg, device=self.device)
+        self.step_fn = make_train_step(cfg, tcfg, mesh, device=self.device)
         self.dataset = SyntheticDataset(
             cfg=cfg, seq_len=seq_len, global_batch=global_batch,
             host_index=host_index, host_count=host_count, seed=tcfg.seed,
@@ -103,27 +125,49 @@ class Trainer:
     def _init_state(self) -> dict:
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
         params = T.init_params(self.cfg, gen, dtype=getattr(torch, self.tcfg.param_dtype))
-        return init_train_state(params, self.tcfg)
+        if self.mesh is None:
+            return init_train_state(params, self.tcfg)
+        return self.step_fn.init_state(params)
+
+    def full_state(self) -> dict:
+        """The full state: the live one without a mesh, else all-gathered
+        from every rank's shards (a collective: every rank calls it)."""
+        if self.mesh is None:
+            return self.state
+        return self.step_fn.gather_state(self.state)
 
     # ------------------------------------------------------------------
     def _snapshot(self) -> dict:
-        return {"state": self.state, "data_step": np.int64(self.dataset._step)}
+        return {"state": self.full_state(), "data_step": np.int64(self.dataset._step)}
+
+    def _save(self, blocking: bool) -> None:
+        """Rank 0 writes the full state; the others wait at a barrier."""
+        snap = self._snapshot()
+        if self.mesh is None or self.mesh.rank == 0:
+            self.ckpt.save(self.step_no, snap, blocking=blocking)
+        if self.mesh is not None:
+            dist.barrier()
+        self.report.checkpoints += 1
 
     def _maybe_checkpoint(self) -> None:
         if self.ckpt and self.step_no % self.checkpoint_every == 0:
-            self.ckpt.save(self.step_no, self._snapshot(), blocking=False)
-            self.report.checkpoints += 1
+            self._save(blocking=False)
 
     def restore_latest(self) -> bool:
         """Copy the newest complete checkpoint into the live state (after
-        any save in flight lands); False when there is none."""
+        any save in flight lands; on a mesh re-sliced to this rank's
+        shards); False when there is none."""
         if not self.ckpt:
             return False
         self.ckpt.wait()
+        if self.mesh is not None:
+            dist.barrier()  # rank 0's save in flight has landed
         if self.ckpt.latest_step() is None:
             return False
-        restored, step = self.ckpt.restore(self._snapshot())
-        _copy_into(self.state, restored["state"])
+        template = {"state": self.state, "data_step": np.int64(self.dataset._step)}
+        restored, step = self.ckpt.restore(template)
+        full = restored["state"]
+        _copy_into(self.state, full if self.mesh is None else self.step_fn.shard_state(full))
         self.dataset._step = int(restored["data_step"])
         self.step_no = step
         self.report.restores += 1
@@ -138,8 +182,11 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _batch(self) -> dict:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in self.dataset.next_batch().items()}
+        """The next batch, on a mesh this rank's rows of it."""
+        batch = self.dataset.next_batch()
+        if self.mesh is not None:
+            return self.step_fn.shard_batch(batch)
+        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
     def train(self, num_steps: int) -> TrainerReport:
         target = self.step_no + num_steps
@@ -176,15 +223,24 @@ class Trainer:
             self._ema = dt if self._ema is None else 0.9 * self._ema + 0.1 * dt
             self._maybe_checkpoint()
         if self.ckpt:
-            self.ckpt.save(self.step_no, self._snapshot(), blocking=True)
-            self.report.checkpoints += 1
+            self._save(blocking=True)
         return self.report
 
     # ------------------------------------------------------------------
     def remesh(self, new_mesh) -> None:
-        raise NotImplementedError(
-            "remesh needs scale-out (a mesh over torch.distributed), not ported yet"
-        )
+        """Elastic scaling: rebuild the step on ``new_mesh`` (over the same
+        ranks; None for one device) and re-shard the live state onto it.
+        The state's dicts stay the caller's; their leaves are new tensors
+        where the shards' shapes change."""
+        full = self.full_state()
+        self.step_fn = make_train_step(self.cfg, self.tcfg, new_mesh, device=self.device)
+        self.mesh = new_mesh
+        if new_mesh is None:
+            new = tree_map(lambda t: t.detach().clone(), full)
+            tree_map(lambda p: p.requires_grad_(True), new["params"])
+        else:
+            new = self.step_fn.shard_state(full)
+        _rebind_into(self.state, new)
 
 
 def specinf_backoff(scheduler) -> Callable[[], None]:

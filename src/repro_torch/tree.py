@@ -31,3 +31,12 @@ def tree_unflatten(tree: Any, leaves: list) -> Any:
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any, _prefix: str = "") -> Any:
+    """A tree of ``fn(path, leaf, *matching leaves of rest)``, ``path`` the
+    leaf's keys joined by ``/`` (``"layers/attn/wq"``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), _prefix=f"{_prefix}{k}/")
+                for k, v in tree.items()}
+    return fn(_prefix[:-1], tree, *rest)

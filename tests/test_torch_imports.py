@@ -4,8 +4,8 @@ examples (``examples/torch_*.py``) imports ``jax``, ``jaxlib`` or the
 reference package ``repro`` (``repro_torch`` is allowed), and importing
 the serving core, the speculative decoding package, the filling runtime,
 the train step, the trainer, the train CLI, the gradient compression, the
-Mamba1 and MoE models and the dense verify / tree-verify / scan kernels
-pulls no JAX into a fresh interpreter."""
+Mamba1 and MoE models, the dense verify / tree-verify / scan kernels, the
+mesh and the sharding rules pulls no JAX into a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -42,7 +42,7 @@ def test_walk_covers_the_port():
                 "configs/moonshot_v1_16b_a3b.py", "configs/dbrx_132b.py",
                 "runtime/trainer.py", "launch/train.py", "optim/compression.py",
                 "core/simulator.py", "core/baselines.py", "core/queues.py",
-                "core/hardware.py"):
+                "core/hardware.py", "launch/mesh.py", "runtime/sharding.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
     assert ROOT / "scripts" / "torch_scan_breakdown.py" in FILES
     assert ROOT / "examples" / "torch_quickstart.py" in FILES
@@ -73,6 +73,7 @@ def test_serving_core_import_pulls_no_jax():
         "import repro_torch.runtime.trainer; import repro_torch.launch.train; "
         "import repro_torch.optim.compression; "
         "import repro_torch.core.simulator; import repro_torch.core.baselines; "
+        "import repro_torch.launch.mesh; import repro_torch.runtime.sharding; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )

@@ -40,6 +40,17 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import core as tserving
 from repro_torch.serving.engine import InferenceEngine as TEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCH = "moonshot-v1-16b-a3b"
 JCFG, CFG = jconfigs.smoke_config(ARCH), configs.smoke_config(ARCH)
 JDCFG, DCFG = jdraft_config(JCFG), configs.draft_config(CFG)

@@ -40,6 +40,17 @@ from repro_torch.kernels import ops as tops
 from repro_torch.serving import core as tcore
 from repro_torch.serving.engine import InferenceEngine as TEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 JCFG = jconfigs.smoke_config("qwen3-1.7b")
 CFG = configs.smoke_config("qwen3-1.7b")
 NP_PARAMS = jax.tree.map(np.array, JT.init_params(JCFG, jax.random.PRNGKey(0)))

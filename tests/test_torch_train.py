@@ -274,9 +274,9 @@ def test_train_step_refuses_what_is_not_ported():
 
 
 def test_train_config_fields_match_reference():
-    """Every kept field has the reference's default; the dropped ones are
-    the mesh layout, which returns with scale-out."""
+    """Every field of the reference's, in its order and with its default,
+    the mesh layout (``zero1``, ``fsdp``, ``layout``) included."""
     jf = {f.name: f.default for f in dataclasses.fields(JTrainConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     assert tf == {k: v for k, v in jf.items() if k in tf}
-    assert set(jf) - set(tf) == {"zero1", "fsdp", "layout"}
+    assert list(tf) == list(jf)

@@ -8,8 +8,8 @@ example (``examples/torch_quickstart.py``), on the CPU at the smoke size.
   offline tokens in the bubbles (the profile the runtime sees is fixed at
   the reference CLI's 50 / 25 / 4 ms, so the grants do not depend on the
   machine's load).
-* ``--production-mesh`` raises (scale-out); without a CUDA device the
-  default device raises.
+* ``--production-mesh`` raises unless the process group has 256 ranks;
+  without a CUDA device the default device raises.
 * The quickstart trains a few steps and streams a greedy decode.
 """
 import importlib.util
@@ -63,8 +63,10 @@ def test_cli_collocate_fills_bubbles(capsys, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="scale-out"):
+    # the 16x16 mesh needs 256 ranks; this process is one
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         train.main(SMOKE + ["--production-mesh"])
+    assert not torch.distributed.is_initialized()  # the CLI's own group is gone
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--smoke", "--steps", "1"])

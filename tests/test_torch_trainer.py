@@ -13,13 +13,16 @@
   restarts from the seed when it has no checkpoint; a failure repeated at
   the same step right after a restore is raised (C11); a step slowed on
   the trainer's clock fires ``specinf_backoff``, which halves the
-  scheduler's token ceiling.
+  scheduler's token ceiling; ``remesh`` onto a one-rank mesh and back
+  keeps the state (the multi-rank round trips are in
+  ``test_torch_dist_step.py``).
 """
 import time
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import configs as jconfigs
 from repro.configs import base as jbase
@@ -30,15 +33,17 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import SHAPES, ShapeConfig, SpecInFConfig, TrainConfig
 from repro_torch.core import AdaptiveKernelScheduler
 from repro_torch.data import SyntheticDataset, make_train_iterator
+from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.models import transformer as T
 from repro_torch.runtime import (
+    ShardedTrainStep,
     Trainer,
     init_train_state,
     make_train_step,
     specinf_backoff,
 )
 from repro_torch.runtime import trainer as trainer_module
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 ARCH = "qwen3-1.7b"
 SEQ, BATCH = 16, 2
@@ -217,7 +222,7 @@ def test_repeated_failure_after_restore_is_raised(tmp_path, with_checkpoint):
     assert trainer.report.restores == 1 and trainer.step_no == at
 
 
-def test_slow_step_fires_specinf_backoff(monkeypatch):
+def test_slow_step_fires_specinf_backoff(monkeypatch, tmp_path):
     sched = AdaptiveKernelScheduler(SpecInFConfig(), num_instances=1)
     sched._tokens = 64.0
     events = []
@@ -238,5 +243,17 @@ def test_slow_step_fires_specinf_backoff(monkeypatch):
     report = trainer.train(6)
     assert 5 in events and report.straggler_events == len(events)
     assert sched._tokens == 64.0 / 2 ** len(events)
-    with pytest.raises(NotImplementedError, match="scale-out"):
+    # remesh re-shards the live state: onto a one-rank mesh and back
+    full = {k: tree_map(lambda t: t.detach().clone(), v) for k, v in trainer.state.items()}
+    live = trainer.state
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        trainer.remesh(make_dev_mesh(device="cpu"))
+        assert isinstance(trainer.step_fn, ShardedTrainStep) and trainer.state is live
+        _assert_same_state(trainer.state, full)
         trainer.remesh(None)
+        assert trainer.mesh is None and trainer.state is live
+        _assert_same_state(trainer.state, full)
+    finally:
+        dist.destroy_process_group()
