@@ -308,6 +308,34 @@ Phases, each printing a line before the last:
                  stream: the train result bit-equal across k and to the
                  step alone, the tokens equal to the eager chain's.  Prints
                  fused[k]'s time beside the step and the chain alone.
+32. model axis kernels -- after phase 31: #3's partial form (the
+                 sequence-parallel decode over a model axis) over m = 2, 4
+                 and 16 contiguous blocks of qwen3-1.7b's decode cache (B =
+                 8, H = 16, kvH = 8, hd 128; S = 512 and 4,096; bf16 and
+                 fp32; rows whose length leaves whole blocks empty), merged
+                 by ``paged::combine_splits``: against #3 over the whole
+                 cache (bf16 2e-2, fp32 1e-5) and the plain partial and
+                 merge, a NaN in one slot; one block's partial and the merge
+                 timed beside #3 over the whole cache; flash forward and
+                 backward at olmo-1b's local head counts (8 and 1; B = 4, S
+                 = 1024, causal) against the plain version; then the port's
+                 own sequence-parallel decode: ``make_prefill_step`` and 8
+                 ``make_serve_step`` steps of qwen3-1.7b at full width and
+                 depth in fp32 on a (data, model) = (1, 16) stand-in mesh,
+                 its ranks threads of this process run in turn, each
+                 holding 32 of the cache's 512 rows: tokens equal to the
+                 unsplit ``T.prefill`` + ``T.decode_step``, the logits and
+                 the gathered cache within 1e-4 of their max.  The rows
+                 ``decode_attention_partial`` (beside the memory-efficient
+                 SDPA call with its logsumexp over the same block) and
+                 ``combine_splits`` report that run's launches.
+33. serve steps -- on phase 30's one-rank NCCL mesh: ``make_prefill_step``
+                 and 32 ``make_serve_step`` steps at olmo-1b's and
+                 qwen3-1.7b's full width and depth in bf16 (8 rows of a
+                 128-token prompt, seq_len 512): the tokens bit-equal to
+                 ``T.prefill`` plus eager ``T.decode_step``, no collective
+                 issued; prints each step's time beside the eager step's,
+                 the peak memory, the collectives a step.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -328,7 +356,9 @@ the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
 24-layer run, the ``*_g1`` rows' from phase 26, the others' from the
 collocated run; each
 row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
-19-21, 22-24, 26-27 and 29-31 that launch it; a row with no launch fails the run)
+19-21, 22-24, 26-27, 29-31 and 33 that launch it; phase 32's two rows, #3's
+partial form and the merge, report its sequence-parallel serve run's
+launches; a row with no launch fails the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -5704,9 +5734,9 @@ def phase_collocated_step(trainer):
 
 
 def phase_scale_out():
-    """Phases 30 and 31 in one process group: one rank over NCCL, joined
-    through a ``FileStore`` in a temporary directory.  Returns {run label:
-    launch counts}."""
+    """Phases 30 and 31, then 32 and 33, in one process group: one rank
+    over NCCL, joined through a ``FileStore`` in a temporary directory.
+    Returns ({run label: launch counts}, phase 32's kernel rows)."""
     import shutil
     import tempfile
 
@@ -5717,14 +5747,569 @@ def phase_scale_out():
     store = tempfile.mkdtemp(prefix="scale_out_")
     dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
     try:
-        scale, trainer = phase_sharded_step(make_dev_mesh(device="cuda"))
+        mesh = make_dev_mesh(device="cuda")
+        scale, trainer = phase_sharded_step(mesh)
         colloc = phase_collocated_step(trainer)
         del trainer
         _end_phase("scale out + collocated step")
+        model_axis_rows = phase_model_axis_kernels()
+        serve_steps = phase_serve_steps(mesh)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    return {"scale_out": scale, "collocated_step": colloc}
+    return ({"scale_out": scale, "collocated_step": colloc, "serve_steps": serve_steps},
+            model_axis_rows)
+
+
+# ---------------------------------------------------------------------------
+# 32. the model axis' kernels at each rank's shapes, 33. the serve steps on a
+# one-rank mesh
+# ---------------------------------------------------------------------------
+
+#: phase 32: qwen3-1.7b's decode attention (8 rows, 16 q / 8 KV heads of 128)
+#: over a sequence-split dense cache of S rows in m blocks; each row's length
+#: leaves whole blocks empty (1 key: every block but the first)
+MA_SPLITS = (2, 4, 16)
+MA_LENGTHS = {512: [1, 37, 100, 200, 256, 300, 511, 512],
+              4096: [1, 300, 1000, 2048, 2100, 3000, 4000, 4096]}
+#: fp32 partial + merge against #3 over the whole cache (merges in another
+#: order); the partials' (m, l) and acc against the plain partial, relative
+PARTIAL_FP32_ATOL = 1e-5
+PARTIAL_RTOL = 1e-4
+#: the headline row: qwen3-1.7b at model 16 over phase 33's 512-row cache
+MA_ROW_S, MA_ROW_M = 512, 16
+#: the port's sequence-parallel serve steps on a 16-rank stand-in mesh:
+#: qwen3-1.7b at full width and depth in fp32 (its 8 KV heads do not divide
+#: 16, so each rank holds 32 of the 512 cache rows of every KV head), 8 rows
+#: of a 124-token prompt, so that the 8 decode steps write rank 3's block
+#: and then rank 4's
+SP_ARCH, SP_RANKS, SP_PROMPT, SP_DECODES = "qwen3-1.7b", 16, 124, 8
+#: the split run's prefill and decode logits and its gathered cache against
+#: the unsplit run's, relative to their max (fp32; the model-axis sums and
+#: the partials' merge add in another order, over 28 layers)
+SP_RTOL = 1e-4
+#: how long a rank of the stand-in mesh waits for the others at a collective
+SP_WAIT_S = 300.0
+#: flash at olmo-1b's local head counts (16 heads over model 2 and 16)
+FLASH_LOCAL_CASES = ((TRAIN_B, 8, TRAIN_S, TRAIN_S, True, HD),
+                     (TRAIN_B, 1, TRAIN_S, TRAIN_S, True, HD))
+#: phase 33: 8 rows of a 128-token prompt in a 512-row cache, 32 decode steps
+SERVE_STEP_ROWS, SERVE_STEP_PROMPT, SERVE_STEP_SEQ, SERVE_STEP_DECODES = 8, 128, 512, 32
+
+
+def _partial_blocks(q, k, v, lengths, m, partial):
+    """``partial`` over each of the m contiguous sequence blocks of k / v
+    (each block contiguous, as a rank holds it), with each row's block
+    length ``clamp(length - r * S/m, 0, S/m)``: the blocks' (acc, ml)
+    stacked ``[B, m, H, hd]`` / ``[B, m, H, 2]``."""
+    import torch
+
+    blk = k.shape[1] // m
+    parts = [partial(q, k[:, r * blk:(r + 1) * blk].contiguous(),
+                     v[:, r * blk:(r + 1) * blk].contiguous(),
+                     (lengths - r * blk).clamp(0, blk).to(torch.int32)) for r in range(m)]
+    return (torch.stack([a for a, _ in parts], 1).contiguous(),
+            torch.stack([b for _, b in parts], 1).contiguous())
+
+
+def _seq_parallel(m, plain=False):
+    """(q, k, v, lengths) -> the attention output through m blocks' partials
+    and their merge: the kernels', or (``plain``) their plain versions'."""
+    from repro_torch.kernels import decode_attention as dd
+
+    partial = dd.decode_partial_core if plain else dd.decode_attention_partial
+    merge = dd.combine_partials_core if plain else dd.combine_splits
+
+    def run(q, k, v, lengths):
+        acc, ml = _partial_blocks(q, k, v, lengths, m, partial)
+        return merge(acc, ml, q.dtype)
+    return run
+
+
+class _Turns:
+    """The ranks of a stand-in mesh, run as threads of this process one at
+    a time: a rank holds the turn until it reaches a collective, where it
+    leaves a copy of its block, hands the turn on and waits until every
+    rank has left its block and read the others'.  The activation-sharding
+    context is one per process, so each rank's is put back when its turn
+    comes again."""
+
+    def __init__(self, n: int):
+        import threading
+
+        self.n = n
+        self.turn = threading.Lock()
+        self.barrier = threading.Barrier(n, timeout=SP_WAIT_S)
+        self.slots = [None] * n
+
+    def wait(self, between):
+        """Hand the turn on, and ``between()`` once every rank is here
+        (while no rank runs: no launch, no collective)."""
+        from repro_torch.models import act_sharding as AS
+
+        ctx = AS._ACTIVE
+        self.turn.release()
+        try:
+            self.barrier.wait()
+            out = between()
+            self.barrier.wait()
+        finally:
+            self.turn.acquire()
+            AS._ACTIVE = ctx
+        return out
+
+    def exchange(self, rank: int, t):
+        """Every rank's ``t`` (copies: an owner may write its own in place
+        before the others' reads run), in rank order."""
+        self.slots[rank] = t.clone()
+        return self.wait(lambda: list(self.slots))
+
+    def run(self, fn, meshes) -> list:
+        """``fn(rank, mesh)`` on every rank, each a thread; their results
+        in rank order.  A rank that raises breaks the others' waits."""
+        import threading
+
+        from repro_torch.models import act_sharding as AS
+
+        results, errors = [None] * self.n, [None] * self.n
+
+        def body(rank):
+            self.turn.acquire()
+            try:
+                AS._ACTIVE = None
+                results[rank] = fn(rank, meshes[rank])
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                errors[rank] = e
+                self.barrier.abort()
+            finally:
+                self.turn.release()
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SP_WAIT_S)
+        AS._ACTIVE = None
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"stand-in mesh: ranks still running after {SP_WAIT_S} s")
+        raised = [e for e in errors if e is not None]
+        if raised:
+            raise next((e for e in raised if not isinstance(e, threading.BrokenBarrierError)),
+                       raised[0])
+        return results
+
+
+class _ThreadMesh:
+    """One rank's view of a mesh whose ranks are ``_Turns`` threads: the
+    ``launch.mesh.Mesh`` interface the model code and the serve steps read,
+    each collective served from the blocks every rank left (summed or
+    concatenated in rank order, so every rank gets the same result)."""
+
+    def __init__(self, turns: _Turns, shape: tuple, axis_names: tuple, rank: int, device):
+        import collections
+
+        import numpy as np
+
+        self.turns, self.rank, self.device = turns, rank, device
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape))
+        self._coords = [dict(zip(self.axis_names, map(int, np.unravel_index(q, shape))))
+                        for q in range(turns.n)]
+        self.coordinate = self._coords[rank]
+        self.collectives = collections.Counter()
+
+    def axes(self, entry):
+        from repro_torch.launch.mesh import Mesh
+
+        return Mesh.axes(self, entry)
+
+    def size(self, axes):
+        from repro_torch.launch.mesh import Mesh
+
+        return Mesh.size(self, axes)
+
+    def index(self, axes):
+        from repro_torch.launch.mesh import Mesh
+
+        return Mesh.index(self, axes)
+
+    def _group(self, axes, blocks):
+        """The blocks of the ranks that differ from this one only on
+        ``axes``, in their row-major order there."""
+        rest = [a for a in self.axis_names if a not in axes]
+        members = [q for q, c in enumerate(self._coords)
+                   if all(c[a] == self.coordinate[a] for a in rest)]
+        return [blocks[q] for q in sorted(
+            members, key=lambda q: [self._coords[q][a] for a in axes])]
+
+    def all_reduce(self, t, axes, op="sum"):
+        import torch
+
+        blocks = self._group(axes, self.turns.exchange(self.rank, t))
+        out = blocks[0].clone()
+        for b in blocks[1:]:
+            out = out + b if op == "sum" else torch.maximum(out, b)
+        t.copy_(out)
+        self.collectives["all_reduce"] += 1
+        return t
+
+    def all_gather(self, t, axes, dim):
+        import torch
+
+        blocks = self._group(axes, self.turns.exchange(self.rank, t))
+        self.collectives["all_gather"] += 1
+        return torch.cat([b.movedim(dim, 0) for b in blocks]).movedim(0, dim)
+
+
+def _seq_parallel_serve(cfg, ranks=SP_RANKS, rows=SERVE_STEP_ROWS, seq=SERVE_STEP_SEQ,
+                        prompt=SP_PROMPT, decodes=SP_DECODES, device="cuda"):
+    """The port's sequence-parallel decode, driven through its entry points:
+    ``make_prefill_step`` and ``decodes`` ``make_serve_step`` steps of
+    ``cfg`` in fp32 on a ``(data, model) = (1, ranks)`` stand-in mesh
+    (``_Turns``), whose cache splits its sequence over ``model``.  The
+    tokens equal, and the prefill logits, the logits of one more decode
+    step and the gathered cache within ``SP_RTOL`` of, the unsplit
+    ``T.prefill`` + ``T.decode_step`` on the same weights.  Returns the
+    launch counts of the steps (read from 0 just before the ranks start
+    until every rank has taken its last step) and a summary."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.act_sharding import activation_sharding
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+    from repro_torch.runtime import sharding as S
+
+    f32 = torch.float32
+    gen = torch.Generator(device=device).manual_seed(32)
+    params = T.init_params(cfg, gen, dtype=f32)
+    prompts = torch.randint(0, cfg.vocab_size, (rows, prompt), generator=gen, device=device,
+                            dtype=torch.int32)
+    with torch.no_grad():
+        ref_logits, ref_cache = T.prefill(cfg, params, prompts, seq, compute_dtype=f32,
+                                          cache_dtype=f32)
+        tok = torch.argmax(ref_logits, -1).to(torch.int32)
+        ref_toks, ref_step_logits = [], []
+        for _ in range(decodes + 1):
+            lg, ref_cache = T.decode_step(cfg, params, tok, ref_cache, compute_dtype=f32)
+            ref_step_logits.append(lg)
+            ref_toks.append(tok := torch.argmax(lg, -1).to(torch.int32))
+        # the cache as the split run leaves it: the token of the extra step
+        # is written there too, at the same index
+    shape = ShapeConfig("seq_parallel", seq, rows, "decode")
+    turns = _Turns(ranks)
+    meshes = [_ThreadMesh(turns, (1, ranks), ("data", "model"), r, torch.device(device))
+              for r in range(ranks)]
+
+    def rank_run(rank, mesh):
+        pre = make_prefill_step(cfg, mesh, shape, compute_dtype=f32)
+        dec = make_serve_step(cfg, mesh, shape, compute_dtype=f32)
+        local = pre.shard_params(params)
+        logits, cache = pre.step(local, pre.shard_inputs(prompts))
+        full = pre.gather_output(logits)
+        tok = torch.argmax(full, -1).to(torch.int32)
+        toks = []
+        for _ in range(decodes):
+            tok, cache = dec.step(local, tok, cache)
+            toks.append(dec.gather_output(tok))
+        counts, colls = turns.wait(lambda: (ops.launch_counts(), dict(mesh.collectives)))
+        # one more decode step's logits, under the step's own context (not
+        # counted: the counts are read)
+        seq_entry = dec.cache_specs["layers"]["k"][2]
+        specs = S.activation_specs(cfg, mesh, batch_sharded=dec.batch_sharded)
+        with torch.no_grad(), activation_sharding(mesh, specs, cache_seq=seq_entry):
+            lg, cache = T.decode_step(cfg, local, tok, cache, compute_dtype=f32)
+        lg = S.gather_tensor(lg, S.P(None, S.ShardingPlan(cfg, mesh).vocab()), mesh)
+        return {"prefill": full, "tokens": toks, "logits": lg, "counts": counts,
+                "collectives": colls, "seq_entry": seq_entry,
+                "kv_local": tuple(cache["layers"]["k"].shape),
+                "cache": dec.gather_cache(cache)}
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    results = turns.run(rank_run, meshes)
+    secs = time.monotonic() - t0
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    errs = {"prefill": 0.0, "logits": 0.0, "cache": 0.0}
+    for rank, res in enumerate(results):
+        if res["seq_entry"] != "model" or res["kv_local"][2] != seq // ranks:
+            raise AssertionError(f"seq parallel rank {rank}: the cache is not sequence-split "
+                                 f"({res['seq_entry']}, {res['kv_local']})")
+        if not all(torch.equal(a, b) for a, b in zip(res["tokens"], ref_toks)):
+            raise AssertionError(f"seq parallel rank {rank}: tokens differ from the unsplit "
+                                 "run's")
+        errs["prefill"] = max(errs["prefill"], rel(res["prefill"], ref_logits))
+        errs["logits"] = max(errs["logits"], rel(res["logits"], ref_step_logits[decodes]))
+        for name in ("k", "v"):
+            errs["cache"] = max(errs["cache"], rel(res["cache"]["layers"][name],
+                                                   ref_cache["layers"][name]))
+    if max(errs.values()) > SP_RTOL:
+        raise AssertionError(f"seq parallel: split run against the unsplit {errs} (tolerance "
+                             f"{SP_RTOL:g} of the max)")
+    counts, colls = results[0]["counts"], results[0]["collectives"]
+    del results, params, ref_cache
+    summary = {"arch": cfg.name, "ranks": ranks, "layers": cfg.num_layers, "rows": rows,
+               "seq": seq, "prompt": prompt, "decodes": decodes, "seconds": secs,
+               "errors": errs, "collectives_rank0": colls}
+    return counts, summary
+
+
+def phase_model_axis_kernels():
+    """Phase 32: #3's partial form over m in ``MA_SPLITS`` contiguous
+    sequence blocks of qwen3-1.7b's decode cache (B = 8, H = 16, kvH = 8,
+    hd 128; S = 512 and 4,096; bf16 and fp32), merged by
+    ``paged::combine_splits``: against #3 over the whole cache (bf16
+    ``BF16_ATOL``, fp32 ``PARTIAL_FP32_ATOL``) and against the plain partial
+    and merge (the merged output at the table tolerances; every block's l,
+    and m / acc where l > 0, within ``PARTIAL_RTOL`` of their max; a block
+    no key reached stores l = 0 exactly), a NaN in one slot; then one
+    block's partial and the merge timed beside #3 over the whole cache;
+    flash #5 forward and backward at olmo-1b's local head counts (8 and 1)
+    against its plain version; and the port's sequence-parallel serve steps
+    on a 16-rank stand-in mesh (``_seq_parallel_serve``), whose launches the
+    two kernel rows report.  Returns the two kernel rows."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.monotonic()
+    _fresh_phase()
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for s_len, lens in MA_LENGTHS.items():
+        lengths = _i32(lens)
+        for dtype in (torch.bfloat16, torch.float32):
+            g, k, v = _dense_inputs(dtype, seed=32, s=s_len)
+            q = torch.randn((B, H, HD), generator=g, device="cuda").to(dtype)
+            whole = dd.decode_attention(q, k, v, lengths)
+            f32 = [t.float() for t in (q, k, v)]
+            for m in MA_SPLITS:
+                acc, ml = _partial_blocks(q, k, v, lengths, m, dd.decode_attention_partial)
+                out = dd.combine_splits(acc, ml, dtype)
+                pacc, pml = _partial_blocks(*f32, lengths, m, dd.decode_partial_core)
+                plain = dd.combine_partials_core(pacc, pml, torch.float32)
+                torch.cuda.synchronize()
+                bf16 = dtype == torch.bfloat16
+                tol = BF16_ATOL if bf16 else PARTIAL_FP32_ATOL
+                err_whole = (out.float() - whole.float()).abs().max().item()
+                err_plain = (out.float() - plain).abs().max().item()
+                seen = pml[..., 1] > 0
+                err_l = ((ml[..., 1] - pml[..., 1]).abs().max() / pml[..., 1].abs().max()).item()
+                err_m = (ml[..., 0] - pml[..., 0])[seen].abs().max().item()
+                err_acc = ((acc - pacc).abs().max() / pacc.abs().max()).item()
+                empty = ml[..., 1][~seen]
+                label = f"decode_attention_partial S={s_len} m={m} {dtype}"
+                log(f"kernel {label}: merged vs #3 whole {err_whole:.3e} (tol {tol:g}), vs "
+                    f"plain {err_plain:.3e}; partials l {err_l:.3e} m {err_m:.3e} acc "
+                    f"{err_acc:.3e} (tol {PARTIAL_RTOL:g}); {int((~seen).sum())} empty "
+                    f"(block, row, head)s")
+                if not (torch.isfinite(out).all() and err_whole <= tol
+                        and err_plain <= (BF16_ATOL if bf16 else FP32_ATOL)
+                        and max(err_l, err_m, err_acc) <= PARTIAL_RTOL
+                        and (empty == 0).all() and (~seen).any()):
+                    raise AssertionError(f"{label}: out of tolerance or an empty block's l "
+                                         "not zero")
+                worst[str(dtype).split(".")[-1]] = max(worst[str(dtype).split(".")[-1]],
+                                                        err_whole, err_plain)
+    for m in (2, MA_ROW_M):
+        def make(dtype, m=m):
+            g, k, v = _dense_inputs(dtype, seed=33, s=MA_ROW_S)
+            q = torch.randn((B, H, HD), generator=g, device="cuda").to(dtype)
+            return q, k, v, _i32(MA_LENGTHS[MA_ROW_S])
+        _check_nan_slot(f"decode_attention_partial + combine_splits (m={m})",
+                        _seq_parallel(m), _seq_parallel(m, plain=True), make,
+                        _poison_dense(2, 50), 2)
+
+    # timed at the headline shape: one block (the first: every row's keys
+    # start there) and the merge of the 16 blocks' partials
+    lengths = _i32(MA_LENGTHS[MA_ROW_S])
+    g, k, v = _dense_inputs(torch.bfloat16, seed=32, s=MA_ROW_S)
+    q = torch.randn((B, H, HD), generator=g, device="cuda").to(torch.bfloat16)
+    blk = MA_ROW_S // MA_ROW_M
+    kb, vb = k[:, :blk].contiguous(), v[:, :blk].contiguous()
+    lb = lengths.clamp(0, blk).to(torch.int32)
+    acc, ml = _partial_blocks(q, k, v, lengths, MA_ROW_M, dd.decode_attention_partial)
+    pacc, pml = acc.clone(), ml.clone()
+    part_ms = _time_ms(lambda: dd.decode_attention_partial(q, kb, vb, lb))
+    merge_ms = _time_ms(lambda: dd.combine_splits(acc, ml, torch.bfloat16))
+    part_plain = _time_ms(lambda: dd.decode_partial_core(q, kb, vb, lb))
+    merge_plain = _time_ms(lambda: dd.combine_partials_core(pacc, pml, torch.bfloat16))
+    whole_ms = _time_ms(lambda: dd.decode_attention(q, k, v, lengths))
+    # the library call with the same state: PyTorch's memory-efficient SDPA
+    # over the block (KV heads expanded to the q heads, the rows' lengths as
+    # a -inf bias) returns the normalised output and its logsumexp, which are
+    # acc / l and m + ln l
+    group = H // KVH
+    lq = q[:, :, None]
+    lk, lv = (t.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous() for t in (kb, vb))
+    keep = torch.arange(blk, device="cuda")[None, :] < lb[:, None]
+    bias = torch.zeros((B, H, 1, blk), dtype=torch.bfloat16, device="cuda").masked_fill(
+        ~keep[:, None, None], float("-inf"))
+    sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
+
+    def library():
+        return sdpa(lq, lk, lv, bias, True)
+
+    lib_out, lib_lse = library()[:2]
+    b_acc, b_ml = dd.decode_attention_partial(q, kb, vb, lb)
+    lib_err = max((lib_out[:, :, 0].float() - b_acc / b_ml[..., 1:]).abs().max().item(),
+                  (lib_lse[:, :, 0] - b_ml[..., 0] - b_ml[..., 1].log()).abs().max().item())
+    if not lib_err <= BF16_ATOL:
+        raise AssertionError(f"decode_attention_partial: the library call's state differs by "
+                             f"{lib_err:.3e} (tolerance {BF16_ATOL:g})")
+    lib_ms = _time_ms(library)
+    needed = int(lb.sum())
+    p_bound, p_by = _bound_ms(2 * B * H * HD + 2 * needed * KVH * HD * 2 + B * 4
+                              + B * H * (HD + 2) * 4, 4 * HD * H * needed, torch.bfloat16)
+    m_bound, m_by = _bound_ms(MA_ROW_M * B * H * (HD + 2) * 4 + B * H * HD * 2,
+                              MA_ROW_M * B * H * (2 * HD + 4), torch.bfloat16)
+    log(f"kernel decode_attention_partial ({_card()}; S={MA_ROW_S} in {MA_ROW_M} blocks of "
+        f"{blk}, bf16): one block's partial {part_ms:.4f} ms (plain {part_plain:.4f}, bound "
+        f"{p_bound:.4f} by {p_by}) + the merge {merge_ms:.4f} ms (plain {merge_plain:.4f}, "
+        f"bound {m_bound:.4f} by {m_by}) = {part_ms + merge_ms:.4f} ms, beside #3 over the "
+        f"whole cache {whole_ms:.4f} ms; the library call (memory-efficient SDPA with its "
+        f"logsumexp over the block) {lib_ms:.4f} ms, its state within {lib_err:.3e} of the "
+        f"partial's")
+
+    # flash at olmo-1b's local head counts
+    flash = _check_flash(FLASH_LOCAL_CASES)
+    for case in FLASH_LOCAL_CASES:
+        fq, fk, fv, _ = _flash_inputs(torch.bfloat16, *case[:4], case[5])
+        f_ms = _time_ms(lambda: fa.flash_attention_fwd(fq, fk, fv, causal=True))
+        log(f"kernel flash_attention at olmo-1b's local heads {case}: forward {f_ms:.4f} ms "
+            f"(bf16); worst errors {flash}")
+
+    # the port's own sequence-parallel decode: the serve steps of qwen3-1.7b
+    # on a 16-rank stand-in mesh, whose launches the two rows report
+    counts, sp = _seq_parallel_serve(configs.get_config(SP_ARCH))
+    _require_launches("seq parallel serve", counts,
+                      ("decode_attention_partial", "combine_splits", "flash_attention_fwd"))
+    launches = {n: counts[n]["cuda"] for n in ("decode_attention_partial", "combine_splits",
+                                               "flash_attention_fwd")}
+    per_step = SP_RANKS * sp["layers"] * SP_DECODES
+    want = {"decode_attention_partial": per_step, "combine_splits": per_step,
+            "flash_attention_fwd": SP_RANKS * sp["layers"]}
+    if launches != want:
+        raise AssertionError(f"seq parallel serve: launches {launches}, expected {want}")
+    log(f"seq parallel serve ({_card()}; {SP_ARCH} full width and depth, fp32, "
+        f"make_prefill_step + {SP_DECODES} make_serve_step steps on a (1, {SP_RANKS}) stand-in "
+        f"mesh of threads, {sp['rows']} rows of {SP_PROMPT}-token prompts in "
+        f"{sp['seq']} rows, each rank {sp['seq'] // SP_RANKS} of them): tokens equal to the "
+        f"unsplit T.prefill + T.decode_step, errors relative to the max {sp['errors']} "
+        f"(tolerance {SP_RTOL:g}); {sp['seconds']:.1f} s for all ranks in turn; rank 0's "
+        f"collectives {json.dumps(sp['collectives_rank0'])}; launches {json.dumps(launches)}")
+    rows = [
+        {"name": "decode_attention_partial", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:92",
+         "launches": launches["decode_attention_partial"], "max_abs_err": worst["bfloat16"],
+         "max_abs_err_fp32": worst["float32"], "ms": part_ms, "plain_ms": part_plain,
+         "bound_ms": p_bound, "bound_by": p_by, "library_ms": lib_ms},
+        {"name": "combine_splits", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cuh",
+         "replaces": "src/repro/kernels/decode_attention.py:92",
+         "launches": launches["combine_splits"], "max_abs_err": worst["bfloat16"],
+         "max_abs_err_fp32": worst["float32"], "ms": merge_ms, "plain_ms": merge_plain,
+         "bound_ms": m_bound, "bound_by": m_by, "library_ms": None},
+    ]
+    del k, v, kb, vb, acc, ml, pacc, pml
+    _end_phase("model axis kernels")
+    log(f"model axis kernels: {time.monotonic() - t_phase:.1f}s")
+    return rows
+
+
+def phase_serve_steps(mesh):
+    """Phase 33: ``make_prefill_step`` and then ``SERVE_STEP_DECODES``
+    ``make_serve_step`` steps on ``mesh`` (one NCCL rank: every collective
+    an identity, none issued), at olmo-1b's and qwen3-1.7b's full width and
+    depth in bf16, on ``SERVE_STEP_ROWS`` rows of a ``SERVE_STEP_PROMPT``-
+    token prompt in a ``SERVE_STEP_SEQ``-row cache: the tokens bit-equal to
+    ``T.prefill`` plus eager ``T.decode_step`` on the same weights.  Prints
+    each step's time beside the eager decode step's, the peak memory and
+    the collectives a step.  Returns the launch counts of the steps."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+
+    t_phase = time.monotonic()
+    total = {}
+    for arch in ("olmo-1b", "qwen3-1.7b"):
+        _fresh_phase()
+        cfg = configs.get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(33)
+        params = T.init_params(cfg, gen, dtype=torch.bfloat16)
+        shape = ShapeConfig("serve_steps", SERVE_STEP_SEQ, SERVE_STEP_ROWS, "decode")
+        pre, dec = make_prefill_step(cfg, mesh, shape), make_serve_step(cfg, mesh, shape)
+        local = pre.shard_params(params)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_STEP_ROWS, SERVE_STEP_PROMPT),
+                                generator=gen, device="cuda", dtype=torch.int32)
+        inputs = pre.shard_inputs(prompts)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(mesh.collectives)
+        (logits, cache), pre_s = _timed(pre.step, local, inputs)
+        colls = {k: v - before.get(k, 0) for k, v in mesh.collectives.items()
+                 if v - before.get(k, 0)}
+        tok = torch.argmax(pre.gather_output(logits), -1).to(torch.int32)
+        toks, step_s = [], []
+        before = dict(mesh.collectives)
+        for _ in range(SERVE_STEP_DECODES):
+            (tok, cache), dt = _timed(dec.step, local, tok, cache)
+            toks.append(tok)
+            step_s.append(dt)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        colls.update({k: v - before.get(k, 0) for k, v in mesh.collectives.items()
+                      if v - before.get(k, 0)})
+        with torch.no_grad():
+            (ref_logits, ref_cache), eager_pre = _timed(
+                lambda: T.prefill(cfg, params, prompts, SERVE_STEP_SEQ))
+            ref = torch.argmax(ref_logits, -1).to(torch.int32)
+            ref_toks, eager_s = [], []
+            for _ in range(SERVE_STEP_DECODES):
+                (lg, ref_cache), dt = _timed(T.decode_step, cfg, params, ref, ref_cache)
+                ref = torch.argmax(lg, -1).to(torch.int32)
+                ref_toks.append(ref)
+                eager_s.append(dt)
+        if not torch.equal(logits, ref_logits):
+            raise AssertionError(f"serve steps {arch}: prefill logits differ from T.prefill's")
+        if not all(torch.equal(a, b) for a, b in zip(toks, ref_toks)):
+            raise AssertionError(f"serve steps {arch}: tokens differ from the eager chain's")
+        if colls:
+            raise AssertionError(f"serve steps {arch}: collectives {colls} at one rank")
+        _require_launches(f"serve steps {arch}", counts,
+                          ("flash_attention_fwd", "decode_attention"))
+        want = {"flash_attention_fwd": cfg.num_layers,
+                "decode_attention": cfg.num_layers * SERVE_STEP_DECODES}
+        got = {n: counts[n]["cuda"] for n in want}
+        if got != want:
+            raise AssertionError(f"serve steps {arch}: launches {got}, expected {want}")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c["cuda"]
+        med = lambda xs: sorted(xs)[len(xs) // 2] * 1e3
+        log(f"serve steps ({_card()}; {arch} full depth, bf16, {SERVE_STEP_ROWS} rows x "
+            f"{SERVE_STEP_PROMPT}-token prompts in {SERVE_STEP_SEQ} rows, mesh {mesh.shape} "
+            f"over NCCL): tokens of prefill + {SERVE_STEP_DECODES} steps bit-equal to "
+            f"T.prefill + eager T.decode_step; prefill {pre_s * 1e3:.1f} ms (eager "
+            f"{eager_pre * 1e3:.1f}); decode step ms median {med(step_s):.2f}, min "
+            f"{min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f} (eager median "
+            f"{med(eager_s):.2f}, min {min(eager_s) * 1e3:.2f}); peak device memory "
+            f"{peak:.2f} GB; collectives a step {json.dumps(colls)}; launches "
+            f"{json.dumps(got)}")
+        del params, local, cache, ref_cache, logits, ref_logits
+    _end_phase("serve steps")
+    log(f"serve steps: {time.monotonic() - t_phase:.1f}s")
+    return total
 
 
 def main() -> int:
@@ -5783,8 +6368,10 @@ def main() -> int:
     # profiler session
     slice_launches["online_serving"] = phase_online_serving()
     # phases 30-31, the sharded train step over NCCL and the fused collocated
-    # step, also before any profiler session
-    slice_launches.update(phase_scale_out())
+    # step, and phases 32-33, the model axis' kernels at each rank's shapes and
+    # the serve steps on the mesh, also before any profiler session
+    scale_launches, model_axis_rows = phase_scale_out()
+    slice_launches.update(scale_launches)
     row_runs = {**av_launches, **olmo_launches}
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
@@ -5840,6 +6427,8 @@ def main() -> int:
         for run, counts in slice_launches.items():
             if counts.get(row["name"]):
                 row[f"launches_{run}"] = counts[row["name"]]
+    # phase 32's rows: their launches are its sequence-parallel serve run's
+    rows.extend(model_axis_rows)
     idle = [row["name"] for row in rows if not row["launches"] > 0]
     if idle:
         raise AssertionError(f"kernels with no launch on their path: {idle}")

@@ -6,9 +6,8 @@ copies of ``repro.configs.base``'s ``ModelConfig``, ``TrainConfig``,
 Mixture-of-Experts (``moe``), Mamba1 (``ssm``) and Zamba2 ``hybrid``
 families' and the stub frontend's (``embed_inputs``: the ``audio`` and
 ``vlm`` families take precomputed d_model embeddings, as in the
-reference), and its derived properties but ``padded_for_tp``,
-``attention_free`` and ``sub_quadratic``, which only the reference's mesh
-and shape matrix read.  ``ShapeConfig`` and the four assigned input
+reference), and its derived properties but ``attention_free`` and
+``sub_quadratic``, which only the reference's shape matrix reads.  ``ShapeConfig`` and the four assigned input
 shapes are the reference's.  ``TrainConfig`` keeps the
 reference's fields and defaults (the mesh layout ``zero1``, ``fsdp`` and
 ``layout`` is read only by a train step built on a mesh).  ``SpecInFConfig``
@@ -93,6 +92,21 @@ class ModelConfig:
     @property
     def padded_heads(self) -> bool:
         return self.num_heads_physical != self.num_heads
+
+    def padded_for_tp(self, tp: int) -> "ModelConfig":
+        """A config whose physical q-head count divides ``tp`` (each GQA
+        group padded with masked slots); self when already divisible or no
+        padding within 4x the group exists."""
+        if self.num_heads == 0 or self.num_heads % tp == 0:
+            return self
+        kv = max(self.num_kv_heads, 1)
+        group = -(-self.num_heads // kv)  # logical heads per kv group
+        group_phys = group
+        while (kv * group_phys) % tp != 0:
+            group_phys += 1
+            if group_phys > 4 * group:  # no sane padding exists
+                return self
+        return dataclasses.replace(self, pad_heads_to=kv * group_phys)
 
     @property
     def resolved_head_dim(self) -> int:

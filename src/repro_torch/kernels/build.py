@@ -39,6 +39,8 @@ SIGNATURES = {
     ),
     "decode_attention": (
         ("decode_attention_launch", [_P] * 5 + [_I] * 9 + [_P]),
+        ("decode_attention_partial_launch", [_P] * 6 + [_I] * 9 + [_P]),
+        ("combine_splits_launch", [_P] * 3 + [_I] * 6 + [_P]),
     ),
     "prefill_attention": (
         ("prefill_attention_launch", [_P] * 6 + [_I] * 11 + [_P]),

@@ -32,7 +32,12 @@
 //     only keeps each CTA's shared memory alive for its readers).
 // Scores are kept in log2 units (q scaled by hd^-0.5 log2 e), so every
 // weight is an exp2 of a difference of m's.  A row no key reached (length
-// <= 0) gives zeros.  The plan (tpc, cluster) comes from the table width or
+// <= 0) gives zeros.  The partial form (PARTIAL) stores the cluster's
+// merged state unnormalised instead, for a merge across sequence blocks
+// (`paged::combine_splits` at C = 1): acc [.., hd] and (m, l) in natural-log
+// units, m = M ln 2 (the cluster's log2 max), l the sum of exp2(s - M) =
+// exp(s ln 2 - m); a row no key reached stores l = 0 (the merge skips it),
+// a NaN key a NaN l and acc (the merge propagates it).  The plan (tpc, cluster) comes from the table width or
 // S alone (`decode_plan` in decode_attention.py), so a captured CUDA graph
 // stays valid whatever lengths it replays with.
 #pragma once
@@ -51,6 +56,7 @@ constexpr int kWarpKeys = kKeys / kWarps;  // keys of a tile per warp
 constexpr int kStages = 2;                 // depth of the K / V ring
 constexpr int kMaxCluster = 8;             // the portable limit of a cluster's CTAs
 constexpr int kMaxRowBytes = 512;          // hd * sizeof(T): bf16 up to 256, fp32 up to 128
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory of one CTA (bytes): the ring (kStages x K and V
 // tiles of kKeys rows), the warps' (m, l) [kWarps][G], then `table_ints`
@@ -69,12 +75,16 @@ inline int table_ints(int tpc, int page) { return tpc * kKeys / page + 2; }
 // the slot's length.  G is a power of two, >= the live rows (group - g0);
 // LPR lanes share a key (a power of two >= hd / (16 / sizeof(T))), so a
 // warp reads KPW = 32 / LPR keys at once and each lane NI of its warp's 16.
-template <typename T, int G, int LPR, typename KV>
+// PARTIAL: out is unused; part_acc / part_ml are the slot's [H, hd] / [H, 2]
+// fp32 rows of the unnormalised state (see the header).
+template <typename T, int G, int LPR, bool PARTIAL = false, typename KV>
 __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ k_pool,
                                        const T* __restrict__ v_pool, KV kv,
                                        const int* __restrict__ len_p, T* __restrict__ out,
                                        int group, int kvh, int hd, int page, int head, int g0,
-                                       int tpc, int cluster, float sl2) {
+                                       int tpc, int cluster, float sl2,
+                                       float* __restrict__ part_acc = nullptr,
+                                       float* __restrict__ part_ml = nullptr) {
   constexpr int VN = kern::Vec<T>::N;  // values per 16-byte chunk
   constexpr int KPW = 32 / LPR;        // keys a warp reads at once
   constexpr int NI = kWarpKeys / KPW;  // keys of its warp's 16 a lane reads
@@ -340,6 +350,12 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
         acc.z = fmaf(wt, xv[s].z, acc.z);
         acc.w = fmaf(wt, xv[s].w, acc.w);
       }
+    }
+    if constexpr (PARTIAL) {
+      const size_t row = (size_t)(head * group + g0 + g);
+      *reinterpret_cast<float4*>(part_acc + row * hd + 4 * cc) = acc;
+      if (cc == 0) *reinterpret_cast<float2*>(part_ml + 2 * row) = make_float2(M * kLn2, L);
+      continue;
     }
     const float inv = L == 0.f ? 0.f : 1.f / L;
     T* dst = out + (size_t)(head * group + g0 + g) * hd + 4 * cc;

@@ -19,6 +19,16 @@ version.  ``TILE`` and ``split_plan`` are the split of the FMA verify and
 prefill bodies (16-row tiles).  ``COUNTS["cuda"]`` counts kernel launches,
 ``COUNTS["torch"]`` calls of the plain version; ``repro_torch.kernels.ops``
 reads and resets them.
+
+The partial form (``decode_attention_partial``, the same library) runs the
+same cluster kernel over one rank's block of a sequence-split cache and
+stores each row's unnormalised state: ``acc`` [B, H, hd] and ``ml`` [B, H,
+2] = (m, l) in fp32, natural-log units, ``l = 0`` for a row no key
+reached.  ``combine_splits`` merges the blocks' partials, gathered as
+[B, n, H, hd] / [B, n, H, 2], with ``paged::combine_splits`` (the paged
+verify's merge, at C = 1).  Their plain versions are
+``decode_partial_core`` and ``combine_partials_core``; ``PARTIAL_COUNTS``
+and ``COMBINE_COUNTS`` count them as ``COUNTS`` does.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ import torch
 from repro_torch.kernels import build
 
 COUNTS = {"cuda": 0, "torch": 0}
+PARTIAL_COUNTS = {"cuda": 0, "torch": 0}
+COMBINE_COUNTS = {"cuda": 0, "torch": 0}
 NEG_INF = -1e30
 #: cache rows per KV tile of the FMA verify and prefill bodies
 TILE = 16
@@ -132,6 +144,103 @@ def decode_attention(
     )
     build.check_launch(lib, err, "decode_attention")
     COUNTS["cuda"] += 1
+    return out
+
+
+def decode_partial_core(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The unnormalised state of ``decode_core`` over a dense cache block:
+    ``(acc [B, H, hd], ml [B, H, 2])`` in fp32 with ``m`` the largest live
+    score, ``l`` the sum of ``exp(s - m)`` and ``acc`` the same weights
+    times V; a row with no live key has ``l = 0`` and ``acc = 0``."""
+    b, h, hd = q.shape
+    kvh = k.shape[2]
+    qf = q.float().reshape(b, kvh, h // kvh, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float()) * hd**-0.5
+    kpos = torch.arange(k.shape[1], device=q.device)
+    live = (kpos[None, :] < lengths[:, None])[:, None, None, :]  # [B, 1, 1, S]
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.float()).reshape(b, h, hd)
+    ml = torch.stack([m[..., 0], p.sum(-1)], dim=-1).reshape(b, h, 2)
+    return acc, ml
+
+
+def combine_partials_core(acc: torch.Tensor, ml: torch.Tensor,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Merge n blocks' partials ``acc [B, n, H, hd]`` / ``ml [B, n, H, 2]``:
+    ``sum e^(m - M) acc / sum e^(m - M) l`` over the blocks that saw a key
+    (``l != 0``, a NaN included), zeros where none did.  -> [B, H, hd] in
+    ``dtype``."""
+    m, l = ml[..., 0], ml[..., 1]
+    seen = l != 0
+    big = torch.where(seen, m, torch.full_like(m, -torch.inf)).amax(dim=1, keepdim=True)
+    w = torch.where(seen, torch.exp(m - big), torch.zeros_like(m))
+    den = (w * l).sum(1)[..., None]
+    num = (w[..., None] * acc).sum(1)
+    return torch.where(den == 0, torch.zeros_like(num), num / den).to(dtype)
+
+
+def decode_attention_partial_torch(q, k, v, lengths):
+    """Plain version of the partial form: ``decode_partial_core``."""
+    PARTIAL_COUNTS["torch"] += 1
+    return decode_partial_core(q, k, v, lengths)
+
+
+def combine_splits_torch(acc, ml, dtype):
+    """Plain version of the merge: ``combine_partials_core``."""
+    COMBINE_COUNTS["torch"] += 1
+    return combine_partials_core(acc, ml, dtype)
+
+
+def decode_attention_partial(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the partial form (one launch, the decode kernel's plan from
+    S) on the current stream.  Arguments as ``decode_attention``; returns
+    new fp32 tensors ``(acc [B, H, hd], ml [B, H, 2])``.  Raises on CPU
+    tensors or arguments the kernel does not take."""
+    _check(q, k, v, lengths)
+    b, h, hd = q.shape
+    _, s, kvh, _ = k.shape
+    per, cluster = decode_plan(s)
+    acc = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    ml = torch.empty((b, h, 2), dtype=torch.float32, device=q.device)
+    lib = build.load("decode_attention")
+    err = lib.decode_attention_partial_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+        ml.data_ptr(), b, h, kvh, hd, s, per, cluster, build.DTYPE_CODES[q.dtype],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check_launch(lib, err, "decode_attention_partial")
+    PARTIAL_COUNTS["cuda"] += 1
+    return acc, ml
+
+
+def combine_splits(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``paged::combine_splits`` over n blocks' partials (fp32,
+    contiguous ``[B, n, H, hd]`` / ``[B, n, H, 2]``) on the current stream;
+    returns a new [B, H, hd] tensor of ``dtype``.  Raises on CPU tensors or
+    arguments the kernel does not take."""
+    req = build.require
+    req(acc.is_cuda and ml.device == acc.device, "combine_splits needs CUDA tensors on one "
+        "device")
+    req(acc.dtype == torch.float32 and ml.dtype == torch.float32, "partials must be float32")
+    req(dtype in build.DTYPE_CODES, f"unsupported dtype {dtype}")
+    req(acc.ndim == 4 and ml.shape == (*acc.shape[:3], 2), "partials must be [B, n, H, hd] "
+        "and [B, n, H, 2]")
+    req(acc.is_contiguous() and ml.is_contiguous(), "partials must be contiguous")
+    b, n, h, hd = acc.shape
+    out = torch.empty((b, h, hd), dtype=dtype, device=acc.device)
+    lib = build.load("decode_attention")
+    err = lib.combine_splits_launch(
+        acc.data_ptr(), ml.data_ptr(), out.data_ptr(), b, h, hd, n, build.DTYPE_CODES[dtype],
+        acc.device.index, torch.cuda.current_stream(acc.device).cuda_stream,
+    )
+    build.check_launch(lib, err, "combine_splits")
+    COMBINE_COUNTS["cuda"] += 1
     return out
 
 

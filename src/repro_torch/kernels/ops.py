@@ -142,6 +142,35 @@ def decode_attention(
     return _dense_decode.decode_attention_torch(q, k_cache, v_cache, lengths)
 
 
+def decode_attention_partial(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention``'s unnormalised state over one block of a
+    sequence-split dense cache: ``(acc [B, H, hd], ml [B, H, 2])`` fp32, ``ml``
+    holding (m, l) in natural-log units, ``l = 0`` for a row no key
+    reached.  Arguments as ``decode_attention`` (``lengths``: the block's
+    live keys)."""
+    if _resolve(impl, q) == "cuda":
+        return _dense_decode.decode_attention_partial(q, k_cache, v_cache, lengths)
+    return _dense_decode.decode_attention_partial_torch(q, k_cache, v_cache, lengths)
+
+
+def combine_decode_partials(
+    acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype, *, impl: str = "auto"
+) -> torch.Tensor:
+    """Merge n blocks' ``decode_attention_partial`` states, gathered as
+    ``acc [B, n, H, hd]`` / ``ml [B, n, H, 2]``, into the attention output
+    [B, H, hd] of ``dtype`` (``paged::combine_splits`` on CUDA)."""
+    if _resolve(impl, acc) == "cuda":
+        return _dense_decode.combine_splits(acc, ml, dtype)
+    return _dense_decode.combine_splits_torch(acc, ml, dtype)
+
+
 def prefill_chunk_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -278,6 +307,8 @@ _COUNTS = {
     "paged_decode_attention": _decode.COUNTS,
     "paged_prefill_attention": _prefill.COUNTS,
     "decode_attention": _dense_decode.COUNTS,
+    "decode_attention_partial": _dense_decode.PARTIAL_COUNTS,
+    "combine_splits": _dense_decode.COMBINE_COUNTS,
     "prefill_attention": _dense_prefill.COUNTS,
     "paged_verify_attention": _verify.COUNTS,
     "paged_tree_verify_attention": _tree.COUNTS,

@@ -15,7 +15,10 @@ full architecture trains under remat ``"full"`` with FSDP and ZeRO-1.  The
 mesh is ``make_dev_mesh()`` with ``data`` the world size: the ranks torchrun
 starts (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``), or one
 rank over an in-process store without torchrun.  ``--production-mesh``
-builds the 16x16 mesh instead, which needs 256 ranks.  The run is on
+builds the 16x16 mesh instead, which needs 256 ranks: the default layout
+``"tp"`` then runs the attention families with tensor, expert and vocab
+parallelism over ``model = 16`` (Mamba1 and the hybrid raise
+``NotImplementedError`` until the next scale-out slice).  The run is on
 ``cuda`` unless ``--device cpu`` is given; without a CUDA device the
 default raises.  ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps
 and resumes from the newest checkpoint there (rank 0 writes it: the
@@ -66,7 +69,7 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (256 ranks)")
+                    help="16x16 mesh (256 ranks; layout 'tp': model 16)")
     ap.add_argument("--collocate", action="store_true",
                     help="fill training bubbles with a collocated inference "
                          "engine (SpecInF)")

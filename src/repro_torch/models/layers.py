@@ -7,6 +7,15 @@ Counterpart of ``repro.models.layers``: plain functions over explicit
 parameter dicts that keep the reference's names and layouts.  Where the
 reference returns a new KV pool or cache, these functions update its
 tensors IN PLACE (the reference's jit donates them) and return them.
+
+Under an ``act_sharding`` context on a model axis larger than 1 the
+attention and MLP blocks run Megatron-style on this rank's weight blocks:
+the local head counts come from the local weights' shapes, a rank whose q
+heads split while the KV heads do not uses the KV heads its q heads map to
+(a split across a GQA group raises), and the row-parallel output is summed
+over ``model``.  The dense decode on a sequence-split cache attends its
+block with #3's partial form and merges the blocks' partials
+(``attention_decode``).
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import act_sharding as AS
 
 Params = Any
 
@@ -93,9 +103,11 @@ def apply_rope(
 
 
 def head_mask(
-    cfg: ModelConfig, dtype: torch.dtype, device: torch.device
+    cfg: ModelConfig, dtype: torch.dtype, device: torch.device,
+    start: int = 0, count: Optional[int] = None,
 ) -> Optional[torch.Tensor]:
-    """[H_phys] 1/0 mask selecting real q-head slots (None when unpadded).
+    """1/0 mask selecting the real q-head slots ``start .. start + count -
+    1`` of the ``H_phys`` (None when unpadded; ``count`` defaults to all).
     Slot ``s`` is real iff ``s % group_phys`` is below the logical group
     size, keeping GQA's head -> kv mapping exact."""
     if not cfg.padded_heads:
@@ -103,8 +115,34 @@ def head_mask(
     kv = max(cfg.num_kv_heads, 1)
     group_phys = cfg.num_heads_physical // kv
     group_log = cfg.num_heads // kv
-    m = (torch.arange(cfg.num_heads_physical, device=device) % group_phys) < group_log
+    count = cfg.num_heads_physical - start if count is None else count
+    m = (torch.arange(start, start + count, device=device) % group_phys) < group_log
     return m.to(dtype)
+
+
+def local_heads(cfg: ModelConfig, p: Params) -> tuple[int, int]:
+    """(first physical q head, q heads) of this rank's ``wq`` block: its
+    model-rank's block when the heads split, else all of them."""
+    n = p["wq"].shape[1]
+    return (AS.model_rank() * n if n < cfg.num_heads_physical else 0), n
+
+
+def _local_kv(cfg: ModelConfig, p: Params, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The KV heads this rank's q heads read, [.., kvH, hd] -> [.., n, hd]:
+    all of ``k`` / ``v`` unless the q heads split and the KV heads do not
+    (``wk`` whole); then the heads of the q block's GQA groups, which must
+    hold whole groups or lie inside one."""
+    h0, n = local_heads(cfg, p)
+    kvh = cfg.num_kv_heads
+    if n == cfg.num_heads_physical or k.shape[-2] < kvh:
+        return k, v
+    group = cfg.num_heads_physical // kvh
+    if n % group and group % n:
+        raise ValueError(
+            f"{cfg.name}: {n} q heads a rank split its GQA groups of {group} "
+            f"(q heads {h0} .. {h0 + n - 1} over {kvh} KV heads)")
+    lo, hi = h0 // group, (h0 + n - 1) // group + 1
+    return k[..., lo:hi, :], v[..., lo:hi, :]
 
 
 def init_attention(
@@ -164,12 +202,21 @@ def _project_qkv(
 def _out_proj(
     cfg: ModelConfig, p: Params, out: torch.Tensor
 ) -> torch.Tensor:
-    """Mask padded head slots, then einsum("bshk,hkd->bsd")."""
-    mask = head_mask(cfg, out.dtype, out.device)
+    """Mask padded head slots, then einsum("bshk,hkd->bsd") over this
+    rank's heads, summed over ``model`` when the heads split."""
+    h0, n = local_heads(cfg, p)
+    mask = head_mask(cfg, out.dtype, out.device, h0, n)
     if mask is not None:
         out = out * mask[None, None, :, None]
     h, k, d = p["wo"].shape
-    return out.reshape(*out.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+    y = out.reshape(*out.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+    return AS.reduce_from_model(y) if AS.split("bthd") else y
+
+
+def tp_entry(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``x`` entering a block whose ``kind`` activations split over
+    ``model``: ``copy_to_model`` there, else ``x`` as it is."""
+    return AS.copy_to_model(x) if AS.split(kind) else x
 
 
 def attention_block(
@@ -180,7 +227,8 @@ def attention_block(
     padded head slots are zeroed (and so are their gradients)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, tp_entry(x, "bthd"), positions)
+    k, v = _local_kv(cfg, p, k, v)
     out = ops.attention(q, k, v, causal=True, impl=impl)
     return _out_proj(cfg, p, out)
 
@@ -361,14 +409,51 @@ def attention_decode(
     attends ``index + 1`` keys (clamped to S by the kernel)."""
     b = x.shape[0]
     idx = cache_index.to(torch.int32).expand(b)
-    q, k_new, v_new = _project_qkv(cfg, p, x, idx[:, None])
+    q, k_new, v_new = _project_qkv(cfg, p, tp_entry(x, "bthd"), idx[:, None])
     k_cache, v_cache = kv_cache
+    if AS.seq_parallel():
+        out = _decode_seq_parallel(cfg, p, q[:, 0], k_new, v_new, k_cache, v_cache, idx,
+                                   impl)
+        return _out_proj(cfg, p, out[:, None]), (k_cache, v_cache)
     dense_kv_write_clamped(k_cache, k_new, idx)
     dense_kv_write_clamped(v_cache, v_new, idx)
     out = ops.decode_attention(
         q[:, 0].contiguous(), k_cache, v_cache, idx + 1, impl=impl
     )[:, None]
     return _out_proj(cfg, p, out), (k_cache, v_cache)
+
+
+def _decode_seq_parallel(cfg, p, q, k_new, v_new, k_cache, v_cache, idx, impl):
+    """The dense decode on a cache whose sequence dim splits over the
+    context's sequence axes (the reference's ``cache_specs`` when the KV
+    heads do not divide ``model``): this rank holds rows r * S/n .. of every
+    slot.  The token's K/V lands on the rank that owns its position (the
+    reference's clamp into [0, S - 1]); the others write the entry's own
+    value back (no host sync, no live entry changed).  The q heads (tiny)
+    are all-gathered over ``model`` when they split and the cache holds
+    every KV head; each rank runs #3's partial form over its block (a row's
+    length ``clamp(idx + 1 - r * S/n, 0, S/n)``), the blocks' partials are
+    all-gathered and merged (``paged::combine_splits``), and the rank keeps
+    its q heads.  q: [B, h, hd] -> [B, h, hd]."""
+    r, n = AS.seq_block()
+    b, s_loc = k_cache.shape[:2]
+    pos = idx.long().clamp(0, n * s_loc - 1) - r * s_loc
+    own = ((pos >= 0) & (pos < s_loc))[:, None, None]
+    pos = pos.clamp(0, s_loc - 1)
+    rows = torch.arange(b, device=k_cache.device)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, pos] = torch.where(own, new[:, 0].to(cache.dtype), cache[rows, pos])
+    h0, h = local_heads(cfg, p)
+    if h < cfg.num_heads_physical and k_cache.shape[2] == cfg.num_kv_heads:
+        q = AS.all_gather_model(q, 1)
+    else:
+        h0 = 0
+    lengths = (idx + 1 - r * s_loc).clamp(0, s_loc).to(torch.int32)
+    acc, ml = ops.decode_attention_partial(q.contiguous(), k_cache, v_cache, lengths,
+                                           impl=impl)
+    out = ops.combine_decode_partials(AS.gather_seq(acc), AS.gather_seq(ml), q.dtype,
+                                      impl=impl)
+    return out[:, h0:h0 + h]
 
 
 def attention_prefill_chunk(
@@ -513,6 +598,11 @@ def init_mlp(
 
 
 def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; column-parallel ``wg`` / ``wu`` and row-parallel ``wd`` when
+    the hidden dim splits over ``model`` (one all-reduce each way)."""
+    tp = AS.split("btf")
+    x = AS.copy_to_model(x) if tp else x
     g = x @ p["wg"]
     u = x @ p["wu"]
-    return (F.silu(g) * u) @ p["wd"]
+    y = (F.silu(g) * u) @ p["wd"]
+    return AS.reduce_from_model(y) if tp else y

@@ -25,8 +25,15 @@ accumulated, so the result does not depend on the order of the writes, and
 nothing here syncs with the host (no ``.item()``, no boolean-mask indexing):
 the paged engine captures the decode step, this block included, as a CUDA
 graph.  The reference's ``set_dispatch`` switch picks between two GSPMD
-shardings of the same arithmetic; with one device there is nothing to
-shard, and it is not kept.
+shardings of the same arithmetic; the port keeps one, and it is not kept.
+
+Expert parallelism (an ``act_sharding`` context whose experts split over
+``model``): the router and ``x`` are replicated, so ``route`` runs whole
+on every model rank and ``aux`` / ``dropped`` come out identical
+everywhere; only this rank's ``E/m`` experts' slice of the capacity buffer
+goes through ``torch.bmm``, and the local experts' combine is summed over
+``model``.  The aux loss's gradient is kept on model rank 0 only, so the
+router's and ``x``'s gradient sums over ``model`` count it once.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import act_sharding as AS
 
 Params = Any
 
@@ -69,9 +77,13 @@ def route(cfg: ModelConfig, p: Params, x: torch.Tensor, capacity: int):
     """x: [G, s, d], ``G`` routing groups of ``s`` tokens.  Returns ``(y
     [G, s, d], aux [G], dropped [G], ids [G, s, k])``: the block's output,
     each group's load-balancing loss and dropped share of choices, and the
-    experts each token chose (in descending router probability)."""
+    experts each token chose (in descending router probability).  ``p``'s
+    expert weights may be this model rank's block of ``E/m`` experts: then
+    ``y`` sums the local experts' outputs only."""
     g, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
+    e_loc = p["wg"].shape[0]
+    e0 = AS.model_rank() * e_loc if e_loc < e else 0
     logits = x.float() @ p["router"].float()  # [G, s, e]
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.topk(probs, k, dim=-1)  # [G, s, k]
@@ -89,22 +101,27 @@ def route(cfg: ModelConfig, p: Params, x: torch.Tensor, capacity: int):
     xr = x.repeat(1, k, 1)  # [G, k*s, d], k-major
     buf = torch.zeros((g, e * capacity + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.scatter(1, write[..., None].expand(-1, -1, d), xr)
-    h = buf[:, : e * capacity].reshape(g, e, capacity, d)
-    h = h.transpose(0, 1).reshape(e, g * capacity, d)  # [E, G*C, d]
+    h = buf[:, : e * capacity].reshape(g, e, capacity, d)[:, e0:e0 + e_loc]
+    h = h.transpose(0, 1).reshape(e_loc, g * capacity, d)  # [E_loc, G*C, d]
 
     # per-expert SwiGLU over every capacity row
     gate = torch.bmm(h, p["wg"])
     up = torch.bmm(h, p["wu"])
-    out = torch.bmm(F.silu(gate) * up, p["wd"])  # [E, G*C, d]
-    out = out.reshape(e, g, capacity, d).transpose(0, 1).reshape(g, e * capacity, d)
+    out = torch.bmm(F.silu(gate) * up, p["wd"])  # [E_loc, G*C, d]
+    out = out.reshape(e_loc, g, capacity, d).transpose(0, 1).reshape(g, e_loc * capacity, d)
 
     wt = weights.transpose(1, 2).reshape(g, k * s)  # aligned with ids_t
+    used = keep
+    if e_loc < e:  # the kept choices of the local experts only
+        dest = dest - e0 * capacity
+        used = keep & (dest >= 0) & (dest < e_loc * capacity)
+        dest = dest.clamp(0, e_loc * capacity - 1)
     y_r = out.gather(1, dest[..., None].expand(-1, -1, d))
-    y_r = y_r * (wt * keep).to(x.dtype)[..., None]
+    y_r = y_r * (wt * used).to(x.dtype)[..., None]
     y = y_r.reshape(g, k, s, d).sum(1)
 
     # load-balancing auxiliary loss (Switch): E * sum_e f_e * P_e
-    me = probs.mean(1)  # [G, e] mean router probability per expert
+    me = (AS.once_over_model(probs) if e_loc < e else probs).mean(1)  # [G, e]
     ce = (ids[..., :1] == torch.arange(e, device=x.device)).float().mean(1)
     aux = e * (me * ce).sum(-1)
     dropped = 1.0 - keep.float().mean(-1)
@@ -124,6 +141,13 @@ def routing_groups(cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, int
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     """x: [B, S, d] -> ``(y [B, S, d], aux_loss, drop_fraction)``, the last
     two fp32 scalars averaged over the routing groups."""
-    groups, capacity = routing_groups(cfg, x)
+    ep = AS.split("ecd")
+    # a decode batch split over the data axes routes as one group, as the
+    # reference's unsplit batch does: gathered whole, this rank's rows kept
+    decode = x.shape[1] == 1
+    whole = AS.gather_batch(x) if decode else x
+    groups, capacity = routing_groups(cfg, AS.copy_to_model(whole) if ep else whole)
     y, aux, dropped, _ = route(cfg, p, groups, capacity)
-    return y.reshape(x.shape), aux.mean(), dropped.mean()
+    y = y.reshape(whole.shape)
+    y = AS.reduce_from_model(y) if ep else y
+    return (AS.batch_rows(y, x.shape[0]) if decode else y), aux.mean(), dropped.mean()

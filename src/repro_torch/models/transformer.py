@@ -27,6 +27,17 @@ The hybrid keeps the reference's layout: its Mamba2 layers are stacked
 ``[n_cyc, shared_attn_every, ...]`` and ``params["shared"]`` holds the ONE
 attention + MLP block that runs before each cycle's layers.  Its attention
 is dense only (no paged KV, no chunked prefill), as in the reference.
+
+Under an ``act_sharding`` context on a model axis larger than 1 (the
+sharded train step and the serve steps of ``runtime.step``) the attention
+families run on this rank's weight blocks: the embedding table and LM head
+split over the vocab (``embed_tokens`` a masked lookup in the local rows,
+then one all-reduce; ``unembed`` this rank's logit columns; ``lm_loss`` a
+logsumexp and a gold logit reduced over the split vocab, the full logits
+never gathered), attention and MLP Megatron-style (``models.layers``),
+the MoE block over the local experts (``models.moe``), and the monolithic
+``prefill`` and ``decode_step`` on the local dense cache.  Mamba1 and the
+hybrid over ``model`` raise (``check_model_axis``).
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import act_sharding as AS
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -65,6 +77,18 @@ def _require_family(cfg: ModelConfig, families: tuple = FAMILIES) -> None:
 
 def _require_attention(cfg: ModelConfig) -> None:
     _require_family(cfg, ATTENTION_FAMILIES)
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """Raise for a family the port cannot yet split over a model axis of
+    ``model`` (> 1): Mamba1 and the hybrid, whose ``d_inner`` splits need
+    the next scale-out slice."""
+    if model > 1 and cfg.family not in ATTENTION_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family over a model axis of {model} (its "
+            "d_inner split: Mamba1's [x | z] in_proj halves, the partial x_proj, the scan on "
+            "a d_inner shard, Mamba2's gated norm) comes with the next scale-out slice; "
+            "the attention families run over 'model' now")
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +195,8 @@ def _layer(stacked: Params, i) -> Params:
 def embed_tokens(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor, dtype: torch.dtype
 ) -> torch.Tensor:
+    if AS.split("btv"):
+        return AS.embed_lookup(params["embed"].to(dtype), tokens)
     return params["embed"].to(dtype)[tokens.long()]
 
 
@@ -188,8 +214,11 @@ def input_embeddings(
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``[.., V]``, or this rank's columns ``[.., V/m]`` when the
+    vocab splits over ``model`` (a tied table: its local rows,
+    transposed)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return L.tp_entry(x, "btv") @ head.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +318,7 @@ def forward(
     ``metrics`` holds ``moe_aux`` and ``moe_dropped``, the MoE family's mean
     over layers (zero for the other families)."""
     _require_family(cfg)
+    check_model_axis(cfg, AS.model_size())
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     x = input_embeddings(cfg, params, inputs, compute_dtype)
@@ -340,8 +370,11 @@ def lm_loss(
         compute_dtype=compute_dtype,
     )
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if AS.split("btv"):
+        logz, gold = AS.vocab_logsumexp(logits), AS.vocab_gold(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     ce = (logz - gold).mean()
     loss = ce + moe_aux_weight * metrics["moe_aux"]
     return loss, dict(metrics, ce=ce, loss=loss)
@@ -440,8 +473,10 @@ def decode_step(
     cache)``: every layer writes the token's K/V into the paged pool or the
     dense cache (Mamba1: its new conv and SSM state; hybrid: each cycle's
     shared-block K/V row and its layers' Mamba2 state) in place, and the
-    returned cache is a new dict whose ``index`` is advanced by one."""
+    returned cache is a new dict whose ``index`` is advanced by one.  On a
+    model axis the logits are this rank's vocab columns."""
     _require_family(cfg)
+    check_model_axis(cfg, AS.model_size())
     x = embed_tokens(cfg, params, tokens, compute_dtype)[:, None, :]
     idx = cache["index"]
     layers = cast_params(params["layers"], compute_dtype)
@@ -786,6 +821,7 @@ def prefill(
     elementwise op's result can depend on its tensor's length, through the
     CPU's vector tail).  A bucket of 64 or more tokens runs as it is."""
     _require_family(cfg)
+    check_model_axis(cfg, AS.model_size())
     cache_dtype = cache_dtype or compute_dtype
     b, s = inputs.shape[:2]
     if cfg.family == "hybrid":
@@ -863,9 +899,10 @@ def prefill(
 def _attn_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
                   positions: torch.Tensor, impl: str) -> tuple:
     """Causal attention over the prompt through ``ops.attention``: ``(y, k,
-    v)``, the block's output and the K/V it caches."""
-    q, k, v = L._project_qkv(cfg, p, h, positions)
-    out = ops.attention(q, k, v, causal=True, impl=impl)
+    v)``, the block's output and the K/V it caches (every KV head of this
+    rank's ``wk``, whichever its q heads read)."""
+    q, k, v = L._project_qkv(cfg, p, L.tp_entry(h, "bthd"), positions)
+    out = ops.attention(q, *L._local_kv(cfg, p, k, v), causal=True, impl=impl)
     return L._out_proj(cfg, p, out), k, v
 
 

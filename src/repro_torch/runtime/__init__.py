@@ -1,15 +1,24 @@
 """The train step (counterpart of ``repro.runtime.step``'s
-``make_train_step``: on one device, or over a mesh's data axes as
-``ShardedTrainStep``), the sharding rules (``runtime.sharding``) and the
+``make_train_step``: on one device, or over a mesh as
+``ShardedTrainStep``), the serve steps on a mesh (``make_serve_step`` /
+``make_prefill_step``), the sharding rules (``runtime.sharding``) and the
 fault-tolerant ``Trainer`` over the step (counterpart of
 ``repro.runtime.trainer``)."""
 from repro_torch.runtime.step import (
+    ServeStepArtifacts,
     ShardedTrainStep,
+    abstract_batch,
+    abstract_cache,
     abstract_params,
+    abstract_train_state,
     init_train_state,
+    make_prefill_step,
+    make_serve_step,
     make_train_step,
 )
 from repro_torch.runtime.trainer import Trainer, TrainerReport, specinf_backoff
 
-__all__ = ["ShardedTrainStep", "Trainer", "TrainerReport", "abstract_params",
-           "init_train_state", "make_train_step", "specinf_backoff"]
+__all__ = ["ServeStepArtifacts", "ShardedTrainStep", "Trainer", "TrainerReport",
+           "abstract_batch", "abstract_cache", "abstract_params", "abstract_train_state",
+           "init_train_state", "make_prefill_step", "make_serve_step", "make_train_step",
+           "specinf_backoff"]

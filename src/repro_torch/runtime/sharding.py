@@ -25,9 +25,10 @@ in the mesh's order, as GSPMD splits it).  The rules read a mesh's
 stand-in and over shape trees (meta tensors, the reference's
 ``ShapeDtypeStruct``s).  ``shard_tensor`` and ``gather_tensor`` take the
 place of the reference's ``named``: this rank's block of a full tensor,
-and the all-gather back.  The port's train step executes the data-axis
-rules (``runtime.step``); the ``model``-axis rules and ``cache_specs``
-are the reference's, for the tensor / expert / sequence parallel slice.
+and the all-gather back.  The port's train and serve steps
+(``runtime.step``) execute every rule: the data axes by their
+collectives, the ``model`` axis through the model code's
+(``models.act_sharding``), whose gradient rule ``model_partial`` gives.
 """
 from __future__ import annotations
 
@@ -193,6 +194,26 @@ def _param_rule(path: str, ndim: int, cfg: ModelConfig, plan: ShardingPlan) -> P
     if re.search(r"mixer/gate_norm$", path):
         return spec(plan.di())
     raise ValueError(f"no sharding rule for parameter {path!r} (ndim={ndim})")
+
+
+def model_partial(path: str, plan: ShardingPlan) -> bool:
+    """Whether a leaf replicated over ``model`` gets only a part of its
+    gradient on each model rank, so that the ranks' gradients must be
+    summed over ``model``: the K / V projections (and their biases) when
+    the q heads split and the KV heads do not (each rank reads the KV heads
+    of its q heads), the q / k norms when the heads split, the MoE router
+    when the experts split (its gradient flows through the local experts'
+    gates).  Every other replicated leaf gets its whole gradient on every
+    rank (its input is all-reduced back by ``copy_to_model``)."""
+    if plan.model == 1:
+        return False
+    if re.search(r"attn/(w[kv]|b[kv])$", path):
+        return plan.h() is not None and plan.kv() is None
+    if re.search(r"attn/(q|k)_norm$", path):
+        return plan.h() is not None
+    if re.search(r"ffn/router$", path):
+        return plan.e() is not None
+    return False
 
 
 def _add_fsdp(

@@ -1,7 +1,10 @@
 """The train step: microbatched gradient accumulation in fp32 ->
 global-norm clip -> schedule -> AdamW (``repro.runtime.step``'s
-``make_train_step``), on one device, or over a mesh's data axes with
-explicit collectives (``ShardedTrainStep``, below).
+``make_train_step``), on one device, or over a mesh with explicit
+collectives (``ShardedTrainStep``, below); and the serve steps on a mesh
+(``make_serve_step`` / ``make_prefill_step``, last), with the reference's
+abstract trees (``abstract_params``, ``abstract_train_state``,
+``abstract_batch``, ``abstract_cache``: meta tensors).
 
 The state is ``{"params", "opt"}`` as in the reference, plus ``"err"``
 (fp32 error-feedback buffers shaped like the params) under
@@ -21,13 +24,16 @@ waits for the device: the metrics are device scalars.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models import act_sharding as AS
+from repro_torch.models.act_sharding import activation_sharding
 from repro_torch.optim import (
     adamw_init,
     adamw_update,
@@ -36,7 +42,7 @@ from repro_torch.optim import (
     make_schedule,
 )
 from repro_torch.runtime import sharding as S
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path, tree_unflatten
 
 Tree = Any
 
@@ -171,21 +177,59 @@ def make_train_step(
 
 def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.float32) -> Tree:
     """The parameter tree of ``cfg`` as meta tensors (shapes and dtypes,
-    no storage): ``T.init_params`` traced under a fake-tensor mode, so a
-    full-size config allocates nothing."""
+    no storage): ``T.init_params`` of one layer (the hybrid: one cycle)
+    traced under a fake-tensor mode, its ``[L, ...]`` stacks then given
+    the config's depth, so a full-size config allocates nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    per = cfg.shared_attn_every if cfg.family == "hybrid" else 1
     with FakeTensorMode():
-        fake = T.init_params(cfg, torch.Generator().manual_seed(0), dtype=dtype)
-    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
+        fake = T.init_params(dataclasses.replace(cfg, num_layers=per),
+                             torch.Generator().manual_seed(0), dtype=dtype)
+    depth = cfg.num_layers // per
+    return tree_map_with_path(
+        lambda path, t: torch.empty((depth, *t.shape[1:]) if path.startswith("layers/")
+                                    else t.shape, dtype=t.dtype, device="meta"), fake)
+
+
+def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig) -> dict:
+    """``init_train_state``'s tree as meta tensors: the params in
+    ``tcfg.param_dtype``, fp32 moments, an int32 step, and fp32 ``err``
+    under ``int8_ef``."""
+    params = abstract_params(cfg, getattr(torch, tcfg.param_dtype))
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    state = {"params": params, "opt": {
+        "mu": tree_map(f32, params), "nu": tree_map(f32, params),
+        "step": torch.empty((), dtype=torch.int32, device="meta")}}
+    if tcfg.grad_compression == "int8_ef":
+        state["err"] = tree_map(f32, params)
+    return state
+
+
+def abstract_batch(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A global batch of ``shape`` as meta tensors: int32 labels [B, S] and
+    int32 tokens, or fp32 embeddings [B, S, d] for an ``embed_inputs``
+    config."""
+    b, s = shape.global_batch, shape.seq_len
+    batch = {"labels": torch.empty((b, s), dtype=torch.int32, device="meta")}
+    batch["inputs"] = (torch.empty((b, s, cfg.d_model), dtype=torch.float32, device="meta")
+                       if cfg.embed_inputs else
+                       torch.empty((b, s), dtype=torch.int32, device="meta"))
+    return batch
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """``T.init_cache``'s dense cache as meta tensors."""
+    return T.init_cache(cfg, batch, max_seq, dtype, device="meta")
 
 
 LAYOUTS = ("tp", "dp256")
 
 
 class ShardedTrainStep:
-    """The reference's train step over a mesh's data axes, with explicit
-    collectives (``mesh.all_reduce`` / ``all_gather`` / ``reduce_scatter``):
+    """The reference's train step over a mesh, with explicit collectives
+    (``mesh.all_reduce`` / ``all_gather`` / ``reduce_scatter``):
 
       * the batch rides ``dp_axes(mesh, layout)``: each rank gets the
         contiguous block of global rows ``batch_specs`` gives it
@@ -205,12 +249,21 @@ class ShardedTrainStep:
       * ZeRO-1 (``tcfg.zero1``): AdamW's moments live as the shards
         ``opt_state_specs`` gives; the update runs on the matching block of
         the gradient and the parameter, whose blocks are then all-gathered
+      * ``layout="tp"`` over a ``model`` axis larger than 1 (the attention
+        families; Mamba1 and the hybrid raise): leaves split over ``model``
+        stay this rank's blocks through the forward (only their FSDP splits
+        are gathered), the model code runs Megatron TP, expert and vocab
+        parallelism under ``act_sharding`` (the model ranks of one data
+        index see the same rows), a replicated leaf that a rank uses only
+        in part (``sharding.model_partial``) has its gradient summed over
+        ``model`` too, and the norm counts a leaf replicated over ``model``
+        on model rank 0 only.  So every rank's gradient of every leaf is its
+        block of the single-device gradient.
 
     ``state_specs`` / ``batch_specs`` are the spec trees; ``init_state``,
     ``shard_state``, ``gather_state`` and ``shard_batch`` place trees under
-    them.  ``last_collectives`` counts the previous call's collectives by
-    kind.  ``layout="tp"`` with a ``model`` axis larger than 1 (tensor,
-    expert and sequence parallelism) raises: that is the next slice."""
+    them.  ``grads`` gives one step's reduced gradients without the update.
+    ``last_collectives`` counts the previous call's collectives by kind."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh, *,
                  device: Optional[str | torch.device] = None):
@@ -219,15 +272,12 @@ class ShardedTrainStep:
             raise ValueError(f"a {self.device.type} step on a {mesh.device.type} mesh")
         if tcfg.layout not in LAYOUTS:
             raise ValueError(f"layout {tcfg.layout!r}: one of {LAYOUTS}")
-        if tcfg.layout == "tp" and S.axis_size(mesh, "model") > 1:
-            raise NotImplementedError(
-                f"layout 'tp' over a model axis of {mesh.shape['model']}: tensor, expert "
-                "and sequence parallelism over 'model' come with the next scale-out slice "
-                "(layout 'dp256' runs the model axis as data parallelism)"
-            )
+        plan = S.ShardingPlan(cfg, mesh, tcfg.layout)
+        T.check_model_axis(cfg, plan.model)
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.int8_ef = _check_compression(tcfg)
         self.schedule = make_schedule(tcfg)
+        self.act_specs = S.activation_specs(cfg, mesh, batch_sharded=True, layout=tcfg.layout)
         shapes = abstract_params(cfg, getattr(torch, tcfg.param_dtype))
         param_sp = S.param_specs(cfg, shapes, mesh=mesh, fsdp=tcfg.fsdp, layout=tcfg.layout)
         self.state_specs = {
@@ -240,22 +290,34 @@ class ShardedTrainStep:
         self.batch_specs = S.batch_specs(cfg, None, mesh, layout=tcfg.layout)
         self.dp = S.dp_axes(mesh, tcfg.layout)
         self.dp_size = mesh.size(self.dp)
-        # per leaf, in tree_leaves order: the dims its params are split
-        # over, the data axes its gradient is all-reduced over, whether this
-        # rank counts it in the norm, and the spec of its ZeRO-1 block within
-        # the params' (None when the moments split as the params do)
+        model = ("model",) if plan.model > 1 else ()
+        # the axes the norm's squares, the EF scales and the loss means
+        # reduce over
+        self.all_axes = self.dp + model
+        # per leaf, in tree_leaves order: the dims its params are split over
+        # the data axes (gathered for the forward), the axes its gradient is
+        # all-reduced over, whether this rank counts it in the norm, and the
+        # spec of its ZeRO-1 block within the params' (None when the moments
+        # split as the params do)
         self._split, self._reduce_axes, self._counted, self._zero1 = [], [], [], []
-        for ps, ms in zip(tree_leaves(param_sp), tree_leaves(self.state_specs["opt"]["mu"])):
+        partial = tree_leaves(tree_map_with_path(lambda path, _: S.model_partial(path, plan),
+                                                 shapes))
+        for ps, ms, part in zip(tree_leaves(param_sp), tree_leaves(self.state_specs["opt"]["mu"]),
+                                partial):
             split = S._sharded_dims(ps, mesh)
+            local = [(d, axes) for d, axes in split if model and axes == model]
+            split = [x for x in split if x not in local]
             split_axes = {a for _, axes in split for a in axes}
             if not split_axes <= set(self.dp):
                 raise ValueError(f"spec {ps} splits a parameter over {split_axes - set(self.dp)}"
                                  f", not a data axis of layout {tcfg.layout!r}")
             rest = tuple(a for a in self.dp if a not in split_axes)
             self._split.append(split)
-            self._reduce_axes.append(rest)
-            self._counted.append(all(mesh.coordinate[a] == 0 for a in rest))
-            extra = [(d, a) for d, a in S._sharded_dims(ms, mesh) if (d, a) not in split]
+            self._reduce_axes.append(rest + (model if part else ()))
+            self._counted.append(all(mesh.coordinate[a] == 0 for a in rest
+                                     + (model if not local else ())))
+            extra = [(d, a) for d, a in S._sharded_dims(ms, mesh)
+                     if (d, a) not in split and (d, a) not in local]
             block = [None] * len(ms)
             for d, a in extra:
                 block[d] = a
@@ -264,7 +326,11 @@ class ShardedTrainStep:
 
     # -- placement ------------------------------------------------------
     def _place(self, fn, tree, specs):
-        return tree_map(lambda t, s: fn(t, s, self.mesh), tree, specs)
+        """``fn(leaf, spec, mesh)`` over ``tree``, in the spec tree's key
+        order: the step pairs leaves with its per-leaf lists by position,
+        and a tree built elsewhere (``bridge.params_from_numpy``: the
+        reference's sorted keys) may hold the same keys in another order."""
+        return tree_map(lambda s, t: fn(t, s, self.mesh), specs, tree)
 
     def shard_state(self, full: dict) -> dict:
         """This rank's shards of a full state (copies, params trainable)."""
@@ -301,19 +367,21 @@ class ShardedTrainStep:
                                self.mesh) for k, v in batch.items()}
 
     # -- the step -------------------------------------------------------
-    def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
-        mesh, dp = self.mesh, self.dp
-        before = dict(mesh.collectives)
-        params, opt = state["params"], state["opt"]
-        local = tree_leaves(params)
+    def grads(self, state: dict, batch: dict) -> tuple:
+        """``(loss, ce, moe_aux, grads)`` of this rank's rows: the
+        gradients (fp32, ``tree_leaves`` order, this rank's blocks) reduced
+        over the mesh and divided by the data ranks, before error feedback,
+        the clip and the update; the metrics this rank's."""
+        mesh = self.mesh
+        params = state["params"]
         inputs = torch.as_tensor(batch["inputs"], device=self.device)
         labels = torch.as_tensor(batch["labels"], device=self.device)
-        full = [p if not split else
-                S.gather_tensor(p.detach(), ps, mesh).requires_grad_(True)
-                for p, split, ps in zip(local, self._split,
-                                        tree_leaves(self.state_specs["params"]))]
-        loss, ce, aux, grads = _loss_and_grads(self.cfg, self.tcfg,
-                                               tree_unflatten(params, full), inputs, labels)
+        # only the data-axis (FSDP) splits are gathered: model blocks stay
+        full = [p if not split else self._gather(p, split).requires_grad_(True)
+                for p, split in zip(tree_leaves(params), self._split)]
+        with activation_sharding(mesh, self.act_specs):
+            loss, ce, aux, grads = _loss_and_grads(self.cfg, self.tcfg,
+                                                   tree_unflatten(params, full), inputs, labels)
         del full
         with torch.no_grad():
             for i, g in enumerate(grads):
@@ -322,19 +390,34 @@ class ShardedTrainStep:
                 if self._reduce_axes[i]:
                     mesh.all_reduce(g, self._reduce_axes[i])
                 grads[i] = g.div_(self.dp_size)
+        return loss, ce, aux, grads
+
+    def _gather(self, p: torch.Tensor, split: list) -> torch.Tensor:
+        out = p.detach()
+        for dim, axes in split:
+            out = self.mesh.all_gather(out, axes, dim)
+        return out
+
+    def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        mesh, dp = self.mesh, self.dp
+        before = dict(mesh.collectives)
+        params, opt = state["params"], state["opt"]
+        local = tree_leaves(params)
+        loss, ce, aux, grads = self.grads(state, batch)
+        with torch.no_grad():
             if self.int8_ef:
                 _require_err(state)
                 errs = tree_leaves(state["err"])
                 amax = torch.stack([torch.max(torch.abs(g.float() + e))
                                     for g, e in zip(grads, errs)])
-                mesh.all_reduce(amax, dp, op="max")
+                mesh.all_reduce(amax, self.all_axes, op="max")
                 for i, err in enumerate(errs):
                     grads[i], new_err = ef_int8_compress_decompress(grads[i], err, amax=amax[i])
                     err.copy_(new_err)
             sq = torch.stack([torch.sum(torch.square(g.float())) if counted
                               else torch.zeros((), dtype=torch.float32, device=g.device)
                               for g, counted in zip(grads, self._counted)])
-            mesh.all_reduce(sq, dp)
+            mesh.all_reduce(sq, self.all_axes)
             grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
                                                self.tcfg.grad_clip_norm,
                                                norm=torch.sqrt(torch.sum(sq)))
@@ -353,3 +436,196 @@ class ShardedTrainStep:
             loss, ce, aux = means.div_(self.dp_size).unbind()
         self.last_collectives = {k: v - before.get(k, 0) for k, v in mesh.collectives.items()}
         return state, {"loss": loss, "ce": ce, "moe_aux": aux, "grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# Serve steps (decode / prefill) on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _gather_data_splits(params: Tree, specs: Tree, mesh) -> Tree:
+    """Every leaf's data-axis splits all-gathered (FSDP serve weights are
+    used whole); its ``model`` blocks stay this rank's."""
+    def whole(t, spec):
+        for dim, axes in S._sharded_dims(spec, mesh):
+            if "model" not in axes:
+                t = mesh.all_gather(t, axes, dim)
+        return t
+    return tree_map(whole, params, specs)
+
+
+@dataclasses.dataclass
+class ServeStepArtifacts:
+    """A serve step on a mesh and its spec trees (the reference's, from the
+    mesh's ``shape`` and ``axis_names`` alone, so a stand-in mesh builds
+    them).  ``step`` runs on this rank's tensors: ``(params, tokens,
+    cache) -> (next_tokens, cache)`` for decode, ``(params, inputs) ->
+    (logits, cache)`` for prefill, the logits this rank's vocab columns.
+    ``shard_*`` give this rank's blocks of full trees, ``gather_*`` the full
+    trees back (all-gathers); a batch that does not cover the data axes
+    (``batch_sharded`` False) is replicated over them, whatever the
+    reference's prefill specs name.  The reference's ``jitted`` has no
+    counterpart: eager PyTorch compiles nothing."""
+
+    step: Callable
+    cfg: ModelConfig
+    mesh: Any
+    shape: ShapeConfig
+    param_specs: Tree
+    input_specs: Tree  # tokens / prompt inputs
+    cache_specs: Optional[Tree]
+    out_specs: Tree
+    compute_dtype: Any
+    abstract_inputs: Callable = None
+    batch_sharded: bool = True
+
+    def _place(self, fn, tree, specs):
+        return tree_map(lambda t, sp: fn(t, sp, self.mesh), tree, specs)
+
+    def _rows(self, spec: S.P) -> S.P:
+        return spec if self.batch_sharded else S.P(None, *spec[1:])
+
+    def shard_params(self, full: Tree) -> Tree:
+        return self._place(lambda t, sp, m: S.shard_tensor(t, sp, m).contiguous(), full,
+                           self.param_specs)
+
+    def shard_inputs(self, full: torch.Tensor) -> torch.Tensor:
+        return S.shard_tensor(full, self._rows(self.input_specs), self.mesh).contiguous()
+
+    def shard_cache(self, full: dict) -> dict:
+        specs = self.out_specs[1]
+        return {"index": full["index"],
+                "layers": self._place(lambda t, sp, m: S.shard_tensor(t, sp, m).contiguous(),
+                                      full["layers"], specs["layers"])}
+
+    def gather_cache(self, local: dict) -> dict:
+        specs = self.out_specs[1]
+        return {"index": local["index"],
+                "layers": self._place(S.gather_tensor, local["layers"], specs["layers"])}
+
+    def gather_output(self, local: torch.Tensor) -> torch.Tensor:
+        """The full first output (decode tokens, prefill logits)."""
+        return S.gather_tensor(local, self._rows(self.out_specs[0]), self.mesh)
+
+
+def _serve_fsdp(cfg: ModelConfig, mesh, override: Optional[bool]) -> bool:
+    """FSDP serve weights when the model-sharded copy alone would crowd
+    device memory (> ~8 GiB a rank in bf16)."""
+    if override is not None:
+        return override
+    model = S.axis_size(mesh, "model")
+    return cfg.param_count() * 2 / model > 8 * 1024**3
+
+
+def _serve_common(cfg, mesh, shape, compute_dtype, fsdp, cache_dtype):
+    """The two serve steps' shared part: ``(batch_sharded, activation
+    specs, param specs, cache specs, the dense cache's sequence entry,
+    abstract params, abstract cache)``."""
+    cache_dtype = cache_dtype or compute_dtype
+    if cache_dtype != compute_dtype:
+        raise NotImplementedError(
+            f"cache_dtype {cache_dtype} != compute dtype {compute_dtype}: the quantized "
+            "(fp8) KV cache is not ported yet")
+    dp_size = 1
+    for a in S.dp_axes(mesh):
+        dp_size *= mesh.shape[a]
+    batch_sharded = shape.global_batch % dp_size == 0 and shape.global_batch >= dp_size
+    act_specs = S.activation_specs(cfg, mesh, batch_sharded=batch_sharded)
+    params_abs = abstract_params(cfg, compute_dtype)
+    cache_abs = abstract_cache(cfg, shape.global_batch, shape.seq_len, cache_dtype)
+    p_specs = S.param_specs(cfg, params_abs, mesh=mesh, fsdp=_serve_fsdp(cfg, mesh, fsdp))
+    c_specs = S.cache_specs(cfg, cache_abs, shape, mesh)
+    kv = c_specs["layers"].get("k", c_specs["layers"].get("shared_k"))
+    seq = kv[2] if kv is not None else None
+    return batch_sharded, act_specs, p_specs, c_specs, seq, params_abs, cache_abs
+
+
+def make_serve_step(
+    cfg: ModelConfig,
+    mesh,
+    shape: ShapeConfig,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    fsdp: Optional[bool] = None,
+    cache_dtype: Optional[torch.dtype] = None,
+) -> ServeStepArtifacts:
+    """One-token decode microstep on ``mesh``: ``(params, tokens [B],
+    cache) -> (next_tokens [B], cache)`` over this rank's blocks (tokens
+    ride the data axes when the batch covers them).  The cache is the dense
+    one of ``cache_specs``: its K/V heads on ``model``, or its sequence on
+    ``model`` (and on the data axes when the batch does not cover them),
+    its ``index`` ([] or [B]) replicated.  The argmax is reduced over the
+    split vocab (ties to the lowest index)."""
+    batch_sharded, act_specs, p_specs, c_specs, seq, params_abs, cache_abs = _serve_common(
+        cfg, mesh, shape, compute_dtype, fsdp, cache_dtype)
+    dp = S.dp_axes(mesh)
+    tok_spec = S.P(dp) if batch_sharded else S.P()
+
+    @torch.no_grad()
+    def decode(params, tokens, cache):
+        index = cache["index"]
+        local = index
+        if index.ndim == 1 and batch_sharded:
+            local = S.shard_tensor(index, S.P(dp), mesh)
+        params = _gather_data_splits(params, p_specs, mesh)
+        with activation_sharding(mesh, act_specs, cache_seq=seq):
+            logits, new = T.decode_step(cfg, params, tokens, dict(cache, index=local),
+                                        compute_dtype=compute_dtype)
+            out = (AS.vocab_argmax(logits) if AS.split("btv")
+                   else torch.argmax(logits, dim=-1).to(torch.int32))
+        return out, dict(new, index=index + 1)
+
+    def abstract_inputs():
+        tokens = torch.empty((shape.global_batch,), dtype=torch.int32, device="meta")
+        return params_abs, tokens, cache_abs
+
+    return ServeStepArtifacts(
+        step=decode, cfg=cfg, mesh=mesh, shape=shape, param_specs=p_specs,
+        input_specs=tok_spec, cache_specs=c_specs, out_specs=(tok_spec, c_specs),
+        compute_dtype=compute_dtype, abstract_inputs=abstract_inputs,
+        batch_sharded=batch_sharded)
+
+
+def make_prefill_step(
+    cfg: ModelConfig,
+    mesh,
+    shape: ShapeConfig,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    impl: str = "auto",
+    fsdp: Optional[bool] = None,
+    cache_dtype: Optional[torch.dtype] = None,
+) -> ServeStepArtifacts:
+    """Full-sequence prefill on ``mesh``: ``(params, inputs [B, S]) ->
+    (last logits [B, V], cache at seq_len)`` over this rank's blocks, the
+    logits this rank's vocab columns and the cache this rank's block of
+    ``cache_specs`` (each rank computes its rows' whole prompt, its KV
+    heads, and keeps its block of the sequence)."""
+    batch_sharded, act_specs, p_specs, c_specs, seq, params_abs, cache_abs = _serve_common(
+        cfg, mesh, shape, compute_dtype, fsdp, cache_dtype)
+    dp = S.dp_axes(mesh)
+    in_spec = S.P(dp, None, None) if cfg.embed_inputs else S.P(dp, None)
+    seq_spec = S.P(*[None] * 2, seq)  # the K/V leaves' sequence dim
+
+    @torch.no_grad()
+    def prefill_step(params, inputs):
+        params = _gather_data_splits(params, p_specs, mesh)
+        with activation_sharding(mesh, act_specs):
+            logits, cache = T.prefill(cfg, params, inputs, shape.seq_len, impl=impl,
+                                      compute_dtype=compute_dtype, cache_dtype=compute_dtype)
+        layers = tree_map(lambda t: S.shard_tensor(t, seq_spec, mesh).contiguous()
+                          if t.ndim == 5 else t, cache["layers"])
+        return logits, dict(cache, layers=layers)
+
+    def abstract_inputs():
+        b, s = shape.global_batch, shape.seq_len
+        inp = (torch.empty((b, s, cfg.d_model), dtype=torch.float32, device="meta")
+               if cfg.embed_inputs else torch.empty((b, s), dtype=torch.int32, device="meta"))
+        return params_abs, inp
+
+    plan = S.ShardingPlan(cfg, mesh)
+    return ServeStepArtifacts(
+        step=prefill_step, cfg=cfg, mesh=mesh, shape=shape, param_specs=p_specs,
+        input_specs=in_spec, cache_specs=None, out_specs=(S.P(dp, plan.vocab()), c_specs),
+        compute_dtype=compute_dtype, abstract_inputs=abstract_inputs,
+        batch_sharded=batch_sharded)

@@ -327,8 +327,13 @@ def test_sharded_path_refuses_what_it_cannot_run(one_rank_group):
     cfg = configs.smoke_config("qwen3-1.7b")
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     mesh.shape["model"] = 2  # a stand-in for a 1x2 mesh: the rule reads the shape
-    with pytest.raises(NotImplementedError, match="next scale-out slice"):
-        make_train_step(cfg, _tcfg(), mesh, device="cpu")
+    # "tp" over a model axis runs the attention families (its leaves split
+    # over "model") and raises for Mamba1 and the hybrid
+    step = make_train_step(cfg, _tcfg(), mesh, device="cpu")
+    assert any("model" in s for s in tree_leaves(step.state_specs["params"]))
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="next scale-out slice"):
+            make_train_step(configs.smoke_config(arch), _tcfg(), mesh, device="cpu")
     with pytest.raises(ValueError, match="layout"):
         make_train_step(cfg, _tcfg(layout="tp2"), make_dev_mesh(device="cpu"), device="cpu")
     mesh = make_dev_mesh(device="cpu")

@@ -42,7 +42,8 @@ def test_walk_covers_the_port():
                 "configs/moonshot_v1_16b_a3b.py", "configs/dbrx_132b.py",
                 "runtime/trainer.py", "launch/train.py", "optim/compression.py",
                 "core/simulator.py", "core/baselines.py", "core/queues.py",
-                "core/hardware.py", "launch/mesh.py", "runtime/sharding.py"):
+                "core/hardware.py", "launch/mesh.py", "runtime/sharding.py",
+                "models/act_sharding.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
     assert ROOT / "scripts" / "torch_scan_breakdown.py" in FILES
     assert ROOT / "examples" / "torch_quickstart.py" in FILES
@@ -74,6 +75,7 @@ def test_serving_core_import_pulls_no_jax():
         "import repro_torch.optim.compression; "
         "import repro_torch.core.simulator; import repro_torch.core.baselines; "
         "import repro_torch.launch.mesh; import repro_torch.runtime.sharding; "
+        "import repro_torch.models.act_sharding; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )

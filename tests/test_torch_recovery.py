@@ -57,6 +57,16 @@ T = types.SimpleNamespace(
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _engine(ns, vnow, paged=True, start=0.0, **kw):
     vnow[0] = start
     kw.setdefault("max_slots", 2)

@@ -51,6 +51,16 @@ COUNTERS = ("engine/spec_rounds", "engine/spec_drafted", "engine/spec_accepted",
             "spec/proposer/router_switches", "spec/proposer/no_match_fallbacks")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class Clock:
     """Virtual clock advanced by the test between steps only."""
 
