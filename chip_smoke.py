@@ -336,6 +336,22 @@ Phases, each printing a line before the last:
                  ``T.prefill`` plus eager ``T.decode_step``, no collective
                  issued; prints each step's time beside the eager step's,
                  the peak memory, the collectives a step.
+34. ssm model axis -- after phase 33: ``make_prefill_step`` and 8
+                 ``make_serve_step`` steps of falcon-mamba-7b and
+                 zamba2-2.7b at full width and depth in fp32 on a (1, 4)
+                 stand-in mesh (phase 32's), each rank on its block of
+                 ``d_inner`` (2048 and 1280 columns; zamba2's 32 attention
+                 heads, KV heads too, 8 a rank): tokens equal to the unsplit
+                 run, the logits and every gathered cache leaf within 1e-4
+                 of their max, the scan launched once a layer and rank, the
+                 hybrid's flash once a cycle and rank, its decode once a
+                 cycle, rank and step; then the scan #10 and its backward
+                 #10b at a rank's d_inner (2048, 4096: B = 4, Q = 1024 and
+                 200; the smoke config's 32 at ds 8) against the plain scan
+                 and autograd of it, two launches bit-equal, timed at Q =
+                 1024 beside the plain versions and the bounds.  The row
+                 ``ssm_scan_di2048`` reports the falcon-mamba stand-in run's
+                 launches.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -356,9 +372,10 @@ the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
 24-layer run, the ``*_g1`` rows' from phase 26, the others' from the
 collocated run; each
 row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
-19-21, 22-24, 26-27, 29-31 and 33 that launch it; phase 32's two rows, #3's
-partial form and the merge, report its sequence-parallel serve run's
-launches; a row with no launch fails the run)
+19-21, 22-24, 26-27, 29-31, 33 and 34 that launch it; phase 32's two rows,
+#3's partial form and the merge, report its sequence-parallel serve run's
+launches, phase 34's row its falcon-mamba run's; a row with no launch fails
+the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -1778,17 +1795,16 @@ def _ssm_chained(ss, xi, dt, bm, cm, a, h0, chunk=SSM_Q):
     return torch.cat(ys, dim=1), h
 
 
-def _ssm_bound(q, b=1):
-    """Bound of one scan of ``q`` steps over ``b`` batch rows at the table's
-    widths.  Bytes: xi, dt, y [b, q, di] and B, C [b, q, ds] once, A once,
-    h0 and h [b, di, ds] once; ops: per (row, step, d, state) dt*A, exp,
-    *h, fma with dt*x*B, *C, the sum."""
+def _ssm_bound(q, b=1, di=SSM_DI, ds=SSM_DS):
+    """Bound of one scan of ``q`` steps over ``b`` batch rows (the table's
+    widths unless given).  Bytes: xi, dt, y [b, q, di] and B, C [b, q, ds]
+    once, A once, h0 and h [b, di, ds] once; ops: per (row, step, d, state)
+    dt*A, exp, *h, fma with dt*x*B, *C, the sum."""
     import torch
 
-    elems = b * q * SSM_DI * SSM_DS
-    nbytes = 4 * (3 * b * q * SSM_DI + 2 * b * q * SSM_DS + SSM_DI * SSM_DS
-                  + 2 * b * SSM_DI * SSM_DS)
-    return _bound_ms(nbytes, 7 * elems + b * q * SSM_DI, torch.float32)
+    elems = b * q * di * ds
+    nbytes = 4 * (3 * b * q * di + 2 * b * q * ds + di * ds + 2 * b * di * ds)
+    return _bound_ms(nbytes, 7 * elems + b * q * di, torch.float32)
 
 
 def _ssm_rows():
@@ -5734,9 +5750,10 @@ def phase_collocated_step(trainer):
 
 
 def phase_scale_out():
-    """Phases 30 and 31, then 32 and 33, in one process group: one rank
+    """Phases 30 and 31, then 32, 33 and 34, in one process group: one rank
     over NCCL, joined through a ``FileStore`` in a temporary directory.
-    Returns ({run label: launch counts}, phase 32's kernel rows)."""
+    Returns ({run label: launch counts}, phases 32's and 34's kernel
+    rows)."""
     import shutil
     import tempfile
 
@@ -5754,11 +5771,12 @@ def phase_scale_out():
         _end_phase("scale out + collocated step")
         model_axis_rows = phase_model_axis_kernels()
         serve_steps = phase_serve_steps(mesh)
+        ssm_runs, ssm_rows = phase_ssm_model_axis()
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    return ({"scale_out": scale, "collocated_step": colloc, "serve_steps": serve_steps},
-            model_axis_rows)
+    return ({"scale_out": scale, "collocated_step": colloc, "serve_steps": serve_steps,
+             **ssm_runs}, model_axis_rows + ssm_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -5962,17 +5980,25 @@ class _ThreadMesh:
         return torch.cat([b.movedim(dim, 0) for b in blocks]).movedim(0, dim)
 
 
-def _seq_parallel_serve(cfg, ranks=SP_RANKS, rows=SERVE_STEP_ROWS, seq=SERVE_STEP_SEQ,
-                        prompt=SP_PROMPT, decodes=SP_DECODES, device="cuda"):
-    """The port's sequence-parallel decode, driven through its entry points:
+def _kv_seq_entry(specs):
+    """The dense cache's sequence entry of a cache spec tree (None: Mamba1
+    holds no K/V)."""
+    layers = specs["layers"]
+    kv = layers.get("k", layers.get("shared_k"))
+    return kv[2] if kv is not None else None
+
+
+def _stand_in_serve(cfg, ranks, rows, seq, prompt, decodes, seed, device="cuda"):
+    """The port's serve steps driven through its entry points:
     ``make_prefill_step`` and ``decodes`` ``make_serve_step`` steps of
     ``cfg`` in fp32 on a ``(data, model) = (1, ranks)`` stand-in mesh
-    (``_Turns``), whose cache splits its sequence over ``model``.  The
-    tokens equal, and the prefill logits, the logits of one more decode
-    step and the gathered cache within ``SP_RTOL`` of, the unsplit
+    (``_Turns``), each rank on its blocks of the weights.  The tokens equal,
+    and the prefill logits, the logits of one more decode step and every
+    leaf of the gathered cache within ``SP_RTOL`` of their max, the unsplit
     ``T.prefill`` + ``T.decode_step`` on the same weights.  Returns the
     launch counts of the steps (read from 0 just before the ranks start
-    until every rank has taken its last step) and a summary."""
+    until every rank has taken its last step) and a summary (each rank's
+    cache leaf shapes and sequence entry among it)."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -5981,9 +6007,10 @@ def _seq_parallel_serve(cfg, ranks=SP_RANKS, rows=SERVE_STEP_ROWS, seq=SERVE_STE
     from repro_torch.models.act_sharding import activation_sharding
     from repro_torch.runtime import make_prefill_step, make_serve_step
     from repro_torch.runtime import sharding as S
+    from repro_torch.tree import tree_map, tree_map_with_path
 
     f32 = torch.float32
-    gen = torch.Generator(device=device).manual_seed(32)
+    gen = torch.Generator(device=device).manual_seed(seed)
     params = T.init_params(cfg, gen, dtype=f32)
     prompts = torch.randint(0, cfg.vocab_size, (rows, prompt), generator=gen, device=device,
                             dtype=torch.int32)
@@ -5998,7 +6025,7 @@ def _seq_parallel_serve(cfg, ranks=SP_RANKS, rows=SERVE_STEP_ROWS, seq=SERVE_STE
             ref_toks.append(tok := torch.argmax(lg, -1).to(torch.int32))
         # the cache as the split run leaves it: the token of the extra step
         # is written there too, at the same index
-    shape = ShapeConfig("seq_parallel", seq, rows, "decode")
+    shape = ShapeConfig("stand_in", seq, rows, "decode")
     turns = _Turns(ranks)
     meshes = [_ThreadMesh(turns, (1, ranks), ("data", "model"), r, torch.device(device))
               for r in range(ranks)]
@@ -6017,14 +6044,14 @@ def _seq_parallel_serve(cfg, ranks=SP_RANKS, rows=SERVE_STEP_ROWS, seq=SERVE_STE
         counts, colls = turns.wait(lambda: (ops.launch_counts(), dict(mesh.collectives)))
         # one more decode step's logits, under the step's own context (not
         # counted: the counts are read)
-        seq_entry = dec.cache_specs["layers"]["k"][2]
+        seq_entry = _kv_seq_entry(dec.cache_specs)
         specs = S.activation_specs(cfg, mesh, batch_sharded=dec.batch_sharded)
         with torch.no_grad(), activation_sharding(mesh, specs, cache_seq=seq_entry):
             lg, cache = T.decode_step(cfg, local, tok, cache, compute_dtype=f32)
         lg = S.gather_tensor(lg, S.P(None, S.ShardingPlan(cfg, mesh).vocab()), mesh)
         return {"prefill": full, "tokens": toks, "logits": lg, "counts": counts,
                 "collectives": colls, "seq_entry": seq_entry,
-                "kv_local": tuple(cache["layers"]["k"].shape),
+                "local": tree_map(lambda t: tuple(t.shape), cache["layers"]),
                 "cache": dec.gather_cache(cache)}
 
     ops.reset_launch_counts()
@@ -6037,26 +6064,43 @@ def _seq_parallel_serve(cfg, ranks=SP_RANKS, rows=SERVE_STEP_ROWS, seq=SERVE_STE
 
     errs = {"prefill": 0.0, "logits": 0.0, "cache": 0.0}
     for rank, res in enumerate(results):
-        if res["seq_entry"] != "model" or res["kv_local"][2] != seq // ranks:
-            raise AssertionError(f"seq parallel rank {rank}: the cache is not sequence-split "
-                                 f"({res['seq_entry']}, {res['kv_local']})")
         if not all(torch.equal(a, b) for a, b in zip(res["tokens"], ref_toks)):
-            raise AssertionError(f"seq parallel rank {rank}: tokens differ from the unsplit "
-                                 "run's")
+            raise AssertionError(f"{cfg.name} stand-in serve rank {rank}: tokens differ from "
+                                 "the unsplit run's")
         errs["prefill"] = max(errs["prefill"], rel(res["prefill"], ref_logits))
         errs["logits"] = max(errs["logits"], rel(res["logits"], ref_step_logits[decodes]))
-        for name in ("k", "v"):
-            errs["cache"] = max(errs["cache"], rel(res["cache"]["layers"][name],
-                                                   ref_cache["layers"][name]))
+        leaves = []
+        tree_map_with_path(lambda path, t: leaves.append((path, t)), ref_cache["layers"])
+        got = res["cache"]["layers"]
+        for path, want in leaves:
+            have = got
+            for key in path.split("/"):
+                have = have[key]
+            errs["cache"] = max(errs["cache"], rel(have, want))
     if max(errs.values()) > SP_RTOL:
-        raise AssertionError(f"seq parallel: split run against the unsplit {errs} (tolerance "
-                             f"{SP_RTOL:g} of the max)")
+        raise AssertionError(f"{cfg.name} stand-in serve: split run against the unsplit {errs} "
+                             f"(tolerance {SP_RTOL:g} of the max)")
     counts, colls = results[0]["counts"], results[0]["collectives"]
-    del results, params, ref_cache
     summary = {"arch": cfg.name, "ranks": ranks, "layers": cfg.num_layers, "rows": rows,
                "seq": seq, "prompt": prompt, "decodes": decodes, "seconds": secs,
-               "errors": errs, "collectives_rank0": colls}
+               "errors": errs, "collectives_rank0": colls,
+               "seq_entries": [res["seq_entry"] for res in results],
+               "local": [res["local"] for res in results]}
+    del results, params, ref_cache
     return counts, summary
+
+
+def _seq_parallel_serve(cfg):
+    """The port's sequence-parallel decode (``_stand_in_serve`` of ``cfg``
+    on ``SP_RANKS`` ranks, whose cache splits its sequence over
+    ``model``)."""
+    counts, sp = _stand_in_serve(cfg, SP_RANKS, SERVE_STEP_ROWS, SERVE_STEP_SEQ, SP_PROMPT,
+                                 SP_DECODES, seed=32)
+    for rank, (entry, local) in enumerate(zip(sp["seq_entries"], sp["local"])):
+        if entry != "model" or local["k"][2] != SERVE_STEP_SEQ // SP_RANKS:
+            raise AssertionError(f"seq parallel rank {rank}: the cache is not sequence-split "
+                                 f"({entry}, {local['k']})")
+    return counts, sp
 
 
 def phase_model_axis_kernels():
@@ -6312,6 +6356,171 @@ def phase_serve_steps(mesh):
     return total
 
 
+# ---------------------------------------------------------------------------
+# 34. Mamba1 and the hybrid over the model axis: the serve steps on a stand-in
+# mesh, the scan #10 / #10b at a rank's d_inner
+# ---------------------------------------------------------------------------
+
+#: the stand-in mesh's model axis: falcon-mamba's d_inner 8192 in blocks of
+#: 2048, zamba2's 80 SSM heads in blocks of 20 and its 32 attention heads
+#: (KV heads too) in blocks of 8
+SSM_TP_RANKS = 4
+#: 8 rows of a 128-token prompt (two whole SSD chunks) in a 512-row cache,
+#: 8 decode steps
+SSM_TP_ROWS, SSM_TP_PROMPT, SSM_TP_SEQ, SSM_TP_DECODES = 8, 128, 512, 8
+#: the scan's rank shapes: d_inner 8192 over model 2 and 4 (B = 4, Q = 1024
+#: and a ragged 200), and the smoke config's 128 over model 4 at its state
+#: width 8 (B = 2, Q = 65)
+SSM_TP_DI = (4096, 2048)
+SSM_TP_CASES = [(4, 1024, di, SSM_DS) for di in SSM_TP_DI] + \
+    [(4, 200, di, SSM_DS) for di in SSM_TP_DI] + [(2, 65, 32, 8)]
+
+
+def _ssm_rank_shapes():
+    """#10 and #10b at a rank's ``d_inner`` (``SSM_TP_CASES``, fp32, from a
+    non-zero h0, with a non-zero gradient of the final state): the serving
+    forward against the plain scan, the backward against autograd of it,
+    each within ``SSM_RTOL`` / ``SSM_GRAD_RTOL`` of the largest value and
+    bit-equal over two launches; then each timed at B = 4, Q = 1024 beside
+    its plain version and its bound.  Returns ``{d_inner: (forward ms,
+    plain ms, bound ms, by, backward ms, plain ms, bound ms, by)}`` and the
+    worst errors ``(forward, backward)``."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ss
+
+    def plain_graph(args):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        return leaves, ss.ssm_scan_chunk_torch(*leaves)
+
+    rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()
+    worst = [0.0, 0.0]
+    for b, q, di, ds in SSM_TP_CASES:
+        args = _ssm_inputs(b, q, seed=34, di=di, ds=ds)
+        g = torch.Generator(device="cuda").manual_seed(35)
+        gy = torch.randn((b, q, di), generator=g, device="cuda")
+        gh = torch.randn((b, di, ds), generator=g, device="cuda")
+        y, h = ss.ssm_scan_chunk(*args)
+        y2, h2 = ss.ssm_scan_chunk(*args)
+        _, _, hs = ss.ssm_scan_fwd(*args)
+        kgrads = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
+        again = ss.ssm_scan_bwd(*args[:5], hs, gy, gh)
+        torch.cuda.synchronize()
+        label = f"B={b} Q={q} di={di} ds={ds}"
+        if not (torch.equal(y, y2) and torch.equal(h, h2)
+                and all(torch.equal(k, k2) for k, k2 in zip(kgrads, again))):
+            raise AssertionError(f"ssm_scan / ssm_scan_bwd {label}: two launches differ")
+        ry, rh = ss.ssm_scan_chunk_torch(*args)
+        leaves, outs = plain_graph(args)
+        pgrads = torch.autograd.grad(outs, leaves, (gy, gh))
+        fwd = max(rel(y, ry), rel(h, rh))
+        bwd = max(rel(k, p) for k, p in zip(kgrads, pgrads))
+        finite = all(torch.isfinite(t).all() for t in (y, h, *kgrads))
+        log(f"kernel ssm_scan / ssm_scan_bwd at a rank's d_inner, {label} fp32: forward max err "
+            f"/ max|ref| {fwd:.2e} (tol {SSM_RTOL:g}), backward {bwd:.2e} (tol "
+            f"{SSM_GRAD_RTOL:g}); two launches of each bit-equal")
+        if not (finite and fwd <= SSM_RTOL and bwd <= SSM_GRAD_RTOL):
+            raise AssertionError(f"ssm_scan at a rank's d_inner {label}: errors {fwd}, {bwd} "
+                                 "or non-finite values")
+        worst = [max(worst[0], fwd), max(worst[1], bwd)]
+        del leaves, outs, pgrads, kgrads, again
+    times = {}
+    b, q = 4, 1024
+    for di in SSM_TP_DI:
+        args = _ssm_inputs(b, q, seed=36, di=di)
+        g = torch.Generator(device="cuda").manual_seed(37)
+        gy = torch.randn((b, q, di), generator=g, device="cuda")
+        gh = torch.randn((b, di, SSM_DS), generator=g, device="cuda")
+        _, _, hs = ss.ssm_scan_fwd(*args)
+        f_ms = _time_ms(lambda: ss.ssm_scan_chunk(*args))
+        fp_ms = _time_ms(lambda: ss.ssm_scan_chunk_torch(*args), reps=3)
+        b_ms = _time_ms(lambda: ss.ssm_scan_bwd(*args[:5], hs, gy, gh))
+        leaves, outs = plain_graph(args)
+        bp_ms = _time_ms(lambda: torch.autograd.grad(outs, leaves, (gy, gh), retain_graph=True),
+                         reps=3)
+        del leaves, outs
+        f_bound, f_by = _ssm_bound(q, b, di=di)
+        b_bound, b_by = _ssm_bwd_bound(b, q, di=di)
+        times[di] = (f_ms, fp_ms, f_bound, f_by, b_ms, bp_ms, b_bound, b_by)
+        log(f"kernel ssm_scan at a rank's d_inner ({_card()}; B={b}, Q={q}, di={di}, "
+            f"ds={SSM_DS}, fp32): forward {f_ms:.4f} ms (plain {fp_ms:.4f}, bound {f_bound:.4f} "
+            f"by {f_by}, {100 * f_bound / f_ms:.1f}%); backward {b_ms:.4f} ms (plain "
+            f"{bp_ms:.4f}, bound {b_bound:.4f} by {b_by}, {100 * b_bound / b_ms:.1f}%); "
+            f"library none")
+    return times, worst
+
+
+def phase_ssm_model_axis():
+    """Phase 34: Mamba1 and the hybrid over the model axis.  The serve steps
+    (``make_prefill_step`` + ``SSM_TP_DECODES`` ``make_serve_step`` steps, fp32)
+    of falcon-mamba-7b and zamba2-2.7b at full width and depth on a
+    ``(1, SSM_TP_RANKS)`` stand-in mesh (``_stand_in_serve``), each rank on
+    its ``d_inner`` block, against the unsplit run; the scan #10 and its
+    backward #10b at a rank's ``d_inner`` (``_ssm_rank_shapes``).  Returns
+    the runs' launch counts and the kernel row of #10 at falcon-mamba's
+    rank shape (its launches: the stand-in run's)."""
+    import torch
+
+    from repro_torch import configs
+
+    t_phase = time.monotonic()
+    _fresh_phase()
+    runs, summaries = {}, {}
+    for arch, kernels in (("falcon-mamba-7b", SSM_KERNELS),
+                          ("zamba2-2.7b", HYBRID_SERVE_KERNELS)):
+        cfg = configs.get_config(arch)
+        t0 = time.monotonic()
+        counts, sm = _stand_in_serve(cfg, SSM_TP_RANKS, SSM_TP_ROWS, SSM_TP_SEQ, SSM_TP_PROMPT,
+                                     SSM_TP_DECODES, seed=34)
+        _require_launches(f"{arch} over model {SSM_TP_RANKS}", counts, kernels)
+        n = SSM_TP_RANKS
+        if cfg.family == "ssm":
+            want = {"ssm_scan": n * cfg.num_layers}
+            width = [loc["h"][2] for loc in sm["local"]]
+        else:
+            n_cyc = cfg.num_layers // cfg.shared_attn_every
+            want = {"flash_attention_fwd": n * n_cyc,
+                    "decode_attention": n * n_cyc * SSM_TP_DECODES}
+            width = [loc["mamba"]["conv_x"][-1] for loc in sm["local"]]
+            if any(loc["shared_k"][3] != cfg.num_kv_heads // n for loc in sm["local"]):
+                raise AssertionError(f"{arch}: the shared K/V do not split their heads: "
+                                     f"{[loc['shared_k'] for loc in sm['local']]}")
+        got = {k: counts[k]["cuda"] for k in want}
+        if got != want or width != [cfg.d_inner // n] * n:
+            raise AssertionError(f"{arch} over model {n}: launches {got} (expected {want}), "
+                                 f"d_inner a rank {width}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"ssm model axis ({_card()}; {arch} full width and depth, fp32, make_prefill_step + "
+            f"{SSM_TP_DECODES} make_serve_step steps on a (1, {n}) stand-in mesh of threads, "
+            f"{SSM_TP_ROWS} rows of {SSM_TP_PROMPT}-token prompts, d_inner {cfg.d_inner // n} a "
+            f"rank): tokens equal to the unsplit T.prefill + T.decode_step, errors relative to "
+            f"the max {sm['errors']} (tolerance {SP_RTOL:g}); {sm['seconds']:.1f} s for all "
+            f"ranks in turn, {time.monotonic() - t0:.1f} s with the unsplit run; peak "
+            f"{peak:.2f} GB; rank 0's collectives {json.dumps(sm['collectives_rank0'])}; "
+            f"launches {json.dumps(got)}")
+        runs[f"ssm_tp_{cfg.family}"] = {k: c["cuda"] for k, c in counts.items()}
+        summaries[arch] = sm
+        _fresh_phase()
+    times, worst = _ssm_rank_shapes()
+    di = SSM_TP_DI[-1]  # falcon-mamba's d_inner a rank at model 4: the stand-in's
+    f_ms, fp_ms, f_bound, f_by, b_ms, bp_ms, b_bound, b_by = times[di]
+    row = {"name": f"ssm_scan_di{di}", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+           "replaces": "src/repro/kernels/ssm_scan.py:56",
+           "launches": runs["ssm_tp_ssm"]["ssm_scan"], "max_abs_err": worst[0],
+           "err_kind": "relative to max|ref|, fp32", "ms": f_ms, "plain_ms": fp_ms,
+           "bound_ms": f_bound, "bound_by": f_by, "library_ms": None,
+           "shape": f"B=4, Q=1024, di={di}, ds={SSM_DS}",
+           "bwd": {str(d): {"ms": t[4], "plain_ms": t[5], "bound_ms": t[6], "bound_by": t[7]}
+                   for d, t in times.items()},
+           "fwd_di4096": {"ms": times[4096][0], "plain_ms": times[4096][1],
+                          "bound_ms": times[4096][2]},
+           "max_abs_err_bwd": worst[1]}
+    _end_phase("ssm model axis")
+    log(f"ssm model axis: {time.monotonic() - t_phase:.1f}s")
+    return runs, [row]
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -6368,8 +6577,9 @@ def main() -> int:
     # profiler session
     slice_launches["online_serving"] = phase_online_serving()
     # phases 30-31, the sharded train step over NCCL and the fused collocated
-    # step, and phases 32-33, the model axis' kernels at each rank's shapes and
-    # the serve steps on the mesh, also before any profiler session
+    # step, and phases 32-34, the model axis' kernels at each rank's shapes,
+    # the serve steps on the mesh and Mamba1 / the hybrid over the model
+    # axis, also before any profiler session
     scale_launches, model_axis_rows = phase_scale_out()
     slice_launches.update(scale_launches)
     row_runs = {**av_launches, **olmo_launches}
@@ -6427,7 +6637,8 @@ def main() -> int:
         for run, counts in slice_launches.items():
             if counts.get(row["name"]):
                 row[f"launches_{run}"] = counts[row["name"]]
-    # phase 32's rows: their launches are its sequence-parallel serve run's
+    # phases 32's and 34's rows: their launches are their stand-in serve
+    # runs'
     rows.extend(model_axis_rows)
     idle = [row["name"] for row in rows if not row["launches"] > 0]
     if idle:

@@ -14,8 +14,12 @@ below, each over the ``model`` group of the context's ``Mesh`` (so
     identity forward, all-reduce backward; ``reduce_from_model`` after a
     row-parallel product: all-reduce forward, identity backward), around
     attention when its q heads split (``split("bthd")``), the MLP when its
-    hidden dim splits (``"btf"``) and the MoE block when its experts split
-    (``"ecd"``)
+    hidden dim splits (``"btf"``), the MoE block when its experts split
+    (``"ecd"``) and the Mamba1 / Mamba2 mixers when ``d_inner`` splits
+    (``"bti"``)
+  * ``all_reduce_model``, a sum over the split ``d_inner`` that split code
+    consumes again (Mamba1's ``x_proj`` output, Mamba2's gated norm's sum
+    of squares): all-reduce forward AND backward
   * the vocab-parallel embedding lookup, logsumexp, gold logit and argmax
     (``"btv"``)
   * the sequence-parallel decode (the dense cache's sequence dim split over
@@ -146,6 +150,15 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     if model_size() == 1:
         return x
     return _ReduceFromModel.apply(x, _ACTIVE.mesh)
+
+
+def all_reduce_model(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial sums of ``x`` all-reduced over ``model``, for a
+    consumer that is itself split: its gradient, on each rank the part its
+    own block of the consumer gives, is all-reduced too
+    (``copy_to_model(reduce_from_model(x))``; ``reduce_from_model`` alone
+    would leave each rank its own part of it)."""
+    return copy_to_model(reduce_from_model(x))
 
 
 def once_over_model(x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,17 @@ prompt's state equal the unpadded one's, for both versions.  The reference compu
 Pallas kernel, so it is plain PyTorch here (on the card too), with the
 reference's 64-step chunks and einsum order; autograd differentiates it.
 Plain functions on tensors with an explicit device.
+
+Under an ``act_sharding`` context whose ``d_inner`` splits over ``model``
+(``split("bti")``) both versions run on this rank's blocks, as the
+reference's specs place them (``runtime.sharding``): the input enters
+through ``copy_to_model`` (``layers.tp_entry``); the ``in_proj`` /
+``in_proj_zx`` halves, the conv, ``dt_proj``, A, D, the scan or the SSD,
+the gate and the decode state are the rank's ``d_inner / m`` columns (Mamba2: its ``nh / m`` heads, whose
+dt, ``A_log``, D and ``dt_bias`` entries it reads from the replicated
+leaves); Mamba1's ``x_proj`` product (dt_r, B, C) and Mamba2's gated norm's
+sum of squares are partial sums over ``model`` (``all_reduce_model``);
+``out_proj`` is row-parallel (``reduce_from_model``).
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import act_sharding as AS
+from repro_torch.models import layers as L
 
 Params = Any
 #: steps per SSD chunk (the reference's ``DEFAULT_CHUNK``)
@@ -90,6 +103,53 @@ def dt_mask(dt: torch.Tensor, length: Optional[int]) -> torch.Tensor:
         return dt
     valid = torch.arange(dt.shape[1], device=dt.device) < int(length)
     return dt * valid[None, :, None]
+
+
+# ---------------------------------------------------------------------------
+# d_inner over the model axis
+# ---------------------------------------------------------------------------
+
+
+def _tp_out(y: torch.Tensor) -> torch.Tensor:
+    """``out_proj``'s product: summed over ``model`` when ``d_inner``
+    splits (row-parallel)."""
+    return AS.reduce_from_model(y) if AS.split("bti") else y
+
+
+def check_head_split(cfg: ModelConfig, model: int) -> None:
+    """Raise ``ValueError`` where a Mamba2 ``d_inner`` split over ``model``
+    ranks does not fall on whole SSM heads (no reference config does)."""
+    if cfg.ssm_version != 2 or model == 1 or cfg.d_inner % model:
+        return
+    if cfg.ssm_num_heads % model:
+        raise ValueError(
+            f"{cfg.name}: d_inner {cfg.d_inner} split {model} ways gives "
+            f"{cfg.d_inner // model} columns a rank, not whole SSM heads of "
+            f"{cfg.ssm_head_dim} ({cfg.ssm_num_heads} heads over {model} ranks)")
+
+
+def _local_heads(cfg: ModelConfig, width: int) -> slice:
+    """The SSM heads of this rank's ``width`` columns of ``d_inner`` (all
+    of them unless ``d_inner`` splits)."""
+    if not AS.split("bti"):
+        return slice(0, cfg.ssm_num_heads)
+    check_head_split(cfg, AS.model_size())
+    n = width // cfg.ssm_head_dim
+    return slice(AS.model_rank() * n, (AS.model_rank() + 1) * n)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                d_inner: int, eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated RMSNorm ``rms_norm(y * silu(z), weight)`` over the
+    whole ``d_inner``, in ``layers.rms_norm``'s order; on a split
+    ``d_inner`` the sum of squares of this rank's columns is summed over
+    ``model`` (``all_reduce_model``) and divided by the whole width."""
+    v = y * F.silu(z)
+    if not AS.split("bti"):
+        return L.rms_norm(v, weight, eps)
+    v32 = v.float()
+    ss = AS.all_reduce_model((v32 * v32).sum(dim=-1, keepdim=True))
+    return (v32 * torch.rsqrt(ss / d_inner + eps) * weight.float()).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -160,11 +220,15 @@ def mamba1_with_state(
     dt = 0, so the state is exactly the unpadded prompt's.  The scan runs
     under ``impl`` (``ops.ssm_scan_chunk``)."""
     b = x.shape[0]
-    di, ds, dtr = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank
-    xi_raw, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    ds, dtr = cfg.ssm_state, cfg.resolved_dt_rank
+    xi_raw, z = (L.tp_entry(x, "bti") @ p["in_proj"]).chunk(2, dim=-1)
+    di = xi_raw.shape[-1]  # this rank's d_inner columns
     conv_state = tail_state(xi_raw, length, cfg.ssm_conv - 1)
     xi = F.silu(causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
-    dt_r, B_, C_ = torch.split(xi @ p["x_proj"], [dtr, ds, ds], dim=-1)
+    dbc = xi @ p["x_proj"]
+    if AS.split("bti"):
+        dbc = AS.all_reduce_model(dbc)
+    dt_r, B_, C_ = torch.split(dbc, [dtr, ds, ds], dim=-1)
     dt = dt_mask(F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float(), length)
     A = -torch.exp(p["A_log"])
     h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
@@ -173,7 +237,7 @@ def mamba1_with_state(
     )
     y = y.to(x.dtype) + p["D"].to(x.dtype) * xi
     y = y * F.silu(z)
-    return y @ p["out_proj"], {"conv": conv_state, "h": h_fin}
+    return _tp_out(y @ p["out_proj"]), {"conv": conv_state, "h": h_fin}
 
 
 def mamba1_init_state(
@@ -194,11 +258,13 @@ def mamba1_step(
     """One decode step.  x_t: [B, d]; state: conv [B, K - 1, di], h [B, di,
     ds].  Returns ``(y [B, d], new state)``."""
     ds, dtr = cfg.ssm_state, cfg.resolved_dt_rank
-    xz = x_t @ p["in_proj"]
+    xz = L.tp_entry(x_t, "bti") @ p["in_proj"]
     xi, z = xz.chunk(2, dim=-1)
     xi, conv_state = causal_conv_step(xi, state["conv"], p["conv_w"], p["conv_b"])
     xi = F.silu(xi)
     dbc = xi @ p["x_proj"]
+    if AS.split("bti"):
+        dbc = AS.all_reduce_model(dbc)
     dt_r, B_, C_ = torch.split(dbc, [dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float()
     A = -torch.exp(p["A_log"])
@@ -207,7 +273,7 @@ def mamba1_step(
     y = torch.einsum("bdn,bn->bd", h, C_.float()).to(x_t.dtype)
     y = y + p["D"].to(x_t.dtype) * xi
     y = y * F.silu(z)
-    return y @ p["out_proj"], {"conv": conv_state, "h": h}
+    return _tp_out(y @ p["out_proj"]), {"conv": conv_state, "h": h}
 
 
 # ---------------------------------------------------------------------------
@@ -329,26 +395,27 @@ def mamba2_with_state(
     dt = 0, so the state is exactly the unpadded prompt's.  The output is
     the gated RMSNorm ``rms_norm(y * silu(z), gate_norm)`` projected back
     to d."""
-    from repro_torch.models.layers import rms_norm
-
     b, s, _ = x.shape
-    di, ds, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    ds, nh, hp = cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    x = L.tp_entry(x, "bti")
     z, xr = (x @ p["in_proj_zx"]).chunk(2, dim=-1)
+    di = xr.shape[-1]  # this rank's d_inner columns
+    heads = _local_heads(cfg, di)
     bc_raw, dt = torch.split(x @ p["in_proj_bcdt"], [2 * ds, nh], dim=-1)
     conv_x = tail_state(xr, length, cfg.ssm_conv - 1)
     conv_bc = tail_state(bc_raw, length, cfg.ssm_conv - 1)
     xi = F.silu(causal_conv(xr, p["conv_x_w"], p["conv_x_b"]))
     bc = F.silu(causal_conv(bc_raw, p["conv_bc_w"], p["conv_bc_b"]))
     B_, C_ = bc.chunk(2, dim=-1)
-    dt = dt_mask(F.softplus(dt.float() + p["dt_bias"]), length)
-    A = -torch.exp(p["A_log"])
-    xh = xi.reshape(b, s, nh, hp).float()
-    h0 = torch.zeros((b, nh, hp, ds), dtype=torch.float32, device=x.device)
+    dt = dt_mask(F.softplus(dt[..., heads].float() + p["dt_bias"][heads]), length)
+    A = -torch.exp(p["A_log"][heads])
+    xh = xi.reshape(b, s, di // hp, hp).float()
+    h0 = torch.zeros((b, di // hp, hp, ds), dtype=torch.float32, device=x.device)
     y, h_fin = ssd_chunked(xh, dt, B_.float(), C_.float(), A, h0)
-    y = y + p["D"][:, None] * xh
+    y = y + p["D"][heads, None] * xh
     y = y.reshape(b, s, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"])
-    return y @ p["out_proj"], {"conv_x": conv_x, "conv_bc": conv_bc, "h": h_fin}
+    y = _gated_norm(y, z, p["gate_norm"], cfg.d_inner)
+    return _tp_out(y @ p["out_proj"]), {"conv_x": conv_x, "conv_bc": conv_bc, "h": h_fin}
 
 
 def mamba2_init_state(
@@ -370,25 +437,26 @@ def mamba2_step(
 ) -> tuple[torch.Tensor, Params]:
     """One decode step.  x_t: [B, d]; state as ``mamba2_init_state``.
     Returns ``(y [B, d], new state)``."""
-    from repro_torch.models.layers import rms_norm
-
     b = x_t.shape[0]
-    di, ds, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    ds, nh, hp = cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    x_t = L.tp_entry(x_t, "bti")
     z, xr = (x_t @ p["in_proj_zx"]).chunk(2, dim=-1)
+    di = xr.shape[-1]  # this rank's d_inner columns
+    heads = _local_heads(cfg, di)
     bc, dt = torch.split(x_t @ p["in_proj_bcdt"], [2 * ds, nh], dim=-1)
     xi, conv_x = causal_conv_step(xr, state["conv_x"], p["conv_x_w"], p["conv_x_b"])
     xi = F.silu(xi)
     bc, conv_bc = causal_conv_step(bc, state["conv_bc"], p["conv_bc_w"], p["conv_bc_b"])
     B_, C_ = F.silu(bc).chunk(2, dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])  # [B, nh]
-    A = -torch.exp(p["A_log"])
-    a = torch.exp(dt * A)  # [B, nh]
-    xh = xi.reshape(b, nh, hp).float()
+    dt = F.softplus(dt[:, heads].float() + p["dt_bias"][heads])  # [B, heads]
+    A = -torch.exp(p["A_log"][heads])
+    a = torch.exp(dt * A)  # [B, heads]
+    xh = xi.reshape(b, di // hp, hp).float()
     h = a[..., None, None] * state["h"] + (dt[..., None] * xh)[..., None] * (
         B_.float()[:, None, None, :]
     )
     y = torch.einsum("bnxs,bs->bnx", h, C_.float())
-    y = y + p["D"][:, None] * xh
+    y = y + p["D"][heads, None] * xh
     y = y.reshape(b, di).to(x_t.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"])
-    return y @ p["out_proj"], {"conv_x": conv_x, "conv_bc": conv_bc, "h": h}
+    y = _gated_norm(y, z, p["gate_norm"], cfg.d_inner)
+    return _tp_out(y @ p["out_proj"]), {"conv_x": conv_x, "conv_bc": conv_bc, "h": h}

@@ -35,9 +35,11 @@ split over the vocab (``embed_tokens`` a masked lookup in the local rows,
 then one all-reduce; ``unembed`` this rank's logit columns; ``lm_loss`` a
 logsumexp and a gold logit reduced over the split vocab, the full logits
 never gathered), attention and MLP Megatron-style (``models.layers``),
-the MoE block over the local experts (``models.moe``), and the monolithic
-``prefill`` and ``decode_step`` on the local dense cache.  Mamba1 and the
-hybrid over ``model`` raise (``check_model_axis``).
+the MoE block over the local experts (``models.moe``), Mamba1's and
+Mamba2's mixers on the rank's ``d_inner`` block (``models.ssm``; the
+hybrid's shared block through the Megatron path, remat ``"full"``
+recomputing a cycle with its collectives), and the monolithic ``prefill``
+and ``decode_step`` on the local dense cache and recurrent state.
 """
 from __future__ import annotations
 
@@ -77,18 +79,6 @@ def _require_family(cfg: ModelConfig, families: tuple = FAMILIES) -> None:
 
 def _require_attention(cfg: ModelConfig) -> None:
     _require_family(cfg, ATTENTION_FAMILIES)
-
-
-def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise for a family the port cannot yet split over a model axis of
-    ``model`` (> 1): Mamba1 and the hybrid, whose ``d_inner`` splits need
-    the next scale-out slice."""
-    if model > 1 and cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family over a model axis of {model} (its "
-            "d_inner split: Mamba1's [x | z] in_proj halves, the partial x_proj, the scan on "
-            "a d_inner shard, Mamba2's gated norm) comes with the next scale-out slice; "
-            "the attention families run over 'model' now")
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +308,6 @@ def forward(
     ``metrics`` holds ``moe_aux`` and ``moe_dropped``, the MoE family's mean
     over layers (zero for the other families)."""
     _require_family(cfg)
-    check_model_axis(cfg, AS.model_size())
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     x = input_embeddings(cfg, params, inputs, compute_dtype)
@@ -476,7 +465,6 @@ def decode_step(
     returned cache is a new dict whose ``index`` is advanced by one.  On a
     model axis the logits are this rank's vocab columns."""
     _require_family(cfg)
-    check_model_axis(cfg, AS.model_size())
     x = embed_tokens(cfg, params, tokens, compute_dtype)[:, None, :]
     idx = cache["index"]
     layers = cast_params(params["layers"], compute_dtype)
@@ -821,7 +809,6 @@ def prefill(
     elementwise op's result can depend on its tensor's length, through the
     CPU's vector tail).  A bucket of 64 or more tokens runs as it is."""
     _require_family(cfg)
-    check_model_axis(cfg, AS.model_size())
     cache_dtype = cache_dtype or compute_dtype
     b, s = inputs.shape[:2]
     if cfg.family == "hybrid":

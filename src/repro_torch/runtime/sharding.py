@@ -11,6 +11,9 @@ multi-pod.  Batch rides ``(pod, data)``; weights ride ``model``:
   * Vocab: embedding + LM head sharded on ``model``.
   * SP (decode): when the KV-head count does not divide ``model``, the KV
     cache shards its *sequence* dim on ``model`` instead.
+  * SSM: Mamba1 / Mamba2 ``d_inner`` on ``model`` (the mixer's
+    column-parallel in, row-parallel out; the paired ``in_proj`` halves
+    placed by ``Halves``).
   * FSDP: parameters / moments additionally shard a large *free* dim over
     ``data`` (ZeRO-3).
 
@@ -25,7 +28,8 @@ in the mesh's order, as GSPMD splits it).  The rules read a mesh's
 stand-in and over shape trees (meta tensors, the reference's
 ``ShapeDtypeStruct``s).  ``shard_tensor`` and ``gather_tensor`` take the
 place of the reference's ``named``: this rank's block of a full tensor,
-and the all-gather back.  The port's train and serve steps
+and the all-gather back (along a ``Halves`` spec's paired dim, the r-th
+block of each half).  The port's train and serve steps
 (``runtime.step``) execute every rule: the data axes by their
 collectives, the ``model`` axis through the model code's
 (``models.act_sharding``), whose gradient rule ``model_partial`` gives.
@@ -57,7 +61,18 @@ class P(tuple):
             for p in parts))
 
     def __repr__(self) -> str:
-        return f"P{tuple.__repr__(self)}"
+        return f"{type(self).__name__}{tuple.__repr__(self)}"
+
+
+class Halves(P):
+    """The spec of a leaf whose last dim holds two halves side by side
+    (Mamba1's ``in_proj`` ``[x | z]``, Mamba2's ``in_proj_zx`` ``[z | x]``):
+    equal, as a tuple, to the reference's spec, but a split of that dim
+    places the r-th block of EACH half on rank r (``[x_r | z_r]``), so a
+    rank's halves line up with its contiguous ``d_inner`` blocks of the
+    conv, ``dt_proj``, ``out_proj`` and the cache (``shard_tensor``,
+    ``gather_tensor``).  The rules keep the class through FSDP and ZeRO-1,
+    which never split the paired dim (it is not free)."""
 
 
 def dp_axes(mesh, layout: str = "tp") -> tuple:
@@ -166,8 +181,8 @@ def _param_rule(path: str, ndim: int, cfg: ModelConfig, plan: ShardingPlan) -> P
     if re.search(r"ln\d?$", path) or re.search(r"/ln$", path):
         return spec(None)
     # --- mamba1 ---
-    if re.search(r"mixer/in_proj$", path):
-        return spec(None, plan.di())
+    if re.search(r"mixer/in_proj(_zx)?$", path):
+        return (Halves if plan.di() else P)(*spec(None, plan.di()))
     if re.search(r"mixer/(conv_w|conv_x_w|conv_bc_w)$", path):
         return spec(None, plan.di()) if "bc" not in path else spec(None, None)
     if re.search(r"mixer/(conv_b|conv_x_b)$", path):
@@ -187,8 +202,6 @@ def _param_rule(path: str, ndim: int, cfg: ModelConfig, plan: ShardingPlan) -> P
     if re.search(r"mixer/out_proj$", path):
         return spec(plan.di(), None)
     # --- mamba2 ---
-    if re.search(r"mixer/in_proj_zx$", path):
-        return spec(None, plan.di())
     if re.search(r"mixer/in_proj_bcdt$", path):
         return spec(None, None)
     if re.search(r"mixer/gate_norm$", path):
@@ -203,10 +216,15 @@ def model_partial(path: str, plan: ShardingPlan) -> bool:
     the q heads split and the KV heads do not (each rank reads the KV heads
     of its q heads), the q / k norms when the heads split, the MoE router
     when the experts split (its gradient flows through the local experts'
-    gates).  Every other replicated leaf gets its whole gradient on every
+    gates), and Mamba2's replicated leaves when ``d_inner`` splits
+    (``in_proj_bcdt`` and ``conv_bc``, whose B / C / dt every rank's heads
+    read, and ``A_log`` / ``D`` / ``dt_bias``, each rank reading its heads'
+    entries).  Every other replicated leaf gets its whole gradient on every
     rank (its input is all-reduced back by ``copy_to_model``)."""
     if plan.model == 1:
         return False
+    if re.search(r"mixer/(in_proj_bcdt|conv_bc_[wb]|A_log|D|dt_bias)$", path):
+        return plan.cfg.ssm_version == 2 and plan.di() is not None
     if re.search(r"attn/(w[kv]|b[kv])$", path):
         return plan.h() is not None and plan.kv() is None
     if re.search(r"attn/(q|k)_norm$", path):
@@ -247,11 +265,11 @@ def _add_fsdp(
         return False
 
     if len(axes) > 1 and place(tuple(axes)):
-        return P(*parts)
+        return type(spec)(*parts)
     for a in axes:
         place((a,))
     if any(p is not None for p in parts[stack:]) or spec != P(*parts):
-        return P(*parts)
+        return type(spec)(*parts)
     return spec
 
 
@@ -300,7 +318,7 @@ def opt_state_specs(
             for i, (dim, ax) in enumerate(zip(leaf.shape, parts)):
                 if ax is None and dim % data_size == 0 and dim >= data_size:
                     parts[i] = "data"
-                    return P(*parts)
+                    return type(spec)(*parts)
             return spec
 
         mom = tree_map_with_path(add_data, params_shape, base)
@@ -424,26 +442,42 @@ def _sharded_dims(spec: P, mesh) -> list:
     return out
 
 
+def _paired(spec: P, dim: int) -> bool:
+    """Whether ``dim`` of a leaf under ``spec`` is a ``Halves`` pair."""
+    return isinstance(spec, Halves) and dim == len(spec) - 1
+
+
 def shard_tensor(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """This rank's block of ``full`` under ``spec`` (a view of it): along
     each split dim, the block at the rank's row-major coordinate on the
-    dim's axes."""
+    dim's axes; along a ``Halves`` pair, that block of each half side by
+    side (a copy)."""
     out = full
     for dim, axes in _sharded_dims(spec, mesh):
         n = mesh.size(axes)
-        if full.shape[dim] % n:
+        parts = 2 * n if _paired(spec, dim) else n
+        if full.shape[dim] % parts:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split {n} ways "
-                             f"over {axes}")
-        size = full.shape[dim] // n
-        out = out.narrow(dim, mesh.index(axes) * size, size)
+                             f"over {axes}" + (" in each half" if parts > n else ""))
+        size = full.shape[dim] // parts
+        if parts > n:
+            out = out.unflatten(dim, (2, n, size)).select(dim + 1, mesh.index(axes))
+            out = out.flatten(dim, dim + 1)
+        else:
+            out = out.narrow(dim, mesh.index(axes) * size, size)
     return out
 
 
 def gather_tensor(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """The full tensor from every rank's block under ``spec``: one
     all-gather over each split dim's axes (``local`` itself when ``spec``
-    splits nothing)."""
+    splits nothing); a ``Halves`` pair's blocks ``[a_0 b_0 a_1 b_1 ..]``
+    put back in order, ``[a_0 a_1 .. b_0 b_1 ..]``."""
     out = local
     for dim, axes in _sharded_dims(spec, mesh):
         out = mesh.all_gather(out, axes, dim)
+        if _paired(spec, dim):
+            n = mesh.size(axes)
+            out = out.unflatten(dim, (n, 2, out.shape[dim] // (2 * n)))
+            out = out.transpose(dim, dim + 1).flatten(dim, dim + 2)
     return out

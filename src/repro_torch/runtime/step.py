@@ -33,6 +33,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models import act_sharding as AS
+from repro_torch.models import ssm as SSM
 from repro_torch.models.act_sharding import activation_sharding
 from repro_torch.optim import (
     adamw_init,
@@ -249,12 +250,13 @@ class ShardedTrainStep:
       * ZeRO-1 (``tcfg.zero1``): AdamW's moments live as the shards
         ``opt_state_specs`` gives; the update runs on the matching block of
         the gradient and the parameter, whose blocks are then all-gathered
-      * ``layout="tp"`` over a ``model`` axis larger than 1 (the attention
-        families; Mamba1 and the hybrid raise): leaves split over ``model``
-        stay this rank's blocks through the forward (only their FSDP splits
-        are gathered), the model code runs Megatron TP, expert and vocab
-        parallelism under ``act_sharding`` (the model ranks of one data
-        index see the same rows), a replicated leaf that a rank uses only
+      * ``layout="tp"`` over a ``model`` axis larger than 1: leaves split
+        over ``model`` stay this rank's blocks through the forward (only
+        their FSDP splits are gathered), the model code runs Megatron TP,
+        expert and vocab parallelism and the SSM mixers on a ``d_inner``
+        block under ``act_sharding`` (the model ranks of one data index see
+        the same rows; a Mamba2 split that is not whole SSM heads raises
+        ``ValueError``), a replicated leaf that a rank uses only
         in part (``sharding.model_partial``) has its gradient summed over
         ``model`` too, and the norm counts a leaf replicated over ``model``
         on model rank 0 only.  So every rank's gradient of every leaf is its
@@ -273,7 +275,7 @@ class ShardedTrainStep:
         if tcfg.layout not in LAYOUTS:
             raise ValueError(f"layout {tcfg.layout!r}: one of {LAYOUTS}")
         plan = S.ShardingPlan(cfg, mesh, tcfg.layout)
-        T.check_model_axis(cfg, plan.model)
+        SSM.check_head_split(cfg, plan.model)
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.int8_ef = _check_compression(tcfg)
         self.schedule = make_schedule(tcfg)
@@ -522,6 +524,7 @@ def _serve_common(cfg, mesh, shape, compute_dtype, fsdp, cache_dtype):
     specs, param specs, cache specs, the dense cache's sequence entry,
     abstract params, abstract cache)``."""
     cache_dtype = cache_dtype or compute_dtype
+    SSM.check_head_split(cfg, S.ShardingPlan(cfg, mesh).model)
     if cache_dtype != compute_dtype:
         raise NotImplementedError(
             f"cache_dtype {cache_dtype} != compute dtype {compute_dtype}: the quantized "
@@ -586,6 +589,10 @@ def make_serve_step(
         batch_sharded=batch_sharded)
 
 
+#: the dense cache's K/V leaves (the hybrid's Mamba2 ``conv_x`` is 5-dim too)
+KV_LEAVES = ("k", "v", "shared_k", "shared_v")
+
+
 def make_prefill_step(
     cfg: ModelConfig,
     mesh,
@@ -613,8 +620,9 @@ def make_prefill_step(
         with activation_sharding(mesh, act_specs):
             logits, cache = T.prefill(cfg, params, inputs, shape.seq_len, impl=impl,
                                       compute_dtype=compute_dtype, cache_dtype=compute_dtype)
-        layers = tree_map(lambda t: S.shard_tensor(t, seq_spec, mesh).contiguous()
-                          if t.ndim == 5 else t, cache["layers"])
+        layers = tree_map_with_path(
+            lambda path, t: S.shard_tensor(t, seq_spec, mesh).contiguous()
+            if path.split("/")[-1] in KV_LEAVES else t, cache["layers"])
         return logits, dict(cache, layers=layers)
 
     def abstract_inputs():

@@ -33,6 +33,7 @@ from repro_torch.configs import TrainConfig
 from repro_torch.data import SyntheticDataset
 from repro_torch.models import transformer as T
 from repro_torch.runtime import Trainer, init_train_state, make_train_step
+from repro_torch.runtime import sharding as S
 from repro_torch.tree import tree_leaves
 
 RTOL = 1e-5
@@ -327,13 +328,24 @@ def test_sharded_path_refuses_what_it_cannot_run(one_rank_group):
     cfg = configs.smoke_config("qwen3-1.7b")
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     mesh.shape["model"] = 2  # a stand-in for a 1x2 mesh: the rule reads the shape
-    # "tp" over a model axis runs the attention families (its leaves split
-    # over "model") and raises for Mamba1 and the hybrid
+    # "tp" over a model axis runs every family (its leaves split over
+    # "model"); Mamba1 and the hybrid split d_inner, their paired in_proj
+    # halves placed [x_r | z_r], and take a step (over this one-rank group
+    # the model collectives are identities: tests/test_torch_ssm_model_axis.py
+    # holds the steps over 2 and 4 ranks)
     step = make_train_step(cfg, _tcfg(), mesh, device="cpu")
     assert any("model" in s for s in tree_leaves(step.state_specs["params"]))
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="next scale-out slice"):
-            make_train_step(configs.smoke_config(arch), _tcfg(), mesh, device="cpu")
+    for arch, paired in (("falcon-mamba-7b", "in_proj"), ("zamba2-2.7b", "in_proj_zx")):
+        scfg = configs.smoke_config(arch)
+        step = make_train_step(scfg, _tcfg(), mesh, device="cpu")
+        specs = step.state_specs["params"]["layers"]["mixer"]
+        assert isinstance(specs[paired], S.Halves) and specs[paired][-1] == "model"
+        state = step.init_state(_params(scfg))
+        di = state["params"]["layers"]["mixer"][paired].shape[-1] // 2
+        assert di == scfg.d_inner // 2, arch
+        state, m = step(state, step.shard_batch(_batches(scfg)[0]))
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"]), arch
+        assert step.last_collectives["all_reduce"] > 0, arch
     with pytest.raises(ValueError, match="layout"):
         make_train_step(cfg, _tcfg(layout="tp2"), make_dev_mesh(device="cpu"), device="cpu")
     mesh = make_dev_mesh(device="cpu")

@@ -160,8 +160,10 @@ def test_serve_steps_refuse_what_they_cannot_run():
         step_mod.make_serve_step(cfg, MESHES["single"], shape, cache_dtype=torch.float8_e4m3fn)
     art = step_mod.make_prefill_step(cfg, MESHES["single"], shape)
     assert art.cache_specs is None and art.abstract_inputs()[1].shape == (4, SEQ)
-    # Mamba1 and the hybrid build their specs over a model axis, and their
-    # steps raise there, naming the next slice
+    # Mamba1 and the hybrid build their specs over a model axis and run
+    # their steps there on rank 0's d_inner block (this stand-in's
+    # collectives are identities that count their calls:
+    # tests/test_torch_ssm_model_axis.py holds the steps over 2 and 4 ranks)
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as T
 
@@ -169,14 +171,27 @@ def test_serve_steps_refuse_what_they_cannot_run():
         coordinate = {"data": 0, "model": 0}
         axes, size, index = Mesh.axes, Mesh.size, Mesh.index
 
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        def all_reduce(self, t, axes, op="sum"):
+            self.calls += 1
+            return t
+
+        def all_gather(self, t, axes, dim):
+            self.calls += 1
+            return torch.cat([t] * self.size(axes), dim)
+
+    for arch, state in (("falcon-mamba-7b", "conv"), ("zamba2-2.7b", "conv_x")):
         scfg = configs.smoke_config(arch)
         mesh = RankMesh({"data": 1, "model": 2})
+        mesh.calls = 0
+        pre = step_mod.make_prefill_step(scfg, mesh, shape, compute_dtype=torch.float32)
         dec = step_mod.make_serve_step(scfg, mesh, shape, compute_dtype=torch.float32)
-        params = T.init_params(scfg, torch.Generator().manual_seed(0))
-        cache = T.init_cache(scfg, 4, SEQ, torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="next scale-out slice"):
-            dec.step(params, torch.zeros((4,), dtype=torch.int32), cache)
+        local = dec.shard_params(T.init_params(scfg, torch.Generator().manual_seed(0)))
+        logits, cache = pre.step(local, torch.zeros((4, 6), dtype=torch.int32))
+        tokens, cache = dec.step(local, torch.zeros((4,), dtype=torch.int32), cache)
+        assert tokens.shape == (4,) and torch.isfinite(logits).all(), arch
+        leaf = cache["layers"][state] if state in cache["layers"] else \
+            cache["layers"]["mamba"][state]
+        assert leaf.shape[-1] == scfg.d_inner // 2 and mesh.calls > 0, arch
 
 
 # ---------------------------------------------------------------------------
