@@ -79,6 +79,16 @@ Phases, each printing a line before the last:
                  decode and chunked prefill at group 1, H = kvH = 16 heads of
                  128, in both dtypes (the decode also at the tile edges), a
                  NaN in one slot, timed in bf16 beside SDPA and the bound.
+                 Then the serve steps' 8-bit cache (rows
+                 ``decode_attention_fp8`` / ``decode_attention_partial_fp8``):
+                 #3 and its partial form (16 and 2 blocks, merged) over e4m3
+                 and e5m2 K / V rows with bf16 and fp32 q, at H = 8 and 16
+                 over 8 KV heads of 128 and musicgen's 32 of 64, S = 512 and
+                 4,096 with an empty slot, against the plain versions on the
+                 same 8-bit cache (relative to max |out|: 2e-2 bf16, 1e-4
+                 fp32) and a NaN code in one slot; timed at H = 16 beside #3
+                 over the same values in a bf16 cache, the bytes bound and
+                 SDPA over the cache widened to bf16 (the widening apart).
 4. parity     -- a 2-layer, full-width qwen3-1.7b in fp32 runs the same work
                  with ``impl="cuda"`` and ``impl="torch"`` on the card: model
                  steps (K/V pools, decode logits, tokens), EngineCore token
@@ -335,7 +345,19 @@ Phases, each printing a line before the last:
                  128-token prompt, seq_len 512): the tokens bit-equal to
                  ``T.prefill`` plus eager ``T.decode_step``, no collective
                  issued; prints each step's time beside the eager step's,
-                 the peak memory, the collectives a step.
+                 the peak memory, the collectives a step.  Then the same with
+                 ``cache_dtype=float8_e4m3fn``: the prefill's cache bit-equal
+                 to ``T.prefill``'s, each step's tokens against the same step
+                 on the plain versions (equal in fp32 compute; in bf16 apart
+                 only at a bf16 tie), the first step's logits cosine >= 0.98
+                 against the bf16 cache's, cache bytes, peak and step time
+                 beside the bf16 cache's, and qwen3-1.7b's 8 x 4,096 cache in
+                 both types; the sequence-parallel decode over an 8-bit cache
+                 (qwen3-1.7b cut to 2 layers on the (1, 16) stand-in: the
+                 fp8 rows' launches); and the FSDP serve steps of qwen3-1.7b
+                 (full depth, fp32) on a (data, model) = (4, 1) stand-in:
+                 tokens equal to the unsplit run, each rank's most gathered
+                 bytes alive at once within one layer's plus the table.
 34. ssm model axis -- after phase 33: ``make_prefill_step`` and 8
                  ``make_serve_step`` steps of falcon-mamba-7b and
                  zamba2-2.7b at full width and depth in fp32 on a (1, 4)
@@ -374,8 +396,8 @@ collocated run; each
 row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
 19-21, 22-24, 26-27, 29-31, 33 and 34 that launch it; phase 32's two rows,
 #3's partial form and the merge, report its sequence-parallel serve run's
-launches, phase 34's row its falcon-mamba run's; a row with no launch fails
-the run)
+launches, phase 34's row its falcon-mamba run's, the two 8-bit rows phase
+33's 8-bit runs'; a row with no launch fails the run)
 and, last,
 the
 ``{"ok": true, ...}`` line.  Any failed
@@ -1029,7 +1051,7 @@ def phase_kernels(build_logs):
     _flash_long_rows()
     return (rows + flash + _spec_rows() + _dense_target_rows() + _ssm_rows()
             + _hd80_rows() + _slice_rows() + _ssm_bwd_rows(build_logs.get("ssm_scan", ""))
-            + _olmo_rows())
+            + _olmo_rows() + _fp8_rows())
 
 
 def _flash_inputs(dtype, b, h, sq, sk, hd=HD, seed=0):
@@ -2146,6 +2168,191 @@ def _olmo_rows():
     ``*_g1``."""
     return [_paged_decode_row("_g1", OLMO_H, OLMO_H, HD),
             _paged_prefill_row("_g1", OLMO_H, OLMO_H, HD)]
+
+
+#: the 8-bit cache's check shapes: (label, q heads, KV heads, head dim) --
+#: qwen3-1.7b's dense decode at the draft's H = 8 and the target's H = 16
+#: over 8 KV heads of 128, musicgen-large's group 1 (32 heads of 64)
+FP8_SHAPES = (("H=8", DRAFT_H, KVH, HD), ("H=16", H, KVH, HD),
+              ("musicgen group 1, hd 64", MG_H, MG_H, MG_HD))
+FP8_TYPES = ("float8_e4m3fn", "float8_e5m2")
+#: the rows of the 8-bit cache (their launches: phase 33's 8-bit runs)
+FP8_ROWS = ("decode_attention_fp8", "decode_attention_partial_fp8")
+#: the partial form's blocks at S = 512 and 4,096 (qwen3-1.7b over model 16
+#: and 2)
+FP8_SPLITS = {512: 16, 4096: 2}
+
+
+def _fp8_cache(dtype, g, b, s, kvh, hd):
+    """K or V rows ``[b, s, kvh, hd]`` in an 8-bit type, cast as the cache
+    writes them (``layers.to_cache``) from N(0, 1) fp32."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    return L.to_cache(torch.randn((b, s, kvh, hd), generator=g, device="cuda"),
+                      getattr(torch, dtype))
+
+
+def _check_fp8(name, kernel, plain, make):
+    """The kernel against its plain version on the same 8-bit cache (the
+    plain version widens it itself), q in bf16 and fp32: the error relative
+    to max |out| within ``BF16_ATOL`` / ``FP32_ATOL``, a slot with lengths <=
+    0 exactly zero; then a NaN code at one live K position of slot 1 (live
+    at both lengths' sets) comes out where the plain version's does, the
+    other slots bit-equal.  Returns
+    the absolute errors by q dtype, and the relative ones (``*_rel``)."""
+    import torch
+
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, BF16_ATOL), (torch.float32, FP32_ATOL)):
+        q, k, v, lens = make(dtype)
+        out = kernel(q, k, v, lens)
+        torch.cuda.synchronize()
+        ref = plain(q.float(), k, v, lens)
+        abs_err = (out.float() - ref).abs().max().item()
+        err = abs_err / ref.abs().max().item()
+        errs[str(dtype).split(".")[-1]] = abs_err
+        errs[str(dtype).split(".")[-1] + "_rel"] = err
+        if not (torch.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"{name} {dtype}: error {err:.3e} of max |out| (tolerance "
+                                 f"{tol:g}) or a non-finite output")
+        if out[lens <= 0].any():
+            raise AssertionError(f"{name} {dtype}: a slot with lengths <= 0 is not zeros")
+        poisoned = k.view(torch.uint8).clone()
+        poisoned[1, 50, 0, 5] = 0x7F  # a NaN code in both 8-bit types
+        poisoned = poisoned.view(k.dtype)
+        bad_out = kernel(q, poisoned, v, lens)
+        bad_ref = plain(q.float(), poisoned, v, lens)
+        bad, ref_bad = ~torch.isfinite(bad_out), ~torch.isfinite(bad_ref)
+        others = [i for i in range(out.shape[0]) if i != 1]
+        if not (bad[1].any() and torch.equal(bad, ref_bad)
+                and torch.equal(bad_out[others], out[others])):
+            raise AssertionError(f"{name} {dtype}: a NaN code in slot 1 does not come out "
+                                 "where the plain version's does, or changed another slot")
+        log(f"kernel {name} {dtype}: error {err:.3e} of max |out| (tolerance {tol:g}); a NaN "
+            f"code -> {int(bad.sum())} non-finite outputs where the plain version's are")
+    return errs
+
+
+def _fp8_rows():
+    """#3 and its partial form over an 8-bit K / V cache (the serve steps'
+    ``cache_dtype``), each against its plain version on the same cache
+    (``_check_fp8``: both 8-bit types, q in bf16 and fp32, ``FP8_SHAPES``,
+    S = 512 and 4,096 with an empty slot; the partial form over
+    ``FP8_SPLITS`` blocks merged by ``combine_splits``); timed with bf16 q
+    over an e4m3 cache at qwen3-1.7b's dense target shape (H = 16) beside
+    #3 over the same values in a bf16 cache, the bytes bound, SDPA over the
+    cache widened to bf16 (the widening timed apart) and, at 4,096 keys, the
+    same again.  Rows ``decode_attention_fp8`` and
+    ``decode_attention_partial_fp8`` (their launches: phase 33's fp8 serve
+    steps and the sequence-parallel fp8 stand-in)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dd
+
+    def make_inputs(fp8, h, kvh, hd, s, lens, seed=38):
+        def make(dtype):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            k = _fp8_cache(fp8, g, B, s, kvh, hd)
+            v = _fp8_cache(fp8, g, B, s, kvh, hd)
+            q = torch.randn((B, h, hd), generator=g, device="cuda").to(dtype)
+            return q, k, v, lens
+        return make
+
+    lengths = {DENSE_S: _i32(DENSE_LENGTHS), LONG_S: _i32(LONG_LENGTHS)}
+    whole, parts = [], []
+    for fp8 in FP8_TYPES:
+        for label, h, kvh, hd in FP8_SHAPES:
+            for s, lens in lengths.items():
+                make = make_inputs(fp8, h, kvh, hd, s, lens)
+                tag = f"({fp8}, {label}, S={s})"
+                whole.append(_check_fp8(f"decode_attention_fp8 {tag}", dd.decode_attention,
+                                        dd.decode_attention_torch, make))
+                m = FP8_SPLITS[s]
+                parts.append(_check_fp8(f"decode_attention_partial_fp8 + combine_splits (m={m})"
+                                        f" {tag}", _seq_parallel(m),
+                                        _seq_parallel(m, plain=True), make))
+
+    def times(s, lens):
+        """(#3 over the e4m3 cache, over a bf16 cache of the same values,
+        SDPA over the widened cache, the widening, the plain version, bound,
+        bound by) in ms at the dense target's H = 16."""
+        q, k, v, _ = make_inputs("float8_e4m3fn", H, KVH, HD, s, lens)(torch.bfloat16)
+        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        k_ms = _time_ms(lambda: dd.decode_attention(q, k, v, lens))
+        b_ms = _time_ms(lambda: dd.decode_attention(q, kb, vb, lens))
+        mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        kt = kb.transpose(1, 2).repeat_interleave(H // KVH, 1)
+        vt = vb.transpose(1, 2).repeat_interleave(H // KVH, 1)
+        l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                               attn_mask=mask))
+        w_ms = _time_ms(lambda: (k.to(torch.bfloat16), v.to(torch.bfloat16)))
+        p_ms = _time_ms(lambda: dd.decode_attention_torch(q, k, v, lens))
+        needed = sum(min(max(n, 0), s) for n in lens.tolist())
+        bound, by = _bound_ms(2 * B * H * HD * 2 + 2 * needed * KVH * HD + B * 4,
+                              4 * HD * H * needed, torch.bfloat16)
+        return k_ms, b_ms, l_ms, w_ms, p_ms, bound, by
+
+    k_ms, b_ms, l_ms, w_ms, p_ms, bound, by = times(DENSE_S, lengths[DENSE_S])
+    row = {"name": "decode_attention_fp8", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_attention_fp8.cu",
+           "replaces": "src/repro/kernels/decode_attention.py:92", "launches": 0,
+           "max_abs_err": max(e["bfloat16"] for e in whole),
+           "max_abs_err_fp32": max(e["float32"] for e in whole),
+           "max_rel_err": max(e["bfloat16_rel"] for e in whole),
+           "max_rel_err_fp32": max(e["float32_rel"] for e in whole), "ms": k_ms,
+           "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "library_ms": l_ms,
+           "ms_bf16_cache": b_ms, "widen_ms": w_ms}
+    k4, b4, l4, w4, _, bound4, _ = times(LONG_S, lengths[LONG_S])
+    row.update(ms_4096_keys=k4, ms_bf16_cache_4096_keys=b4, library_ms_4096_keys=l4,
+               widen_ms_4096_keys=w4, bound_ms_4096_keys=bound4)
+    log(f"kernel decode_attention_fp8 ({_card()}; e4m3 cache, bf16 q, B={B}, H={H}, "
+        f"kvH={KVH}, hd {HD}): S={DENSE_S} {k_ms:.4f} ms (bf16 cache {b_ms:.4f}; plain "
+        f"{p_ms:.4f}; sdpa over the widened cache {l_ms:.4f} + widening {w_ms:.4f}; bound "
+        f"{bound:.4f} by {by}); S={LONG_S} {k4:.4f} ms (bf16 cache {b4:.4f}; sdpa {l4:.4f} + "
+        f"widening {w4:.4f}; bound {bound4:.4f}); errors of max |out| bf16 q "
+        f"{row['max_rel_err']:.3e}, fp32 q {row['max_rel_err_fp32']:.3e}")
+
+    # the partial form: one rank's block of qwen3-1.7b's 512-row cache over
+    # model 16 (32 rows), as phase 32 times it
+    m = FP8_SPLITS[DENSE_S]
+    blk = DENSE_S // m
+    q, k, v, lens = make_inputs("float8_e4m3fn", H, KVH, HD, DENSE_S,
+                                lengths[DENSE_S])(torch.bfloat16)
+    kb8 = k.view(torch.uint8)[:, :blk].contiguous().view(k.dtype)
+    vb8 = v.view(torch.uint8)[:, :blk].contiguous().view(v.dtype)
+    lb = lens.clamp(0, blk).to(torch.int32)
+    part_ms = _time_ms(lambda: dd.decode_attention_partial(q, kb8, vb8, lb))
+    kbw, vbw = kb8.to(torch.bfloat16), vb8.to(torch.bfloat16)
+    part_bf16 = _time_ms(lambda: dd.decode_attention_partial(q, kbw, vbw, lb))
+    part_plain = _time_ms(lambda: dd.decode_partial_core(q, kb8, vb8, lb))
+    group = H // KVH
+    lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous()
+              for t in (kb8, vb8))
+    keep = torch.arange(blk, device="cuda")[None, :] < lb[:, None]
+    bias = torch.zeros((B, H, 1, blk), dtype=torch.bfloat16, device="cuda").masked_fill(
+        ~keep[:, None, None], float("-inf"))
+    sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
+    lib_ms = _time_ms(lambda: sdpa(q[:, :, None], lk, lv, bias, True))
+    widen_ms = _time_ms(lambda: (kb8.to(torch.bfloat16), vb8.to(torch.bfloat16)))
+    needed = int(lb.sum())
+    p_bound, p_by = _bound_ms(2 * B * H * HD + 2 * needed * KVH * HD + B * 4
+                              + B * H * (HD + 2) * 4, 4 * HD * H * needed, torch.bfloat16)
+    log(f"kernel decode_attention_partial_fp8 ({_card()}; one block of {blk} of S={DENSE_S}, "
+        f"e4m3 cache, bf16 q): {part_ms:.4f} ms (bf16 cache {part_bf16:.4f}; plain {part_plain:.4f}; memory-efficient SDPA over the widened "
+        f"block {lib_ms:.4f} + widening {widen_ms:.4f}; bound {p_bound:.4f} by {p_by})")
+    return [row, {
+        "name": "decode_attention_partial_fp8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention_fp8.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:92", "launches": 0,
+        "max_abs_err": max(e["bfloat16"] for e in parts),
+        "max_abs_err_fp32": max(e["float32"] for e in parts),
+        "max_rel_err": max(e["bfloat16_rel"] for e in parts),
+        "max_rel_err_fp32": max(e["float32_rel"] for e in parts), "ms": part_ms,
+        "plain_ms": part_plain, "bound_ms": p_bound, "bound_by": p_by, "library_ms": lib_ms,
+        "widen_ms": widen_ms}]
 
 
 def _i32(xs):
@@ -5775,8 +5982,8 @@ def phase_scale_out():
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    return ({"scale_out": scale, "collocated_step": colloc, "serve_steps": serve_steps,
-             **ssm_runs}, model_axis_rows + ssm_rows)
+    return ({"scale_out": scale, "collocated_step": colloc, **serve_steps, **ssm_runs},
+            model_axis_rows + ssm_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -5813,18 +6020,41 @@ FLASH_LOCAL_CASES = ((TRAIN_B, 8, TRAIN_S, TRAIN_S, True, HD),
                      (TRAIN_B, 1, TRAIN_S, TRAIN_S, True, HD))
 #: phase 33: 8 rows of a 128-token prompt in a 512-row cache, 32 decode steps
 SERVE_STEP_ROWS, SERVE_STEP_PROMPT, SERVE_STEP_SEQ, SERVE_STEP_DECODES = 8, 128, 512, 32
+#: phase 33's 8-bit cache: the first decode step's logits over it against
+#: the same step's over the bf16 cache, as a cosine (the reference's
+#: criterion, ``tests/test_perf_variants.py``); qwen3-1.7b's long cache (8
+#: rows of 4,096) and its decode steps
+FP8_MIN_COSINE = 0.98
+#: bf16 compute: a step's token may differ from the plain version's only at
+#: a tie in bf16, the plain logits of the two tokens at most this many bf16
+#: steps (2^-7 relative) apart (#3 and its plain version round the
+#: attention output to bf16 in other places); fp32 compute: equal
+FP8_TIE_ULPS = 2
+FP8_LONG_SEQ, FP8_LONG_DECODES = 4096, 8
+#: the sequence-parallel decode over an 8-bit cache: qwen3-1.7b at full width
+#: cut to 2 layers on the (1, 16) stand-in mesh; the split run's logits
+#: against the unsplit run's within this share of their max (a code next to
+#: the unsplit run's, where the two runs' fp32 K / V fall either side of a
+#: rounding midpoint, moves an entry by up to 1/8 of its value)
+FP8_SP_LAYERS, FP8_SP_RTOL = 2, 1e-2
+#: the FSDP serve steps: qwen3-1.7b at full width and depth (fp32) on a
+#: (data, model) = (4, 1) stand-in mesh, 2 of the 8 rows a rank
+FSDP_SERVE_MESH = (4, 1)
 
 
 def _partial_blocks(q, k, v, lengths, m, partial):
     """``partial`` over each of the m contiguous sequence blocks of k / v
-    (each block contiguous, as a rank holds it), with each row's block
-    length ``clamp(length - r * S/m, 0, S/m)``: the blocks' (acc, ml)
-    stacked ``[B, m, H, hd]`` / ``[B, m, H, 2]``."""
+    (each block contiguous, as a rank holds it, copied as its bytes: an
+    8-bit cache too), with each row's block length ``clamp(length - r *
+    S/m, 0, S/m)``: the blocks' (acc, ml) stacked ``[B, m, H, hd]`` /
+    ``[B, m, H, 2]``."""
     import torch
 
+    def block(t, r):
+        return t.view(torch.uint8)[:, r * blk:(r + 1) * blk].contiguous().view(t.dtype)
+
     blk = k.shape[1] // m
-    parts = [partial(q, k[:, r * blk:(r + 1) * blk].contiguous(),
-                     v[:, r * blk:(r + 1) * blk].contiguous(),
+    parts = [partial(q, block(k, r), block(v, r),
                      (lengths - r * blk).clamp(0, blk).to(torch.int32)) for r in range(m)]
     return (torch.stack([a for a, _ in parts], 1).contiguous(),
             torch.stack([b for _, b in parts], 1).contiguous())
@@ -5849,8 +6079,8 @@ class _Turns:
     a time: a rank holds the turn until it reaches a collective, where it
     leaves a copy of its block, hands the turn on and waits until every
     rank has left its block and read the others'.  The activation-sharding
-    context is one per process, so each rank's is put back when its turn
-    comes again."""
+    and FSDP gather contexts are one per process, so each rank's are put
+    back when its turn comes again."""
 
     def __init__(self, n: int):
         import threading
@@ -5864,8 +6094,9 @@ class _Turns:
         """Hand the turn on, and ``between()`` once every rank is here
         (while no rank runs: no launch, no collective)."""
         from repro_torch.models import act_sharding as AS
+        from repro_torch.models import fsdp as FS
 
-        ctx = AS._ACTIVE
+        ctx, gather = AS._ACTIVE, FS._ACTIVE
         self.turn.release()
         try:
             self.barrier.wait()
@@ -5873,7 +6104,7 @@ class _Turns:
             self.barrier.wait()
         finally:
             self.turn.acquire()
-            AS._ACTIVE = ctx
+            AS._ACTIVE, FS._ACTIVE = ctx, gather
         return out
 
     def exchange(self, rank: int, t):
@@ -5888,13 +6119,14 @@ class _Turns:
         import threading
 
         from repro_torch.models import act_sharding as AS
+        from repro_torch.models import fsdp as FS
 
         results, errors = [None] * self.n, [None] * self.n
 
         def body(rank):
             self.turn.acquire()
             try:
-                AS._ACTIVE = None
+                AS._ACTIVE = FS._ACTIVE = None
                 results[rank] = fn(rank, meshes[rank])
             except BaseException as e:  # noqa: BLE001 -- re-raised below
                 errors[rank] = e
@@ -5908,7 +6140,7 @@ class _Turns:
             t.start()
         for t in threads:
             t.join(SP_WAIT_S)
-        AS._ACTIVE = None
+        AS._ACTIVE = FS._ACTIVE = None
         if any(t.is_alive() for t in threads):
             raise AssertionError(f"stand-in mesh: ranks still running after {SP_WAIT_S} s")
         raised = [e for e in errors if e is not None]
@@ -5980,6 +6212,30 @@ class _ThreadMesh:
         return torch.cat([b.movedim(dim, 0) for b in blocks]).movedim(0, dim)
 
 
+#: an 8-bit cache's codes against another run's: the share of entries whose
+#: code differs (each only next to the other's) may be at most this
+FP8_STRADDLE_SHARE = 1e-3
+
+
+def _fp8_code_share(a, b) -> float:
+    """The share of two 8-bit caches' entries whose codes differ; raises
+    when a code is not next to the other's on the number line (+0 and -0
+    meet at zero) or the share passes ``FP8_STRADDLE_SHARE``."""
+    import torch
+
+    def key(t):
+        c = t.view(torch.uint8).to(torch.int32)
+        return torch.where(c >= 128, -(c - 128), c)
+
+    diff = (key(a) - key(b)).abs()
+    share = (diff > 0).float().mean().item()
+    if diff.max().item() > 1 or share > FP8_STRADDLE_SHARE:
+        raise AssertionError(f"8-bit cache codes: {share:.2e} of the entries differ, up to "
+                             f"{diff.max().item()} codes apart (at most "
+                             f"{FP8_STRADDLE_SHARE:g}, 1 apart)")
+    return share
+
+
 def _kv_seq_entry(specs):
     """The dense cache's sequence entry of a cache spec tree (None: Mamba1
     holds no K/V)."""
@@ -5988,17 +6244,24 @@ def _kv_seq_entry(specs):
     return kv[2] if kv is not None else None
 
 
-def _stand_in_serve(cfg, ranks, rows, seq, prompt, decodes, seed, device="cuda"):
+def _stand_in_serve(cfg, ranks, rows, seq, prompt, decodes, seed, device="cuda", *,
+                    mesh_shape=None, fsdp=None, cache_dtype=None, rtol=SP_RTOL):
     """The port's serve steps driven through its entry points:
     ``make_prefill_step`` and ``decodes`` ``make_serve_step`` steps of
-    ``cfg`` in fp32 on a ``(data, model) = (1, ranks)`` stand-in mesh
-    (``_Turns``), each rank on its blocks of the weights.  The tokens equal,
-    and the prefill logits, the logits of one more decode step and every
-    leaf of the gathered cache within ``SP_RTOL`` of their max, the unsplit
-    ``T.prefill`` + ``T.decode_step`` on the same weights.  Returns the
-    launch counts of the steps (read from 0 just before the ranks start
-    until every rank has taken its last step) and a summary (each rank's
-    cache leaf shapes and sequence entry among it)."""
+    ``cfg`` in fp32 on a ``(data, model)`` stand-in mesh (``_Turns``;
+    ``mesh_shape``, by default ``(1, ranks)``), each rank on its blocks of
+    the weights (its FSDP shards under ``fsdp``) and of the batch, the
+    cache in ``cache_dtype`` (default fp32).  The tokens equal, and the
+    prefill logits, the logits of one more decode step and every leaf of the
+    gathered cache within ``rtol`` of their max, the unsplit ``T.prefill`` +
+    ``T.decode_step`` on the same weights (an 8-bit cache leaf: its codes
+    equal but for codes next to them, at most ``FP8_STRADDLE_SHARE`` of the
+    entries: a value the two runs compute a rounding apart, either side of a
+    midpoint).  Returns the launch counts of the steps (read from 0 just
+    before the ranks start until every rank has taken its last step) and a
+    summary (each rank's cache leaf shapes and sequence entry among it, its
+    most FSDP-gathered bytes alive at once, the device's peak during the
+    run above the memory before it)."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -6007,7 +6270,9 @@ def _stand_in_serve(cfg, ranks, rows, seq, prompt, decodes, seed, device="cuda")
     from repro_torch.models.act_sharding import activation_sharding
     from repro_torch.runtime import make_prefill_step, make_serve_step
     from repro_torch.runtime import sharding as S
-    from repro_torch.tree import tree_map, tree_map_with_path
+    from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+    from repro_torch.runtime import step as step_mod
 
     f32 = torch.float32
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -6016,7 +6281,7 @@ def _stand_in_serve(cfg, ranks, rows, seq, prompt, decodes, seed, device="cuda")
                             dtype=torch.int32)
     with torch.no_grad():
         ref_logits, ref_cache = T.prefill(cfg, params, prompts, seq, compute_dtype=f32,
-                                          cache_dtype=f32)
+                                          cache_dtype=cache_dtype or f32)
         tok = torch.argmax(ref_logits, -1).to(torch.int32)
         ref_toks, ref_step_logits = [], []
         for _ in range(decodes + 1):
@@ -6026,40 +6291,60 @@ def _stand_in_serve(cfg, ranks, rows, seq, prompt, decodes, seed, device="cuda")
         # the cache as the split run leaves it: the token of the extra step
         # is written there too, at the same index
     shape = ShapeConfig("stand_in", seq, rows, "decode")
+    mesh_shape = mesh_shape or (1, ranks)
     turns = _Turns(ranks)
-    meshes = [_ThreadMesh(turns, (1, ranks), ("data", "model"), r, torch.device(device))
+    meshes = [_ThreadMesh(turns, mesh_shape, ("data", "model"), r, torch.device(device))
               for r in range(ranks)]
+    kw = dict(compute_dtype=f32, fsdp=fsdp, cache_dtype=cache_dtype)
 
     def rank_run(rank, mesh):
-        pre = make_prefill_step(cfg, mesh, shape, compute_dtype=f32)
-        dec = make_serve_step(cfg, mesh, shape, compute_dtype=f32)
+        pre = make_prefill_step(cfg, mesh, shape, **kw)
+        dec = make_serve_step(cfg, mesh, shape, **kw)
         local = pre.shard_params(params)
         logits, cache = pre.step(local, pre.shard_inputs(prompts))
         full = pre.gather_output(logits)
-        tok = torch.argmax(full, -1).to(torch.int32)
+        tok = S.shard_tensor(torch.argmax(full, -1).to(torch.int32), dec.input_specs, mesh)
         toks = []
         for _ in range(decodes):
             tok, cache = dec.step(local, tok, cache)
             toks.append(dec.gather_output(tok))
         counts, colls = turns.wait(lambda: (ops.launch_counts(), dict(mesh.collectives)))
-        # one more decode step's logits, under the step's own context (not
-        # counted: the counts are read)
+        # one more decode step's logits, under the step's own contexts (not
+        # counted: the counts are read), on this rank's rows
         seq_entry = _kv_seq_entry(dec.cache_specs)
         specs = S.activation_specs(cfg, mesh, batch_sharded=dec.batch_sharded)
-        with torch.no_grad(), activation_sharding(mesh, specs, cache_seq=seq_entry):
-            lg, cache = T.decode_step(cfg, local, tok, cache, compute_dtype=f32)
-        lg = S.gather_tensor(lg, S.P(None, S.ShardingPlan(cfg, mesh).vocab()), mesh)
+        index = cache["index"]
+        if index.ndim == 1 and dec.batch_sharded:
+            index = S.shard_tensor(index, dec.input_specs, mesh)
+        with torch.no_grad(), activation_sharding(mesh, specs, cache_seq=seq_entry), \
+                step_mod._serve_gather(dec, local):
+            lg, cache = T.decode_step(cfg, local, tok, dict(cache, index=index),
+                                      compute_dtype=f32)
+        rows_entry = dec.input_specs[0] if len(dec.input_specs) else None
+        lg = S.gather_tensor(lg, S.P(rows_entry, S.ShardingPlan(cfg, mesh).vocab()), mesh)
         return {"prefill": full, "tokens": toks, "logits": lg, "counts": counts,
                 "collectives": colls, "seq_entry": seq_entry,
                 "local": tree_map(lambda t: tuple(t.shape), cache["layers"]),
-                "cache": dec.gather_cache(cache)}
+                "cache": dec.gather_cache(cache),
+                "gathered": max(pre.max_live_gathered_bytes, dec.max_live_gathered_bytes),
+                "shard_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(local))}
 
     ops.reset_launch_counts()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     results = turns.run(rank_run, meshes)
     secs = time.monotonic() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9 if on_card else None
 
     def rel(a, b):
+        if a.element_size() == 1:  # an 8-bit cache leaf: its codes
+            errs["cache_code_share"] = max(errs.get("cache_code_share", 0.0),
+                                           _fp8_code_share(a, b))
+            return 0.0
         return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
     errs = {"prefill": 0.0, "logits": 0.0, "cache": 0.0}
@@ -6077,15 +6362,18 @@ def _stand_in_serve(cfg, ranks, rows, seq, prompt, decodes, seed, device="cuda")
             for key in path.split("/"):
                 have = have[key]
             errs["cache"] = max(errs["cache"], rel(have, want))
-    if max(errs.values()) > SP_RTOL:
+    if max(v for k, v in errs.items() if k != "cache_code_share") > rtol:
         raise AssertionError(f"{cfg.name} stand-in serve: split run against the unsplit {errs} "
-                             f"(tolerance {SP_RTOL:g} of the max)")
+                             f"(tolerance {rtol:g} of the max)")
     counts, colls = results[0]["counts"], results[0]["collectives"]
-    summary = {"arch": cfg.name, "ranks": ranks, "layers": cfg.num_layers, "rows": rows,
-               "seq": seq, "prompt": prompt, "decodes": decodes, "seconds": secs,
-               "errors": errs, "collectives_rank0": colls,
+    summary = {"arch": cfg.name, "ranks": ranks, "mesh": mesh_shape, "layers": cfg.num_layers,
+               "rows": rows, "seq": seq, "prompt": prompt, "decodes": decodes,
+               "seconds": secs, "errors": errs, "collectives_rank0": colls,
                "seq_entries": [res["seq_entry"] for res in results],
-               "local": [res["local"] for res in results]}
+               "local": [res["local"] for res in results],
+               "gathered": [res["gathered"] for res in results],
+               "shard_bytes": [res["shard_bytes"] for res in results],
+               "peak_above_base_gb": peak_gb}
     del results, params, ref_cache
     return counts, summary
 
@@ -6276,7 +6564,11 @@ def phase_serve_steps(mesh):
     token prompt in a ``SERVE_STEP_SEQ``-row cache: the tokens bit-equal to
     ``T.prefill`` plus eager ``T.decode_step`` on the same weights.  Prints
     each step's time beside the eager decode step's, the peak memory and
-    the collectives a step.  Returns the launch counts of the steps."""
+    the collectives a step.  Then the same steps over an 8-bit cache
+    (``_fp8_serve_steps``), the sequence-parallel decode over one
+    (``_fp8_seq_parallel_serve``) and the FSDP serve steps
+    (``_fsdp_serve_steps``).  Returns ``{"serve_steps": the bf16 steps'
+    launch counts, "serve_steps_fp8": the 8-bit runs'}``."""
     import torch
 
     from repro_torch import configs
@@ -6286,7 +6578,7 @@ def phase_serve_steps(mesh):
     from repro_torch.runtime import make_prefill_step, make_serve_step
 
     t_phase = time.monotonic()
-    total = {}
+    total, fp8 = {}, {}
     for arch in ("olmo-1b", "qwen3-1.7b"):
         _fresh_phase()
         cfg = configs.get_config(arch)
@@ -6350,10 +6642,285 @@ def phase_serve_steps(mesh):
             f"{med(eager_s):.2f}, min {min(eager_s) * 1e3:.2f}); peak device memory "
             f"{peak:.2f} GB; collectives a step {json.dumps(colls)}; launches "
             f"{json.dumps(got)}")
-        del params, local, cache, ref_cache, logits, ref_logits
+        del cache, ref_cache, logits, ref_logits
+        fp8 = _fp8_serve_steps(cfg, mesh, params, local, prompts, med(step_s), peak, fp8)
+        del params, local
+    fp8 = _fp8_seq_parallel_serve(fp8)
+    _fsdp_serve_steps()
     _end_phase("serve steps")
     log(f"serve steps: {time.monotonic() - t_phase:.1f}s")
+    return {"serve_steps": total, "serve_steps_fp8": fp8}
+
+
+def _clone_cache(cache):
+    return {"index": cache["index"].clone(),
+            "layers": {k: v.clone() for k, v in cache["layers"].items()}}
+
+
+def _cache_gb(cache) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache["layers"])) / 1e9
+
+
+def _fp8_serve_steps(cfg, mesh, params, local, prompts, bf16_step_ms, bf16_peak, total):
+    """Phase 33 over an 8-bit cache: ``make_prefill_step`` + the decode steps
+    of ``cfg`` with ``cache_dtype=float8_e4m3fn`` on ``mesh`` (bf16 weights
+    and compute): the prefill's logits and cache bit-equal to ``T.prefill``'s
+    with the same cache dtype; each step's tokens against the same step on
+    the plain versions from the same cache and token (``T.decode_step`` with
+    ``attn_impl="torch"``: #3's plain version over the same 8-bit rows),
+    differing only at a bf16 tie (``FP8_TIE_ULPS``), and equal in fp32
+    compute (``_fp8_fp32_tokens``); #3's fp8 instantiation launched once a
+    layer and step; the first decode step's logits against the same step
+    over the bf16 cache, cosine >= ``FP8_MIN_COSINE``; cache bytes, peak
+    memory and the decode step's time beside the bf16 cache's.  For
+    qwen3-1.7b also the 8 x ``FP8_LONG_SEQ`` cache in both types.  Adds the
+    launches to ``total`` and returns it."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+
+    fp8 = torch.float8_e4m3fn
+    arch = cfg.name
+    shape = ShapeConfig("serve_steps", SERVE_STEP_SEQ, SERVE_STEP_ROWS, "decode")
+    pre = make_prefill_step(cfg, mesh, shape, cache_dtype=fp8)
+    dec = make_serve_step(cfg, mesh, shape, cache_dtype=fp8)
+    inputs = pre.shard_inputs(prompts)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), pre_s = _timed(pre.step, local, inputs)
+    peak = torch.cuda.max_memory_allocated()
+    cache_gb = _cache_gb(cache)
+    tok0 = torch.argmax(pre.gather_output(logits), -1).to(torch.int32)
+    tok, step_s, plain = tok0, [], []
+    for _ in range(SERVE_STEP_DECODES):
+        # the same step on the plain versions, from the same cache and token
+        # (#3's plain version over the same 8-bit rows; counted apart), then
+        # the step, its peak memory taken alone
+        with torch.no_grad():
+            lg = T.decode_step(cfg, params, tok, _clone_cache(cache), attn_impl="torch")[0]
+        torch.cuda.reset_peak_memory_stats()
+        (tok, cache), dt = _timed(dec.step, local, tok, cache)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        plain.append((lg, tok))
+        step_s.append(dt)
+    counts = ops.launch_counts()
+    peak /= 1e9
+    want = {"flash_attention_fwd": cfg.num_layers,
+            "decode_attention_fp8": cfg.num_layers * SERVE_STEP_DECODES,
+            "decode_attention": 0}
+    got = {n: counts[n]["cuda"] for n in want}
+    if got != want:
+        raise AssertionError(f"fp8 serve steps {arch}: launches {got}, expected {want}")
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c["cuda"]
+    with torch.no_grad():
+        ref_logits, ref_cache = T.prefill(cfg, params, prompts, SERVE_STEP_SEQ, cache_dtype=fp8)
+        fresh = pre.step(local, inputs)[1]
+        same_cache = all(torch.equal(fresh["layers"][n].view(torch.uint8),
+                                     ref_cache["layers"][n].view(torch.uint8))
+                         for n in ("k", "v"))
+        # the first decode step over each cache, from the same prompt and token
+        lg8 = T.decode_step(cfg, params, tok0, fresh)[0].float()
+        bf16 = make_prefill_step(cfg, mesh, shape).step(local, inputs)[1]
+        bf16_gb = _cache_gb(bf16)
+        lg16 = T.decode_step(cfg, params, tok0, bf16)[0].float()
+    cos = ((lg8 * lg16).sum() / (lg8.norm() * lg16.norm())).item()
+    row_cos = torch.nn.functional.cosine_similarity(lg8, lg16, dim=-1).min().item()
+    if not (torch.equal(logits, ref_logits) and same_cache):
+        raise AssertionError(f"fp8 serve steps {arch}: the prefill's logits or 8-bit cache "
+                             "differ from T.prefill's")
+    flips = _fp8_token_flips(plain)
+    far = [f for f in flips
+           if f[2] > FP8_TIE_ULPS * 2.0 ** (math.floor(math.log2(max(abs(f[3]), 1e-30))) - 7)]
+    if far:
+        raise AssertionError(f"fp8 serve steps {arch}: tokens differ from the plain versions' "
+                             f"beyond a bf16 tie (step, row, plain logit margin, logit): {far}")
+    if not cos >= FP8_MIN_COSINE:
+        raise AssertionError(f"fp8 serve steps {arch}: logits cosine {cos:.5f} against the "
+                             f"bf16 cache's (at least {FP8_MIN_COSINE})")
+    med = sorted(step_s)[len(step_s) // 2] * 1e3
+    log(f"fp8 serve steps ({_card()}; {arch} full depth, bf16 weights and compute, "
+        f"cache_dtype=float8_e4m3fn, {SERVE_STEP_ROWS} rows x {SERVE_STEP_PROMPT}-token prompts "
+        f"in {SERVE_STEP_SEQ} rows): prefill logits and cache bit-equal to T.prefill's; tokens "
+        f"of {SERVE_STEP_DECODES} steps, each against the same step on the plain versions "
+        f"from the same cache, {len(flips)} differ; first-step logits cosine "
+        f"{cos:.5f} against the bf16 cache's (rows min {row_cos:.5f}); cache {cache_gb:.4f} GB "
+        f"(bf16 {bf16_gb:.4f}); peak {peak:.2f} GB (bf16 run {bf16_peak:.2f}); prefill "
+        f"{pre_s * 1e3:.1f} ms; decode step median {med:.2f} ms (bf16 cache "
+        f"{bf16_step_ms:.2f}); launches {json.dumps(got)}")
+    del cache, fresh, bf16, ref_cache
+    exact = _fp8_fp32_tokens(cfg, mesh, prompts)
+    log(f"fp8 serve steps {arch}: bf16 tokens at a tie with the plain versions' (step, row, "
+        f"plain logit margin, logit): {flips}; in fp32 compute {exact} steps x "
+        f"{SERVE_STEP_ROWS} rows equal to the plain versions'")
+    if arch.startswith("qwen3"):
+        _fp8_long_cache(cfg, mesh, local, prompts)
     return total
+
+
+def _fp8_token_flips(steps) -> list:
+    """``(step, row, margin, logit)`` where a step's token differs from the
+    plain version's argmax of ``lg`` (``steps``: (plain logits, token) a
+    step): the plain logits' margin of its own argmax over the step's token."""
+    import torch
+
+    flips = []
+    for i, (lg, tok) in enumerate(steps):
+        want = torch.argmax(lg, -1).to(torch.int32)
+        for r in torch.nonzero(want != tok).flatten().tolist():
+            row = lg[r].float()
+            flips.append((i, r, (row[want[r]] - row[tok[r]]).item(), row[want[r]].item()))
+    return flips
+
+
+def _fp8_fp32_tokens(cfg, mesh, prompts) -> int:
+    """The 8-bit cache's serve steps in fp32 compute (weights from their own
+    seed): each decode step's tokens equal to the same step on the plain
+    versions from the same cache and token (``attn_impl="torch"``), exactly.
+    Returns the steps checked."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+
+    f32, fp8 = torch.float32, torch.float8_e4m3fn
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(39), dtype=f32)
+    shape = ShapeConfig("serve_steps", SERVE_STEP_SEQ, SERVE_STEP_ROWS, "decode")
+    pre = make_prefill_step(cfg, mesh, shape, compute_dtype=f32, cache_dtype=fp8)
+    dec = make_serve_step(cfg, mesh, shape, compute_dtype=f32, cache_dtype=fp8)
+    local = pre.shard_params(params)
+    logits, cache = pre.step(local, pre.shard_inputs(prompts))
+    tok, steps = torch.argmax(pre.gather_output(logits), -1).to(torch.int32), []
+    for _ in range(SERVE_STEP_DECODES):
+        with torch.no_grad():
+            lg = T.decode_step(cfg, params, tok, _clone_cache(cache), compute_dtype=f32,
+                               attn_impl="torch")[0]
+        tok, cache = dec.step(local, tok, cache)
+        steps.append((lg, tok))
+    flips = _fp8_token_flips(steps)
+    if flips:
+        raise AssertionError(f"fp8 serve steps {cfg.name}, fp32: tokens differ from the plain "
+                             f"versions' (step, row, plain logit margin, logit): {flips}")
+    del params, local, cache
+    return len(steps)
+
+
+def _fp8_long_cache(cfg, mesh, local, prompts):
+    """qwen3-1.7b's 8 x ``FP8_LONG_SEQ`` cache in bf16 and in fp8: the serve
+    steps' prefill and ``FP8_LONG_DECODES`` decode steps; cache bytes, peak
+    memory, the decode step's median time."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+
+    shape = ShapeConfig("serve_steps_long", FP8_LONG_SEQ, SERVE_STEP_ROWS, "decode")
+    out = {}
+    for name, dtype in (("bf16", None), ("fp8", torch.float8_e4m3fn)):
+        pre = make_prefill_step(cfg, mesh, shape, cache_dtype=dtype)
+        dec = make_serve_step(cfg, mesh, shape, cache_dtype=dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits, cache = pre.step(local, pre.shard_inputs(prompts))
+        tok = torch.argmax(pre.gather_output(logits), -1).to(torch.int32)
+        step_s = []
+        for _ in range(FP8_LONG_DECODES):
+            (tok, cache), dt = _timed(dec.step, local, tok, cache)
+            step_s.append(dt)
+        out[name] = (_cache_gb(cache), torch.cuda.max_memory_allocated() / 1e9,
+                     sorted(step_s)[len(step_s) // 2] * 1e3)
+        del cache, logits
+    log(f"fp8 serve steps ({_card()}; {cfg.name}, {SERVE_STEP_ROWS} x {FP8_LONG_SEQ} cache, "
+        f"{FP8_LONG_DECODES} decode steps): cache GB bf16 {out['bf16'][0]:.4f} / fp8 "
+        f"{out['fp8'][0]:.4f}; peak GB {out['bf16'][1]:.2f} / {out['fp8'][1]:.2f}; decode step "
+        f"median ms {out['bf16'][2]:.2f} / {out['fp8'][2]:.2f}")
+
+
+def _fp8_seq_parallel_serve(total):
+    """The sequence-parallel decode over an 8-bit cache: ``_stand_in_serve``
+    of qwen3-1.7b cut to ``FP8_SP_LAYERS`` layers on the (1, ``SP_RANKS``)
+    stand-in mesh with ``cache_dtype=float8_e4m3fn``: each rank runs #3's
+    partial form over its block of 8-bit rows once a layer and step.  Adds
+    its launches to ``total`` and returns it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(SP_ARCH), num_layers=FP8_SP_LAYERS)
+    counts, sp = _stand_in_serve(cfg, SP_RANKS, SERVE_STEP_ROWS, SERVE_STEP_SEQ, SP_PROMPT,
+                                 SP_DECODES, seed=36, cache_dtype=torch.float8_e4m3fn,
+                                 rtol=FP8_SP_RTOL)
+    want = SP_RANKS * FP8_SP_LAYERS * SP_DECODES
+    got = {n: counts[n]["cuda"] for n in ("decode_attention_partial_fp8",
+                                          "decode_attention_partial", "combine_splits")}
+    if got != {"decode_attention_partial_fp8": want, "decode_attention_partial": 0,
+               "combine_splits": want}:
+        raise AssertionError(f"fp8 seq parallel serve: launches {got}, expected {want} 8-bit "
+                             "partials and merges")
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c["cuda"]
+    log(f"fp8 seq parallel serve ({_card()}; {SP_ARCH} full width cut to {FP8_SP_LAYERS} "
+        f"layers, fp32, cache_dtype=float8_e4m3fn, (1, {SP_RANKS}) stand-in mesh): tokens equal "
+        f"to the unsplit run's, errors {sp['errors']} (logits within {FP8_SP_RTOL:g} of the max; "
+        f"cache codes next to the unsplit run's on at most {FP8_STRADDLE_SHARE:g} of the "
+        f"entries); {sp['seconds']:.1f} s; launches {json.dumps(got)}")
+    return total
+
+
+def _fsdp_serve_steps():
+    """The FSDP serve steps: ``_stand_in_serve`` of qwen3-1.7b (full width
+    and depth, fp32) on a (data, model) = ``FSDP_SERVE_MESH`` stand-in mesh
+    with ``fsdp=True``: the tokens equal to the unsplit run's; each rank's
+    most gathered bytes alive at once no more than one layer's gathered
+    weights plus every split leaf outside the stacks, printed beside the
+    whole tree's (what the whole-tree gather held) and the device's peak
+    above the memory before the run."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import make_serve_step
+    from repro_torch.runtime.step import abstract_params
+    from repro_torch.tree import tree_map_with_path
+
+    cfg = configs.get_config(SP_ARCH)
+    ranks = FSDP_SERVE_MESH[0] * FSDP_SERVE_MESH[1]
+    _, sp = _stand_in_serve(cfg, ranks, SERVE_STEP_ROWS, SERVE_STEP_SEQ, SP_PROMPT,
+                            SP_DECODES, seed=37, mesh_shape=FSDP_SERVE_MESH, fsdp=True)
+    # the bound from the specs: a layer's gathered fp32 weights and every
+    # split leaf outside the stacks; and the whole tree's split leaves
+    mesh = _ThreadMesh(_Turns(ranks), FSDP_SERVE_MESH, ("data", "model"), 0, "meta")
+    art = make_serve_step(cfg, mesh, ShapeConfig("fsdp", SERVE_STEP_SEQ, SERVE_STEP_ROWS,
+                                                  "decode"), compute_dtype=torch.float32,
+                          fsdp=True)
+    sizes = []
+    tree_map_with_path(lambda path, t, spec: sizes.append(
+        (path.startswith("layers/"), t.numel() * 4, any(e is not None for e in spec))),
+        abstract_params(cfg), art.param_specs)
+    layer = sum(n // cfg.num_layers for stacked, n, split in sizes if split and stacked)
+    top = sum(n for stacked, n, split in sizes if split and not stacked)
+    whole = sum(n for _, n, split in sizes if split)
+    worst = max(sp["gathered"])
+    if not 0 < worst <= layer + top:
+        raise AssertionError(f"fsdp serve steps: {worst} gathered bytes alive at once, above "
+                             f"one layer's {layer} + the non-layer split leaves' {top}")
+    log(f"fsdp serve steps ({_card()}; {SP_ARCH} full width and depth, fp32, fsdp=True on a "
+        f"(data, model) = {FSDP_SERVE_MESH} stand-in mesh, {SERVE_STEP_ROWS // ranks} of "
+        f"{SERVE_STEP_ROWS} rows a rank): tokens equal to the unsplit run's, errors "
+        f"{sp['errors']}; most gathered bytes alive at once by rank {sp['gathered']} (bound "
+        f"{layer + top}: a layer {layer} + the non-layer split leaves {top}; the whole-tree "
+        f"gather held {whole}); shard bytes by rank {sp['shard_bytes']}; device peak above "
+        f"the memory before the run {sp['peak_above_base_gb']:.2f} GB (every rank's shards and "
+        f"cache, one rank's gathered layer at a time); {sp['seconds']:.1f} s; rank 0's "
+        f"collectives {json.dumps(sp['collectives_rank0'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -6619,7 +7186,9 @@ def main() -> int:
             row["launches"] = next((n for n in runs.values() if n), 0)
             row.update({f"launches_{r}": n for r, n in runs.items() if n})
             continue
-        if row["name"] in SPEC_KERNELS:
+        if row["name"] in FP8_ROWS:
+            row["launches"] = slice_launches["serve_steps_fp8"][row["name"]]
+        elif row["name"] in SPEC_KERNELS:
             row["launches"] = spec_launches[row["name"]]
             if row["name"] in ("prefill_attention", "decode_attention"):
                 row["launches_dense_target"] = dense_launches[row["name"]]

@@ -38,9 +38,13 @@ SIGNATURES = {
         ("paged_prefill_attention_launch", [_P] * 7 + [_I] * 11 + [_P]),
     ),
     "decode_attention": (
-        ("decode_attention_launch", [_P] * 5 + [_I] * 9 + [_P]),
-        ("decode_attention_partial_launch", [_P] * 6 + [_I] * 9 + [_P]),
+        ("decode_attention_launch", [_P] * 5 + [_I] * 10 + [_P]),
+        ("decode_attention_partial_launch", [_P] * 6 + [_I] * 10 + [_P]),
         ("combine_splits_launch", [_P] * 3 + [_I] * 6 + [_P]),
+    ),
+    "decode_attention_fp8": (
+        ("decode_attention_launch", [_P] * 5 + [_I] * 10 + [_P]),
+        ("decode_attention_partial_launch", [_P] * 6 + [_I] * 10 + [_P]),
     ),
     "prefill_attention": (
         ("prefill_attention_launch", [_P] * 6 + [_I] * 11 + [_P]),
@@ -66,6 +70,9 @@ SIGNATURES = {
 }
 KERNELS = tuple(SIGNATURES)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: K / V dtypes of the dense decode kernel (#3 and its partial form) alone:
+#: q's own, or an 8-bit cache's (the serve steps' ``cache_dtype``)
+KV_DTYPE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
 _LIBS: dict = {}
 

@@ -40,12 +40,55 @@
 // a NaN key a NaN l and acc (the merge propagates it).  The plan (tpc, cluster) comes from the table width or
 // S alone (`decode_plan` in decode_attention.py), so a captured CUDA graph
 // stays valid whatever lengths it replays with.
+//
+// The K / V rows may hold 8-bit floats (TK = __nv_fp8_e4m3 or
+// __nv_fp8_e5m2; the dense decode over the serve steps' fp8 cache) under
+// fp32 or bf16 q and out (T).  A 16-byte chunk then holds 16 values, so a
+// row is hd bytes, LPR follows from hd / 16, and a lane's q registers hold
+// the chunk's 16 columns (two bf16 or four fp32 16-byte loads).  K and V
+// pairs widen by `cvt.rn.f16x2.e4m3x2` / `.e5m2x2` (exact), then to fp32;
+// the scores and the online softmax stay fp32.
 #pragma once
+
+#include <cuda_fp8.h>
 
 #include <type_traits>  // std::integral_constant
 
 #include "hopper.cuh"
 #include "paged_attention.cuh"
+
+namespace kern {
+
+template <> struct Vec<__nv_fp8_e4m3> { static constexpr int N = 16; };
+template <> struct Vec<__nv_fp8_e5m2> { static constexpr int N = 16; };
+
+// 16 8-bit floats -> fp32 values, two at a time through f16x2 (every e4m3 /
+// e5m2 value, NaN and inf included, is exact in f16).
+__device__ __forceinline__ void load16_fp8(const void* src, float* dst,
+                                           __nv_fp8_interpretation_t kind) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __half2 x2(__nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * h)), kind));
+      const float2 f = __half22float2(x2);
+      dst[4 * i + 2 * h] = f.x;
+      dst[4 * i + 2 * h + 1] = f.y;
+    }
+}
+
+__device__ __forceinline__ void load16(const __nv_fp8_e4m3* src, float* dst) {
+  load16_fp8(src, dst, __NV_E4M3);
+}
+
+__device__ __forceinline__ void load16(const __nv_fp8_e5m2* src, float* dst) {
+  load16_fp8(src, dst, __NV_E5M2);
+}
+
+}  // namespace kern
 
 namespace decode {
 
@@ -55,11 +98,11 @@ constexpr int kKeys = 64;                  // keys per KV tile
 constexpr int kWarpKeys = kKeys / kWarps;  // keys of a tile per warp
 constexpr int kStages = 2;                 // depth of the K / V ring
 constexpr int kMaxCluster = 8;             // the portable limit of a cluster's CTAs
-constexpr int kMaxRowBytes = 512;          // hd * sizeof(T): bf16 up to 256, fp32 up to 128
+constexpr int kMaxRowBytes = 512;          // hd * sizeof(TK): fp8 / bf16 / fp32 up to 512 / 256 / 128
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory of one CTA (bytes): the ring (kStages x K and V
-// tiles of kKeys rows), the warps' (m, l) [kWarps][G], then `table_ints`
+// tiles of kKeys rows of `elem`-byte values), the warps' (m, l) [kWarps][G], then `table_ints`
 // block-table entries.  After the walk the ring holds the warps' O
 // [kWarps][G][hd], the CTA's O [G][hd] and its (m, l) [G], all fp32.
 inline size_t smem_bytes(int G, int hd, int elem, int table_ints) {
@@ -70,22 +113,25 @@ inline size_t smem_bytes(int G, int hd, int elem, int table_ints) {
 // Block-table entries a CTA of `tpc` tiles stages (the pages its keys span).
 inline int table_ints(int tpc, int page) { return tpc * kKeys / page + 2; }
 
-// One CTA: q and out are the slot's [H, hd] rows; kv names the slot's K / V
-// rows (`page` is the pool's page size, unused by DenseKV); len_p points at
-// the slot's length.  G is a power of two, >= the live rows (group - g0);
-// LPR lanes share a key (a power of two >= hd / (16 / sizeof(T))), so a
-// warp reads KPW = 32 / LPR keys at once and each lane NI of its warp's 16.
-// PARTIAL: out is unused; part_acc / part_ml are the slot's [H, hd] / [H, 2]
-// fp32 rows of the unnormalised state (see the header).
-template <typename T, int G, int LPR, bool PARTIAL = false, typename KV>
-__device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ k_pool,
-                                       const T* __restrict__ v_pool, KV kv,
+// One CTA: q and out are the slot's [H, hd] rows of T; kv names the slot's
+// K / V rows of TK (`page` is the pool's page size, unused by DenseKV);
+// len_p points at the slot's length.  G is a power of two, >= the live rows
+// (group - g0); LPR lanes share a key (a power of two >= hd / (16 /
+// sizeof(TK))), so a warp reads KPW = 32 / LPR keys at once and each lane NI
+// of its warp's 16.  PARTIAL: out is unused; part_acc / part_ml are the
+// slot's [H, hd] / [H, 2] fp32 rows of the unnormalised state (see the
+// header).
+template <typename T, int G, int LPR, bool PARTIAL = false, typename TK, typename KV>
+__device__ __forceinline__ void attend(const T* __restrict__ q, const TK* __restrict__ k_pool,
+                                       const TK* __restrict__ v_pool, KV kv,
                                        const int* __restrict__ len_p, T* __restrict__ out,
                                        int group, int kvh, int hd, int page, int head, int g0,
                                        int tpc, int cluster, float sl2,
                                        float* __restrict__ part_acc = nullptr,
                                        float* __restrict__ part_ml = nullptr) {
-  constexpr int VN = kern::Vec<T>::N;  // values per 16-byte chunk
+  constexpr int VN = kern::Vec<TK>::N;  // K / V values per 16-byte chunk
+  constexpr int VQ = kern::Vec<T>::N;   // q values per 16-byte load
+  static_assert(VN % VQ == 0, "a K / V chunk spans whole q loads");
   constexpr int KPW = 32 / LPR;        // keys a warp reads at once
   constexpr int NI = kWarpKeys / KPW;  // keys of its warp's 16 a lane reads
   constexpr int RPT = kKeys * LPR / kThreads;  // K / V rows a thread copies per tile
@@ -95,7 +141,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
   const int CH = hd / VN;  // 16-byte chunks of a row (<= LPR)
   const int ks = lane / LPR, c = lane % LPR;
   const bool has_chunk = c < CH;
-  const int row_bytes = hd * (int)sizeof(T);
+  const int row_bytes = hd * (int)sizeof(TK);
   const size_t row_stride = (size_t)kvh * hd;
   const int rows = min(G, group - g0);  // live q rows of this CTA
 
@@ -112,7 +158,9 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (g < rows && has_chunk) {
-      kern::load16(q + (size_t)(head * group + g0 + g) * hd + c * VN, qv[g]);
+#pragma unroll
+      for (int u = 0; u < VN / VQ; ++u)
+        kern::load16(q + (size_t)(head * group + g0 + g) * hd + c * VN + u * VQ, qv[g] + u * VQ);
     } else {
 #pragma unroll
       for (int e = 0; e < VN; ++e) qv[g][e] = 0.f;
@@ -188,7 +236,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
       for (int i = 0; i < NI; ++i) {
         float kf[VN];
         if (has_chunk) {
-          kern::load16(reinterpret_cast<const T*>(tk + (i * KPW + ks) * row_bytes), kf);
+          kern::load16(reinterpret_cast<const TK*>(tk + (i * KPW + ks) * row_bytes), kf);
         } else {
 #pragma unroll
           for (int e = 0; e < VN; ++e) kf[e] = 0.f;
@@ -251,7 +299,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 #pragma unroll
         for (int i = 0; i < NI; ++i) {
           float vf[VN];
-          kern::load16(reinterpret_cast<const T*>(tv + (i * KPW + ks) * row_bytes), vf);
+          kern::load16(reinterpret_cast<const TK*>(tv + (i * KPW + ks) * row_bytes), vf);
 #pragma unroll
           for (int g = 0; g < G; ++g)
 #pragma unroll

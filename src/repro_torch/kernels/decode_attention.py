@@ -14,6 +14,14 @@ path it is the draft model's proposal step and the dense target layout's
 decode step.  On the card it is bound by the bytes of the K/V rows it must
 read, and at serving sizes by the fixed cost of a short walk.
 
+K and V may also be an 8-bit cache (``float8_e4m3fn`` / ``float8_e5m2``,
+the serve steps' ``cache_dtype``: a plain cast, no scale, as the
+reference's) under fp32 or bf16 q: the same kernels, instantiated in a
+library of their own (``csrc/decode_attention_fp8.cu``), widen each pair of
+values to fp32 as they read them, rows of hd bytes (hd a multiple of 16).  Its plain
+versions widen with ``.float()``, as the reference's XLA path widens to q's
+dtype (exact either way).
+
 ``decode_core`` is the plain math, shared with the paged decode's plain
 version.  ``TILE`` and ``split_plan`` are the split of the FMA verify and
 prefill bodies (16-row tiles).  ``COUNTS["cuda"]`` counts kernel launches,
@@ -28,7 +36,9 @@ reached.  ``combine_splits`` merges the blocks' partials, gathered as
 [B, n, H, hd] / [B, n, H, 2], with ``paged::combine_splits`` (the paged
 verify's merge, at C = 1).  Their plain versions are
 ``decode_partial_core`` and ``combine_partials_core``; ``PARTIAL_COUNTS``
-and ``COMBINE_COUNTS`` count them as ``COUNTS`` does.
+and ``COMBINE_COUNTS`` count them as ``COUNTS`` does.  A call over 8-bit
+K / V counts in ``FP8_COUNTS`` / ``PARTIAL_FP8_COUNTS`` instead (its own
+instantiations of the kernel).
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ from repro_torch.kernels import build
 COUNTS = {"cuda": 0, "torch": 0}
 PARTIAL_COUNTS = {"cuda": 0, "torch": 0}
 COMBINE_COUNTS = {"cuda": 0, "torch": 0}
+FP8_COUNTS = {"cuda": 0, "torch": 0}
+PARTIAL_FP8_COUNTS = {"cuda": 0, "torch": 0}
 NEG_INF = -1e30
 #: cache rows per KV tile of the FMA verify and prefill bodies
 TILE = 16
@@ -56,7 +68,7 @@ DECODE_TILES_PER_CTA = 2
 #: ``decode::kMaxCluster``)
 MAX_CLUSTER = 8
 #: largest K/V row of the decode kernels, hd * itemsize (bytes):
-#: bfloat16 up to hd 256, float32 up to hd 128
+#: float8 up to hd 512, bfloat16 up to hd 256, float32 up to hd 128
 MAX_ROW_BYTES = 512
 #: largest dynamic shared memory of one block on the H100 (bytes)
 MAX_SMEM = 232_448
@@ -119,7 +131,7 @@ def decode_attention_torch(
 ) -> torch.Tensor:
     """Plain version: ``decode_core``.  q: [B, H, hd]; k/v: [B, S, kvH, hd]
     -> [B, H, hd]."""
-    COUNTS["torch"] += 1
+    (FP8_COUNTS if k.element_size() == 1 else COUNTS)["torch"] += 1
     return decode_core(q, k, v, lengths)
 
 
@@ -129,21 +141,23 @@ def decode_attention(
     """Launch the CUDA kernel (one launch, no scratch) on the current
     stream; the output is allocated here.  q: [B, H, hd]; k/v: [B, S, kvH,
     hd] of q's dtype (float32 or bfloat16); lengths: [B] int32 (clamped to
-    S by the kernel).  Returns a new [B, H, hd] tensor.  Raises on CPU
-    tensors or arguments the kernel does not take."""
+    S by the kernel).  k/v may instead be float8 (``KV_DTYPE_CODES``).
+    Returns a new [B, H, hd] tensor.  Raises on CPU tensors or arguments
+    the kernel does not take."""
     _check(q, k, v, lengths)
     b, h, hd = q.shape
     _, s, kvh, _ = k.shape
     per, cluster = decode_plan(s)
     out = torch.empty_like(q)
-    lib = build.load("decode_attention")
+    lib = build.load(_library(k))
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kvh, hd, s, per, cluster, build.DTYPE_CODES[q.dtype], q.device.index,
+        b, h, kvh, hd, s, per, cluster, build.DTYPE_CODES[q.dtype],
+        build.KV_DTYPE_CODES[k.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch(lib, err, "decode_attention")
-    COUNTS["cuda"] += 1
+    (FP8_COUNTS if k.element_size() == 1 else COUNTS)["cuda"] += 1
     return out
 
 
@@ -185,7 +199,7 @@ def combine_partials_core(acc: torch.Tensor, ml: torch.Tensor,
 
 def decode_attention_partial_torch(q, k, v, lengths):
     """Plain version of the partial form: ``decode_partial_core``."""
-    PARTIAL_COUNTS["torch"] += 1
+    (PARTIAL_FP8_COUNTS if k.element_size() == 1 else PARTIAL_COUNTS)["torch"] += 1
     return decode_partial_core(q, k, v, lengths)
 
 
@@ -208,14 +222,15 @@ def decode_attention_partial(
     per, cluster = decode_plan(s)
     acc = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     ml = torch.empty((b, h, 2), dtype=torch.float32, device=q.device)
-    lib = build.load("decode_attention")
+    lib = build.load(_library(k))
     err = lib.decode_attention_partial_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
         ml.data_ptr(), b, h, kvh, hd, s, per, cluster, build.DTYPE_CODES[q.dtype],
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        build.KV_DTYPE_CODES[k.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch(lib, err, "decode_attention_partial")
-    PARTIAL_COUNTS["cuda"] += 1
+    (PARTIAL_FP8_COUNTS if k.element_size() == 1 else PARTIAL_COUNTS)["cuda"] += 1
     return acc, ml
 
 
@@ -244,12 +259,19 @@ def combine_splits(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> t
     return out
 
 
+def _library(k: torch.Tensor) -> str:
+    """The kernel library of K / V rows like ``k``: 8-bit rows' own
+    instantiations (``csrc/decode_attention_fp8.cu``) or q's type's."""
+    return "decode_attention_fp8" if k.element_size() == 1 else "decode_attention"
+
+
 def check_head_dim(hd: int, dtype: torch.dtype) -> None:
-    """The decode kernels' rows: hd a multiple of 8, at most
-    ``MAX_ROW_BYTES`` bytes."""
+    """The decode kernels' rows: hd a multiple of 8 (of 16 for an 8-bit
+    type: whole 16-byte chunks), at most ``MAX_ROW_BYTES`` bytes."""
     isz = torch.empty((), dtype=dtype).element_size()
-    build.require(hd % 8 == 0 and hd * isz <= MAX_ROW_BYTES,
-                  f"head_dim {hd} must be a multiple of 8 with rows of at most "
+    mult = 16 if isz == 1 else 8
+    build.require(hd % mult == 0 and hd * isz <= MAX_ROW_BYTES,
+                  f"head_dim {hd} must be a multiple of {mult} with rows of at most "
                   f"{MAX_ROW_BYTES} bytes ({MAX_ROW_BYTES // isz} in {dtype})")
 
 
@@ -259,14 +281,16 @@ def _check(q, k, v, lengths) -> None:
     req(all(t.is_cuda for t in tensors), "decode_attention kernel needs CUDA tensors")
     req(all(t.device == q.device for t in tensors), "tensors on different devices")
     req(q.dtype in build.DTYPE_CODES, f"unsupported dtype {q.dtype}")
-    req(k.dtype == q.dtype and v.dtype == q.dtype, "q, k and v must share one dtype")
+    req(v.dtype == k.dtype and (k.dtype == q.dtype or k.dtype in build.KV_DTYPE_CODES
+                                and k.element_size() == 1),
+        "k and v must share q's dtype or one float8 type")
     req(lengths.dtype == torch.int32, "lengths must be int32")
     req(q.ndim == 3 and k.ndim == 4 and lengths.ndim == 1, "bad ranks")
     b, h, hd = q.shape
     kb, _, kvh, khd = k.shape
     req(v.shape == k.shape, "k and v shapes differ")
     req(khd == hd, f"head_dim {khd} of k does not match q's {hd}")
-    check_head_dim(hd, q.dtype)
+    check_head_dim(hd, k.dtype)
     req(kvh > 0 and h % kvh == 0, f"q heads {h} not a multiple of kv heads {kvh}")
     req(kb == b and lengths.shape[0] == b, "batch mismatch")
     req(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")

@@ -134,8 +134,9 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-token decode attention over a dense KV cache.
 
-    q: [B, H, hd]; k/v_cache: [B, S, kvH, hd] of q's dtype; lengths: [B]
-    int32 valid-KV counts (clamped to S; 0 == empty slot -> zero output).
+    q: [B, H, hd]; k/v_cache: [B, S, kvH, hd] of q's dtype or an 8-bit
+    float type (the fp8 cache, widened as it is read); lengths: [B] int32
+    valid-KV counts (clamped to S; 0 == empty slot -> zero output).
     Returns [B, H, hd]."""
     if _resolve(impl, q) == "cuda":
         return _dense_decode.decode_attention(q, k_cache, v_cache, lengths)
@@ -308,6 +309,8 @@ _COUNTS = {
     "paged_prefill_attention": _prefill.COUNTS,
     "decode_attention": _dense_decode.COUNTS,
     "decode_attention_partial": _dense_decode.PARTIAL_COUNTS,
+    "decode_attention_fp8": _dense_decode.FP8_COUNTS,
+    "decode_attention_partial_fp8": _dense_decode.PARTIAL_FP8_COUNTS,
     "combine_splits": _dense_decode.COMBINE_COUNTS,
     "prefill_attention": _dense_prefill.COUNTS,
     "paged_verify_attention": _verify.COUNTS,

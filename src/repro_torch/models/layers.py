@@ -233,6 +233,40 @@ def attention_block(
     return _out_proj(cfg, p, out)
 
 
+#: the 8-bit cache types (the serve steps' ``cache_dtype``)
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+#: float8_e4m3fn's rounding midpoint past its largest value (448): JAX's
+#: cast turns a larger magnitude into NaN, torch's saturates it to 448
+_E4M3_OVERFLOW = 464.0
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a cache's ``dtype`` as JAX's ``astype`` casts it.  A
+    plain ``.to`` but for the codes where torch differs: into float8_e4m3fn
+    a magnitude above 464 (infinities included) becomes a NaN of its sign,
+    where torch saturates to +-448; into float8_e5m2 a NaN becomes JAX's
+    code (from fp32: 0x7e of its sign; from bf16: 0x7f; torch keeps 0x7f of
+    its sign).  Bit for bit equal to JAX's cast elsewhere (the port's CPU
+    tests hold it to ``jnp.astype``)."""
+    y = x.to(dtype)
+    if dtype == torch.float8_e4m3fn:
+        bad, sign, nan = x.abs() > _E4M3_OVERFLOW, 0x80, 0x7F
+    elif dtype == torch.float8_e5m2:
+        bad = torch.isnan(x)
+        sign, nan = (0x80, 0x7E) if x.dtype == torch.float32 else (0, 0x7F)
+    else:
+        return y
+    code = y.view(torch.uint8)
+    return torch.where(bad, (code & sign) | nan, code).view(dtype)
+
+
+def cache_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An 8-bit cache tensor as its ``uint8`` codes (a view; other dtypes as
+    they are): index writes, selects and collectives move the codes bit for
+    bit where a float8 kernel is missing (gloo has none, for one)."""
+    return t.view(torch.uint8) if t.dtype in FP8_DTYPES else t
+
+
 def dense_kv_write_clamped(
     cache: torch.Tensor, new: torch.Tensor, starts: torch.Tensor
 ) -> torch.Tensor:
@@ -240,13 +274,13 @@ def dense_kv_write_clamped(
     with JAX's ``dynamic_update_slice`` rule: the start clamps into
     [0, S - T], so a write that would run past the end lands shifted back,
     on the last T rows.  cache: [B, S, kvH, hd]; new: [B, T, kvH, hd];
-    starts: [B]."""
+    starts: [B].  The rows are cast by ``to_cache``."""
     b, t = new.shape[:2]
     s = cache.shape[1]
     start = starts.long().clamp(0, s - t)
     rows = torch.arange(b, device=cache.device)[:, None]
     pos = start[:, None] + torch.arange(t, device=cache.device)[None, :]
-    cache[rows, pos] = new.to(cache.dtype)
+    cache_bytes(cache)[rows, pos] = cache_bytes(to_cache(new, cache.dtype))
     return cache
 
 
@@ -442,7 +476,9 @@ def _decode_seq_parallel(cfg, p, q, k_new, v_new, k_cache, v_cache, idx, impl):
     pos = pos.clamp(0, s_loc - 1)
     rows = torch.arange(b, device=k_cache.device)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cache[rows, pos] = torch.where(own, new[:, 0].to(cache.dtype), cache[rows, pos])
+        codes = cache_bytes(cache)
+        codes[rows, pos] = torch.where(own, cache_bytes(to_cache(new[:, 0], cache.dtype)),
+                                       codes[rows, pos])
     h0, h = local_heads(cfg, p)
     if h < cfg.num_heads_physical and k_cache.shape[2] == cfg.num_kv_heads:
         q = AS.all_gather_model(q, 1)

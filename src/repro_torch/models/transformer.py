@@ -55,6 +55,7 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import act_sharding as AS
+from repro_torch.models import fsdp as FS
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -177,6 +178,29 @@ def _layer(stacked: Params, i) -> Params:
     return stacked[i]
 
 
+def _layer_access(params: Params, compute_dtype: torch.dtype):
+    """``i -> layer i`` of ``params["layers"]`` in ``compute_dtype`` (a
+    cycle's ``[every, ...]`` stacks for the hybrid): views of the cast
+    stacks, or under an FSDP gather context (``models.fsdp``) the layer's
+    weights gathered at each call.  A caller drops a layer before it takes
+    the next, so one layer is gathered at a time."""
+    g = FS.active()
+    if g is not None:
+        return g.layers(params["layers"], compute_dtype)
+    views = _unstack(cast_params(params["layers"], compute_dtype))
+    return views.__getitem__
+
+
+def _shared(params: Params, compute_dtype: torch.dtype) -> Params:
+    """The hybrid's shared block in ``compute_dtype`` (gathered once a step
+    under an FSDP gather context)."""
+    return FS.top_tree(params["shared"], compute_dtype)
+
+
+def _final_norm(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    return L.norm(cfg, x, FS.top(params.get("final_norm")))
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
@@ -185,9 +209,10 @@ def _layer(stacked: Params, i) -> Params:
 def embed_tokens(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor, dtype: torch.dtype
 ) -> torch.Tensor:
+    table = FS.top(params["embed"], dtype).to(dtype)
     if AS.split("btv"):
-        return AS.embed_lookup(params["embed"].to(dtype), tokens)
-    return params["embed"].to(dtype)[tokens.long()]
+        return AS.embed_lookup(table, tokens)
+    return table[tokens.long()]
 
 
 def input_embeddings(
@@ -207,7 +232,8 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits ``[.., V]``, or this rank's columns ``[.., V/m]`` when the
     vocab splits over ``model`` (a tied table: its local rows,
     transposed)."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = (FS.top(params["embed"], x.dtype).T if cfg.tie_embeddings
+            else FS.top(params["lm_head"], x.dtype))
     return L.tp_entry(x, "btv") @ head.to(x.dtype)
 
 
@@ -232,6 +258,11 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def _dots_context():
     return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _depth(cfg: ModelConfig) -> int:
+    """Entries of the ``[L, ...]`` stacks: layers, or the hybrid's cycles."""
+    return cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid" else cfg.num_layers
 
 
 def _unstack(stacked: Params) -> list:
@@ -312,24 +343,27 @@ def forward(
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     x = input_embeddings(cfg, params, inputs, compute_dtype)
     if cfg.family == "hybrid":
-        shared = cast_params(params["shared"], compute_dtype)
+        shared = _shared(params, compute_dtype)
         body = lambda cfg_, lp, x_, impl_: _hybrid_cycle(cfg_, shared, lp, x_, impl_)
     elif cfg.family == "ssm":
         body = _ssm_layer
     else:
         body = _dense_layer
+    layer_at = _layer_access(params, compute_dtype)
     auxs, drops = [], []
-    for lp in _unstack(cast_params(params["layers"], compute_dtype)):
+    for i in range(_depth(cfg)):
+        # the layer is taken inside its checkpointed region, so a gathered
+        # layer is gathered again by the recompute rather than kept
+        run = lambda x_, i=i: body(cfg, layer_at(i), x_, impl)
         if remat_policy == "full":
-            x, aux, dropped = checkpoint(body, cfg, lp, x, impl, use_reentrant=False)
+            x, aux, dropped = checkpoint(run, x, use_reentrant=False)
         elif remat_policy == "dots":
-            x, aux, dropped = checkpoint(body, cfg, lp, x, impl, use_reentrant=False,
-                                         context_fn=_dots_context)
+            x, aux, dropped = checkpoint(run, x, use_reentrant=False, context_fn=_dots_context)
         else:
-            x, aux, dropped = body(cfg, lp, x, impl)
+            x, aux, dropped = run(x)
         auxs.append(aux)
         drops.append(dropped)
-    x = L.norm(cfg, x, params.get("final_norm"))
+    x = _final_norm(cfg, params, x)
     if cfg.family == "moe":
         metrics = {"moe_aux": torch.stack(auxs).mean(),
                    "moe_dropped": torch.stack(drops).mean()}
@@ -463,15 +497,26 @@ def decode_step(
     dense cache (Mamba1: its new conv and SSM state; hybrid: each cycle's
     shared-block K/V row and its layers' Mamba2 state) in place, and the
     returned cache is a new dict whose ``index`` is advanced by one.  On a
-    model axis the logits are this rank's vocab columns."""
+    model axis the logits are this rank's vocab columns.
+
+    A recurrent state in an 8-bit float type (a prefill with an fp8
+    ``cache_dtype``) raises ``TypeError``, as the reference does: its
+    ``causal_conv_step`` concatenates the state with the new input, and JAX
+    promotes no 8-bit float implicitly."""
     _require_family(cfg)
+    states = chunk_recurrent_states(cfg, cache["layers"])
+    if states is not None and any(t.dtype in L.FP8_DTYPES for t in tree_leaves(states)):
+        raise TypeError(
+            f"{cfg.name}: a recurrent state in an 8-bit float type does not decode (the "
+            "reference's causal_conv_step concatenates it with a wider input, a "
+            "promotion JAX refuses)")
     x = embed_tokens(cfg, params, tokens, compute_dtype)[:, None, :]
     idx = cache["index"]
-    layers = cast_params(params["layers"], compute_dtype)
+    layer_at = _layer_access(params, compute_dtype)
     if cfg.family == "ssm":
         conv_all, h_all = cache["layers"]["conv"], cache["layers"]["h"]
         for i in range(cfg.num_layers):
-            lp = _layer(layers, i)
+            lp = layer_at(i)
             h = L.norm(cfg, x, lp.get("ln"))
             y, st = SSM.mamba1_step(
                 cfg, lp["mixer"], h[:, 0], {"conv": conv_all[i], "h": h_all[i]}
@@ -479,8 +524,9 @@ def decode_step(
             conv_all[i] = st["conv"]
             h_all[i] = st["h"]
             x = x + y[:, None]
+            del lp  # before the next layer is taken (gathered)
     elif cfg.family == "hybrid":
-        shared = cast_params(params["shared"], compute_dtype)
+        shared = _shared(params, compute_dtype)
         mamba = cache["layers"]["mamba"]
         k_all, v_all = cache["layers"]["shared_k"], cache["layers"]["shared_v"]
         every = cfg.shared_attn_every
@@ -492,20 +538,22 @@ def decode_step(
             x = x + y
             h = L.norm(cfg, x, shared.get("ln2"))
             x = x + L.mlp_block(shared["ffn"], h)
+            cyc = layer_at(c)
             for j in range(every):
-                lp = _layer(layers, (c, j))
+                lp = _layer(cyc, j)
                 h = L.norm(cfg, x, lp.get("ln"))
                 y, st = SSM.mamba2_step(cfg, lp["mixer"], h[:, 0],
                                         {k: v[c, j] for k, v in mamba.items()})
                 for k, v in st.items():
                     mamba[k][c, j] = v
                 x = x + y[:, None]
+            del cyc, lp
     else:
         bt = cache.get("block_tables")  # None: the dense layout
         k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
         plan = {}  # the paged K/V writes' destinations, shared by the layers
         for i in range(cfg.num_layers):
-            lp = _layer(layers, i)
+            lp = layer_at(i)
             h = L.norm(cfg, x, lp.get("ln1"))
             if bt is None:
                 y, _ = L.attention_decode(
@@ -519,7 +567,8 @@ def decode_step(
             x = x + y
             h = L.norm(cfg, x, lp.get("ln2"))
             x = x + _ffn(cfg, lp["ffn"], h)[0]
-    x = L.norm(cfg, x, params.get("final_norm"))
+            del lp
+    x = _final_norm(cfg, params, x)
     logits = unembed(cfg, params, x)[:, 0]
     return logits, dict(cache, index=idx + 1)
 
@@ -618,7 +667,7 @@ def decode_chunk(
         x = x + y
         h = L.norm(cfg, x, lp.get("ln2"))
         x = x + _ffn(cfg, lp["ffn"], h)[0]
-    x = L.norm(cfg, x, params.get("final_norm"))
+    x = _final_norm(cfg, params, x)
     if logits_at is not None:
         j = min(max(int(logits_at), 0), t - 1)
         x = x[:, j: j + 1]
@@ -763,7 +812,7 @@ def prefill_chunks_into_slots(
     new_cache = dict(cache, index=idx + lens)
     if not need_logits:
         return torch.zeros_like(lens), new_cache
-    x = L.norm(cfg, x, params.get("final_norm"))
+    x = _final_norm(cfg, params, x)
     pos = torch.clamp(lens - 1, min=0).long()
     last = x[torch.arange(x.shape[0], device=x.device), pos][:, None]  # [B, 1, d]
     logits = unembed(cfg, params, last)[:, 0]
@@ -818,28 +867,30 @@ def prefill(
     else:
         run = s
     x = input_embeddings(cfg, params, inputs, compute_dtype)
-    layers = cast_params(params["layers"], compute_dtype)
+    layer_at = _layer_access(params, compute_dtype)
     positions = torch.arange(run, device=x.device).expand(b, run)
 
     def pad_kv(t: list) -> torch.Tensor:
-        kv = torch.stack(t)[:, :, :s].to(cache_dtype)  # [L or n_cyc, B, S, kvH, hd]
-        return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, max_seq - s))
+        kv = L.to_cache(torch.stack(t)[:, :, :s], cache_dtype)  # [L or n_cyc, B, S, kvH, hd]
+        pad = torch.nn.functional.pad(L.cache_bytes(kv), (0, 0, 0, 0, 0, max_seq - s))
+        return pad.view(cache_dtype)
 
     if cfg.family == "ssm":
         conv, hs = [], []
         for i in range(cfg.num_layers):
-            lp = _layer(layers, i)
+            lp = layer_at(i)
             h = L.norm(cfg, x, lp.get("ln"))
             y, st = SSM.mamba1_with_state(cfg, lp["mixer"], h, impl, length=length)
             x = x + y
             conv.append(st["conv"])
             hs.append(st["h"])
+            del lp
         new_layers = {
-            "conv": torch.stack(conv).to(cache_dtype),
+            "conv": L.to_cache(torch.stack(conv), cache_dtype),
             "h": torch.stack(hs).float(),
         }
     elif cfg.family == "hybrid":
-        shared = cast_params(params["shared"], compute_dtype)
+        shared = _shared(params, compute_dtype)
         every = cfg.shared_attn_every
         n_cyc = cfg.num_layers // every
         ks, vs, states = [], [], []
@@ -851,22 +902,24 @@ def prefill(
             x = x + L.mlp_block(shared["ffn"], h)
             ks.append(k)
             vs.append(v)
+            cyc = layer_at(c)
             for j in range(every):
-                lp = _layer(layers, (c, j))
+                lp = _layer(cyc, j)
                 h = L.norm(cfg, x, lp.get("ln"))
                 y, st = SSM.mamba2_with_state(cfg, lp["mixer"], h, length=length)
                 x = x + y
                 states.append(st)
+            del cyc, lp
         mamba = {}
         for name in states[0]:
             t = torch.stack([st[name] for st in states])
             t = t.reshape(n_cyc, every, *t.shape[1:])
-            mamba[name] = t.float() if name == "h" else t.to(cache_dtype)
+            mamba[name] = t.float() if name == "h" else L.to_cache(t, cache_dtype)
         new_layers = {"mamba": mamba, "shared_k": pad_kv(ks), "shared_v": pad_kv(vs)}
     else:
         ks, vs = [], []
         for i in range(cfg.num_layers):
-            lp = _layer(layers, i)
+            lp = layer_at(i)
             h = L.norm(cfg, x, lp.get("ln1"))
             y, k, v = _attn_prefill(cfg, lp["attn"], h, positions, impl)
             x = x + y
@@ -874,8 +927,9 @@ def prefill(
             x = x + _ffn(cfg, lp["ffn"], h)[0]
             ks.append(k)
             vs.append(v)
+            del lp
         new_layers = {"k": pad_kv(ks), "v": pad_kv(vs)}
-    x = L.norm(cfg, x, params.get("final_norm"))
+    x = _final_norm(cfg, params, x)
     n = s if length is None else int(length)
     j = min(max(n - 1, 0), s - 1)  # the logits of a position of the prompt
     logits = unembed(cfg, params, x[:, j: j + 1])[:, 0]

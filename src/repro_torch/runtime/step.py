@@ -24,6 +24,7 @@ waits for the device: the metrics are device scalars.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -33,6 +34,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models import act_sharding as AS
+from repro_torch.models import fsdp as FS
+from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.act_sharding import activation_sharding
 from repro_torch.optim import (
@@ -75,10 +78,12 @@ def _microbatch(x: torch.Tensor, n_micro: int, j: int) -> torch.Tensor:
 
 
 def _loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params: Tree,
-                    inputs: torch.Tensor, labels: torch.Tensor):
+                    inputs: torch.Tensor, labels: torch.Tensor,
+                    after_micro: Callable[[], None] = lambda: None):
     """``(loss, ce, moe_aux, grads)`` over the batch rows given, the
     gradients fp32 in ``tree_leaves`` order, accumulated over
-    ``tcfg.microbatches`` (the reference's split) and averaged."""
+    ``tcfg.microbatches`` (the reference's split) and averaged;
+    ``after_micro`` runs after each microbatch's backward."""
     compute_dtype = getattr(torch, tcfg.compute_dtype)
     n_micro = max(1, tcfg.microbatches)
 
@@ -91,6 +96,7 @@ def _loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params: Tree,
         # an ``embed_inputs`` config never reads its embedding table here:
         # its gradient is zero, as JAX's is for an unused leaf
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        after_micro()
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return loss.detach(), metrics, grads
 
@@ -237,8 +243,10 @@ class ShardedTrainStep:
         (``shard_batch``), and peels microbatches off the minor position of
         its own rows, so microbatch j over all ranks is the reference's
       * FSDP (``tcfg.fsdp``): every leaf ``param_specs`` splits lives as
-        this rank's shard; the whole tree is all-gathered before the
-        forward, and its gradient reduce-scattered into the shard
+        this rank's shard; the forward gathers one layer at a time (and the
+        backward again) and reduce-scatters each layer's gradient into the
+        shard (``models.fsdp``), so the gathered weights alive at once are
+        one layer's plus the leaves outside the stacks in use
       * every other gradient is all-reduced; the sum over the data axes is
         divided by their size (the mean of the ranks' row means)
       * ``int8_ef``: the EF quantizer runs on the reduced gradient, each
@@ -265,7 +273,9 @@ class ShardedTrainStep:
     ``state_specs`` / ``batch_specs`` are the spec trees; ``init_state``,
     ``shard_state``, ``gather_state`` and ``shard_batch`` place trees under
     them.  ``grads`` gives one step's reduced gradients without the update.
-    ``last_collectives`` counts the previous call's collectives by kind."""
+    ``last_collectives`` counts the previous call's collectives by kind,
+    ``max_live_gathered_bytes`` the most FSDP-gathered bytes alive at once
+    in any call."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh, *,
                  device: Optional[str | torch.device] = None):
@@ -325,6 +335,7 @@ class ShardedTrainStep:
                 block[d] = a
             self._zero1.append(S.P(*block) if extra else None)
         self.last_collectives: dict = {}
+        self.max_live_gathered_bytes = 0
 
     # -- placement ------------------------------------------------------
     def _place(self, fn, tree, specs):
@@ -378,27 +389,23 @@ class ShardedTrainStep:
         params = state["params"]
         inputs = torch.as_tensor(batch["inputs"], device=self.device)
         labels = torch.as_tensor(batch["labels"], device=self.device)
-        # only the data-axis (FSDP) splits are gathered: model blocks stay
-        full = [p if not split else self._gather(p, split).requires_grad_(True)
-                for p, split in zip(tree_leaves(params), self._split)]
-        with activation_sharding(mesh, self.act_specs):
-            loss, ce, aux, grads = _loss_and_grads(self.cfg, self.tcfg,
-                                                   tree_unflatten(params, full), inputs, labels)
-        del full
+        # only the data-axis (FSDP) splits are gathered, a layer at a time:
+        # model blocks stay
+        with activation_sharding(mesh, self.act_specs), FS.layer_gather(
+                mesh, tree_leaves(params), self._split,
+                n_micro=max(1, self.tcfg.microbatches)) as gather:
+            loss, ce, aux, grads = _loss_and_grads(self.cfg, self.tcfg, params, inputs, labels,
+                                                   gather.end_microbatch)
+            split_grads = gather.grads()  # reduce-scattered
+        self.max_live_gathered_bytes = max(self.max_live_gathered_bytes,
+                                           gather.max_live_gathered_bytes)
         with torch.no_grad():
             for i, g in enumerate(grads):
-                for dim, axes in self._split[i]:
-                    g = mesh.reduce_scatter(g, axes, dim)
+                g = split_grads.get(i, g)
                 if self._reduce_axes[i]:
                     mesh.all_reduce(g, self._reduce_axes[i])
                 grads[i] = g.div_(self.dp_size)
         return loss, ce, aux, grads
-
-    def _gather(self, p: torch.Tensor, split: list) -> torch.Tensor:
-        out = p.detach()
-        for dim, axes in split:
-            out = self.mesh.all_gather(out, axes, dim)
-        return out
 
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         mesh, dp = self.mesh, self.dp
@@ -445,15 +452,20 @@ class ShardedTrainStep:
 # ---------------------------------------------------------------------------
 
 
-def _gather_data_splits(params: Tree, specs: Tree, mesh) -> Tree:
-    """Every leaf's data-axis splits all-gathered (FSDP serve weights are
-    used whole); its ``model`` blocks stay this rank's."""
-    def whole(t, spec):
-        for dim, axes in S._sharded_dims(spec, mesh):
-            if "model" not in axes:
-                t = mesh.all_gather(t, axes, dim)
-        return t
-    return tree_map(whole, params, specs)
+@contextlib.contextmanager
+def _serve_gather(art: "ServeStepArtifacts", params: Tree):
+    """The serve step's FSDP context over this rank's ``params``: each
+    leaf's data-axis splits gathered a layer at a time as the model code
+    runs (``models.fsdp``); its ``model`` blocks stay this rank's.  Records
+    the most gathered bytes alive at once on ``art``."""
+    mesh = art.mesh
+    data_splits = lambda t, spec: (t, [(d, a) for d, a in S._sharded_dims(spec, mesh)
+                                       if "model" not in a])
+    pairs = tree_leaves(tree_map(data_splits, params, art.param_specs))
+    with FS.layer_gather(mesh, [t for t, _ in pairs], [s for _, s in pairs]) as gather:
+        yield
+    art.max_live_gathered_bytes = max(art.max_live_gathered_bytes,
+                                      gather.max_live_gathered_bytes)
 
 
 @dataclasses.dataclass
@@ -480,6 +492,8 @@ class ServeStepArtifacts:
     compute_dtype: Any
     abstract_inputs: Callable = None
     batch_sharded: bool = True
+    #: the most FSDP-gathered bytes alive at once in any call of ``step``
+    max_live_gathered_bytes: int = 0
 
     def _place(self, fn, tree, specs):
         return tree_map(lambda t, sp: fn(t, sp, self.mesh), tree, specs)
@@ -495,15 +509,21 @@ class ServeStepArtifacts:
         return S.shard_tensor(full, self._rows(self.input_specs), self.mesh).contiguous()
 
     def shard_cache(self, full: dict) -> dict:
+        """This rank's blocks of a full cache (an 8-bit leaf moved as its
+        codes, bit for bit)."""
         specs = self.out_specs[1]
+        block = lambda t, sp, m: S.shard_tensor(L.cache_bytes(t), sp, m).contiguous().view(
+            t.dtype)
         return {"index": full["index"],
-                "layers": self._place(lambda t, sp, m: S.shard_tensor(t, sp, m).contiguous(),
-                                      full["layers"], specs["layers"])}
+                "layers": self._place(block, full["layers"], specs["layers"])}
 
     def gather_cache(self, local: dict) -> dict:
+        """The full cache from every rank's blocks (all-gathers; an 8-bit
+        leaf gathered as its codes: gloo has no float8)."""
         specs = self.out_specs[1]
+        whole = lambda t, sp, m: S.gather_tensor(L.cache_bytes(t), sp, m).view(t.dtype)
         return {"index": local["index"],
-                "layers": self._place(S.gather_tensor, local["layers"], specs["layers"])}
+                "layers": self._place(whole, local["layers"], specs["layers"])}
 
     def gather_output(self, local: torch.Tensor) -> torch.Tensor:
         """The full first output (decode tokens, prefill logits)."""
@@ -522,13 +542,16 @@ def _serve_fsdp(cfg: ModelConfig, mesh, override: Optional[bool]) -> bool:
 def _serve_common(cfg, mesh, shape, compute_dtype, fsdp, cache_dtype):
     """The two serve steps' shared part: ``(batch_sharded, activation
     specs, param specs, cache specs, the dense cache's sequence entry,
-    abstract params, abstract cache)``."""
+    abstract params, abstract cache)``.  The cache is in ``cache_dtype``:
+    ``None`` or the compute dtype, or an 8-bit float (``layers.FP8_DTYPES``,
+    the reference's quantized cache: a plain cast, no scale); any other pair
+    raises ``NotImplementedError``."""
     cache_dtype = cache_dtype or compute_dtype
     SSM.check_head_split(cfg, S.ShardingPlan(cfg, mesh).model)
-    if cache_dtype != compute_dtype:
+    if cache_dtype != compute_dtype and cache_dtype not in L.FP8_DTYPES:
         raise NotImplementedError(
-            f"cache_dtype {cache_dtype} != compute dtype {compute_dtype}: the quantized "
-            "(fp8) KV cache is not ported yet")
+            f"cache_dtype {cache_dtype} under compute dtype {compute_dtype}: the port's "
+            f"serve steps keep the cache in the compute dtype or in {L.FP8_DTYPES}")
     dp_size = 1
     for a in S.dp_axes(mesh):
         dp_size *= mesh.shape[a]
@@ -558,7 +581,9 @@ def make_serve_step(
     one of ``cache_specs``: its K/V heads on ``model``, or its sequence on
     ``model`` (and on the data axes when the batch does not cover them),
     its ``index`` ([] or [B]) replicated.  The argmax is reduced over the
-    split vocab (ties to the lowest index)."""
+    split vocab (ties to the lowest index).  ``cache_dtype``: the cache's
+    (``_serve_common``).  FSDP weights (``fsdp``, or the model too large for
+    a rank) are gathered a layer at a time (``models.fsdp``)."""
     batch_sharded, act_specs, p_specs, c_specs, seq, params_abs, cache_abs = _serve_common(
         cfg, mesh, shape, compute_dtype, fsdp, cache_dtype)
     dp = S.dp_axes(mesh)
@@ -570,8 +595,7 @@ def make_serve_step(
         local = index
         if index.ndim == 1 and batch_sharded:
             local = S.shard_tensor(index, S.P(dp), mesh)
-        params = _gather_data_splits(params, p_specs, mesh)
-        with activation_sharding(mesh, act_specs, cache_seq=seq):
+        with activation_sharding(mesh, act_specs, cache_seq=seq), _serve_gather(art, params):
             logits, new = T.decode_step(cfg, params, tokens, dict(cache, index=local),
                                         compute_dtype=compute_dtype)
             out = (AS.vocab_argmax(logits) if AS.split("btv")
@@ -582,11 +606,12 @@ def make_serve_step(
         tokens = torch.empty((shape.global_batch,), dtype=torch.int32, device="meta")
         return params_abs, tokens, cache_abs
 
-    return ServeStepArtifacts(
+    art = ServeStepArtifacts(
         step=decode, cfg=cfg, mesh=mesh, shape=shape, param_specs=p_specs,
         input_specs=tok_spec, cache_specs=c_specs, out_specs=(tok_spec, c_specs),
         compute_dtype=compute_dtype, abstract_inputs=abstract_inputs,
         batch_sharded=batch_sharded)
+    return art
 
 
 #: the dense cache's K/V leaves (the hybrid's Mamba2 ``conv_x`` is 5-dim too)
@@ -607,7 +632,10 @@ def make_prefill_step(
     (last logits [B, V], cache at seq_len)`` over this rank's blocks, the
     logits this rank's vocab columns and the cache this rank's block of
     ``cache_specs`` (each rank computes its rows' whole prompt, its KV
-    heads, and keeps its block of the sequence)."""
+    heads, and keeps its block of the sequence), in ``cache_dtype``
+    (``T.prefill`` casts K / V and the recurrent conv states as it writes
+    them; an 8-bit recurrent state then does not decode, as in the
+    reference)."""
     batch_sharded, act_specs, p_specs, c_specs, seq, params_abs, cache_abs = _serve_common(
         cfg, mesh, shape, compute_dtype, fsdp, cache_dtype)
     dp = S.dp_axes(mesh)
@@ -616,13 +644,12 @@ def make_prefill_step(
 
     @torch.no_grad()
     def prefill_step(params, inputs):
-        params = _gather_data_splits(params, p_specs, mesh)
-        with activation_sharding(mesh, act_specs):
+        with activation_sharding(mesh, act_specs), _serve_gather(art, params):
             logits, cache = T.prefill(cfg, params, inputs, shape.seq_len, impl=impl,
-                                      compute_dtype=compute_dtype, cache_dtype=compute_dtype)
+                                      compute_dtype=compute_dtype, cache_dtype=cache_dtype)
         layers = tree_map_with_path(
-            lambda path, t: S.shard_tensor(t, seq_spec, mesh).contiguous()
-            if path.split("/")[-1] in KV_LEAVES else t, cache["layers"])
+            lambda path, t: S.shard_tensor(L.cache_bytes(t), seq_spec, mesh).contiguous()
+            .view(t.dtype) if path.split("/")[-1] in KV_LEAVES else t, cache["layers"])
         return logits, dict(cache, layers=layers)
 
     def abstract_inputs():
@@ -632,8 +659,9 @@ def make_prefill_step(
         return params_abs, inp
 
     plan = S.ShardingPlan(cfg, mesh)
-    return ServeStepArtifacts(
+    art = ServeStepArtifacts(
         step=prefill_step, cfg=cfg, mesh=mesh, shape=shape, param_specs=p_specs,
         input_specs=in_spec, cache_specs=None, out_specs=(S.P(dp, plan.vocab()), c_specs),
         compute_dtype=compute_dtype, abstract_inputs=abstract_inputs,
         batch_sharded=batch_sharded)
+    return art

@@ -39,6 +39,16 @@ SEGMENTS = ("queueing", "prefill", "decode", "preempted", "arrival_time", "finis
             "first_token_time", "preemptions", "finish_state", "priority")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _lifecycles(tr):
     """Transition sequences the unit cases feed both tracers."""
     return {

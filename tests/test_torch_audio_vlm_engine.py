@@ -60,6 +60,16 @@ COUNTERS = ("engine/prefill_prompt_tokens", "engine/prefill_metered_tokens",
             "core/preemptions")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.cache
 def _setup(arch):
     """Reference and port configs, the target's and the draft's weights as

@@ -47,6 +47,16 @@ LR = 1e-2
 SLOTS, MAX_SEQ, START = 2, 32, (5, 9)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg, cfg = jconfigs.smoke_config(ARCH), configs.smoke_config(ARCH)

@@ -53,6 +53,16 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 TIES = (127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 3.5, 0.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cases():
     """Seeded leaves, all [64, 64] (the reference compiles each op once a
     shape)."""

@@ -22,6 +22,16 @@ from repro_torch.serving.engine import InferenceEngine as TEngine
 ARCHS = ("qwen2-7b", "deepseek-coder-33b")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(arch):
     jcfg, cfg = jconfigs.smoke_config(arch), configs.smoke_config(arch)
     np_params = jax.tree.map(np.array, JT.init_params(jcfg, jax.random.PRNGKey(2)))

@@ -56,6 +56,16 @@ PARAMS = params_from_numpy(NP_PARAMS, device="cpu")
 LAYER0 = jax.tree.map(lambda a: a[0].copy(), NP_PARAMS["layers"])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

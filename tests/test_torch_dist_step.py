@@ -19,6 +19,7 @@ shards), so losses, gradient norms, parameters and moments are held to
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -99,10 +100,11 @@ def _params(cfg):
     return T.init_params(cfg, torch.Generator().manual_seed(0))
 
 
-def _single_device_run(arch, overrides):
+@functools.lru_cache(maxsize=None)
+def _single_device_run(arch, items):
     """The port's single-device step over the same seed and batches."""
     cfg = configs.smoke_config(arch)
-    tcfg = _tcfg(**overrides)
+    tcfg = _tcfg(**dict(items))
     state = init_train_state(_params(cfg), tcfg)
     step = make_train_step(cfg, tcfg, device="cpu")
     metrics = []
@@ -234,14 +236,20 @@ def _worker(rank, world, tmp):
 
 
 def _spawn(world, tmp) -> list:
+    """Run the ``world`` ranks; while they run, the single-device runs of
+    their cases (cached for the tests)."""
     ctx = mp.start_processes(_worker, args=(world, str(tmp)), nprocs=world, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            pytest.fail(f"{world} ranks did not finish within {SPAWN_TIMEOUT_S} s")
+    try:
+        for _, arch, kw, _, _ in STEP_CASES[world]:
+            _single_device_run(arch, tuple(sorted(kw.items())))
+    finally:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail(f"{world} ranks did not finish within {SPAWN_TIMEOUT_S} s")
     assert not any(p.is_alive() for p in ctx.processes)
     return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
 
@@ -369,7 +377,7 @@ def test_mesh_needs_a_process_group():
 def test_sharded_step_matches_single_device(spawned):
     world, ranks = spawned
     for name, arch, kw, shape, axes in STEP_CASES[world]:
-        want_metrics, want_state = _single_device_run(arch, kw)
+        want_metrics, want_state = _single_device_run(arch, tuple(sorted(kw.items())))
         for r, res in enumerate(ranks):
             got = res["steps"][name]
             assert got["local_is_shard"], (name, r)

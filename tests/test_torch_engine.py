@@ -31,6 +31,16 @@ NP_PARAMS = jax.tree.map(np.array, JT.init_params(JCFG, jax.random.PRNGKey(0)))
 MAX_SLOTS, MAX_SEQ = 2, 96
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class Clock:
     """Virtual clock advanced by the test between steps only, so both
     engines read the same instants however often they call it."""

@@ -55,6 +55,16 @@ SEQ, BATCH, ITERS = 16, 2, 3
 MICROSTEP_S = 0.004
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_train(jtcfg):
     sched = jmake_schedule(jtcfg)
 

@@ -19,6 +19,16 @@ from repro_torch.kernels import prefill_attention as tdp
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pool_case(seed, b, h, kvh, hd, page, ncols, share=False):
     """Random pool + shuffled block tables (one sentinel column).  With
     ``share``, slot 1's first page is slot 0's first page (a radix-shared

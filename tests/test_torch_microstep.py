@@ -30,6 +30,16 @@ from repro_torch.serving.engine import Request as TRequest
 PROMPT_LENS, MAX_NEW = (20, 24, 80), (6, 9, 5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _run(pkg, arch, kv_page_size, step="microstep"):
     jcfg, cfg = jconfigs.smoke_config(arch), configs.smoke_config(arch)
     np_params = jax.tree.map(np.array, JT.init_params(jcfg, jax.random.PRNGKey(0)))

@@ -7,6 +7,7 @@ step, and the fused decode loop with per-slot freeze.  Logits agree to atol
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro import configs as jconfigs
@@ -23,6 +24,16 @@ JPARAMS = jax.tree.map(jnp.asarray, NP_PARAMS)
 B, PAGE, PER_SLOT, CHUNK = 3, 16, 4, 32
 LOGITS_ATOL = 1e-4
 KV_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _caches():

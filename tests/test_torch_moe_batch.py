@@ -51,6 +51,16 @@ JCFG, CFG = jconfigs.smoke_config(ARCH), configs.smoke_config(ARCH)
 NP_PARAMS = jax.tree.map(np.array, JT.init_params(JCFG, jax.random.PRNGKey(0)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _engine(pkg, **kw):
     if pkg == "jax":
         return JEngine(JCFG, jax.tree.map(jnp.asarray, NP_PARAMS),

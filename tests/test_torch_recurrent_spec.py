@@ -44,6 +44,16 @@ RTOL = 1e-4
 MAX_SEQ = 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(arch):
     jcfg, cfg = jconfigs.smoke_config(arch), configs.smoke_config(arch)
     jdcfg, dcfg = jdraft_config(jcfg), draft_config(cfg)

@@ -32,6 +32,16 @@ from repro_torch.serving.engine import InferenceEngine as TEngine
 ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(arch):
     jcfg, cfg = jconfigs.smoke_config(arch), configs.smoke_config(arch)
     jdcfg, dcfg = jdraft_config(jcfg), draft_config(cfg)

@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import configs as jconfigs
 from repro.configs.base import draft_config as jdraft_config
@@ -18,6 +19,16 @@ from repro.models import transformer as JT
 from repro_torch import configs
 from repro_torch.configs import draft_config
 from test_torch_recurrent_spec_engine import _engine, _serve
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_mixed_pairings_match_reference():

@@ -57,6 +57,16 @@ F32 = dict(compute_dtype=jnp.float32)
 TF32 = dict(compute_dtype=torch.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

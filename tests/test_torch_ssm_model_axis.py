@@ -193,6 +193,21 @@ def _spec_leaves(tree) -> list:
     return [(S.Halves if tree[0] else S.P)(*tree[1])]
 
 
+def _record_grads(step) -> list:
+    """``step.grads`` made to keep a copy of each call's reduced gradients:
+    the list of them, one per step (the step's own, not a second
+    forward)."""
+    seen, inner = [], step.grads
+
+    def grads(state, batch):
+        out = inner(state, batch)
+        seen.append([g.clone() for g in out[3]])
+        return out
+
+    step.grads = grads
+    return seen
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -211,10 +226,10 @@ def _step_case(cfg_name, overrides, shape, tmp):
     mesh = make_mesh(shape, DM, device="cpu")
     step = make_train_step(cfg, _tcfg(**overrides), mesh, device="cpu")
     state = step.init_state(_params(cfg_name, tmp))
-    metrics, grads = [], []
+    grads = _record_grads(step)
+    metrics = []
     for b in _batches(cfg, _steps(overrides)):
         local = step.shard_batch(b)
-        grads.append([g.clone() for g in step.grads(state, local)[3]])
         state, m = step(state, local)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
     return {"metrics": metrics, "grads": grads, "state": _detached(state),
@@ -450,13 +465,20 @@ def _single_device_run(name, items, tmp):
     state = init_train_state(_port_order(name, _params(name, tmp)), tcfg)
     step = make_train_step(cfg, tcfg, device="cpu")
     metrics, grads = [], []
-    for b in _batches(cfg, _steps(overrides)):
-        *_, g = step_mod._loss_and_grads(cfg, tcfg, state["params"],
-                                         torch.as_tensor(b["inputs"]),
-                                         torch.as_tensor(b["labels"]))
-        grads.append(g)
-        state, m = step(state, b)
-        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    inner = step_mod._loss_and_grads
+
+    def recorded(*args, **kw):  # the step's own gradients, before error feedback
+        out = inner(*args, **kw)
+        grads.append([g.clone() for g in out[3]])
+        return out
+
+    step_mod._loss_and_grads = recorded
+    try:
+        for b in _batches(cfg, _steps(overrides)):
+            state, m = step(state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    finally:
+        step_mod._loss_and_grads = inner
     return metrics, grads, _detached(state)
 
 

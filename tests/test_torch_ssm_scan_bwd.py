@@ -16,6 +16,16 @@ import torch
 from repro_torch.kernels import ssm_scan as ss
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("di, parts", [(1, 1), (99, 1), (100, 1), (256, 1), (257, 2),
                                        (2400, 10), (8192, 32), (8288, 33)])
 def test_bwd_partials_one_per_cluster(di, parts):

@@ -49,6 +49,16 @@ RTOL = 1e-4
 SEQ = 100  # not a multiple of the reference's 64-step chunk or of the kernel's 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flat(tree, prefix=""):
     """{"a/b": numpy leaf} of a nested dict."""
     if isinstance(tree, dict):

@@ -198,27 +198,51 @@ def _reference_first_step(name, micro, int8):
     return loss, float(gnorm), leaves
 
 
+def _record_grads(step) -> list:
+    """``step.grads`` made to keep a copy of each call's reduced gradients:
+    the list of them, one per step (the step's own, not a second
+    forward)."""
+    seen, inner = [], step.grads
+
+    def grads(state, batch):
+        out = inner(state, batch)
+        seen.append([g.clone() for g in out[3]])
+        return out
+
+    step.grads = grads
+    return seen
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
     return tree.detach().clone()
 
 
-def _single_device_run(name, overrides, tmp):
+@functools.lru_cache(maxsize=None)
+def _single_device_run(name, items, tmp):
     """The port's single-device step: per step the global batch's
     gradients (before error feedback), the metrics, the final state."""
+    overrides = dict(items)
     cfg = _cfg(name)
     tcfg = _tcfg(**overrides)
     state = init_train_state(_port_order(name, _params(name, tmp)), tcfg)
     step = make_train_step(cfg, tcfg, device="cpu")
     metrics, grads = [], []
-    for b in _batches(cfg, _steps(overrides)):
-        *_, g = step_mod._loss_and_grads(cfg, tcfg, state["params"],
-                                         torch.as_tensor(b["inputs"]),
-                                         torch.as_tensor(b["labels"]))
-        grads.append(g)
-        state, m = step(state, b)
-        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    inner = step_mod._loss_and_grads
+
+    def recorded(*args, **kw):  # the step's own gradients, before error feedback
+        out = inner(*args, **kw)
+        grads.append([g.clone() for g in out[3]])
+        return out
+
+    step_mod._loss_and_grads = recorded
+    try:
+        for b in _batches(cfg, _steps(overrides)):
+            state, m = step(state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    finally:
+        step_mod._loss_and_grads = inner
     return metrics, grads, _detached(state)
 
 
@@ -229,10 +253,10 @@ def _step_case(cfg_name, overrides, shape, tmp):
     mesh = make_mesh(shape, DM, device="cpu")
     step = make_train_step(cfg, _tcfg(**overrides), mesh, device="cpu")
     state = step.init_state(_params(cfg_name, tmp))
-    metrics, grads, counts = [], [], []
+    grads = _record_grads(step)
+    metrics, counts = [], []
     for b in _batches(cfg, _steps(overrides)):
         local = step.shard_batch(b)
-        grads.append([g.clone() for g in step.grads(state, local)[3]])
         state, m = step(state, local)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
         counts.append(step.last_collectives)
@@ -288,14 +312,21 @@ def _worker(rank, world, tmp):
 
 
 def _spawn(world, tmp) -> list:
+    """Run the ``world`` ranks; while they run, the single-device steps and
+    the reference's first steps of their cases (cached for the tests)."""
     ctx = mp.start_processes(_worker, args=(world, str(tmp)), nprocs=world, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            pytest.fail(f"{world} ranks did not finish within {SPAWN_TIMEOUT_S} s")
+    try:
+        for _, cname, kw, _ in STEP_CASES[world]:
+            _single_device_run(cname, tuple(sorted(kw.items())), str(tmp))
+            _reference_grads(cname, kw.get("microbatches", 1))
+    finally:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail(f"{world} ranks did not finish within {SPAWN_TIMEOUT_S} s")
     assert not any(p.is_alive() for p in ctx.processes)
     return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
 
@@ -352,7 +383,8 @@ def test_tp_step_matches_single_device(runs, world):
     tmp, ranks = runs(world)
     for name, cname, kw, shape in STEP_CASES[world]:
         int8 = kw.get("grad_compression") == "int8_ef"
-        want_metrics, want_grads, want_state = _single_device_run(cname, kw, tmp)
+        want_metrics, want_grads, want_state = _single_device_run(
+            cname, tuple(sorted(kw.items())), str(tmp))
         for r, res in enumerate(ranks):
             got = res["steps"][name]
             mesh = _RankMesh(shape, got["coordinate"])

@@ -27,6 +27,16 @@ ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ["--smoke", "--device", "cpu", "--seq-len", "16", "--global-batch", "2"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, and under the
+    parallel test run every worker's threads would compete for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_cli_checkpoints_then_resumes(tmp_path, capsys):
     ckpt = str(tmp_path / "ckpt")
     report = train.main(SMOKE + ["--steps", "2", "--ckpt-dir", ckpt, "--ckpt-every", "1"])
