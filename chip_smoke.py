@@ -15,7 +15,8 @@ Phases, each printing a line before the last:
                  ``scaled_dot_product_attention``'s (a yardstick the port never
                  calls; pages gathered first, an explicit boolean mask for
                  verify and tree) and the bound the card's memory rate and
-                 peak give for the same work: the paged decode / chunked-
+                 peak give for the same work (its bytes and operations from
+                 ``kernels/cost.py``): the paged decode / chunked-
                  prefill kernels at the serving shapes (the decode also
                  checked at lengths on the 64-key tile edges, GQA groups 1
                  and 7 at hd 128 and 64, and a 4,096-key table, timed there
@@ -374,6 +375,20 @@ Phases, each printing a line before the last:
                  1024 beside the plain versions and the bounds.  The row
                  ``ssm_scan_di2048`` reports the falcon-mamba stand-in run's
                  launches.
+35. cost model -- first in the end-of-run profiler block, on a one-rank
+                 NCCL mesh as phases 30-34's: olmo-1b at full depth, phase
+                 30's train step (4 x 1024, FSDP + ZeRO-1, remat "full") and
+                 phase 33's bf16 prefill and decode step (8 rows, 512-row
+                 cache), each counted by ``launch.cost`` at the same shapes
+                 on a (1, 1) recording mesh (``meta`` tensors), timed warm,
+                 then run once under ``torch.profiler``: every hand-written
+                 kernel's counted launches must equal the profiler's count
+                 of it; prints the counted against the profiled launches of
+                 all kernels, the counted peak against
+                 ``max_memory_allocated``, the counted FLOPs and bytes, the
+                 three roofline terms on ``core.hardware.H100``, the measured
+                 step, its ``mfu`` (model FLOPs / (step s x 989e12)) and the
+                 bound's share of it.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -672,23 +687,21 @@ def _pool_inputs(dtype, seed: int = 0, hd: int = HD, kvh: int = KVH, ncols: int 
     return g, k_pool, v_pool, bt.contiguous()
 
 
-def _unique_kv_rows(bt, needed):
-    """Distinct (physical page, offset) K/V rows the slots' needed key
-    positions name: what a perfect kernel reads once."""
-    rows = set()
-    tables = bt.tolist()
-    for b, n in enumerate(needed):
-        for pos in range(min(n, (bt.shape[1] - 1) * PAGE)):
-            rows.add((tables[b][pos // PAGE], pos % PAGE))
-    return len(rows)
-
-
 def _bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     import torch
 
     peak = PEAK_FLOPS_BF16 if dtype == torch.bfloat16 else PEAK_FLOPS_FP32
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _cost_bound(name, *args) -> tuple[float, str]:
+    """``_bound_ms`` of ``kernels.cost.<name>(*args)``: the bytes and
+    operations the kernel's function needs on these inputs."""
+    from repro_torch.kernels import cost
+
+    c = getattr(cost, name)(*args)
+    return _bound_ms(c.bytes, c.flops, c.dtype)
 
 
 def _prefill_cases(dense=False):
@@ -915,7 +928,6 @@ def phase_kernels(build_logs):
     from repro_torch.kernels import paged_prefill_attention as pre
 
     rows = []
-    isz = 2  # bf16 timing runs
 
     # ---- paged decode (#1): the serving shape, then the shapes the cluster
     # kernel must also take -------------------------------------------------
@@ -953,10 +965,7 @@ def phase_kernels(build_logs):
         mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
         l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd,
                                                                attn_mask=mask))
-        needed = [min(n, s) for n in lens.tolist()]
-        nbytes = (2 * B * H * HD * isz + 2 * _unique_kv_rows(bt, needed) * KVH * HD * isz
-                  + bt.numel() * 4 + B * 4)
-        return (l_ms, *_bound_ms(nbytes, 4 * HD * H * sum(needed), torch.bfloat16))
+        return (l_ms, *_cost_bound("paged_decode", q, k_pool, v_pool, bt, lens))
 
     l_ms, bound, by = paged_decode_yardsticks(q, k_pool, v_pool, bt, lengths)
     lq, lk, lv, lbt, _ = decode_inputs(ncols=LONG_NCOLS, lens=long_lengths)(torch.bfloat16)
@@ -1015,14 +1024,7 @@ def phase_kernels(build_logs):
     l_ms = _time_ms(
         lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask[:, None])
     )
-    needed = [s + c if c else 0 for s, c in zip(PREFILL_STARTS, PREFILL_LENS)]
-    kv_rows = _unique_kv_rows(bt, needed)
-    real_rows = sum(PREFILL_LENS)
-    nbytes = (real_rows * H * HD * isz + B * CHUNK * H * HD * isz
-              + 2 * kv_rows * KVH * HD * isz + bt.numel() * 4 + 2 * B * 4)
-    flops = sum(4 * HD * H * (s + j + 1)
-                for s, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
-    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    bound, by = _cost_bound("paged_prefill", q, k_pool, v_pool, bt, starts, clens)
     # what paces the launch: the same chunks with every slot's prefix cut
     # to its first 64-key tile, and the longest slot alone
     zeros = torch.zeros_like(starts)
@@ -1112,6 +1114,7 @@ def _flash_rows(cases=FLASH_CASES, suffix=""):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as fa
 
     errs = _check_flash(cases)
@@ -1133,13 +1136,10 @@ def _flash_rows(cases=FLASH_CASES, suffix=""):
     del plain_out, sdpa_out
     # bounds: each input read once, each output written once; the causal
     # (q, k) pairs this shape has, 2 products forward and 5 backward
-    elems, isz = b * h * s * hd, 2
-    pairs = b * h * s * (s + 1) // 2
-    fwd_flops, bwd_flops = 4 * pairs * hd, 10 * pairs * hd
-    fwd_bound, fwd_by = _bound_ms(4 * elems * isz + b * h * s * 4, fwd_flops,
-                                  torch.bfloat16)
-    bwd_bound, bwd_by = _bound_ms(8 * elems * isz + b * h * s * 4, bwd_flops,
-                                  torch.bfloat16)
+    fwd_flops = kcost.flash_fwd(q, k, v, True).flops
+    bwd_flops = kcost.flash_bwd(q, k, v, True).flops
+    fwd_bound, fwd_by = _cost_bound("flash_fwd", q, k, v, True)
+    bwd_bound, bwd_by = _cost_bound("flash_bwd", q, k, v, True)
     src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     rows = []
     for name, ms, plain_ms, lib_ms, bound, by, flops, i in (
@@ -1288,7 +1288,7 @@ def _spec_rows():
     from repro_torch.kernels import prefill_attention as dp
     from repro_torch.spec.tree import branching_tree, linear_chain, tree_ancestor_masks
 
-    rows, isz = [], 2
+    rows = []
 
     # ---- dense decode (#3): the draft's proposal step (H = 8) and, on the
     # dense target layout, the target's decode step (H = 16), plus the shapes
@@ -1322,10 +1322,7 @@ def _spec_rows():
         mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
         l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
                                                                attn_mask=mask))
-        needed = [min(max(n, 0), s) for n in lens.tolist()]
-        nbytes = 2 * B * h * HD * isz + 2 * sum(needed) * KVH * HD * isz + B * 4
-        return (k_ms, p_ms, l_ms, *_bound_ms(nbytes, 4 * HD * h * sum(needed),
-                                               torch.bfloat16))
+        return (k_ms, p_ms, l_ms, *_cost_bound("decode", q, k, v, lens))
 
     row = _row("decode_attention", "decode_attention.cu",
                "src/repro/kernels/decode_attention.py:92", errs, *dense_decode_times(DRAFT_H))
@@ -1366,7 +1363,6 @@ def _spec_rows():
     kpos = torch.arange(DENSE_S, device="cuda")
     mask = (kpos[None, None, :] <= (starts[:, None] + t[None, :])[:, :, None]) & (
         t[None, :, None] < clens[:, None, None])
-    needed = [s + c if c else 0 for s, c in zip(PREFILL_STARTS, PREFILL_LENS)]
     timed = {}
     for h in (DRAFT_H, H):  # the draft's heads, then the dense target's
         q, k, v, _, _ = prefill_inputs(h=h)(torch.bfloat16)
@@ -1377,11 +1373,7 @@ def _spec_rows():
         vt = v.transpose(1, 2).repeat_interleave(h // KVH, 1)
         l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                attn_mask=mask[:, None]))
-        nbytes = (sum(PREFILL_LENS) * h * HD * isz + B * CHUNK * h * HD * isz
-                  + 2 * sum(needed) * KVH * HD * isz + 2 * B * 4)
-        flops = sum(4 * HD * h * (s + j + 1)
-                    for s, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
-        timed[h] = (k_ms, p_ms, l_ms, *_bound_ms(nbytes, flops, torch.bfloat16))
+        timed[h] = (k_ms, p_ms, l_ms, *_cost_bound("prefill", q, k, v, starts, clens))
     row = _row("prefill_attention", "prefill_attention.cu",
                "src/repro/kernels/prefill_attention.py:144", errs, *timed[DRAFT_H])
     k_ms, p_ms, l_ms, bound, by = timed[H]
@@ -1447,11 +1439,8 @@ def _spec_rows():
             if not same:
                 raise AssertionError("tree verify over a chain differs from verify")
 
-    def verify_bound(seen, t):
-        needed = [min(max(n, 0), cap) for n in VERIFY_LENGTHS]
-        nbytes = (2 * B * t * H * HD * isz + 2 * _unique_kv_rows(bt, needed) * KVH * HD * isz
-                  + bt.numel() * 4 + B * 4)
-        return _bound_ms(nbytes, 4 * HD * H * int(seen.sum()), torch.bfloat16)
+    def verify_bound(q, *anc):
+        return _cost_bound("paged_verify", q, k_pool, v_pool, bt, vlens, *anc)
 
     def one_tile_per_split_ms(fn):
         """``fn``'s time with the tensor-core body's split plan at one 64-key
@@ -1481,7 +1470,7 @@ def _spec_rows():
     p_ms = _time_ms(lambda: pv.paged_verify_attention_torch(q, k_pool, v_pool, bt, vlens))
     l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd,
                                                            attn_mask=vmask[:, None]))
-    bound, by = verify_bound(vmask, 5)
+    bound, by = verify_bound(q)
     # what paces the launch: every slot cut to its first 64-key tile, and
     # the longest slot alone (the others empty)
     one_tile = vlens.clamp(max=64)
@@ -1510,7 +1499,7 @@ def _spec_rows():
                                                                   vlens, chain))
     l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd,
                                                            attn_mask=tmask[:, None]))
-    bound, by = verify_bound(tmask, 5)
+    bound, by = verify_bound(q, chain)
     row = _row("paged_tree_verify_attention", "paged_tree_verify_attention.cu",
                "src/repro/kernels/paged_tree_verify_attention.py:45", _worst(*terr),
                k_ms, p_ms, l_ms, bound, by)
@@ -1521,7 +1510,7 @@ def _spec_rows():
                                                               anc31))
     l31_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q31.transpose(1, 2), kd, vd, attn_mask=mask31[:, None]))
-    bound31, _ = verify_bound(mask31, 31)
+    bound31, _ = verify_bound(q31, anc31)
     split1_ms = one_tile_per_split_ms(
         lambda: ptv.paged_tree_verify_attention(q, k_pool, v_pool, bt, vlens, chain))
     row.update(ms_31_nodes=n31_ms, library_ms_31_nodes=l31_ms, bound_ms_31_nodes=bound31,
@@ -1659,7 +1648,7 @@ def _dense_target_rows():
     from repro_torch.kernels import verify_attention as va
     from repro_torch.spec.tree import branching_tree, linear_chain, tree_ancestor_masks
 
-    isz, S = 2, DENSE_S
+    S = DENSE_S
     vlens = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
 
     def inputs(t, anc=None, lens=vlens, h=H, kvh=KVH, hd=HD):
@@ -1714,15 +1703,11 @@ def _dense_target_rows():
         bits = (anc[:, :, None] >> j.clamp(0, 31)) & 1
         return (kpos < base) | ((j >= 0) & (j < n) & (bits == 1))
 
-    def bound(seen, tree):
+    def bound(q, *anc):
         """bytes: q in and out once, the K/V rows the slots' windows need
         once, lengths (and the tree's masks); operations: QK^T and PV over
-        the keys each row sees."""
-        n = seen.shape[1]
-        needed = sum(min(max(x, 0), S) for x in VERIFY_LENGTHS)
-        nbytes = (2 * B * n * H * HD * isz + 2 * needed * KVH * HD * isz + B * 4
-                  + (B * n * 4 if tree else 0))
-        return _bound_ms(nbytes, 4 * HD * H * int(seen.sum()), torch.bfloat16)
+        the keys each row sees (``kernels.cost.verify``)."""
+        return _cost_bound("verify", q, k, v, vlens, *anc)
 
     q, k, v, _ = inputs(5)(torch.bfloat16)
     qt = q.transpose(1, 2)
@@ -1744,7 +1729,7 @@ def _dense_target_rows():
         l_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                attn_mask=seen[:, None]))
         rows.append(_row(name, "verify_attention.cu", rep, errs, k_ms, p_ms, l_ms,
-                         *bound(seen, bool(extra))))
+                         *bound(q, *extra)))
     # what paces #6: every slot cut to its first 64-key tile, the longest slot
     # alone (the others empty), and the paged verify's two-launch split pass
     # + combine over the same rows seen as 16-row pages (identity table)
@@ -1783,7 +1768,7 @@ def _dense_target_rows():
     n31_ms = _time_ms(lambda: tv.tree_verify_attention(q31, k, v, vlens, anc31))
     l31_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q31.transpose(1, 2), kt, vt, attn_mask=mask31[:, None]))
-    bound31, _ = bound(mask31, True)
+    bound31, _ = bound(q31, anc31)
     rows[1].update(ms_31_nodes=n31_ms, library_ms_31_nodes=l31_ms, bound_ms_31_nodes=bound31)
     log(f"kernel tree_verify_attention (31 nodes): {n31_ms:.4f} ms, sdpa {l31_ms:.4f} ms, "
         f"bound {bound31:.4f} ms")
@@ -1817,6 +1802,15 @@ def _ssm_chained(ss, xi, dt, bm, cm, a, h0, chunk=SSM_Q):
     return torch.cat(ys, dim=1), h
 
 
+def _ssm_shapes(b, q, di, ds):
+    """The scan's (xi, dt, B, C, A, h0) as ``meta`` tensors (shapes alone)."""
+    import torch
+
+    seq, state = torch.empty((b, q, di), device="meta"), torch.empty((b, q, ds), device="meta")
+    return (seq, seq, state, state, torch.empty((di, ds), device="meta"),
+            torch.empty((b, di, ds), device="meta"))
+
+
 def _ssm_bound(q, b=1, di=SSM_DI, ds=SSM_DS):
     """Bound of one scan of ``q`` steps over ``b`` batch rows (the table's
     widths unless given).  Bytes: xi, dt, y [b, q, di] and B, C [b, q, ds]
@@ -1824,9 +1818,7 @@ def _ssm_bound(q, b=1, di=SSM_DI, ds=SSM_DS):
     dt*A, exp, *h, fma with dt*x*B, *C, the sum."""
     import torch
 
-    elems = b * q * di * ds
-    nbytes = 4 * (3 * b * q * di + 2 * b * q * ds + di * ds + 2 * b * di * ds)
-    return _bound_ms(nbytes, 7 * elems + b * q * di, torch.float32)
+    return _cost_bound("ssm_scan", *_ssm_shapes(b, q, di, ds))
 
 
 def _ssm_rows():
@@ -1892,8 +1884,7 @@ def _ssm_bwd_bound(b, q, di=SSM_DI, ds=SSM_DS):
     their sums, the carry a * g."""
     import torch
 
-    nbytes = 4 * (5 * b * q * di + 4 * b * q * ds + 2 * di * ds + 3 * b * di * ds)
-    return _bound_ms(nbytes, 20 * b * q * di * ds, torch.float32)
+    return _cost_bound("ssm_scan_bwd", *_ssm_shapes(b, q, di, ds))
 
 
 def _ptxas_usage(log_text, kernel):
@@ -2128,10 +2119,7 @@ def _hd80_rows():
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
                                                            attn_mask=mask))
-    needed = sum(min(max(n, 0), DENSE_S) for n in DENSE_LENGTHS)
-    isz = 2
-    bound, by = _bound_ms(2 * B * h * HYB_HD * isz + 2 * needed * kvh * HYB_HD * isz + B * 4,
-                          4 * HYB_HD * h * needed, torch.bfloat16)
+    bound, by = _cost_bound("decode", q, k, v, lengths)
     rows.append(_row("decode_attention_hd80", "decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms,
                      bound, by))
@@ -2290,9 +2278,7 @@ def _fp8_rows():
                                                                attn_mask=mask))
         w_ms = _time_ms(lambda: (k.to(torch.bfloat16), v.to(torch.bfloat16)))
         p_ms = _time_ms(lambda: dd.decode_attention_torch(q, k, v, lens))
-        needed = sum(min(max(n, 0), s) for n in lens.tolist())
-        bound, by = _bound_ms(2 * B * H * HD * 2 + 2 * needed * KVH * HD + B * 4,
-                              4 * HD * H * needed, torch.bfloat16)
+        bound, by = _cost_bound("decode", q, k, v, lens)
         return k_ms, b_ms, l_ms, w_ms, p_ms, bound, by
 
     k_ms, b_ms, l_ms, w_ms, p_ms, bound, by = times(DENSE_S, lengths[DENSE_S])
@@ -2337,9 +2323,7 @@ def _fp8_rows():
     sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
     lib_ms = _time_ms(lambda: sdpa(q[:, :, None], lk, lv, bias, True))
     widen_ms = _time_ms(lambda: (kb8.to(torch.bfloat16), vb8.to(torch.bfloat16)))
-    needed = int(lb.sum())
-    p_bound, p_by = _bound_ms(2 * B * H * HD + 2 * needed * KVH * HD + B * 4
-                              + B * H * (HD + 2) * 4, 4 * HD * H * needed, torch.bfloat16)
+    p_bound, p_by = _cost_bound("decode_partial", q, kb8, vb8, lb)
     log(f"kernel decode_attention_partial_fp8 ({_card()}; one block of {blk} of S={DENSE_S}, "
         f"e4m3 cache, bf16 q): {part_ms:.4f} ms (bf16 cache {part_bf16:.4f}; plain {part_plain:.4f}; memory-efficient SDPA over the widened "
         f"block {lib_ms:.4f} + widening {widen_ms:.4f}; bound {p_bound:.4f} by {p_by})")
@@ -2402,10 +2386,7 @@ def _paged_decode_row(suffix, h, kvh, hd):
     s = NCOLS * PAGE
     mask = torch.arange(s, device="cuda")[None, None, :] < lengths[:, None, None]
     l_ms = _paged_sdpa(q[:, :, None], k_pool, v_pool, bt, mask, h // kvh)
-    needed = [min(n, s) for n in DECODE_LENGTHS]
-    nbytes = (2 * B * h * hd * 2 + 2 * _unique_kv_rows(bt, needed) * kvh * hd * 2
-              + bt.numel() * 4 + B * 4)
-    bound, by = _bound_ms(nbytes, 4 * hd * h * sum(needed), torch.bfloat16)
+    bound, by = _cost_bound("paged_decode", q, k_pool, v_pool, bt, lengths)
     return _row("paged_decode_attention" + suffix, "paged_decode_attention.cu",
                 "src/repro/kernels/paged_decode_attention.py:53", errs, k_ms, p_ms, l_ms,
                 bound, by)
@@ -2440,12 +2421,7 @@ def _paged_prefill_row(suffix, h, kvh, hd):
              <= (starts[:, None] + t[None, :])[:, :, None])
             & (t[None, :, None] < clens[:, None, None]))
     l_ms = _paged_sdpa(q.transpose(1, 2), k_pool, v_pool, bt, mask, h // kvh)
-    needed = [st + c if c else 0 for st, c in zip(PREFILL_STARTS, PREFILL_LENS)]
-    nbytes = (sum(PREFILL_LENS) * h * hd * 2 + B * CHUNK * h * hd * 2
-              + 2 * _unique_kv_rows(bt, needed) * kvh * hd * 2 + bt.numel() * 4 + 2 * B * 4)
-    flops = sum(4 * hd * h * (st + j + 1)
-                for st, c in zip(PREFILL_STARTS, PREFILL_LENS) for j in range(c))
-    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    bound, by = _cost_bound("paged_prefill", q, k_pool, v_pool, bt, starts, clens)
     return _row("paged_prefill_attention" + suffix, "paged_prefill_attention.cu",
                 "src/repro/kernels/paged_prefill_attention.py:50", errs, k_ms, p_ms, l_ms,
                 bound, by)
@@ -2509,11 +2485,8 @@ def _paged_verify_rows(suffix, h, kvh, hd):
         bits = (anc[:, :, None] >> j.clamp(0, 31)) & 1
         return (kpos < base) | ((j >= 0) & (j < n) & (bits == 1))
 
-    def bound(mask, n):
-        needed = [min(max(x, 0), cap) for x in VERIFY_LENGTHS]
-        nbytes = (2 * B * n * h * hd * 2 + 2 * _unique_kv_rows(bt, needed) * kvh * hd * 2
-                  + bt.numel() * 4 + B * 4)
-        return _bound_ms(nbytes, 4 * hd * h * int(mask.sum()), torch.bfloat16)
+    def bound(q, *anc):
+        return _cost_bound("paged_verify", q, k_pool, v_pool, bt, vlens, *anc)
 
     mask5, mask31 = seen(chain, 5), seen(tree31, 31)
     rows = []
@@ -2529,11 +2502,11 @@ def _paged_verify_rows(suffix, h, kvh, hd):
         p_ms = _time_ms(lambda: plain(q, k_pool, v_pool, bt, vlens, *extra))
         l_ms = _paged_sdpa(q.transpose(1, 2), k_pool, v_pool, bt, mask5, h // kvh)
         rows.append(_row(name + suffix, src, replaces, errs, k_ms, p_ms, l_ms,
-                         *bound(mask5, 5)))
+                         *bound(q, *extra)))
     n31_ms = _time_ms(lambda: ptv.paged_tree_verify_attention(q31, k_pool, v_pool, bt, vlens,
                                                               tree31))
     l31_ms = _paged_sdpa(q31.transpose(1, 2), k_pool, v_pool, bt, mask31, h // kvh)
-    bound31, _ = bound(mask31, 31)
+    bound31, _ = bound(q31, tree31)
     rows[1].update(ms_31_nodes=n31_ms, library_ms_31_nodes=l31_ms, bound_ms_31_nodes=bound31)
     log(f"kernel paged_tree_verify_attention{suffix} (31 nodes): {n31_ms:.4f} ms, sdpa "
         f"{l31_ms:.4f} ms, bound {bound31:.4f} ms")
@@ -2571,9 +2544,7 @@ def _dense_decode_row(suffix, h, kvh, hd):
     vt = v.transpose(1, 2).repeat_interleave(h // kvh, 1)
     l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
                                                            attn_mask=mask))
-    needed = sum(min(max(n, 0), DENSE_S) for n in DENSE_LENGTHS)
-    bound, by = _bound_ms(2 * B * h * hd * 2 + 2 * needed * kvh * hd * 2 + B * 4,
-                          4 * hd * h * needed, torch.bfloat16)
+    bound, by = _cost_bound("decode", q, k, v, lengths)
     return _row("decode_attention" + suffix, "decode_attention.cu",
                 "src/repro/kernels/decode_attention.py:92", errs, k_ms, p_ms, l_ms, bound, by)
 
@@ -6496,11 +6467,8 @@ def phase_model_axis_kernels():
         raise AssertionError(f"decode_attention_partial: the library call's state differs by "
                              f"{lib_err:.3e} (tolerance {BF16_ATOL:g})")
     lib_ms = _time_ms(library)
-    needed = int(lb.sum())
-    p_bound, p_by = _bound_ms(2 * B * H * HD + 2 * needed * KVH * HD * 2 + B * 4
-                              + B * H * (HD + 2) * 4, 4 * HD * H * needed, torch.bfloat16)
-    m_bound, m_by = _bound_ms(MA_ROW_M * B * H * (HD + 2) * 4 + B * H * HD * 2,
-                              MA_ROW_M * B * H * (2 * HD + 4), torch.bfloat16)
+    p_bound, p_by = _cost_bound("decode_partial", q, kb, vb, lb)
+    m_bound, m_by = _cost_bound("combine", acc, ml, torch.bfloat16)
     log(f"kernel decode_attention_partial ({_card()}; S={MA_ROW_S} in {MA_ROW_M} blocks of "
         f"{blk}, bf16): one block's partial {part_ms:.4f} ms (plain {part_plain:.4f}, bound "
         f"{p_bound:.4f} by {p_by}) + the merge {merge_ms:.4f} ms (plain {merge_plain:.4f}, "
@@ -7088,6 +7056,168 @@ def phase_ssm_model_axis():
     return runs, [row]
 
 
+# ---------------------------------------------------------------------------
+# 35. the cost model against the card
+# ---------------------------------------------------------------------------
+
+#: phase 35's timed warm runs of each step (the median is reported)
+COST_TIMED_RUNS = 3
+
+
+def _profiled_launches(fn) -> tuple:
+    """``fn()`` once under ``torch.profiler``: (device events by name, the
+    number of kernel events, the number of all device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    kernels = events = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+            events += 1
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
+    return names, kernels, events
+
+
+def _cost_against_card(label, counted, fn, model_flops, base_bytes):
+    """Time ``fn`` warm (``COST_TIMED_RUNS`` runs, after one untimed), run
+    it once under the profiler, hold each hand-written kernel's counted
+    launches to the profiler's count of it and log the comparison."""
+    import re
+
+    import torch
+
+    from repro_torch.core.hardware import H100
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.launch.roofline import roofline_terms
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(COST_TIMED_RUNS):
+        times.append(_timed(fn)[1])
+    step_s = sorted(times)[len(times) // 2]
+    torch.cuda.reset_peak_memory_stats()
+    names, kernels, events = _profiled_launches(fn)
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    profiled = {sym: sum(n for name, n in names.items() if re.search(rf"\b{sym}\b", name))
+                for sym in kcost.SYMBOLS}
+    hand = {sym: (counted["kernels"].get(sym, 0), n) for sym, n in profiled.items()
+            if n or counted["kernels"].get(sym, 0)}
+    bad = {sym: c for sym, c in hand.items() if c[0] != c[1]}
+    if bad or not hand:
+        raise AssertionError(f"cost model {label}: counted / profiled launches of the "
+                             f"hand-written kernels {hand} (differ: {bad})")
+    roof = roofline_terms(parsed=counted, n_devices=1, model_flops=model_flops, hw=H100)
+    mfu = model_flops / (step_s * H100.peak_flops)
+    mem = counted["memory"]["peak_bytes_per_device"]
+    log(f"cost model {label} ({_card()}): hand-written kernels counted = profiled "
+        f"{json.dumps({k: v[0] for k, v in hand.items()})}; all launches counted "
+        f"{counted['launches']} / profiled kernels {kernels} = "
+        f"{counted['launches'] / kernels:.3f} (device events {events}, ratio "
+        f"{counted['launches'] / events:.3f}); peak counted {mem / 1e9:.3f} GB / "
+        f"max_memory_allocated {peak / 1e9:.3f} GB = {mem / peak:.3f}; counted FLOPs "
+        f"{counted['flops']:.4e}, bytes {counted['bytes_accessed']:.4e}; roofline on "
+        f"{H100.name} (modelled) compute {roof.compute_s * 1e3:.3f} ms, memory "
+        f"{roof.memory_s * 1e3:.3f} ms, collective {roof.collective_s * 1e3:.3f} ms "
+        f"({roof.dominant}); measured step {step_s * 1e3:.2f} ms (runs "
+        + ", ".join(f"{t * 1e3:.2f}" for t in times) + f"); mfu {mfu:.4f}; bound share "
+        f"{roof.bound_s / step_s:.4f}")
+
+
+def phase_cost_model():
+    """Phase 35: ``launch.cost`` against the card on olmo-1b at full depth:
+    phase 30's train step and phase 33's bf16 prefill and decode step on a
+    one-rank NCCL mesh, each counted on a (1, 1) ``RecordingMesh``."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch import cells, cost
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import make_prefill_step, make_serve_step, make_train_step
+
+    t_phase = time.monotonic()
+    cfg = configs.get_config("olmo-1b")
+    rec = cost.RecordingMesh((1, 1), ("data", "model"))
+    store = tempfile.mkdtemp(prefix="cost_model_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = make_dev_mesh(device="cuda")
+        # the train step: phase 30's settings
+        _fresh_phase()
+        base = torch.cuda.memory_allocated()
+        tcfg = TrainConfig(warmup_steps=2, total_steps=SCALE_STEPS + 8, remat_policy="full",
+                           fsdp=True, zero1=True)
+        shape = ShapeConfig("phase35_train", TRAIN_S, TRAIN_B, "train")
+        t0 = time.monotonic()
+        counted = cells.Cell("olmo-1b", shape, cfg, "train",
+                             make_train_step(cfg, tcfg, rec, device="meta")).count()
+        count_s = time.monotonic() - t0
+        step = make_train_step(cfg, tcfg, mesh, device="cuda")
+        state = step.init_state(T.init_params(cfg, torch.Generator(device="cuda").manual_seed(35)))
+        ds = SyntheticDataset(cfg=cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=35)
+        batch = step.shard_batch(ds.next_batch())
+        log(f"cost model train: counted in {count_s:.1f} s on meta")
+        _cost_against_card("olmo-1b train step (4 x 1024, FSDP + ZeRO-1, remat full)", counted,
+                           lambda: step(state, batch), cells.model_flops(cfg, shape), base)
+        del state, batch, step
+        # the serve steps: phase 33's bf16 prefill and decode step
+        _fresh_phase()
+        base = torch.cuda.memory_allocated()
+        shape = ShapeConfig("serve_steps", SERVE_STEP_SEQ, SERVE_STEP_ROWS, "decode")
+        cpre, cdec = make_prefill_step(cfg, rec, shape), make_serve_step(cfg, rec, shape)
+        params_abs, tokens_abs, cache_abs = cdec.abstract_inputs()
+        local_abs = cells.own(cpre.shard_params(params_abs))
+        prompt_abs = torch.empty((SERVE_STEP_ROWS, SERVE_STEP_PROMPT), dtype=torch.int32,
+                                 device="meta")
+        t0 = time.monotonic()
+        pre_counted = cost.analyze(cpre.step, local_abs, prompt_abs)
+        dec_counted = cost.analyze(cdec.step, local_abs, cells.own(tokens_abs),
+                                   cells.own(cache_abs))
+        count_s = time.monotonic() - t0
+        pre, dec = make_prefill_step(cfg, mesh, shape), make_serve_step(cfg, mesh, shape)
+        gen = torch.Generator(device="cuda").manual_seed(35)
+        local = pre.shard_params(T.init_params(cfg, gen, dtype=torch.bfloat16))
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_STEP_ROWS, SERVE_STEP_PROMPT),
+                                generator=gen, device="cuda", dtype=torch.int32)
+        log(f"cost model serve steps: counted in {count_s:.1f} s on meta (the decode's "
+            f"cache counted full: {SERVE_STEP_SEQ} live rows)")
+        prefill_shape = ShapeConfig("phase35_prefill", SERVE_STEP_PROMPT, SERVE_STEP_ROWS,
+                                    "prefill")
+        _cost_against_card(f"olmo-1b bf16 prefill ({SERVE_STEP_ROWS} x {SERVE_STEP_PROMPT} "
+                           f"into {SERVE_STEP_SEQ} rows)", pre_counted,
+                           lambda: pre.step(local, prompts),
+                           cells.model_flops(cfg, prefill_shape), base)
+        # each decode step writes the next row of the prefill's cache
+        logits, cache = pre.step(local, prompts)
+        run = {"tok": torch.argmax(logits, -1).to(torch.int32), "cache": cache}
+
+        def decode():
+            run["tok"], run["cache"] = dec.step(local, run["tok"], run["cache"])
+
+        _cost_against_card(f"olmo-1b bf16 decode step ({SERVE_STEP_ROWS} rows, "
+                           f"{SERVE_STEP_SEQ}-row cache)", dec_counted, decode,
+                           cells.model_flops(cfg, shape), base)
+        del local, cache, run, logits
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    _end_phase("cost model")
+    log(f"cost model: {time.monotonic() - t_phase:.1f}s")
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -7154,7 +7284,8 @@ def main() -> int:
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()
     ssm_launches = phase_ssm_serve()
-    # the end-of-run profiler sessions
+    # the end-of-run profiler sessions, phase 35's first
+    phase_cost_model()
     _profile_moe_serve()
     _profile_hybrid_serve()
     _profile_train()

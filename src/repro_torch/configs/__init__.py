@@ -19,6 +19,7 @@ from repro_torch.configs.base import (
     SpecInFConfig,
     TrainConfig,
     draft_config,
+    shape_applicable,
 )
 
 _ARCH_MODULES = {
@@ -42,6 +43,22 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+def get_shape(shape: str) -> ShapeConfig:
+    if shape not in SHAPES:
+        raise KeyError(f"unknown shape {shape!r}; known: {sorted(SHAPES)}")
+    return SHAPES[shape]
+
+
+def all_cells(include_skipped: bool = False):
+    """Yield (arch_id, shape_name, applicable, reason) for the 40-cell matrix."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, reason = shape_applicable(cfg, shape)
+            if ok or include_skipped:
+                yield arch, shape.name, ok, reason
 
 
 def smoke_config(arch: str) -> ModelConfig:
@@ -80,7 +97,10 @@ __all__ = [
     "SpecDecodeConfig",
     "SpecInFConfig",
     "TrainConfig",
+    "all_cells",
     "draft_config",
     "get_config",
+    "get_shape",
+    "shape_applicable",
     "smoke_config",
 ]

@@ -6,9 +6,9 @@ copies of ``repro.configs.base``'s ``ModelConfig``, ``TrainConfig``,
 Mixture-of-Experts (``moe``), Mamba1 (``ssm``) and Zamba2 ``hybrid``
 families' and the stub frontend's (``embed_inputs``: the ``audio`` and
 ``vlm`` families take precomputed d_model embeddings, as in the
-reference), and its derived properties but ``attention_free`` and
-``sub_quadratic``, which only the reference's shape matrix reads.  ``ShapeConfig`` and the four assigned input
-shapes are the reference's.  ``TrainConfig`` keeps the
+reference), and its derived properties (``attention_free`` and
+``sub_quadratic`` for the shape matrix, ``shape_applicable``).
+``ShapeConfig`` and the four assigned input shapes are the reference's.  ``TrainConfig`` keeps the
 reference's fields and defaults (the mesh layout ``zero1``, ``fsdp`` and
 ``layout`` is read only by a train step built on a mesh).  ``SpecInFConfig``
 keeps what the runtime and the collocation planner read (the simulator's
@@ -134,6 +134,15 @@ class ModelConfig:
             return 0
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when the arch can run the 500k long-context decode shape."""
+        return self.family in ("ssm", "hybrid")
+
     # --- analytic parameter counts (the reference's, for these families) ---
     def param_count(self) -> int:
         """Total parameters of the tree ``init_params`` builds."""
@@ -233,6 +242,14 @@ DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
 LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
 
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch, shape) cell is runnable; reason string when skipped
+    (the reference's words)."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False, "long_500k skipped: pure full-attention arch (see DESIGN.md §5)"
+    return True, ""
 
 
 @dataclasses.dataclass(frozen=True)

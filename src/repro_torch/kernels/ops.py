@@ -13,11 +13,19 @@ points.  ``impl``:
 
 A CUDA tensor never falls back to the plain version: a kernel that fails to
 build or launch raises.
+
+While a counting mode is active (``launch.cost.CountingMode``, which pushes
+itself on ``COUNTING``), an entry point under "auto" or "cuda" records its
+kernels' cost as the card launches them (``kernels/cost.py``) and returns
+outputs of the right shape, allocated but not computed: no kernel and no
+plain version runs.  "torch" (the caller's or the mode's) still runs the
+plain version, whose ops the mode counts one by one.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import decode_attention as _dense_decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _decode
@@ -31,6 +39,9 @@ from repro_torch.kernels import verify_attention as _dense_verify
 
 IMPLS = ("auto", "torch", "cuda")
 
+#: the active counting modes, innermost last (``launch.cost``)
+COUNTING: list = []
+
 
 def _resolve(impl: str, q: torch.Tensor) -> str:
     if impl not in IMPLS:
@@ -38,6 +49,76 @@ def _resolve(impl: str, q: torch.Tensor) -> str:
     if impl == "auto":
         return "cuda" if q.is_cuda else "torch"
     return impl
+
+
+def _counting(impl: str):
+    """The counting mode that takes this call's kernels, or None (none is
+    active, or the caller or the mode asks for the plain version)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; known: {IMPLS}")
+    if not COUNTING or impl == "torch" or COUNTING[-1].impl == "torch":
+        return None
+    return COUNTING[-1]
+
+
+class _CountedFlash(torch.autograd.Function):
+    """``flash_attention.FlashAttention`` under a counting mode: records
+    the forward's and the backward's launches and allocates what they do
+    (out and the log-sum-exp, saved for the backward; D, dq, dk, dv
+    there), computing nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, counter):
+        out = counter.launch(_cost.flash_fwd(q, k, v, causal), torch.empty_like(q))
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.counter = causal, counter
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, _, lse = ctx.saved_tensors
+        dout.contiguous()  # the kernels' copy of a strided gradient
+        delta = torch.empty_like(lse)  # their scratch, alive while they run
+        grads = ctx.counter.launch(_cost.flash_bwd(q, k, v, ctx.causal), (
+            torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
+        del delta
+        return (*grads, None, None)
+
+
+class _CountedScan(torch.autograd.Function):
+    """``ssm_scan.SelectiveScan`` under a counting mode: the forward with
+    its checkpoints (saved), the backward's two launches and their
+    outputs and partials, computing nothing."""
+
+    @staticmethod
+    def forward(ctx, xi, dt, B_, C_, A, h0, counter):
+        b, q, di = xi.shape
+        hs = torch.empty((b, -(-q // _ssm.CHECKPOINT_STEPS), di, B_.shape[-1]),
+                         dtype=torch.float32, device=xi.device)
+        y, h = counter.launch(_cost.ssm_scan(xi, dt, B_, C_, A, h0),
+                              (torch.empty_like(xi), torch.empty_like(h0)))
+        ctx.save_for_backward(xi, dt, B_, C_, A, hs)
+        ctx.counter = counter
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        xi, dt, B_, C_, A, hs = ctx.saved_tensors
+        b, q, di = xi.shape
+        ds = B_.shape[-1]
+        for g in (gy, gh):  # the kernel's fp32 copies of the gradients
+            if g is not None:
+                g.float().contiguous()
+        grads = (torch.empty_like(xi), torch.empty_like(dt), torch.empty_like(B_),
+                 torch.empty_like(C_), torch.empty_like(A), hs.new_empty((b, di, ds)))
+        # the partial gB / gC rows and gA the two kernels sum, alive while they run
+        partials = [torch.empty((_ssm.bwd_partials(di), b, q, ds), dtype=torch.float32,
+                                device=xi.device) for _ in range(2)]
+        partials.append(torch.empty((b, di, ds), dtype=torch.float32, device=xi.device))
+        grads = ctx.counter.launch(_cost.ssm_scan_bwd(xi, dt, B_, C_, A, hs[:, 0]), grads)
+        del partials
+        return (*grads, None)
 
 
 def _repeat_kv(k: torch.Tensor, q_heads: int) -> torch.Tensor:
@@ -68,7 +149,10 @@ def attention(
     qt = q.transpose(1, 2).contiguous()
     kt = _repeat_kv(k, h).transpose(1, 2).contiguous()
     vt = _repeat_kv(v, h).transpose(1, 2).contiguous()
-    if _resolve(impl, q) == "cuda":
+    counter = _counting(impl)
+    if counter is not None:
+        out = _CountedFlash.apply(qt, kt, vt, causal, counter)
+    elif _resolve(impl, q) == "cuda":
         out = _flash.flash_attention(qt, kt, vt, causal=causal)
     else:
         out = _flash.flash_attention_torch(qt, kt, vt, causal=causal)
@@ -90,6 +174,10 @@ def paged_decode_attention(
     [B, W] int32 whose last column is the sentinel (never live KV); lengths:
     [B] int32 valid-KV counts (0 == empty slot -> zero output).  Returns
     [B, H, hd]."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.paged_decode(q, k_pool, v_pool, block_tables, lengths),
+                              torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _decode.paged_decode_attention(
             q, k_pool, v_pool, block_tables, lengths
@@ -115,6 +203,11 @@ def paged_prefill_chunk_attention(
     the slot's pages at ``starts .. starts + chunk_lens - 1``; query t attends
     ``kpos <= starts + t``.  Returns [B, C, H, hd]; rows ``t >= chunk_lens``
     are zeros."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.paged_prefill(q, k_pool, v_pool, block_tables, starts,
+                                                  chunk_lens),
+                              torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _prefill.paged_prefill_attention(
             q, k_pool, v_pool, block_tables, starts, chunk_lens
@@ -138,6 +231,9 @@ def decode_attention(
     float type (the fp8 cache, widened as it is read); lengths: [B] int32
     valid-KV counts (clamped to S; 0 == empty slot -> zero output).
     Returns [B, H, hd]."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.decode(q, k_cache, v_cache, lengths), torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _dense_decode.decode_attention(q, k_cache, v_cache, lengths)
     return _dense_decode.decode_attention_torch(q, k_cache, v_cache, lengths)
@@ -156,6 +252,11 @@ def decode_attention_partial(
     holding (m, l) in natural-log units, ``l = 0`` for a row no key
     reached.  Arguments as ``decode_attention`` (``lengths``: the block's
     live keys)."""
+    counter = _counting(impl)
+    if counter is not None:
+        f32 = dict(dtype=torch.float32)
+        return counter.launch(_cost.decode_partial(q, k_cache, v_cache, lengths), (
+            q.new_empty(q.shape, **f32), q.new_empty((*q.shape[:2], 2), **f32)))
     if _resolve(impl, q) == "cuda":
         return _dense_decode.decode_attention_partial(q, k_cache, v_cache, lengths)
     return _dense_decode.decode_attention_partial_torch(q, k_cache, v_cache, lengths)
@@ -167,6 +268,10 @@ def combine_decode_partials(
     """Merge n blocks' ``decode_attention_partial`` states, gathered as
     ``acc [B, n, H, hd]`` / ``ml [B, n, H, 2]``, into the attention output
     [B, H, hd] of ``dtype`` (``paged::combine_splits`` on CUDA)."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.combine(acc, ml, dtype),
+                              acc.new_empty((acc.shape[0], *acc.shape[2:]), dtype=dtype))
     if _resolve(impl, acc) == "cuda":
         return _dense_decode.combine_splits(acc, ml, dtype)
     return _dense_decode.combine_splits_torch(acc, ml, dtype)
@@ -187,6 +292,10 @@ def prefill_chunk_attention(
     chunk's real K/V already at ``starts .. starts + chunk_lens - 1``; query
     t attends ``kpos <= starts + t``.  Returns [B, C, H, hd]; rows
     ``t >= chunk_lens`` are zeros."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.prefill(q, k_cache, v_cache, starts, chunk_lens),
+                              torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _dense_prefill.prefill_attention(
             q, k_cache, v_cache, starts, chunk_lens
@@ -212,6 +321,10 @@ def paged_verify_attention(
     int32 including the chunk (not clamped).  Query t attends
     ``kpos <= lengths - T + t``; rows with an empty causal window are
     zeros.  Returns [B, T, H, hd]."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.paged_verify(q, k_pool, v_pool, block_tables, lengths),
+                              torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _verify.paged_verify_attention(
             q, k_pool, v_pool, block_tables, lengths
@@ -238,6 +351,10 @@ def paged_tree_verify_attention(
     Node t attends ``kpos < lengths - N`` plus the nodes whose bit is set in
     ``anc[b, t]``; rows with an empty visibility set are zeros.  Returns
     [B, N, H, hd]."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.paged_verify(q, k_pool, v_pool, block_tables, lengths, anc),
+                              torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _tree.paged_tree_verify_attention(
             q, k_pool, v_pool, block_tables, lengths, anc
@@ -262,6 +379,9 @@ def verify_attention(
     dtype; lengths: [B] int32 including the chunk (not clamped).  Query t
     attends ``kpos <= lengths - T + t``; rows with an empty causal window
     (``lengths == 0`` included) are zeros.  Returns [B, T, H, hd]."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.verify(q, k_cache, v_cache, lengths), torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _dense_verify.verify_attention(q, k_cache, v_cache, lengths)
     return _dense_verify.verify_attention_torch(q, k_cache, v_cache, lengths)
@@ -283,6 +403,10 @@ def tree_verify_attention(
     Node t attends ``kpos < lengths - N`` plus the nodes whose bit is set in
     ``anc[b, t]``; rows with an empty visibility set are zeros.  A linear
     chain's masks give ``verify_attention``.  Returns [B, N, H, hd]."""
+    counter = _counting(impl)
+    if counter is not None:
+        return counter.launch(_cost.verify(q, k_cache, v_cache, lengths, anc),
+                              torch.empty_like(q))
     if _resolve(impl, q) == "cuda":
         return _dense_tree.tree_verify_attention(q, k_cache, v_cache, lengths, anc)
     return _dense_tree.tree_verify_attention_torch(q, k_cache, v_cache, lengths, anc)
@@ -298,6 +422,12 @@ def ssm_scan_chunk(xi, dt, B_, C_, A, h0, *, impl: str = "auto"):
     autograd needs it; the serving launch otherwise), the plain version by
     autograd."""
     args = [t.float().contiguous() for t in (xi, dt, B_, C_, A, h0)]
+    counter = _counting(impl)
+    if counter is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            return _CountedScan.apply(*args, counter)
+        return counter.launch(_cost.ssm_scan(*args),
+                              (torch.empty_like(args[0]), torch.empty_like(args[5])))
     if _resolve(impl, args[0]) == "cuda":
         return _ssm.selective_scan(*args)
     return _ssm.ssm_scan_chunk_torch(*args)

@@ -43,12 +43,14 @@ def test_walk_covers_the_port():
                 "runtime/trainer.py", "launch/train.py", "optim/compression.py",
                 "core/simulator.py", "core/baselines.py", "core/queues.py",
                 "core/hardware.py", "launch/mesh.py", "runtime/sharding.py",
-                "models/act_sharding.py"):
+                "models/act_sharding.py", "launch/cost.py", "launch/cells.py",
+                "launch/dryrun.py", "launch/roofline.py", "kernels/cost.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
     assert ROOT / "scripts" / "torch_scan_breakdown.py" in FILES
     assert ROOT / "examples" / "torch_quickstart.py" in FILES
     assert ROOT / "scripts" / "torch_check_chaos.py" in FILES
     assert ROOT / "examples" / "torch_online_serving.py" in FILES
+    assert ROOT / "scripts" / "torch_dev_smoke.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -76,6 +78,7 @@ def test_serving_core_import_pulls_no_jax():
         "import repro_torch.core.simulator; import repro_torch.core.baselines; "
         "import repro_torch.launch.mesh; import repro_torch.runtime.sharding; "
         "import repro_torch.models.act_sharding; "
+        "import repro_torch.launch.dryrun; import repro_torch.kernels.cost; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )
