@@ -198,7 +198,7 @@ Phases, each printing a line before the last:
                  requests) equal; flash launched once per cycle and
                  admission, the dense decode once per cycle and step.
 16. hybrid serve -- zamba2-2.7b at full depth, bf16, 8 slots, max_seq 512:
-                 the decode step (eager) beside its bytes bound (every
+                 the decode step (graph-replayed) beside its bytes bound (every
                  weight but the embedding, the shared block 9 times, plus
                  each slot's SSM and conv state read and written), then
                  phase 10's 16 requests; every request finishes with 32
@@ -389,6 +389,26 @@ Phases, each printing a line before the last:
                  three roofline terms on ``core.hardware.H100``, the measured
                  step, its ``mfu`` (model FLOPs / (step s x 989e12)) and the
                  bound's share of it.
+36. graphs    -- after phase 34, before phase 7 (no profiler session
+                 before it): the engine's serving programs, captured as
+                 CUDA graphs (every earlier serve phase already runs
+                 through them), at full depth in bf16: qwen3-1.7b paged
+                 and dense, chunked, plain and paired with its draft
+                 (chunk waves of both models, the spec loop, the decode
+                 loop), paged monolithic with radix hits (bucket, suffix
+                 and draft bucket prefills), falcon-mamba-7b and
+                 zamba2-2.7b (bucket prefill, recurrent decode loop).
+                 Every captured program, on its last inputs and a cache
+                 snapshot, must give outputs and cache entries bit-equal to
+                 its eager call (a paged pool's sentinel page apart: pad
+                 rows collide there); prefill graphs must equal
+                 ``prefill_compile_count``; the "sample" spec mode's stream
+                 through graphs (the engine's generator registered) must
+                 equal an eager engine's from the same seed.  Prints each
+                 program's eager and replay ms (median of 10), launches a
+                 replay (counted by ``launch.cost``), capture seconds, the
+                 pool's bytes, and phase 28's service probe eager and
+                 graphed.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -4063,6 +4083,7 @@ def phase_policies(colloc):
         f"paper orderings (printed, not asserted) {json.dumps(orderings)}; repeat equal; "
         f"{len(offline) + len(scaling) + len(online) + 1} timelines of {POLICY_SIM_S:g} s "
         f"simulated in {sim_s:.2f}s; phase {time.monotonic() - t_phase:.1f}s")
+    return {"service_s": service_s, "gate_s": gate_s}
 
 
 # ---------------------------------------------------------------------------
@@ -4170,7 +4191,7 @@ def _log_decode_step(label, engine, cfg, slots):
     nbytes = _decode_weight_bytes(cfg)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"{label}: decode step at {slots} slots {fused_ms:.3f} ms (k=8 quantum"
-        f"{', graph-replayed' if engine.decode_graphs else ''}), decode_microstep "
+        f"{', graph-replayed' if engine.graphs else ''}), decode_microstep "
         f"{micro_ms:.3f} ms (eager, one fetch a step); bound {bound:.3f} ms = "
         f"{nbytes / 1e9:.2f} GB of bf16 weights at 3.35 TB/s, {bound / fused_ms:.1%} of it")
 
@@ -4645,7 +4666,7 @@ def _hybrid_decode_bytes(cfg, slots):
 def phase_hybrid_serve():
     """zamba2-2.7b at full depth and width (54 Mamba2 layers, the shared
     block 9 times), bf16 weights made on the card, 8 slots, max_seq 512:
-    the decode step probed first (8 OFFLINE slots, k = 8, eager), beside its
+    the decode step probed first (8 OFFLINE slots, k = 8, graph-replayed), beside its
     bytes bound; then the ssm serve's 16 ONLINE requests of 35-154 tokens,
     32 new tokens each, on the dense layout with monolithic bucket prefill.
     Every request finishes; the flash forward launches once per cycle and
@@ -4676,7 +4697,8 @@ def phase_hybrid_serve():
     fused_ms, micro_ms = _decode_step_ms(engine, slots)
     w_bytes, s_bytes = _hybrid_decode_bytes(cfg, slots)
     bound = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"hybrid serve: decode step at {slots} slots {fused_ms:.3f} ms (k=8 quantum, eager), "
+    log(f"hybrid serve: decode step at {slots} slots {fused_ms:.3f} ms (k=8 quantum"
+        f"{', graph-replayed' if engine.graphs else ', eager'}), "
         f"decode_microstep {micro_ms:.3f} ms; bound {bound:.3f} ms = {w_bytes / 1e9:.2f} GB "
         f"of bf16 weights (the shared block 9 times) + {s_bytes / 1e9:.3f} GB of SSM and "
         f"conv state read and written at 3.35 TB/s, {bound / fused_ms:.1%} of it")
@@ -7218,6 +7240,254 @@ def phase_cost_model():
     log(f"cost model: {time.monotonic() - t_phase:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# 36. graphs: the serving programs as CUDA graphs against their eager calls
+# ---------------------------------------------------------------------------
+
+#: timed calls of each program, eager and replayed (the median is printed)
+GRAPH_REPS = 10
+#: the phase's qwen3-1.7b engines: (label, engine settings, draft paired)
+GRAPH_QWEN_ENGINES = (
+    ("paged chunked", {}, False),
+    ("paged chunked + draft", {}, True),
+    ("dense chunked", {"kv_page_size": 0}, False),
+    ("dense chunked + draft", {"kv_page_size": 0}, True),
+    ("paged monolithic + draft", {"prefill_chunk": 0}, True),
+)
+
+
+class _EagerGraphs:
+    """Mixed into an ``InferenceEngine`` subclass: the same engine with
+    every program run eagerly on the card (the kernels still launch), the
+    baseline a replay is held to."""
+
+    graphs = False
+
+
+def _cache_leaves(engine):
+    """Every cache tensor a program writes: (tensor, whether it is a paged
+    pool, whose sentinel page 0 takes colliding pad writes)."""
+    from repro_torch.tree import tree_leaves
+
+    out = [(t, engine.paged) for t in tree_leaves(engine.cache["layers"])]
+    if engine.draft_cache is not None:
+        out += [(t, False) for t in tree_leaves(engine.draft_cache["layers"])]
+    return out
+
+
+def _median_ms(fn, reps=GRAPH_REPS):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _check_graph_program(label, engine, key, prog):
+    """One captured program on its last replay's inputs: eager and replay
+    timed, its launches counted over the eager program
+    (``launch.cost.CountingMode``, the kernels priced, not run), and the
+    replay's outputs and every cache entry it writes bit-equal to the eager
+    call's from the same cache (and the same generator state).  The cache
+    and the generator are put back after.  Returns the program's row."""
+    import torch
+
+    from repro_torch.launch.cost import CountingMode
+
+    inputs = {k: v.clone() for k, v in prog.static.items()}
+    leaves = _cache_leaves(engine)
+    saved = [t.clone() for t, _ in leaves]
+    gen = engine._spec_gen
+    g0 = gen.get_state()
+
+    def restore():
+        for (t, _), s in zip(leaves, saved):
+            t.copy_(s)
+        gen.set_state(g0)
+
+    eager_ms = _median_ms(lambda: prog.eager(inputs))
+    restore()
+    replay_ms = _median_ms(lambda: prog.replay(inputs))
+    restore()
+    with CountingMode() as mode:
+        prog.eager(inputs)
+    torch.cuda.synchronize()
+    restore()
+    want = [t.clone() for t in prog.eager(inputs)]
+    want_cache = [t.clone() for t, _ in leaves]
+    restore()
+    got = [t.clone() for t in prog.replay(inputs)]
+    torch.cuda.synchronize()
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    for j, ((t, pool), w) in enumerate(zip(leaves, want_cache)):
+        if not (torch.equal(t[:, 1:], w[:, 1:]) if pool else torch.equal(t, w)):
+            bad.append(f"cache leaf {j}")
+    restore()
+    if bad:
+        raise AssertionError(f"graphs {label} {key}: the replay differs from the eager call "
+                             f"in outputs {bad}")
+    return {"program": "/".join(map(str, key)), "eager_ms": eager_ms, "replay_ms": replay_ms,
+            "launches": mode.launches,
+            "kernels": {n: c for n, c in prog.launches.items() if c},
+            "capture_s": prog.capture_s}
+
+
+def _graph_engine_checks(label, engine, kinds):
+    """Every captured program of ``engine`` checked (``_check_graph_program``),
+    the prefill graphs counted against ``prefill_compile_count``, and each
+    program kind of ``kinds`` captured."""
+    got = {key[0] for key in engine._graphs}
+    if not set(kinds) <= got:
+        raise AssertionError(f"graphs {label}: captured {sorted(engine._graphs)}, "
+                             f"missing {sorted(set(kinds) - got)}")
+    if engine.prefill_graph_count != engine.prefill_compile_count:
+        raise AssertionError(f"graphs {label}: {engine.prefill_graph_count} prefill graphs "
+                             f"for prefill_compile_count {engine.prefill_compile_count} "
+                             f"({engine.prefill_compile_counts()})")
+    rows = [_check_graph_program(label, engine, key, prog)
+            for key, prog in sorted(engine._graphs.items(), key=lambda kv: str(kv[0]))]
+    pool = engine.graph_pool_bytes()
+    log(f"graphs {label}: {len(rows)} programs bit-equal to their eager calls; prefill "
+        f"graphs {engine.prefill_graph_count} = prefill_compile_count "
+        f"{json.dumps(engine.prefill_compile_counts())}; pool {pool / 1e6:.1f} MB")
+    for r in rows:
+        log(f"graphs {label} {r['program']}: eager {r['eager_ms']:.3f} ms, replay "
+            f"{r['replay_ms']:.3f} ms ({r['eager_ms'] / r['replay_ms']:.1f}x), "
+            f"{r['launches']} launches a replay (counted), kernels {json.dumps(r['kernels'])},"
+            f" capture {r['capture_s']:.2f}s")
+    return rows, pool
+
+
+def _service_probe_ms(engine, prompt_len, new, seed=28):
+    """Phase 28's probe: one ONLINE request on the idle engine, timed after
+    an untimed one of the same size."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.core import Priority, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    secs = []
+    for _ in range(2):
+        req = engine.core.submit(rng.integers(0, engine.cfg.vocab_size, prompt_len)
+                                 .astype(np.int32), SamplingParams(max_new_tokens=new),
+                                 priority=Priority.ONLINE)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        while engine.core.has_unfinished:
+            engine.core.step()
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        if len(req.output_tokens) != new:
+            raise AssertionError(f"graphs: the service probe returned {req.output_tokens}")
+    return secs[1] * 1e3
+
+
+def phase_graphs(policies):
+    """Phase 36: the engine's serving programs as CUDA graphs, at full depth
+    in bf16: qwen3-1.7b on the paged and the dense layout, plain and paired
+    with its draft (chunked prefill, the spec loop, the decode loop), with
+    monolithic prefill and radix hits (the bucket and suffix prefills, the
+    draft's bucket prefill), falcon-mamba-7b and zamba2-2.7b (the bucket
+    prefill, the recurrent decode loop).  Each engine serves a round, then
+    every graph it captured is held to its eager call (``_check_graph_program``)
+    and the prefill graphs to ``prefill_compile_count``; the pool's bytes are
+    printed.  The "sample" spec mode draws from the engine's generator,
+    registered with its graphs: its stream must equal the eager engine's
+    from the same seed.  Last, phase 28's service probe on an eager engine
+    and on a graphed one."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import SpecDecodeConfig, draft_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import InferenceEngine
+
+    class EagerEngine(_EagerGraphs, InferenceEngine):
+        pass
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("qwen3-1.7b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    spec = SpecDecodeConfig(proposer="draft", gamma_buckets=(2,))
+    dcfg = draft_config(cfg, spec)
+    dparams = T.init_params(dcfg, torch.Generator(device="cuda").manual_seed(1),
+                            dtype=torch.bfloat16)
+    rng = np.random.default_rng(36)
+    prompts = _prompts(rng, 8, 24, 136, cfg.vocab_size, shared_prefix=64,
+                       shared_idx=(0, 5, 6, 7))
+    pools, rows = {}, {}
+
+    def make(cls, layout, draft, cfg_=cfg, params_=params, **kw):
+        if draft:
+            kw.update(draft_cfg=dcfg, draft_params=dparams, spec=kw.pop("spec", spec))
+        return cls(cfg_, params_, max_slots=8, max_seq=512, **layout, **kw)
+
+    for label, layout, draft in GRAPH_QWEN_ENGINES:
+        engine = make(InferenceEngine, layout, draft)
+        reqs, secs = _serve(engine, prompts, 16)
+        _check_finished(f"graphs {label}", reqs, 16, cfg)
+        kinds = {"spec" if draft else "decode",
+                 "bucket" if layout.get("prefill_chunk") == 0 else "chunk"}
+        rows[label], pools[label] = _graph_engine_checks(label, engine, kinds)
+        if layout.get("prefill_chunk") == 0 and not engine.prefill_skipped_tokens:
+            raise AssertionError(f"graphs {label}: no radix hit (no suffix prefill)")
+        del engine
+    # the random mode: graphed == eager from the same seed
+    sample = SpecDecodeConfig(proposer="draft", gamma_buckets=(2,), mode="sample")
+    streams = {}
+    for name, cls in (("graphed", InferenceEngine), ("eager", EagerEngine)):
+        engine = make(cls, {}, True, spec=sample)
+        reqs, _ = _serve(engine, prompts[:4], 16)
+        streams[name] = [list(r.output_tokens) for r in reqs]
+        if cls is InferenceEngine:
+            rows["sample"], pools["sample"] = _graph_engine_checks("paged + draft, sample",
+                                                                   engine, {"spec"})
+        del engine
+    if streams["graphed"] != streams["eager"]:
+        raise AssertionError("graphs: the sampled spec stream of the graphed engine differs "
+                             "from the eager engine's from the same seed")
+    log("graphs: the \"sample\" spec mode through graphs with the engine's generator "
+        "registered: streams equal to the eager engine's from the same seed")
+    # phase 28's probe, eager and graphed
+    probe = {}
+    for name, cls in (("eager", EagerEngine), ("graphed", InferenceEngine)):
+        probe[name] = _service_probe_ms(make(cls, {}, False), SERVICE_PROMPT, SERVICE_NEW)
+    log(f"graphs: phase 28's service probe ({SERVICE_PROMPT} + {SERVICE_NEW} tokens, idle "
+        f"qwen3-1.7b engine) eager {probe['eager']:.3f} ms, graphed {probe['graphed']:.3f} ms "
+        f"({probe['eager'] / probe['graphed']:.2f}x); the simulator's gate "
+        f"{policies['gate_s'] * 1e3:.3f} ms (phase 28, whose own probe, graphed, took "
+        f"{policies['service_s'] * 1e3:.3f} ms)")
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the recurrent families at full depth
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        rcfg = configs.get_config(arch)
+        rparams = T.init_params(rcfg, torch.Generator(device="cuda").manual_seed(0),
+                                dtype=torch.bfloat16)
+        engine = InferenceEngine(rcfg, rparams, max_slots=8, max_seq=512)
+        reqs, _ = _serve(engine, _prompts(rng, 4, 24, 136, rcfg.vocab_size, 0, ()), 8)
+        _check_finished(f"graphs {arch}", reqs, 8, rcfg)
+        rows[arch], pools[arch] = _graph_engine_checks(arch, engine, {"bucket", "decode"})
+        del engine, rparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"graphs: pools {json.dumps({k: round(v / 1e6, 1) for k, v in pools.items()})} MB; "
+        f"phase {time.monotonic() - t_phase:.1f}s")
+    return rows
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -7237,7 +7507,7 @@ def main() -> int:
     phase_parity()
     launches, colloc = phase_collocated()
     phase_chaos(colloc)  # before any profiler session, as phase 5
-    phase_policies(colloc)  # phase 28, over phase 5's measured profile
+    policies = phase_policies(colloc)  # phase 28, over phase 5's measured profile
     del colloc
     # phases 11-14 before phase 7's first profiler session: after one, every
     # launch costs more on the host
@@ -7280,6 +7550,9 @@ def main() -> int:
     scale_launches, model_axis_rows = phase_scale_out()
     slice_launches.update(scale_launches)
     row_runs = {**av_launches, **olmo_launches}
+    # phase 36, the serving programs' graphs against their eager calls, also
+    # before any profiler session
+    phase_graphs(policies)
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()

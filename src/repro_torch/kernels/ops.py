@@ -479,11 +479,15 @@ def body_counts() -> dict:
     return {name: dict(counts) for name, counts in _BODY_COUNTS.items()}
 
 
-def add_launch_counts(launches: dict) -> None:
-    """Add kernel launches made without a wrapper call, by kernel name: a
-    CUDA graph's replay launches again what its capture recorded."""
+def add_launch_counts(launches: dict, bodies: dict | None = None) -> None:
+    """Add kernel launches made without a wrapper call, by kernel name (and
+    ``bodies``: by kernel name and body, as ``body_counts``): a CUDA graph's
+    replay launches again what its capture recorded."""
     for name, n in launches.items():
         _COUNTS[name]["cuda"] += n
+    for name, by in (bodies or {}).items():
+        for body, n in by.items():
+            _BODY_COUNTS[name][body] += n
 
 
 def reset_launch_counts() -> None:

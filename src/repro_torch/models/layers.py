@@ -289,13 +289,31 @@ def dense_kv_write_dropped(
     valid: torch.Tensor,
 ) -> torch.Tensor:
     """Scatter chunk K/V rows into a dense cache, in place, with JAX's
-    ``mode="drop"`` rule: rows not ``valid`` and rows at positions past the
-    end are dropped, never clamped onto live entries.  cache: [B, S, kvH,
-    hd]; new: [B, C, kvH, hd]; positions / valid: [B, C].  The boolean
-    selection costs one device -> host sync."""
-    keep = valid & (positions < cache.shape[1])
-    rows = torch.arange(cache.shape[0], device=cache.device)[:, None].expand_as(keep)
-    cache[rows[keep], positions.long()[keep]] = new[keep].to(cache.dtype)
+    ``mode="drop"`` rule: a negative position counts from the end, and rows
+    not ``valid`` or still outside [0, S) are dropped, never clamped onto
+    live entries.  cache: [B, S, kvH, hd]; new: [B, C, kvH, hd]; positions /
+    valid: [B, C].
+
+    No host sync and no data-dependent shape (a captured graph holds it):
+    every row is written, a dropped one as a copy of a kept write of its
+    slot (its first: the same row, the same value), or, in a slot with no
+    kept row, as the entry's own value written back (no other row of the
+    batch writes there).  Colliding writes then carry one value, so which
+    lands does not matter."""
+    b, c = positions.shape
+    s = cache.shape[1]
+    pos = positions.long()
+    pos = torch.where(pos < 0, pos + s, pos)
+    keep = valid & (pos >= 0) & (pos < s)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    new = new.to(cache.dtype)
+    first = torch.argmax(keep.to(torch.int32), dim=1, keepdim=True)  # [B, 1]
+    any_keep = keep.any(dim=1, keepdim=True)
+    spare = torch.where(any_keep, torch.gather(pos, 1, first), pos[:, :1].clamp(0, s - 1))
+    first_row = torch.gather(new, 1, first[..., None, None].expand(b, 1, *new.shape[2:]))
+    spare_row = torch.where(any_keep[..., None, None], first_row, cache[rows, spare])
+    dest = torch.where(keep, pos, spare)
+    cache[rows.expand(b, c), dest] = torch.where(keep[..., None, None], new, spare_row)
     return cache
 
 

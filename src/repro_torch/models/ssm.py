@@ -87,21 +87,24 @@ def causal_conv_step(
 # ---------------------------------------------------------------------------
 
 
-def tail_state(x: torch.Tensor, length: Optional[int], n: int) -> torch.Tensor:
+def tail_state(x: torch.Tensor, length, n: int) -> torch.Tensor:
     """The last ``n`` steps before ``length``, left zero-padded: the decode
-    conv state of a bucket-padded prompt of true ``length``."""
+    conv state of a bucket-padded prompt of true ``length`` (an int or a 0-d
+    integer tensor: a gather, so a device length costs no host sync)."""
     if length is None:
         return x[:, -n:, :]
     xp = F.pad(x, (0, 0, n, 0))
-    return xp[:, int(length): int(length) + n, :]
+    steps = torch.as_tensor(length, device=x.device).long() + torch.arange(n, device=x.device)
+    return xp.index_select(1, steps)
 
 
-def dt_mask(dt: torch.Tensor, length: Optional[int]) -> torch.Tensor:
-    """Zero the SSM step size at pad positions (>= ``length``): dt = 0 makes
-    the recurrence a no-op (decay exp(0) = 1, input term 0)."""
+def dt_mask(dt: torch.Tensor, length) -> torch.Tensor:
+    """Zero the SSM step size at pad positions (>= ``length``, an int or a
+    0-d integer tensor): dt = 0 makes the recurrence a no-op (decay exp(0) =
+    1, input term 0)."""
     if length is None:
         return dt
-    valid = torch.arange(dt.shape[1], device=dt.device) < int(length)
+    valid = torch.arange(dt.shape[1], device=dt.device) < length
     return dt * valid[None, :, None]
 
 
@@ -211,7 +214,7 @@ def mamba1_block(
 
 def mamba1_with_state(
     cfg: ModelConfig, p: Params, x: torch.Tensor, impl: str = "auto",
-    length: Optional[int] = None,
+    length=None,
 ) -> tuple[torch.Tensor, Params]:
     """The Mamba1 block over a sequence (x: [B, S, d]) from a zero state,
     also returning the decode state after it: the conv window (the last
@@ -386,7 +389,7 @@ def mamba2_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def mamba2_with_state(
-    cfg: ModelConfig, p: Params, x: torch.Tensor, length: Optional[int] = None
+    cfg: ModelConfig, p: Params, x: torch.Tensor, length=None
 ) -> tuple[torch.Tensor, Params]:
     """The Mamba2 block over a sequence (x: [B, S, d]) from a zero state,
     also returning the decode state after it: the conv windows (the last

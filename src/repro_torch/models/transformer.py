@@ -629,9 +629,9 @@ def decode_chunk(
     axis of T, from which acceptance selects each slot's state
     (``spec.rollback``).
 
-    ``logits_at`` (an int, clamped into [0, T - 1]) restricts the
-    unembedding to one chunk position: logits come back [B, 1, V] (the
-    suffix prefill needs only its last real position).
+    ``logits_at`` (an int or a 0-d integer tensor, clamped into [0, T - 1])
+    restricts the unembedding to one chunk position: logits come back
+    [B, 1, V] (the suffix prefill needs only its last real position).
 
     Tree mode (attention families only): ``anc`` [B, T] int32 ancestor
     bitmasks and ``depths`` [T] int32 node depths turn the rows into
@@ -669,9 +669,15 @@ def decode_chunk(
         x = x + _ffn(cfg, lp["ffn"], h)[0]
     x = _final_norm(cfg, params, x)
     if logits_at is not None:
-        j = min(max(int(logits_at), 0), t - 1)
-        x = x[:, j: j + 1]
+        x = x.index_select(1, _position(logits_at, t, x.device))
     return unembed(cfg, params, x), dict(cache, index=idx + t), None
+
+
+def _position(j, t: int, device) -> torch.Tensor:
+    """``j`` (an int or a 0-d integer tensor) clamped into [0, t - 1], as a
+    [1] index tensor: a gather in place of a slice, so a device position
+    costs no host sync."""
+    return torch.as_tensor(j, device=device).long().clamp(0, t - 1).reshape(1)
 
 
 def _recurrent_chunk(cfg, params, tokens, cache, compute_dtype, attn_impl, logits_at):
@@ -690,8 +696,7 @@ def _recurrent_chunk(cfg, params, tokens, cache, compute_dtype, attn_impl, logit
             stack[j].copy_(v)
     logits = torch.stack(logits, dim=1)
     if logits_at is not None:
-        j = min(max(int(logits_at), 0), t - 1)
-        logits = logits[:, j: j + 1]
+        logits = logits.index_select(1, _position(logits_at, t, logits.device))
     return logits, cache, states
 
 
@@ -833,7 +838,7 @@ def prefill(
     impl: str = "auto",
     compute_dtype: torch.dtype = torch.bfloat16,
     cache_dtype: Optional[torch.dtype] = None,
-    length: Optional[int] = None,
+    length=None,
 ) -> tuple[torch.Tensor, Params]:
     """Full-sequence prefill.  inputs: [B, S] int tokens, or [B, S, d]
     embeddings for an ``embed_inputs`` config (``input_embeddings``).  Returns
@@ -843,8 +848,9 @@ def prefill(
     state after the prompt; hybrid, both: each cycle's shared-block K/V and
     its layers' Mamba2 state (``init_cache``'s layout).
 
-    ``length`` marks the true prompt length when ``inputs`` is zero-padded to
-    a bucket: logits are taken at ``length - 1`` and ``index`` is ``length``.
+    ``length`` (an int or a 0-d integer tensor, which costs no host sync)
+    marks the true prompt length when ``inputs`` is zero-padded to a bucket:
+    logits are taken at ``length - 1`` and ``index`` is ``length``.
     Dense pad positions only give K/V past the index, which decode overwrites
     before reading; SSM pad steps get dt = 0, so the state is exactly the
     unpadded prompt's (``SSM.dt_mask``).  The attention core is
@@ -930,11 +936,10 @@ def prefill(
             del lp
         new_layers = {"k": pad_kv(ks), "v": pad_kv(vs)}
     x = _final_norm(cfg, params, x)
-    n = s if length is None else int(length)
-    j = min(max(n - 1, 0), s - 1)  # the logits of a position of the prompt
-    logits = unembed(cfg, params, x[:, j: j + 1])[:, 0]
-    index = torch.tensor(n, dtype=torch.int32, device=x.device)
-    return logits, {"index": index, "layers": new_layers}
+    n = torch.as_tensor(s if length is None else length, device=x.device)
+    # the logits of a position of the prompt
+    logits = unembed(cfg, params, x.index_select(1, _position(n - 1, s, x.device)))[:, 0]
+    return logits, {"index": n.to(torch.int32).clone(), "layers": new_layers}
 
 
 def _attn_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -951,8 +956,8 @@ def prefill_into_slot(
     cfg: ModelConfig,
     params: Params,
     inputs: torch.Tensor,
-    length: int,
-    slot: int,
+    length,
+    slot,
     cache: Params,
     *,
     max_seq: int,
@@ -964,8 +969,10 @@ def prefill_into_slot(
     reference's ``dynamic_update_index_in_dim``), and set ``index[slot] =
     length``.  The batch axis is 1 of every leaf but the hybrid's Mamba2
     state, whose leaves are [n_cyc, every, B, ...].  inputs: [1, S_bucket]
-    int32, or [1, S_bucket, d] embeddings (``prefill``).  Returns ``(first
-    generated token [] int32 on the device, cache)``."""
+    int32, or [1, S_bucket, d] embeddings (``prefill``).  ``length`` and
+    ``slot`` are ints or 0-d integer tensors: the writes are index copies,
+    so device values cost no host sync.  Returns ``(first generated token
+    [] int32 on the device, cache)``."""
     layers = cache["layers"]
     cache_dtype = (layers["shared_k"] if cfg.family == "hybrid"
                    else next(iter(layers.values()))).dtype
@@ -974,22 +981,34 @@ def prefill_into_slot(
         cache_dtype=cache_dtype, length=length,
     )
     tok = torch.argmax(logits[0]).to(torch.int32)
+    row = _slot_index(slot, logits.device)
     for name, leaf in layers.items():
         if name == "mamba":
             for k, t in leaf.items():
-                t[:, :, slot] = new["layers"]["mamba"][k][:, :, 0].to(t.dtype)
+                _write_rows(t, 2, row, new["layers"]["mamba"][k][:, :, :1])
         else:
-            leaf[:, slot] = new["layers"][name][:, 0].to(leaf.dtype)
-    cache["index"][slot] = int(length)
+            _write_rows(leaf, 1, row, new["layers"][name][:, :1])
+    _write_rows(cache["index"], 0, row, new["index"].reshape(1))
     return tok, cache
+
+
+def _slot_index(slot, device) -> torch.Tensor:
+    """``slot`` (an int or a 0-d integer tensor) as a [1] long index."""
+    return torch.as_tensor(slot, device=device).long().reshape(1)
+
+
+def _write_rows(dst: torch.Tensor, dim: int, rows: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst``'s entries ``rows`` along ``dim`` set to ``src``, in place (an
+    index copy of the codes: an 8-bit cache moves bit for bit)."""
+    L.cache_bytes(dst).index_copy_(dim, rows, L.cache_bytes(src.to(dst.dtype)))
 
 
 def prefill_into_slot_paged(
     cfg: ModelConfig,
     params: Params,
     inputs: torch.Tensor,
-    length: int,
-    slot: int,
+    length,
+    slot,
     cache: Params,
     *,
     impl: str = "auto",
@@ -1001,8 +1020,9 @@ def prefill_into_slot_paged(
     the pages of the slot's block-table row, in
     place.  The bucket must be page-aligned.  Pad positions past ``length``
     land on the slot's last page past the index (overwritten before read) or
-    on unallocated table entries, which hold the sentinel page.  Returns
-    ``(first generated token [] int32 on the device, cache)``."""
+    on unallocated table entries, which hold the sentinel page.  ``length``
+    and ``slot``: ints or 0-d integer tensors, as ``prefill_into_slot``.
+    Returns ``(first generated token [] int32 on the device, cache)``."""
     _require_attention(cfg)
     k_pool = cache["layers"]["k"]  # [L, P, page, kvH, hd]
     l, _, page, kvh, hd = k_pool.shape
@@ -1015,11 +1035,12 @@ def prefill_into_slot_paged(
         cache_dtype=k_pool.dtype, length=length,
     )
     tok = torch.argmax(logits[0]).to(torch.int32)
-    pages = cache["block_tables"][slot, :nbp].long()
+    row = _slot_index(slot, logits.device)
+    pages = cache["block_tables"].index_select(0, row)[0, :nbp].long()
     for name in ("k", "v"):
         pool = cache["layers"][name]
         pool[:, pages] = new["layers"][name][:, 0].reshape(l, nbp, page, kvh, hd)
-    cache["index"][slot] = int(length)
+    _write_rows(cache["index"], 0, row, new["index"].reshape(1))
     return tok, cache
 
 
@@ -1027,9 +1048,9 @@ def prefill_suffix_into_slot(
     cfg: ModelConfig,
     params: Params,
     tokens: torch.Tensor,
-    suffix_len: int,
-    shared_len: int,
-    slot: int,
+    suffix_len,
+    shared_len,
+    slot,
     cache: Params,
     *,
     compute_dtype: torch.dtype = torch.bfloat16,
@@ -1042,18 +1063,22 @@ def prefill_suffix_into_slot(
     fresh suffix pages.  ``decode_chunk`` on a one-row view of the paged
     cache does the work (the paged verify kernel, ``lengths = shared +
     T_bucket`` unclamped), writing the suffix K/V into the slot's pages in
-    place; only row ``suffix_len - 1``'s logits are taken.  Returns
-    ``(first generated token [] int32 on the device, cache)``."""
+    place; only row ``suffix_len - 1``'s logits are taken.  The lengths and
+    ``slot`` are ints or 0-d integer tensors, as ``prefill_into_slot``.
+    Returns ``(first generated token [] int32 on the device, cache)``."""
+    dev = tokens.device
+    row = _slot_index(slot, dev)
+    shared = torch.as_tensor(shared_len, device=dev).to(torch.int32).reshape(1)
+    suffix = torch.as_tensor(suffix_len, device=dev).to(torch.int32).reshape(1)
     view = {
-        "index": torch.full((1,), int(shared_len), dtype=torch.int32,
-                            device=tokens.device),
-        "block_tables": cache["block_tables"][slot: slot + 1],
+        "index": shared,
+        "block_tables": cache["block_tables"].index_select(0, row),
         "layers": cache["layers"],
     }
     logits, _, _ = decode_chunk(
         cfg, params, tokens, view, compute_dtype=compute_dtype,
-        attn_impl=attn_impl, logits_at=int(suffix_len) - 1,
+        attn_impl=attn_impl, logits_at=suffix - 1,
     )
     tok = torch.argmax(logits[0, 0]).to(torch.int32)
-    cache["index"][slot] = int(shared_len) + int(suffix_len)
+    _write_rows(cache["index"], 0, row, shared + suffix)
     return tok, cache

@@ -16,11 +16,20 @@ families) prefills the whole prompt at admission, zero-padded to a
 power-of-two bucket (``prefill_into_slot``; on a radix hit only the
 suffix, through the paged verify pass).  Decode runs
 ``k`` greedy microsteps per dispatch with a single device -> host fetch at
-the end; on CUDA the paged layout's plain decode loop is captured once per
-``k`` as a CUDA graph and replayed (``DecodeGraph``), since its eager form
-is paced by the host's launches of some 2,000 small ops per microstep.
-``decode_microstep`` is the reference's single-step path, eager on every
-layout.
+the end.  ``decode_microstep`` is the reference's single-step path, eager
+on every layout.
+
+On CUDA with the kernels (``graphs``) every program the reference compiles
+with ``jax.jit`` is a CUDA graph, captured at its first call and replayed
+(``serving/graphs.py``), since its eager form is paced by the host's
+launches of thousands of small ops: the decode loop per ``k`` on every
+layout and family, the ONE chunked-prefill program per model (target and
+draft: every argument a tensor, so one capture serves every mix of slots,
+chunk lengths and offsets), the bucket and suffix prefills per model and
+bucket width (slot and lengths are device tensors), and the fused spec loop
+per ``(k, gamma)``.  ``prefill_compile_count`` / ``prefill_compile_counts()``
+count the prefill programs by the reference's rule on every device; on
+CUDA each is one captured graph.  The CPU runs every program eagerly.
 
 Speculation (``spec``): a ``draft_cfg`` / ``draft_params`` pairing keeps the
 draft model in a dense cache (``T.init_cache``) whose prompt streams through
@@ -72,8 +81,8 @@ streams chunked prefill needs an attention family too.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import gc
 import itertools
 import math
 import time
@@ -84,9 +93,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, SpecDecodeConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.obs import Observability
+from repro_torch.serving.graphs import GraphProgram, pool_bytes
 from repro_torch.serving.kv_pool import PageAllocError, PagePool, RadixCache
 from repro_torch.spec import tree as spec_tree
 from repro_torch.spec.loop import spec_decode_loop
@@ -124,67 +133,6 @@ MIN_PREFILL_BUCKET = 8
 
 #: families whose layers hold attention (paged KV and chunked prefill apply)
 _ATTENTION_FAMILIES = T.ATTENTION_FAMILIES
-
-
-class DecodeGraph:
-    """``T.decode_loop`` over every slot for one ``k``, captured as a CUDA
-    graph and replayed on the current stream.
-
-    The capture reads static copies of the token vector, the index, the
-    budgets and the block tables, which ``replay`` refills first; the
-    weights and the KV pools are read and written where they live.  A
-    warm-up run on a side stream precedes the capture (lazy library set-up);
-    like an eager dispatch it writes each slot's K/V at its current index,
-    which the slot's next real step writes again.  The kernel launches the
-    capture records are counted at each replay, not at the capture, which
-    launches nothing."""
-
-    def __init__(self, engine: "InferenceEngine", k: int):
-        self.pool_ptrs = engine._pool_ptrs()
-        self.tokens = engine.tokens.clone()
-        self.remaining = torch.zeros_like(self.tokens)
-        self.cache = dict(engine.cache, index=engine.cache["index"].clone(),
-                          block_tables=engine.cache["block_tables"].clone())
-        kw = dict(k=k, max_seq=engine.max_seq, compute_dtype=engine.compute_dtype,
-                  attn_impl=engine.attn_impl)
-        cfg, params = engine.cfg, engine.params
-        stream = torch.cuda.current_stream(engine.device)
-        side = torch.cuda.Stream(engine.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            T.decode_loop(cfg, params, self.tokens, self.cache, self.remaining, **kw)
-        stream.wait_stream(side)
-        before = ops.launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        # no cyclic collection during the capture: one could free a dead
-        # engine's graphs, and destroying a graph while a stream captures
-        # invalidates the capture (cudaErrorStreamCaptureInvalidated)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.out = T.decode_loop(cfg, params, self.tokens, self.cache, self.remaining,
-                                         **kw)
-        finally:
-            if collecting:
-                gc.enable()
-        after = ops.launch_counts()
-        self.launches = {n: after[n]["cuda"] - before[n]["cuda"] for n in after}
-        ops.add_launch_counts({n: -c for n, c in self.launches.items()})
-
-    def replay(self, tokens, cache, remaining):
-        """``T.decode_loop``'s outputs for these inputs; the token vector
-        and the index come back as new tensors, the rest stay the graph's
-        (read them before the next replay)."""
-        self.tokens.copy_(tokens)
-        self.remaining.copy_(remaining)
-        self.cache["index"].copy_(cache["index"])
-        self.cache["block_tables"].copy_(cache["block_tables"])
-        self.graph.replay()
-        ops.add_launch_counts(self.launches)
-        tokens, new_cache, rem, toks_seq, steps, bad = self.out
-        return (tokens.clone(), dict(cache, index=new_cache["index"].clone()), rem,
-                toks_seq, steps, bad)
 
 
 class RegistryCounterView:
@@ -295,9 +243,17 @@ class InferenceEngine:
         )
         self.clock: Callable[[], float] = clock or time.monotonic
         self.attn_impl = decode_impl
-        # {k: DecodeGraph}, built for every size at the first plain decode
-        # dispatch
-        self._decode_graphs: dict = {}
+        #: the captured programs by key (``graphs``): ("decode", k),
+        #: ("spec", k, gamma), ("chunk", model), ("bucket", model, width),
+        #: ("suffix", "target", width); dropped when a cache tensor moves
+        self._graphs: dict = {}
+        self._graph_ptrs: tuple = ()
+        self._graph_pool = self._graph_stream = None
+        #: warm-up keys done: one warm-up a set of kernels and shapes
+        self._warmed: set = set()
+        #: (model, impl) -> bucket widths of the prefill programs run (the
+        #: reference's ``_prefill_programs``)
+        self._prefill_programs: dict = {}
         self.min_prefill_bucket = MIN_PREFILL_BUCKET
 
         if prefill_chunk is None:
@@ -826,24 +782,17 @@ class InferenceEngine:
                     d_lens[i] = dd
                     self._draft_prefill_left[i] = dbuf[dd:]
             if t_lens.any():
-                next_toks, self.cache = T.prefill_chunks_into_slots(
-                    self.cfg, self.params,
-                    torch.tensor(t_toks, device=self.device),
-                    torch.tensor(t_lens, device=self.device), self.cache,
-                    compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
-                )
+                self._record_prefill_program("target", "chunk", chunk)
+                next_toks, index = self._chunk_wave("target", t_toks, t_lens)
+                self.cache = dict(self.cache, index=index)
                 for i in t_done:
                     # hold the completing wave's device argmax; the slot may
                     # still owe draft chunks before it finishes
                     self._prefill_tok[i] = next_toks
             if d_lens.any():
-                _, self.draft_cache = T.prefill_chunks_into_slots(
-                    self.draft_cfg, self.draft_params,
-                    torch.tensor(d_toks, device=self.device),
-                    torch.tensor(d_lens, device=self.device), self.draft_cache,
-                    compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
-                    need_logits=False,
-                )
+                self._record_prefill_program("draft", "chunk", chunk)
+                _, index = self._chunk_wave("draft", d_toks, d_lens)
+                self.draft_cache = dict(self.draft_cache, index=index)
             self.steps_executed += 1
             for i, _, _ in wave:
                 t, d = self._prefill_left[i], self._draft_prefill_left[i]
@@ -859,6 +808,30 @@ class InferenceEngine:
                 self._finish_prefill(i, int(tok), now)
         self.prefill_metered_tokens += consumed
         return consumed
+
+    def _chunk_wave(self, model: str, toks: np.ndarray, lens: np.ndarray) -> tuple:
+        """One wave of ``model``'s chunked-prefill program (its one graph on
+        CUDA, captured with every chunk length 0: a frozen slot writes
+        nothing live).  Returns ``(next_tokens [B], index [B])``."""
+        target = model == "target"
+        cfg, params = (self.cfg, self.params) if target else (self.draft_cfg, self.draft_params)
+        cache = self.cache if target else self.draft_cache
+        kw = {} if target else {"need_logits": False}
+
+        def fn(inp):
+            view = dict(self.cache if target else self.draft_cache, index=inp["index"])
+            if "block_tables" in inp:
+                view["block_tables"] = inp["block_tables"]
+            next_toks, new = T.prefill_chunks_into_slots(
+                cfg, params, inp["tokens"], inp["lens"], view,
+                compute_dtype=self.compute_dtype, attn_impl=self.attn_impl, **kw)
+            return next_toks, new["index"]
+
+        inputs = self._cache_inputs(cache, tokens=torch.tensor(toks, device=self.device),
+                                    lens=torch.tensor(lens, device=self.device))
+        frozen = dict(inputs, tokens=torch.zeros_like(inputs["tokens"]),
+                      lens=torch.zeros_like(inputs["lens"]))
+        return self._program(("chunk", model), fn, inputs, capture=frozen)
 
     def _finish_prefill(self, i: int, tok: int, now: float) -> None:
         """PREFILLING -> RUNNING: deliver the first generated token, stamp
@@ -944,13 +917,78 @@ class InferenceEngine:
         return min(b, self.max_seq)
 
     def _bucket_buf(
-        self, tokens: np.ndarray, page_aligned: Optional[bool] = None
+        self, tokens: np.ndarray, page_aligned: Optional[bool] = None,
+        model: str = "target", impl: str = "bucket",
     ) -> torch.Tensor:
         """``tokens`` zero-padded to their bucket: a [1, S_bucket] int32
-        tensor on the device."""
-        buf = np.zeros((1, self._bucket_len(len(tokens), page_aligned)), np.int32)
+        tensor on the device.  Records the prefill program of ``model`` and
+        ``impl`` at that width, as the reference's ``_bucket_buf``."""
+        sb = self._bucket_len(len(tokens), page_aligned)
+        self._record_prefill_program(model, impl, sb)
+        buf = np.zeros((1, sb), np.int32)
         buf[0, : len(tokens)] = tokens
         return torch.tensor(buf, device=self.device)
+
+    def _record_prefill_program(self, model: str, impl: str, width: int) -> None:
+        self._prefill_programs.setdefault((model, impl), set()).add(width)
+
+    @property
+    def prefill_compile_count(self) -> int:
+        """Distinct prefill programs across models and impls, one per
+        (model, impl, width) triple, as the reference counts its compiles:
+        chunked prefill pins it to one fixed-width program per model, the
+        bucket family grows with the prompt lengths.  On CUDA with graphs
+        each is one captured graph (``prefill_graph_count``)."""
+        return sum(len(v) for v in self._prefill_programs.values())
+
+    def prefill_compile_counts(self) -> dict[str, int]:
+        """``prefill_compile_count`` by ``"model/impl"`` (target / draft x
+        bucket / suffix / chunk)."""
+        return {f"{model}/{impl}": len(widths)
+                for (model, impl), widths in sorted(self._prefill_programs.items())}
+
+    @property
+    def prefill_graph_count(self) -> int:
+        """Captured prefill graphs (chunk, bucket and suffix programs)."""
+        return sum(key[0] in ("chunk", "bucket", "suffix") for key in self._graphs)
+
+    def _int_arg(self, n: int) -> torch.Tensor:
+        """A traced scalar argument: a 0-d int32 device tensor."""
+        return torch.tensor(n, dtype=torch.int32, device=self.device)
+
+    def _bucket_prefill(self, model: str, buf: torch.Tensor, n: int, slot: int) -> torch.Tensor:
+        """``model``'s bucket prefill of ``buf`` (``n`` real tokens) into
+        ``slot``: the paged target's page scatter or a dense row (the draft:
+        its dense cache).  One graph per model and bucket width on CUDA,
+        captured with the admission's own inputs (the replay writes the same
+        rows again).  Returns the first token."""
+        target = model == "target"
+        cfg, params = (self.cfg, self.params) if target else (self.draft_cfg, self.draft_params)
+        paged = target and self.paged
+
+        def fn(inp):
+            x = self._embed_or_pass(params, inp["tokens"])
+            view = dict(self.cache if target else self.draft_cache, index=inp["index"])
+            if paged:
+                view["block_tables"] = inp["block_tables"]
+                tok, new = T.prefill_into_slot_paged(
+                    cfg, params, x, inp["length"], inp["slot"], view, impl=self.attn_impl,
+                    compute_dtype=self.compute_dtype)
+            else:
+                tok, new = T.prefill_into_slot(
+                    cfg, params, x, inp["length"], inp["slot"], view, max_seq=self.max_seq,
+                    impl=self.attn_impl, compute_dtype=self.compute_dtype)
+            return tok, new["index"]
+
+        cache = self.cache if target else self.draft_cache
+        inputs = self._cache_inputs(cache, tokens=buf, length=self._int_arg(n),
+                                    slot=self._int_arg(slot))
+        tok, index = self._program(("bucket", model, buf.shape[1]), fn, inputs)
+        if target:
+            self.cache = dict(self.cache, index=index)
+        else:
+            self.draft_cache = dict(self.draft_cache, index=index)
+        return tok
 
     def _embed_or_pass(self, params: Any, buf: torch.Tensor) -> torch.Tensor:
         """A monolithic prefill's inputs: an ``embed_inputs`` config's stub
@@ -964,13 +1002,8 @@ class InferenceEngine:
         """The draft's dense cache tracks the whole prompt (no prefix pool);
         its first-token output is never fetched.  Its bucket caps at
         ``max_seq``."""
-        buf = self._bucket_buf(prompt, page_aligned=False)
-        _, self.draft_cache = T.prefill_into_slot(
-            self.draft_cfg, self.draft_params,
-            self._embed_or_pass(self.draft_params, buf), len(prompt), slot,
-            self.draft_cache, max_seq=self.max_seq, impl=self.attn_impl,
-            compute_dtype=self.compute_dtype,
-        )
+        buf = self._bucket_buf(prompt, page_aligned=False, model="draft")
+        self._bucket_prefill("draft", buf, len(prompt), slot)
 
     def _paged_admit(self, slot: int, req: Request) -> Optional[torch.Tensor]:
         """Paged MONOLITHIC admission: reserve pages, then prefill in one
@@ -986,18 +1019,11 @@ class InferenceEngine:
         self._slot_idx[slot] = n
         if shared:
             suffix = prompt[shared:]
-            tok, self.cache = T.prefill_suffix_into_slot(
-                self.cfg, self.params, self._bucket_buf(suffix), len(suffix),
-                shared, slot, self.cache, compute_dtype=self.compute_dtype,
-                attn_impl=self.attn_impl,
-            )
+            tok = self._suffix_prefill(self._bucket_buf(suffix, impl="suffix"),
+                                       len(suffix), shared, slot)
             self.prefill_skipped_tokens += shared
         else:
-            buf = self._embed_or_pass(self.params, self._bucket_buf(prompt))
-            tok, self.cache = T.prefill_into_slot_paged(
-                self.cfg, self.params, buf, n, slot, self.cache, impl=self.attn_impl,
-                compute_dtype=self.compute_dtype,
-            )
+            tok = self._bucket_prefill("target", self._bucket_buf(prompt), n, slot)
         self.prefill_prompt_tokens += n
         self.prefill_metered_tokens += n if self.spec_enabled else n - shared
         # cache the prompt's full pages for future admissions (the tree takes
@@ -1007,18 +1033,31 @@ class InferenceEngine:
             self._draft_prefill(slot, prompt)
         return tok
 
+    def _suffix_prefill(self, buf: torch.Tensor, suffix_len: int, shared: int,
+                        slot: int) -> torch.Tensor:
+        """The radix-hit suffix prefill (``prefill_suffix_into_slot``): one
+        graph per bucket width on CUDA, captured with the admission's own
+        inputs.  Returns the first token."""
+        def fn(inp):
+            view = dict(self.cache, index=inp["index"], block_tables=inp["block_tables"])
+            tok, new = T.prefill_suffix_into_slot(
+                self.cfg, self.params, inp["tokens"], inp["suffix_len"], inp["shared_len"],
+                inp["slot"], view, compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
+            return tok, new["index"]
+
+        inputs = self._cache_inputs(self.cache, tokens=buf, suffix_len=self._int_arg(suffix_len),
+                                    shared_len=self._int_arg(shared), slot=self._int_arg(slot))
+        tok, index = self._program(("suffix", "target", buf.shape[1]), fn, inputs)
+        self.cache = dict(self.cache, index=index)
+        return tok
+
     def _dense_admit(self, slot: int, req: Request) -> torch.Tensor:
         """Dense-layout MONOLITHIC admission: one bucket prefill straight into
         the slot's rows (Mamba1: its state).  Returns the first token (on the
         device)."""
         prompt = np.asarray(req.prompt, np.int32)
         n = len(prompt)
-        buf = self._embed_or_pass(self.params, self._bucket_buf(prompt))
-        tok, self.cache = T.prefill_into_slot(
-            self.cfg, self.params, buf, n, slot, self.cache,
-            max_seq=self.max_seq, impl=self.attn_impl,
-            compute_dtype=self.compute_dtype,
-        )
+        tok = self._bucket_prefill("target", self._bucket_buf(prompt), n, slot)
         self.prefill_prompt_tokens += n
         self.prefill_metered_tokens += n
         if self.spec_enabled:
@@ -1103,13 +1142,89 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     @property
-    def decode_graphs(self) -> bool:
-        """Whether the plain decode loop replays CUDA graphs: on CUDA, on the
-        paged layout, with the kernels (``decode_impl`` not "torch")."""
-        return self.device.type == "cuda" and self.paged and self.attn_impl != "torch"
+    def graphs(self) -> bool:
+        """Whether the serving programs replay CUDA graphs: on CUDA, with the
+        kernels (``decode_impl`` not "torch")."""
+        return self.device.type == "cuda" and self.attn_impl != "torch"
 
-    def _pool_ptrs(self) -> tuple:
-        return tuple(t.data_ptr() for t in self.cache["layers"].values())
+    @property
+    def _decode_graphs(self) -> dict:
+        """The decode loop's graphs by ``k``."""
+        return {key[1]: g for key, g in self._graphs.items() if key[0] == "decode"}
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes of the pool the engine's graphs share (0 before the
+        first capture)."""
+        return 0 if self._graph_pool is None else pool_bytes(self._graph_pool)
+
+    def _cache_ptrs(self) -> tuple:
+        """Addresses of every cache tensor a program reads in place (the
+        target's and the draft's, nested leaves included)."""
+        leaves = tree_leaves(self.cache["layers"])
+        if self.draft_cache is not None:
+            leaves += tree_leaves(self.draft_cache["layers"])
+        return tuple(t.data_ptr() for t in leaves)
+
+    def _cache_inputs(self, cache, **inputs) -> dict:
+        """A program's varying inputs: ``inputs`` plus ``cache``'s index and,
+        on the paged layout, its block tables."""
+        inputs["index"] = cache["index"]
+        if "block_tables" in cache:
+            inputs["block_tables"] = cache["block_tables"]
+        return inputs
+
+    def _program(self, key: tuple, fn, inputs: dict, capture: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None, warm=None) -> tuple:
+        """``fn(inputs)``: eagerly, or (``graphs``) a replay of ``key``'s
+        graph, captured first if needed (with ``capture``'s inputs, default
+        ``inputs``; ``warm`` as ``_graph``), whose outputs are cloned (a
+        later replay on the shared pool may reuse their memory).  A capture
+        or replay that fails raises."""
+        if not self.graphs:
+            return fn(inputs)
+        graph = self._graph(key, fn, capture or inputs, generator, warm)
+        return tuple(t.clone() for t in graph.replay(inputs))
+
+    def _drop_moved_graphs(self) -> None:
+        """Drop every graph if a cache tensor moved since they were
+        captured (they read and write the old addresses)."""
+        ptrs = self._cache_ptrs()
+        if ptrs != self._graph_ptrs:
+            self._graphs = {}
+            self._graph_ptrs = ptrs
+
+    def _graph(self, key: tuple, fn, inputs: dict,
+               generator: Optional[torch.Generator] = None, warm=None) -> GraphProgram:
+        """``key``'s graph, captured over ``inputs`` if it has none yet or a
+        cache tensor moved since (then every graph is dropped).  ``warm``:
+        ``(warm key, function)`` of the warm-up before a capture, run once
+        a warm key and engine (default ``(key, fn)``): the decode loop of
+        any ``k`` warms as its one step, the spec loop as its one round."""
+        self._drop_moved_graphs()
+        graph = self._graphs.get(key)
+        if graph is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graph_stream = torch.cuda.Stream(self.device)
+            warm_key, warm_fn = warm or (key, fn)
+            if warm_key in self._warmed:
+                warm_fn = None
+            self._warmed.add(warm_key)
+            graph = self._graphs[key] = GraphProgram(
+                fn, inputs, pool=self._graph_pool, side=self._graph_stream, warm=warm_fn,
+                generator=generator)
+        return graph
+
+    @contextlib.contextmanager
+    def _states_kept(self):
+        """Put the target's recurrent state back after the block: a decode
+        capture's frozen slots still step their state (as an eager loop's
+        frozen slots do), and a live slot's must not move."""
+        live = T.chunk_recurrent_states(self.cfg, self.cache["layers"])
+        saved = [] if live is None else [t.clone() for t in tree_leaves(live)]
+        yield
+        for dst, src in zip(tree_leaves(live) if saved else [], saved):
+            dst.copy_(src)
 
     def _remaining(self) -> np.ndarray:
         """[B] token budgets of the RUNNING slots (0 elsewhere)."""
@@ -1133,27 +1248,26 @@ class InferenceEngine:
             if self.num_active == 0:
                 return []  # every slot fell to an allocator fault
         self._maybe_inject_nan()
-        remaining = torch.tensor(self._remaining(), device=self.device)
-        if self.decode_graphs:
-            graph = self._decode_graphs.get(k)
-            if graph is None or graph.pool_ptrs != self._pool_ptrs():
-                # every size at once: a capture grows the allocator's pools,
-                # which should not land between later (training) steps
-                self._decode_graphs = {
-                    n: DecodeGraph(self, n) for n in sorted({*DECODE_K_BUCKETS, k})}
-                graph = self._decode_graphs[k]
-            tokens, cache, rem, toks_seq, steps, bad = graph.replay(
-                self.tokens, self.cache, remaining)
-        else:
-            tokens, cache, rem, toks_seq, steps, bad = T.decode_loop(
-                self.cfg, self.params, self.tokens, self.cache, remaining, k=k,
-                max_seq=self.max_seq, compute_dtype=self.compute_dtype,
-                attn_impl=self.attn_impl,
-            )
-        self.tokens, self.cache = tokens, cache
+        inputs = self._cache_inputs(
+            self.cache, tokens=self.tokens,
+            remaining=torch.tensor(self._remaining(), device=self.device))
+        if self.graphs:
+            self._drop_moved_graphs()
+            if ("decode", k) not in self._graphs:
+                # every size at once, from frozen inputs (zero budgets): a
+                # capture grows the allocator's pools, which should not land
+                # between later (training) steps
+                frozen = dict(inputs, remaining=torch.zeros_like(inputs["remaining"]))
+                with self._states_kept():
+                    for n in sorted({*DECODE_K_BUCKETS, k}):
+                        self._graph(("decode", n), self._decode_fn(n), frozen,
+                                    warm=(("decode",), self._decode_fn(1)))
+        tokens, index, rem, toks_seq, steps, bad = self._program(
+            ("decode", k), self._decode_fn(k), inputs)
+        self.tokens, self.cache = tokens, dict(self.cache, index=index)
         b = self.max_slots
         fetched = torch.cat([
-            toks_seq.reshape(-1), steps, rem, cache["index"], bad.to(torch.int32),
+            toks_seq.reshape(-1), steps, rem, index, bad.to(torch.int32),
         ]).cpu().numpy()
         self.d2h_transfers += 1  # the single fused fetch above
         toks_np = fetched[: k * b].reshape(k, b)
@@ -1178,6 +1292,19 @@ class InferenceEngine:
         if self._bt_dirty:
             self._sync_block_tables()  # one upload covers every retirement
         return finished
+
+    def _decode_fn(self, k: int):
+        """The decode loop of ``k`` microsteps over the program inputs."""
+        def fn(inp):
+            view = dict(self.cache, index=inp["index"])
+            if "block_tables" in inp:
+                view["block_tables"] = inp["block_tables"]
+            tokens, new, rem, toks_seq, steps, bad = T.decode_loop(
+                self.cfg, self.params, inp["tokens"], view, inp["remaining"], k=k,
+                max_seq=self.max_seq, compute_dtype=self.compute_dtype,
+                attn_impl=self.attn_impl)
+            return tokens, new["index"], rem, toks_seq, steps, bad
+        return fn
 
     def decode_microstep(self) -> list[Request]:
         """One greedy decode step over every slot; returns the requests that
@@ -1247,17 +1374,21 @@ class InferenceEngine:
             if self.num_active == 0:
                 return []  # every slot fell to an allocator fault
         self._maybe_inject_nan()
+        greedy = self.spec_cfg.mode == "greedy"
+        inputs = self._cache_inputs(
+            self.cache, tokens=self.tokens, draft_index=self.draft_cache["index"],
+            remaining=torch.tensor(self._remaining(), device=self.device))
+        # captured with zero budgets: every slot frozen (a recurrent state
+        # is put back by the round itself)
+        frozen = dict(inputs, remaining=torch.zeros_like(inputs["remaining"]))
         (
-            self.tokens, self.cache, self.draft_cache, rem,
+            self.tokens, index, draft_index, rem,
             out_toks, n_out, accepted, proposed, bad,
-        ) = spec_decode_loop(
-            self.cfg, self.draft_cfg, self.params, self.draft_params,
-            self.tokens, self.cache, self.draft_cache,
-            torch.tensor(self._remaining(), device=self.device), k=k,
-            gamma=gamma, mode=self.spec_cfg.mode, max_seq=self.max_seq,
-            sim_accept_p=self.spec_cfg.sim_accept_p, gen=self._spec_gen,
-            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
-        )
+        ) = self._program(("spec", k, gamma), self._spec_fn(k, gamma), inputs, capture=frozen,
+                          generator=None if greedy else self._spec_gen,
+                          warm=(("spec", gamma), self._spec_fn(1, gamma)))
+        self.cache = dict(self.cache, index=index)
+        self.draft_cache = dict(self.draft_cache, index=draft_index)
         b, t = self.max_slots, gamma + 1
         fetched = torch.cat([
             out_toks.reshape(-1), n_out.reshape(-1), accepted.reshape(-1),
@@ -1299,6 +1430,22 @@ class InferenceEngine:
         if self._bt_dirty:
             self._sync_block_tables()  # one upload covers trims + retires
         return finished
+
+    def _spec_fn(self, k: int, gamma: int):
+        """The fused spec loop of ``k`` rounds over the program inputs."""
+        def fn(inp):
+            view = dict(self.cache, index=inp["index"])
+            if "block_tables" in inp:
+                view["block_tables"] = inp["block_tables"]
+            dview = dict(self.draft_cache, index=inp["draft_index"])
+            tokens, new, dnew, *rest = spec_decode_loop(
+                self.cfg, self.draft_cfg, self.params, self.draft_params,
+                inp["tokens"], view, dview, inp["remaining"], k=k, gamma=gamma,
+                mode=self.spec_cfg.mode, max_seq=self.max_seq,
+                sim_accept_p=self.spec_cfg.sim_accept_p, gen=self._spec_gen,
+                compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
+            return (tokens, new["index"], dnew["index"], *rest)
+        return fn
 
     def _restore_draft_prefill_indices(self) -> None:
         """Re-pin the draft index of PREFILLING slots to their draft

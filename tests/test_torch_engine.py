@@ -201,17 +201,32 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 def test_decode_graphs_only_on_cuda_and_replays_count_launches():
-    """The CPU never captures decode graphs (they need the kernels on a
-    card); a replay's launches land in the counters through
-    ``ops.add_launch_counts``."""
+    """The CPU never captures a graph (the serving programs need the
+    kernels on a card): an engine that ran the chunk waves, the decode loop
+    and a monolithic admission holds none, while it still counts its
+    prefill programs.  A replay's launches, and its bodies, land in the
+    counters through ``ops.add_launch_counts``."""
     from repro_torch.kernels import ops
 
     engine = TEngine(CFG, params_from_numpy(NP_PARAMS, device="cpu"), max_slots=2,
                      max_seq=64, device="cpu")
-    assert engine.paged and not engine.decode_graphs
+    assert engine.paged and not engine.graphs
+    mono = TEngine(CFG, params_from_numpy(NP_PARAMS, device="cpu"), max_slots=2,
+                   max_seq=64, device="cpu", kv_page_size=0, prefill_chunk=0)
+    for eng in (engine, mono):
+        r = eng.core.submit(np.arange(1, 20), tcore.SamplingParams(max_new_tokens=3))
+        while eng.core.has_unfinished:
+            eng.core.step()
+        assert len(r.output_tokens) == 3
+        assert eng._graphs == {} and eng._decode_graphs == {} and eng.graph_pool_bytes() == 0
+        assert eng.prefill_graph_count == 0
+    assert engine.prefill_compile_counts() == {"target/chunk": 1}
+    assert mono.prefill_compile_counts() == {"target/bucket": 1}
     ops.reset_launch_counts()
-    ops.add_launch_counts({"paged_decode_attention": 3, "flash_attention_fwd": 0})
+    ops.add_launch_counts({"paged_decode_attention": 3, "flash_attention_fwd": 0},
+                          {"paged_prefill_attention": {"tc": 2}})
     counts = ops.launch_counts()
     assert counts["paged_decode_attention"] == {"cuda": 3, "torch": 0}
     assert counts["flash_attention_fwd"] == {"cuda": 0, "torch": 0}
+    assert ops.body_counts()["paged_prefill_attention"] == {"tc": 2, "fma": 0}
     ops.reset_launch_counts()
