@@ -165,15 +165,15 @@ Phases, each printing a line before the last:
                  matches; reaching the chain and tree verify kernels at GQA
                  group 1), and under a capacity factor whose monolithic prefill drops
                  expert choices (``moe_dropped`` printed, > 0 required); then
-                 qwen3-1.7b's ``decode_microstep`` against the fused loop
-                 (equal streams and transfers).
+                 qwen3-1.7b's ``decode_microstep`` (its own graph) against
+                 the fused loop (equal streams and transfers).
 12. moe serve -- moonshot-v1-16b-a3b at full depth and width (48 layers,
                  56 GB of bf16 weights), the serve phase's 16 requests, plain
                  and then speculating (``proposer="auto"``, 1-layer MoE
                  draft): every request finishes, the paths' kernels launch,
                  the router runs both proposers; the decode step (k=8
-                 graph replay, 8 slots) and the eager ``decode_microstep``
-                 beside the bytes bound (every expert read every step),
+                 graph replay, 8 slots), ``decode_microstep`` (its graph)
+                 and an eager ``T.decode_step`` beside the bytes bound (every expert read every step),
                  probed before the plain serve (so its timed run holds no
                  decode-graph capture); its profiled round comes in the
                  end-of-run profiler block.
@@ -315,10 +315,14 @@ Phases, each printing a line before the last:
                  times, the peak memory and the collectives of each step.
 31. collocated step -- ``make_collocated_step`` over phase 30's step and
                  k = 0, 2, 8 greedy bf16 ``decode_step``s of its weights on 8
-                 dense rows (the dense decode #3), the chain on a second
-                 stream: the train result bit-equal across k and to the
-                 step alone, the tokens equal to the eager chain's.  Prints
-                 fused[k]'s time beside the step and the chain alone.
+                 dense rows (the dense decode #3), the chain a CUDA graph a
+                 k replayed on a second stream (one cache, reset in place
+                 between calls: one capture a k): the train result
+                 bit-equal across k and to the step alone, the tokens equal
+                 to the eager chain's, each chain graph bit-equal to its
+                 eager call.  Prints fused[k]'s time beside the step and the
+                 eager chain alone, each graph's eager and replay ms,
+                 launches, capture s and pool bytes.
 32. model axis kernels -- after phase 31: #3's partial form (the
                  sequence-parallel decode over a model axis) over m = 2, 4
                  and 16 contiguous blocks of qwen3-1.7b's decode cache (B =
@@ -346,8 +350,11 @@ Phases, each printing a line before the last:
                  128-token prompt, seq_len 512): the tokens bit-equal to
                  ``T.prefill`` plus eager ``T.decode_step``, no collective
                  issued; prints each step's time beside the eager step's,
-                 the peak memory, the collectives a step.  Then the same with
-                 ``cache_dtype=float8_e4m3fn``: the prefill's cache bit-equal
+                 the peak memory, the collectives a step; then the same
+                 prefill and steps through ``jitted()`` (CUDA graphs, one
+                 capture each): logits and tokens equal to the eager
+                 step's, each graph bit-equal to its eager call.  Then the
+                 same with ``cache_dtype=float8_e4m3fn`` (``jitted()`` too): the prefill's cache bit-equal
                  to ``T.prefill``'s, each step's tokens against the same step
                  on the plain versions (equal in fp32 compute; in bf16 apart
                  only at a bf16 tie), the first step's logits cosine >= 0.98
@@ -397,15 +404,20 @@ Phases, each printing a line before the last:
                  (chunk waves of both models, the spec loop, the decode
                  loop), paged monolithic with radix hits (bucket, suffix
                  and draft bucket prefills), falcon-mamba-7b and
-                 zamba2-2.7b (bucket prefill, recurrent decode loop).
-                 Every captured program, on its last inputs and a cache
+                 zamba2-2.7b (bucket prefill, recurrent decode loop);
+                 qwen3-1.7b with the n-gram lookup, paged and dense (width
+                 2), greedy: one tree-round graph per (parents, mode) run;
+                 the "simulated" tree rounds graphed and eager from one
+                 generator seed (streams, rounds and acceptance equal);
+                 ``decode_microstep``'s graph (streams equal to an eager
+                 engine's).  Every captured program, on its last inputs and a cache
                  snapshot, must give outputs and cache entries bit-equal to
                  its eager call (a paged pool's sentinel page apart: pad
                  rows collide there); prefill graphs must equal
                  ``prefill_compile_count``; the "sample" spec mode's stream
                  through graphs (the engine's generator registered) must
                  equal an eager engine's from the same seed.  Prints each
-                 program's eager and replay ms (median of 10), launches a
+                 program's eager and replay ms (median of 5), launches a
                  replay (counted by ``launch.cost``), capture seconds, the
                  pool's bytes, and phase 28's service probe eager and
                  graphed.
@@ -3105,7 +3117,8 @@ def phase_spec_serve():
         f"{(tokens - len(reqs)) / (engine.spec_rounds + fallbacks):.3f} (all slots); "
         f"acceptance "
         f"{engine.spec_acceptance_rate:.4f}; per proposer (rounds, accepted, proposed): "
-        f"{per}; router switches {m.counter('spec/proposer/router_switches').value}")
+        f"{per}; router switches {m.counter('spec/proposer/router_switches').value}; "
+        f"{_tree_graphs('spec serve', engine)}")
     log(f"spec serve launches: {json.dumps(counts)}; bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg, "spec serve")
     return {name: c["cuda"] for name, c in counts.items()}
@@ -3158,7 +3171,8 @@ def phase_dense_target_serve():
                     for w in ("rounds", "accepted", "proposed")) for n in ("draft", "ngram")}
     log(f"dense target serve: {_serve_summary(m, reqs, tokens, secs)}; kv cache "
         f"{engine.kv_cache_bytes() / 1e9:.3f} GB; spec rounds {engine.spec_rounds}; per "
-        f"proposer (rounds, accepted, proposed): {per}")
+        f"proposer (rounds, accepted, proposed): {per}; "
+        f"{_tree_graphs('dense target serve', engine)}")
     log(f"dense target serve launches: {json.dumps(counts)}; bodies {json.dumps(bodies)}")
     _profile_serve(engine, cfg, "dense target serve")
     del engine
@@ -4126,14 +4140,17 @@ def _decode_weight_bytes(cfg):
 
 def _decode_step_ms(engine, slots):
     """Device-synchronised host time of one decode microstep with ``slots``
-    requests running: one 8-step quantum (graph-replayed on the paged
-    layout; a fresh engine captures its decode graphs in the untimed
-    quantum before it), over 8; then 4 eager ``decode_microstep`` calls over
-    the same slots.  Leaves the core empty.  Returns (fused ms, microstep
-    ms)."""
+    requests running: one 8-step quantum (graph-replayed; a fresh engine
+    captures its decode graphs in the untimed quantum before it), over 8;
+    then 4 eager ``T.decode_step`` calls over the engine's cache (their K/V
+    rows written where the next step writes again, a recurrent state put
+    back), and 4 ``decode_microstep`` calls over the same slots (a graph
+    replay and one fetch each; the first captures, untimed).  Leaves the
+    core empty.  Returns (fused ms, microstep ms, eager step ms)."""
     import numpy as np
     import torch
 
+    from repro_torch.models import transformer as T
     from repro_torch.serving.core import Priority, SamplingParams
     from repro_torch.serving.engine import DECODE_K_BUCKETS
 
@@ -4152,14 +4169,24 @@ def _decode_step_ms(engine, slots):
     if out.k != k or out.prefill_tokens or sum(len(o.new_tokens) for o in out.outputs) != k * slots:
         raise AssertionError(f"decode step probe: quantum k={out.k}, prefill "
                              f"{out.prefill_tokens} (k={k} over {slots} slots expected)")
-    t0 = time.monotonic()
+    with torch.no_grad(), engine._states_kept():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(4):
+            T.decode_step(engine.cfg, engine.params, engine.tokens, engine.cache,
+                          compute_dtype=engine.compute_dtype, attn_impl=engine.attn_impl)
+        torch.cuda.synchronize()
+        eager = (time.monotonic() - t0) / 4
+    micro = []
     for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
         if len(engine.decode_microstep()) != (slots if _ == 3 else 0):
             raise AssertionError("decode step probe: the microsteps retired early or late")
-    micro = (time.monotonic() - t0) / 4
+        micro.append(time.monotonic() - t0)
     while core.has_unfinished:
         core.step()
-    return fused * 1e3, micro * 1e3
+    return fused * 1e3, sum(micro[1:]) / 3 * 1e3, eager * 1e3
 
 
 def _serve_and_check(label, engine, cfg, prompts, max_new, kernels):
@@ -4187,19 +4214,20 @@ def _serve_and_check(label, engine, cfg, prompts, max_new, kernels):
 def _log_decode_step(label, engine, cfg, slots):
     """The decode step probe on a fresh engine (it captures the decode
     graphs, so the serve after it times no capture), beside the bound."""
-    fused_ms, micro_ms = _decode_step_ms(engine, slots)
+    fused_ms, micro_ms, eager_ms = _decode_step_ms(engine, slots)
     nbytes = _decode_weight_bytes(cfg)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"{label}: decode step at {slots} slots {fused_ms:.3f} ms (k=8 quantum"
         f"{', graph-replayed' if engine.graphs else ''}), decode_microstep "
-        f"{micro_ms:.3f} ms (eager, one fetch a step); bound {bound:.3f} ms = "
+        f"{micro_ms:.3f} ms (a graph replay, one fetch a step), eager T.decode_step "
+        f"{eager_ms:.3f} ms; bound {bound:.3f} ms = "
         f"{nbytes / 1e9:.2f} GB of bf16 weights at 3.35 TB/s, {bound / fused_ms:.1%} of it")
 
 
 def _microstep_parity():
     """qwen3-1.7b at 2 layers, full width, fp32, paged: ``decode_microstep``
-    (eager, one fetch a step) against the fused loop (graph-replayed k=1
-    quanta) over the same schedule -- three admissions, one chunk wave that
+    (its own graph, one fetch a step) against the fused loop (graph-replayed
+    k=1 quanta) over the same schedule -- three admissions, one chunk wave that
     leaves the 80-token prompt PREFILLING, three decode steps, its last
     chunks, decode to the end.  Streams and transfers must be equal."""
     import numpy as np
@@ -4242,7 +4270,8 @@ def _microstep_parity():
     med = {m: r[2][len(r[2]) // 2] for m, r in res.items()}
     log(f"microstep parity (qwen3-1.7b, 2 layers, full width, fp32, paged): decode_microstep "
         f"streams and {res['fused'][1]} device-to-host transfers equal the fused loop's; "
-        f"a step {med['microstep']:.3f} ms eager, {med['fused']:.3f} ms as a k=1 graph replay")
+        f"a step {med['microstep']:.3f} ms as decode_microstep's graph, {med['fused']:.3f} ms "
+        f"as a k=1 decode-loop replay")
 
 
 def phase_moe_parity():
@@ -4694,12 +4723,13 @@ def phase_hybrid_serve():
     log(f"hybrid serve: zamba2-2.7b, {cfg.param_count() / 1e9:.3f} B params bf16, cache "
         f"(Mamba2 state + shared K/V rows) {engine.kv_cache_bytes() / 1e6:.1f} MB, set-up "
         f"{time.monotonic() - t0:.1f}s")
-    fused_ms, micro_ms = _decode_step_ms(engine, slots)
+    fused_ms, micro_ms, eager_ms = _decode_step_ms(engine, slots)
     w_bytes, s_bytes = _hybrid_decode_bytes(cfg, slots)
     bound = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
     log(f"hybrid serve: decode step at {slots} slots {fused_ms:.3f} ms (k=8 quantum"
         f"{', graph-replayed' if engine.graphs else ', eager'}), "
-        f"decode_microstep {micro_ms:.3f} ms; bound {bound:.3f} ms = {w_bytes / 1e9:.2f} GB "
+        f"decode_microstep {micro_ms:.3f} ms (a graph replay), eager T.decode_step "
+        f"{eager_ms:.3f} ms; bound {bound:.3f} ms = {w_bytes / 1e9:.2f} GB "
         f"of bf16 weights (the shared block 9 times) + {s_bytes / 1e9:.3f} GB of SSM and "
         f"conv state read and written at 3.35 TB/s, {bound / fused_ms:.1%} of it")
     rng = np.random.default_rng(4)
@@ -5872,7 +5902,7 @@ def phase_collocated_step(trainer):
     from repro_torch.core import make_collocated_step
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
     t_phase = time.monotonic()
     _fresh_phase()
@@ -5896,9 +5926,15 @@ def phase_collocated_step(trainer):
     def fresh_cache():
         return tree_map(lambda t: t.clone(), cache0)
 
+    # the one cache every fused call takes (the chain's graphs read and
+    # write it where it lives, as the reference's donated cache), reset in
+    # place before each
+    cache = fresh_cache()
+
     @torch.no_grad()
     def reset():
         tree_map(lambda live, b: live.copy_(b), state, base)
+        tree_map(lambda live, b: live.copy_(b), cache, cache0)
 
     def chain(k):
         t, c = tokens0, fresh_cache()
@@ -5920,7 +5956,6 @@ def phase_collocated_step(trainer):
         rows = {}
         for k in COLLOC_KS:
             reset()
-            cache = fresh_cache()
             (_, m, toks, _), rows[k] = _timed(fused[k], state, batch, infer, tokens0, cache)
             _equal_trees(f"collocated step k={k} metrics", m, alone_m)
             _equal_trees(f"collocated step k={k} state", state, ref)
@@ -5935,15 +5970,35 @@ def phase_collocated_step(trainer):
     got = {n: counts[n]["cuda"] for n in want}
     if got != want:
         raise AssertionError(f"collocated step: launches {got}, expected {want}")
+    captures = {k: fused[k].graphs.captures for k in COLLOC_KS if k}
+    if set(captures.values()) != {1}:
+        raise AssertionError(f"collocated step: chain captures by k {captures}, one each "
+                             "expected (one cache, reset in place)")
+    chain_rows = []
+    for k in captures:
+        reset()
+        (prog, _, _), = fused[k].graphs.graphs.values()
+        chain_rows.append(_check_program(f"collocated step k={k}", ("chain", k), prog,
+                                         [(t, False) for t in tree_leaves(cache["layers"])]))
     log(f"collocated step ({_card()}; phase 30's sharded olmo-1b step + k greedy bf16 decode "
-        f"steps on {COLLOC_SLOTS} dense rows of {COLLOC_MAX_SEQ}): train result bit-equal "
-        f"across k = {list(COLLOC_KS)} and to the step alone, tokens equal to the eager "
-        "chain's; ms fused / step alone + k decode steps alone: " + "; ".join(
+        f"steps on {COLLOC_SLOTS} dense rows of {COLLOC_MAX_SEQ}, the chain a CUDA graph a "
+        f"k): train result bit-equal across k = {list(COLLOC_KS)} and to the step alone, "
+        "tokens equal to the eager chain's; ms fused / step alone + k eager decode steps "
+        "alone: " + "; ".join(
             f"k={k} {rows[k] * 1e3:.1f} / {alone_s * 1e3:.1f} + {chains[k][1] * 1e3:.1f} = "
             f"{(alone_s + chains[k][1]) * 1e3:.1f}" for k in COLLOC_KS)
         + f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
         f"{json.dumps(got)}")
-    del base, ref, infer, cache0
+    pool = max(fused[k].graphs.pool_bytes() for k in captures)
+    for r in chain_rows:
+        log(f"collocated step graph {r['program']}: bit-equal to its eager call; eager "
+            f"{r['eager_ms']:.3f} ms, replay {r['replay_ms']:.3f} ms "
+            f"({r['eager_ms'] / r['replay_ms']:.1f}x), {r['launches']} launches a replay "
+            f"(counted), kernels {json.dumps(r['kernels'])}, capture {r['capture_s']:.2f}s")
+    log(f"collocated step: captures by k {json.dumps(captures)}; pools "
+        + ", ".join(f"k={k} {fused[k].graphs.pool_bytes() / 1e6:.1f} MB" for k in captures)
+        + f" (largest {pool / 1e6:.1f} MB)")
+    del base, ref, infer, cache0, cache
     _end_phase("collocated step")
     log(f"collocated step: {time.monotonic() - t_phase:.1f}s")
     return {n: c["cuda"] for n, c in counts.items()}
@@ -6620,9 +6675,11 @@ def phase_serve_steps(mesh):
         got = {n: counts[n]["cuda"] for n in want}
         if got != want:
             raise AssertionError(f"serve steps {arch}: launches {got}, expected {want}")
-        for n, c in counts.items():
-            total[n] = total.get(n, 0) + c["cuda"]
         med = lambda xs: sorted(xs)[len(xs) // 2] * 1e3
+        jit_counts = _jitted_serve_steps(f"{arch} bf16", pre, dec, local, inputs, logits, toks,
+                                         want, med(step_s))
+        for n in counts:
+            total[n] = total.get(n, 0) + counts[n]["cuda"] + jit_counts[n]["cuda"]
         log(f"serve steps ({_card()}; {arch} full depth, bf16, {SERVE_STEP_ROWS} rows x "
             f"{SERVE_STEP_PROMPT}-token prompts in {SERVE_STEP_SEQ} rows, mesh {mesh.shape} "
             f"over NCCL): tokens of prefill + {SERVE_STEP_DECODES} steps bit-equal to "
@@ -6640,6 +6697,62 @@ def phase_serve_steps(mesh):
     _end_phase("serve steps")
     log(f"serve steps: {time.monotonic() - t_phase:.1f}s")
     return {"serve_steps": total, "serve_steps_fp8": fp8}
+
+
+def _jitted_serve_steps(label, pre, dec, local, inputs, want_logits, want_toks, want,
+                        eager_ms):
+    """The serve steps' ``jitted()`` on the one-rank NCCL mesh: the prefill
+    and ``SERVE_STEP_DECODES`` decode steps replayed as CUDA graphs, one
+    capture each (the decode keeps the prefill's cache, written in place);
+    the prefill's logits bit-equal to ``want_logits`` (the eager step's) and
+    every step's tokens to ``want_toks``'s; the kernels of ``want`` launched
+    as often as by the eager steps.  Each graph is then held to its eager
+    call (``_check_program``: eager and replay ms, launches a replay, capture
+    s).  Returns the replays' launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    pj, dj = pre.jitted(), dec.jitted()
+    ops.reset_launch_counts()
+    logits, cache = pj(local, inputs)
+    tok = torch.argmax(pre.gather_output(logits), -1).to(torch.int32)
+    step_s = []
+    for want_tok in want_toks:
+        (tok, cache), dt = _timed(dj, local, tok, cache)
+        step_s.append(dt)
+        if not torch.equal(tok, want_tok):
+            raise AssertionError(f"serve steps {label}: jitted() tokens differ from the eager "
+                                 f"step's at step {len(step_s)}")
+    counts = ops.launch_counts()
+    got = {n: counts[n]["cuda"] for n in want}
+    if got != want:
+        raise AssertionError(f"serve steps {label}: jitted() launches {got}, expected {want}")
+    if not torch.equal(logits, want_logits):
+        raise AssertionError(f"serve steps {label}: jitted() prefill logits differ from the "
+                             "eager step's")
+    captures = (pj.graphs.captures, dj.graphs.captures)
+    if captures != (1, 1):
+        raise AssertionError(f"serve steps {label}: jitted() captures {captures}, one each "
+                             "expected")
+    (pprog, _, _), = pj.graphs.graphs.values()
+    (dprog, _, _), = dj.graphs.graphs.values()
+    rows = [_check_program(f"serve steps {label} prefill", ("prefill",), pprog, []),
+            _check_program(f"serve steps {label} decode", ("decode",), dprog,
+                           [(t, False) for t in tree_leaves(cache["layers"])])]
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+    log(f"serve steps {label} jitted(): prefill logits and the tokens of "
+        f"{len(want_toks)} steps equal to the eager step's, one capture each; decode step "
+        f"median {steady:.2f} ms after its capture (eager {eager_ms:.2f}); pools prefill "
+        f"{pj.graphs.pool_bytes() / 1e6:.1f} MB, decode {dj.graphs.pool_bytes() / 1e6:.1f} MB")
+    for r in rows:
+        log(f"serve steps {label} graph {r['program']}: bit-equal to its eager call; eager "
+            f"{r['eager_ms']:.3f} ms, replay {r['replay_ms']:.3f} ms "
+            f"({r['eager_ms'] / r['replay_ms']:.1f}x), {r['launches']} launches a replay "
+            f"(counted), kernels {json.dumps(r['kernels'])}, capture {r['capture_s']:.2f}s")
+    del cache, logits
+    return counts
 
 
 def _clone_cache(cache):
@@ -6706,8 +6819,11 @@ def _fp8_serve_steps(cfg, mesh, params, local, prompts, bf16_step_ms, bf16_peak,
     got = {n: counts[n]["cuda"] for n in want}
     if got != want:
         raise AssertionError(f"fp8 serve steps {arch}: launches {got}, expected {want}")
-    for n, c in counts.items():
-        total[n] = total.get(n, 0) + c["cuda"]
+    med = sorted(step_s)[len(step_s) // 2] * 1e3
+    jit_counts = _jitted_serve_steps(f"{arch} e4m3", pre, dec, local, inputs, logits,
+                                     [t for _, t in plain], want, med)
+    for n in counts:
+        total[n] = total.get(n, 0) + counts[n]["cuda"] + jit_counts[n]["cuda"]
     with torch.no_grad():
         ref_logits, ref_cache = T.prefill(cfg, params, prompts, SERVE_STEP_SEQ, cache_dtype=fp8)
         fresh = pre.step(local, inputs)[1]
@@ -6733,7 +6849,6 @@ def _fp8_serve_steps(cfg, mesh, params, local, prompts, bf16_step_ms, bf16_peak,
     if not cos >= FP8_MIN_COSINE:
         raise AssertionError(f"fp8 serve steps {arch}: logits cosine {cos:.5f} against the "
                              f"bf16 cache's (at least {FP8_MIN_COSINE})")
-    med = sorted(step_s)[len(step_s) // 2] * 1e3
     log(f"fp8 serve steps ({_card()}; {arch} full depth, bf16 weights and compute, "
         f"cache_dtype=float8_e4m3fn, {SERVE_STEP_ROWS} rows x {SERVE_STEP_PROMPT}-token prompts "
         f"in {SERVE_STEP_SEQ} rows): prefill logits and cache bit-equal to T.prefill's; tokens "
@@ -7245,7 +7360,7 @@ def phase_cost_model():
 # ---------------------------------------------------------------------------
 
 #: timed calls of each program, eager and replayed (the median is printed)
-GRAPH_REPS = 10
+GRAPH_REPS = 5
 #: the phase's qwen3-1.7b engines: (label, engine settings, draft paired)
 GRAPH_QWEN_ENGINES = (
     ("paged chunked", {}, False),
@@ -7254,6 +7369,17 @@ GRAPH_QWEN_ENGINES = (
     ("dense chunked + draft", {"kv_page_size": 0}, True),
     ("paged monolithic + draft", {"prefill_chunk": 0}, True),
 )
+
+
+def _tree_graphs(label, engine):
+    """The tree graphs of ``engine``, which must be one per distinct
+    ``(parents, mode)`` its rounds ran; returns a summary."""
+    graphed = {key[1:] for key in engine._graphs if key[0] == "tree"}
+    if graphed != set(engine._tree_round_cache):
+        raise AssertionError(f"graphs {label}: tree graphs {sorted(graphed)} for the "
+                             f"topologies run {sorted(engine._tree_round_cache)}")
+    return (f"{len(graphed)} tree graphs = distinct (parents, mode) run "
+            f"{sorted((len(p), m) for p, m in graphed)} (nodes, mode)")
 
 
 class _EagerGraphs:
@@ -7290,26 +7416,32 @@ def _median_ms(fn, reps=GRAPH_REPS):
 
 
 def _check_graph_program(label, engine, key, prog):
-    """One captured program on its last replay's inputs: eager and replay
-    timed, its launches counted over the eager program
-    (``launch.cost.CountingMode``, the kernels priced, not run), and the
-    replay's outputs and every cache entry it writes bit-equal to the eager
-    call's from the same cache (and the same generator state).  The cache
-    and the generator are put back after.  Returns the program's row."""
+    """``_check_program`` of one of ``engine``'s programs over its cache
+    and its generator."""
+    return _check_program(label, key, prog, _cache_leaves(engine), engine._spec_gen)
+
+
+def _check_program(label, key, prog, leaves, gen=None):
+    """One captured program (a ``GraphProgram``) on its last replay's
+    inputs: eager and replay timed, its launches counted over the eager
+    program (``launch.cost.CountingMode``, the kernels priced, not run), and
+    the replay's outputs and every tensor of ``leaves`` (``(tensor, is a
+    paged pool)``: what it writes in place) bit-equal to the eager call's
+    from the same state (and the same state of ``gen``).  The tensors and
+    the generator are put back after.  Returns the program's row."""
     import torch
 
     from repro_torch.launch.cost import CountingMode
 
     inputs = {k: v.clone() for k, v in prog.static.items()}
-    leaves = _cache_leaves(engine)
     saved = [t.clone() for t, _ in leaves]
-    gen = engine._spec_gen
-    g0 = gen.get_state()
+    g0 = None if gen is None else gen.get_state()
 
     def restore():
         for (t, _), s in zip(leaves, saved):
             t.copy_(s)
-        gen.set_state(g0)
+        if gen is not None:
+            gen.set_state(g0)
 
     eager_ms = _median_ms(lambda: prog.eager(inputs))
     restore()
@@ -7338,10 +7470,12 @@ def _check_graph_program(label, engine, key, prog):
             "capture_s": prog.capture_s}
 
 
-def _graph_engine_checks(label, engine, kinds):
-    """Every captured program of ``engine`` checked (``_check_graph_program``),
-    the prefill graphs counted against ``prefill_compile_count``, and each
-    program kind of ``kinds`` captured."""
+def _graph_engine_checks(label, engine, kinds, checked=None):
+    """Every captured program of ``engine`` checked (``_check_graph_program``;
+    of the kinds in ``checked`` alone where given: an engine whose other
+    programs an earlier engine of the phase checked), the prefill graphs
+    counted against ``prefill_compile_count``, and each program kind of
+    ``kinds`` captured."""
     got = {key[0] for key in engine._graphs}
     if not set(kinds) <= got:
         raise AssertionError(f"graphs {label}: captured {sorted(engine._graphs)}, "
@@ -7351,7 +7485,8 @@ def _graph_engine_checks(label, engine, kinds):
                              f"for prefill_compile_count {engine.prefill_compile_count} "
                              f"({engine.prefill_compile_counts()})")
     rows = [_check_graph_program(label, engine, key, prog)
-            for key, prog in sorted(engine._graphs.items(), key=lambda kv: str(kv[0]))]
+            for key, prog in sorted(engine._graphs.items(), key=lambda kv: str(kv[0]))
+            if checked is None or key[0] in checked]
     pool = engine.graph_pool_bytes()
     log(f"graphs {label}: {len(rows)} programs bit-equal to their eager calls; prefill "
         f"graphs {engine.prefill_graph_count} = prefill_compile_count "
@@ -7408,7 +7543,7 @@ def phase_graphs(policies):
     from repro_torch import configs
     from repro_torch.configs import SpecDecodeConfig, draft_config
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.engine import InferenceEngine, Request
 
     class EagerEngine(_EagerGraphs, InferenceEngine):
         pass
@@ -7459,6 +7594,69 @@ def phase_graphs(policies):
                              "from the eager engine's from the same seed")
     log("graphs: the \"sample\" spec mode through graphs with the engine's generator "
         "registered: streams equal to the eager engine's from the same seed")
+    # the host-proposed tree round, one graph per (parents, mode): prompts
+    # of a repeating 8-token period, so the n-gram lookup proposes
+    periodic = [np.resize(p[:8], len(p)) for p in prompts]
+    for label, layout, tspec in (
+            ("paged n-gram", {}, SpecDecodeConfig(proposer="ngram")),
+            ("dense n-gram, width 2", {"kv_page_size": 0},
+             SpecDecodeConfig(proposer="ngram", tree_width=2))):
+        engine = make(InferenceEngine, layout, False, spec=tspec)
+        reqs, secs = _serve(engine, periodic, 16)
+        _check_finished(f"graphs {label}", reqs, 16, cfg)
+        rows[label], pools[label] = _graph_engine_checks(label, engine, {"tree", "chunk"},
+                                                         checked={"tree"})
+        log(f"graphs {label}: {_tree_graphs(label, engine)}; {engine.spec_rounds} tree rounds, "
+            f"acceptance {engine.spec_acceptance_rate:.4f}; 8 x 16 tokens in {secs:.3f}s")
+        del engine
+    # the "simulated" tree stream: graphed == eager from one generator seed
+    sim = SpecDecodeConfig(proposer="ngram", mode="simulated")
+    streams = {}
+    for name, cls in (("graphed", InferenceEngine), ("eager", EagerEngine)):
+        engine = make(cls, {}, False, spec=sim)
+        reqs, _ = _serve(engine, periodic[:4], 16)
+        streams[name] = ([list(r.output_tokens) for r in reqs], engine.spec_rounds,
+                         engine.spec_accepted, engine.spec_drafted)
+        if cls is InferenceEngine:
+            label = "paged n-gram, simulated"
+            rows[label], pools[label] = _graph_engine_checks(label, engine, {"tree"},
+                                                             checked={"tree"})
+            log(f"graphs {label}: {_tree_graphs(label, engine)}")
+        del engine
+    if streams["graphed"] != streams["eager"]:
+        raise AssertionError(f"graphs: the simulated tree stream (streams, rounds, accepted, "
+                             f"drafted) of the graphed engine {streams['graphed'][1:]} differs "
+                             f"from the eager engine's {streams['eager'][1:]}")
+    log(f"graphs: the \"simulated\" tree rounds through graphs with the engine's generator "
+        f"registered: streams, rounds, accepted and drafted {streams['graphed'][1:]} equal to "
+        f"the eager engine's from the same seed")
+    # decode_microstep's single step, graphed and eager over one schedule
+    micro = {}
+    for name, cls in (("graphed", InferenceEngine), ("eager", EagerEngine)):
+        engine = make(cls, {}, False)
+        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+        if not all(engine._admit_request(r) for r in reqs):
+            raise AssertionError("graphs decode_microstep: an admission failed")
+        engine._drive_prefill_chunks()
+        times = []
+        while engine.num_active:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            engine.decode_microstep()
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        micro[name] = ([list(r.generated) for r in reqs], sorted(times)[len(times) // 2])
+        if cls is InferenceEngine:
+            label = "paged, decode_microstep"
+            rows[label], pools[label] = _graph_engine_checks(label, engine, {"step", "chunk"},
+                                                             checked={"step"})
+        del engine
+    if micro["graphed"][0] != micro["eager"][0]:
+        raise AssertionError("graphs: decode_microstep's streams through its graph differ from "
+                             "the eager engine's")
+    log(f"graphs: decode_microstep (8 slots x 16 tokens) streams equal graphed and eager; a "
+        f"call (the step, the fetch, the host's bookkeeping) median "
+        f"{micro['graphed'][1]:.3f} ms graphed, {micro['eager'][1]:.3f} ms eager")
     # phase 28's probe, eager and graphed
     probe = {}
     for name, cls in (("eager", EagerEngine), ("graphed", InferenceEngine)):

@@ -57,6 +57,7 @@ from repro_torch.serving.core import (
     largest_bucket,
 )
 from repro_torch.serving.engine import InferenceEngine, Request
+from repro_torch.serving.graphs import AddressedGraphs
 from repro_torch.spec.controller import AdaptiveGammaController
 from repro_torch.tree import tree_leaves
 
@@ -503,14 +504,23 @@ def make_collocated_step(
     and a chain of k greedy decode microsteps that has no data dependence
     on it (the reference's fused program).
 
-    On CUDA the chain runs on a second stream, ordered after the work
-    queued before the call and joined by the current stream before the
-    call returns, so the device can overlap it with the train step's
-    kernels and collectives; on the CPU the two run in sequence.  The
-    train step is untouched by the chain.  Pass ``decode_loop_fn(params,
-    tokens, cache, k) -> (tokens, cache)`` to supply a custom loop; by
-    default the chain feeds each step's argmax to the next
-    ``decode_step_fn(params, tokens, cache) -> (logits, cache)``."""
+    On CUDA the chain is one CUDA graph per k (``serving.graphs.AddressedGraphs``:
+    the weights and the cache's leaves read and written where they live,
+    the tokens and the cache index copied in), replayed on a second stream
+    ordered after the work queued before the call and joined by the current
+    stream before the call returns, so the device can overlap it with the
+    train step's kernels and collectives; the train step runs eagerly on
+    the current stream.  A graph is captured before the train step is
+    launched, so no capture overlaps its kernels (the cache is put back
+    after the capture's warm-up); k = 0 captures nothing.  As the
+    reference donates the cache, the caller passes back the cache it
+    received: a cache at new addresses captures anew.  On the CPU the two
+    run in sequence, eagerly.  The train step is untouched by the chain.
+    Pass ``decode_loop_fn(params, tokens, cache, k) -> (tokens, cache)`` to
+    supply a custom loop; by default the chain feeds each step's argmax to
+    the next ``decode_step_fn(params, tokens, cache) -> (logits, cache)``.
+    Each ``fn``'s ``graphs`` attribute holds its chain's graphs (None for
+    k = 0)."""
     if decode_loop_fn is None:
 
         def decode_loop_fn(params, tokens, cache, k):
@@ -520,6 +530,12 @@ def make_collocated_step(
             return tokens, cache
 
     streams: dict = {}  # device -> the chain's stream, made at the first call
+    # the capture's warm-up runs the chain once: every cache leaf it writes
+    # (a recurrent state it steps) is put back after
+    graphs = {k: AddressedGraphs(
+        lambda held, inp, k=k: decode_loop_fn(held[0], inp["tokens"],
+                                              dict(held[1], index=inp["index"]), k),
+        kept=lambda held: tree_leaves(held[1])) for k in k_buckets if k > 0}
 
     def fused(k):
         def fn(train_state, batch, infer_params, tokens, cache):
@@ -527,18 +543,24 @@ def make_collocated_step(
                 new_state, metrics = train_step_fn(train_state, batch)
                 t, c = decode_loop_fn(infer_params, tokens, cache, k)
                 return new_state, metrics, t, c
+            if k == 0:
+                return (*train_step_fn(train_state, batch), tokens, cache)
+            held = (infer_params, {n: v for n, v in cache.items() if n != "index"})
+            inputs = {"tokens": tokens, "index": cache["index"]}
+            graphs[k].capture(held, inputs)
             main = torch.cuda.current_stream(tokens.device)
             side = streams.setdefault(tokens.device, torch.cuda.Stream(tokens.device))
             side.wait_stream(main)
             new_state, metrics = train_step_fn(train_state, batch)
             with torch.cuda.stream(side):
-                t, c = decode_loop_fn(infer_params, tokens, cache, k)
+                t, c = graphs[k](held, inputs)
             main.wait_stream(side)
             # made on the chain's stream, read on the caller's from now on
             for x in (t, *tree_leaves(c)):
                 x.record_stream(main)
             return new_state, metrics, t, c
 
+        fn.graphs = graphs.get(k)
         return fn
 
     return {k: fused(k) for k in k_buckets}

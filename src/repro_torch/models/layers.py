@@ -317,6 +317,15 @@ def dense_kv_write_dropped(
     return cache
 
 
+def device_scalar(v, device) -> torch.Tensor:
+    """``v`` (a Python number or a tensor) as a tensor on ``device``: a
+    number is filled in on the device, not made on the host and copied
+    over (a copy a CUDA graph cannot capture)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.full((), v, device=device)
+
+
 def last_writers(dest: torch.Tensor, rows: int) -> torch.Tensor:
     """dest: [N] flat destination rows in ``0 .. rows - 1``.  For each entry,
     the index of the last entry bound for the same row: gathering the

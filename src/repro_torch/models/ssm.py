@@ -94,7 +94,7 @@ def tail_state(x: torch.Tensor, length, n: int) -> torch.Tensor:
     if length is None:
         return x[:, -n:, :]
     xp = F.pad(x, (0, 0, n, 0))
-    steps = torch.as_tensor(length, device=x.device).long() + torch.arange(n, device=x.device)
+    steps = L.device_scalar(length, x.device).long() + torch.arange(n, device=x.device)
     return xp.index_select(1, steps)
 
 

@@ -677,7 +677,7 @@ def _position(j, t: int, device) -> torch.Tensor:
     """``j`` (an int or a 0-d integer tensor) clamped into [0, t - 1], as a
     [1] index tensor: a gather in place of a slice, so a device position
     costs no host sync."""
-    return torch.as_tensor(j, device=device).long().clamp(0, t - 1).reshape(1)
+    return L.device_scalar(j, device).long().clamp(0, t - 1).reshape(1)
 
 
 def _recurrent_chunk(cfg, params, tokens, cache, compute_dtype, attn_impl, logits_at):
@@ -936,7 +936,7 @@ def prefill(
             del lp
         new_layers = {"k": pad_kv(ks), "v": pad_kv(vs)}
     x = _final_norm(cfg, params, x)
-    n = torch.as_tensor(s if length is None else length, device=x.device)
+    n = L.device_scalar(s if length is None else length, x.device)
     # the logits of a position of the prompt
     logits = unembed(cfg, params, x.index_select(1, _position(n - 1, s, x.device)))[:, 0]
     return logits, {"index": n.to(torch.int32).clone(), "layers": new_layers}
@@ -994,7 +994,7 @@ def prefill_into_slot(
 
 def _slot_index(slot, device) -> torch.Tensor:
     """``slot`` (an int or a 0-d integer tensor) as a [1] long index."""
-    return torch.as_tensor(slot, device=device).long().reshape(1)
+    return L.device_scalar(slot, device).long().reshape(1)
 
 
 def _write_rows(dst: torch.Tensor, dim: int, rows: torch.Tensor, src: torch.Tensor) -> None:
@@ -1068,8 +1068,8 @@ def prefill_suffix_into_slot(
     Returns ``(first generated token [] int32 on the device, cache)``."""
     dev = tokens.device
     row = _slot_index(slot, dev)
-    shared = torch.as_tensor(shared_len, device=dev).to(torch.int32).reshape(1)
-    suffix = torch.as_tensor(suffix_len, device=dev).to(torch.int32).reshape(1)
+    shared = L.device_scalar(shared_len, dev).to(torch.int32).reshape(1)
+    suffix = L.device_scalar(suffix_len, dev).to(torch.int32).reshape(1)
     view = {
         "index": shared,
         "block_tables": cache["block_tables"].index_select(0, row),

@@ -478,8 +478,8 @@ class ServeStepArtifacts:
     ``shard_*`` give this rank's blocks of full trees, ``gather_*`` the full
     trees back (all-gathers); a batch that does not cover the data axes
     (``batch_sharded`` False) is replicated over them, whatever the
-    reference's prefill specs name.  The reference's ``jitted`` has no
-    counterpart: eager PyTorch compiles nothing."""
+    reference's prefill specs name.  ``jitted()`` is the reference's
+    compiled step: on a CUDA mesh ``step`` replayed as a CUDA graph."""
 
     step: Callable
     cfg: ModelConfig
@@ -494,6 +494,54 @@ class ServeStepArtifacts:
     batch_sharded: bool = True
     #: the most FSDP-gathered bytes alive at once in any call of ``step``
     max_live_gathered_bytes: int = 0
+
+    def jitted(self, donate_cache: bool = True) -> Callable:
+        """The reference's compiled step, with ``step``'s signature.  On a
+        CUDA mesh each call replays ``step`` as a CUDA graph
+        (``serving.graphs.AddressedGraphs``, counted in the callable's
+        ``graphs.captures``): the weights and a decode's cache leaves are
+        read and written where they live, the tokens, the cache index and
+        the prompt rows copied in, and a call whose weights or cache sit
+        elsewhere captures anew.  The outputs are the graph's, cloned (a
+        prefill's logits and new cache, a decode's tokens and index); a
+        decode's cache leaves are the caller's, written in place.  What the
+        step records in Python (``max_live_gathered_bytes``, the mesh's
+        collective counts) is recorded at the capture, not at a replay.  On
+        the CPU ``step`` itself.  A stand-in mesh whose ranks meet in Python
+        (threads taking turns) cannot be captured: call ``step`` there.
+
+        A capture over several NCCL ranks has not run: the card's machine
+        holds one.  ``donate_cache=False`` raises ``NotImplementedError``:
+        the port's decode step writes the caller's cache in place, which is
+        what the reference's donated call does; a step that left its input
+        cache intact would copy every leaf each call, and no caller of the
+        reference asks for it."""
+        if not donate_cache and self.cache_specs is not None:
+            raise NotImplementedError(
+                "donate_cache=False: the port's decode step writes the cache in place "
+                "(the reference's donated call); it keeps no copy of the input cache")
+        if self.mesh.device.type != "cuda":
+            return self.step
+        from repro_torch.serving.graphs import AddressedGraphs
+
+        if self.cache_specs is None:
+            graphs = AddressedGraphs(lambda params, inp: self.step(params, inp["inputs"]))
+
+            def call(params, inputs):
+                return graphs(params, {"inputs": inputs})
+        else:
+            cfg = self.cfg
+            # a recurrent state the capture's warm-up steps is put back
+            states = lambda held: tree_leaves(T.chunk_recurrent_states(cfg, held[1]["layers"])
+                                              or {})
+            graphs = AddressedGraphs(lambda held, inp: self.step(
+                held[0], inp["tokens"], dict(held[1], index=inp["index"])), kept=states)
+
+            def call(params, tokens, cache):
+                rest = {k: v for k, v in cache.items() if k != "index"}
+                return graphs((params, rest), {"tokens": tokens, "index": cache["index"]})
+        call.graphs = graphs
+        return call
 
     def _place(self, fn, tree, specs):
         return tree_map(lambda t, sp: fn(t, sp, self.mesh), tree, specs)

@@ -16,8 +16,8 @@ families) prefills the whole prompt at admission, zero-padded to a
 power-of-two bucket (``prefill_into_slot``; on a radix hit only the
 suffix, through the paged verify pass).  Decode runs
 ``k`` greedy microsteps per dispatch with a single device -> host fetch at
-the end.  ``decode_microstep`` is the reference's single-step path, eager
-on every layout.
+the end.  ``decode_microstep`` is the reference's single-step path (one
+``T.decode_step`` and its argmax, one fetch a step).
 
 On CUDA with the kernels (``graphs``) every program the reference compiles
 with ``jax.jit`` is a CUDA graph, captured at its first call and replayed
@@ -26,10 +26,13 @@ launches of thousands of small ops: the decode loop per ``k`` on every
 layout and family, the ONE chunked-prefill program per model (target and
 draft: every argument a tensor, so one capture serves every mix of slots,
 chunk lengths and offsets), the bucket and suffix prefills per model and
-bucket width (slot and lengths are device tensors), and the fused spec loop
-per ``(k, gamma)``.  ``prefill_compile_count`` / ``prefill_compile_counts()``
-count the prefill programs by the reference's rule on every device; on
-CUDA each is one captured graph.  The CPU runs every program eagerly.
+bucket width (slot and lengths are device tensors), the fused spec loop
+per ``(k, gamma)``, the host-proposed tree round per ``(parents, mode)``
+(``_tree_round_fn``: the gamma and width buckets bound the topologies) and
+``decode_microstep``'s single step.  ``prefill_compile_count`` /
+``prefill_compile_counts()`` count the prefill programs by the reference's
+rule on every device; on CUDA each is one captured graph.  The CPU runs
+every program eagerly.
 
 Speculation (``spec``): a ``draft_cfg`` / ``draft_params`` pairing keeps the
 draft model in a dense cache (``T.init_cache``) whose prompt streams through
@@ -245,10 +248,13 @@ class InferenceEngine:
         self.attn_impl = decode_impl
         #: the captured programs by key (``graphs``): ("decode", k),
         #: ("spec", k, gamma), ("chunk", model), ("bucket", model, width),
-        #: ("suffix", "target", width); dropped when a cache tensor moves
+        #: ("suffix", "target", width), ("tree", parents, mode), ("step",);
+        #: dropped when a cache tensor moves
         self._graphs: dict = {}
         self._graph_ptrs: tuple = ()
         self._graph_pool = self._graph_stream = None
+        #: (parents, mode) -> the tree round's program (``_tree_round_fn``)
+        self._tree_round_cache: dict = {}
         #: warm-up keys done: one warm-up a set of kernels and shapes
         self._warmed: set = set()
         #: (model, impl) -> bucket widths of the prefill programs run (the
@@ -1308,19 +1314,25 @@ class InferenceEngine:
 
     def decode_microstep(self) -> list[Request]:
         """One greedy decode step over every slot; returns the requests that
-        finished.  The reference's single-step path: an eager
-        ``T.decode_step`` (no decode graph), with the token vector and the
-        finish-check indices fetched in ONE device -> host transfer.  The
-        fused ``_drive_decode_loop`` is the fast path."""
+        finished.  The reference's single-step path: ``T.decode_step`` and
+        its argmax (a graph of its own on CUDA, key ``("step",)``), with the
+        token vector and the finish-check indices fetched in ONE device ->
+        host transfer.  The fused ``_drive_decode_loop`` is the fast path."""
         if self.num_active == 0 or self.num_active == self.num_prefilling:
             return []
         if self.paged:
             self._top_up_pages(1)
-        logits, self.cache = T.decode_step(
-            self.cfg, self.params, self.tokens, self.cache,
-            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
-        )
-        self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        inputs = self._cache_inputs(self.cache, tokens=self.tokens)
+        if self.graphs:
+            self._drop_moved_graphs()
+            if ("step",) not in self._graphs:
+                # captured from the live inputs: the warm-up writes the K/V
+                # rows the replay then writes again, and a recurrent state it
+                # stepped is put back
+                with self._states_kept():
+                    self._graph(("step",), self._step_fn, inputs)
+        self.tokens, index = self._program(("step",), self._step_fn, inputs)
+        self.cache = dict(self.cache, index=index)
         self.steps_executed += 1
         if self.num_prefilling:
             # the step advanced EVERY slot's index: restore the PREFILLING
@@ -1352,6 +1364,16 @@ class InferenceEngine:
         if self._bt_dirty:
             self._sync_block_tables()  # one upload covers every retirement
         return finished
+
+    def _step_fn(self, inp):
+        """``decode_microstep``'s program: one ``T.decode_step`` over the
+        program inputs and its argmax; returns ``(tokens, index)``."""
+        view = dict(self.cache, index=inp["index"])
+        if "block_tables" in inp:
+            view["block_tables"] = inp["block_tables"]
+        logits, new = T.decode_step(self.cfg, self.params, inp["tokens"], view,
+                                    compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
+        return torch.argmax(logits, dim=-1).to(torch.int32), new["index"]
 
     # ------------------------------------------------------------------
     # Speculative decoding
@@ -1528,9 +1550,37 @@ class InferenceEngine:
             )
         return finished
 
+    def _tree_round_fn(self, parents: tuple, mode: str):
+        """The tree-verify round of one topology (the reference's name and
+        key): a program over the inputs ``tokens``, ``tail``, ``remaining``
+        and the cache's index (and block tables), returning ``(tokens,
+        index, remaining, out, n_out, accepted, proposed, bad)``.  The
+        topology's device constants are built here, once, outside the
+        program.  Topologies come from the gamma and width buckets, so the
+        programs stay as bounded as the fused loops'."""
+        fn = self._tree_round_cache.get((parents, mode))
+        if fn is None:
+            topo = spec_tree.tree_topology(parents, self.max_slots, self.device)
+
+            def fn(inp):
+                view = dict(self.cache, index=inp["index"])
+                if "block_tables" in inp:
+                    view["block_tables"] = inp["block_tables"]
+                tokens, new, *rest = spec_tree.tree_verify_round(
+                    self.cfg, self.params, inp["tokens"], view, inp["tail"], inp["remaining"],
+                    parents=parents, mode=mode, max_seq=self.max_seq,
+                    sim_accept_p=self.spec_cfg.sim_accept_p, gen=self._spec_gen,
+                    compute_dtype=self.compute_dtype, attn_impl=self.attn_impl, topo=topo)
+                return (tokens, new["index"], *rest)
+
+            self._tree_round_cache[(parents, mode)] = fn
+        return fn
+
     def _tree_round(self, prop, name: str, tree, remaining: np.ndarray,
                     gamma: int, mode: str) -> list[Request]:
-        """One tree-verify round over a host proposer's candidate tree."""
+        """One tree-verify round over a host proposer's candidate tree: a
+        replay of its topology's graph on CUDA (``_tree_round_fn``), one
+        fetch."""
         n_nodes = len(tree.parents)
         if self.paged:
             # worst case the round accepts a whole root-to-leaf path;
@@ -1539,16 +1589,18 @@ class InferenceEngine:
             if self.num_active == 0:
                 return []  # every slot fell to an allocator fault
         self._maybe_inject_nan()
+        inputs = self._cache_inputs(
+            self.cache, tokens=self.tokens, tail=torch.tensor(tree.tail, device=self.device),
+            remaining=torch.tensor(remaining, device=self.device))
+        # captured with zero budgets: every slot frozen (its compaction the
+        # identity, its K/V rows written again by the replay)
+        frozen = dict(inputs, remaining=torch.zeros_like(inputs["remaining"]))
         (
-            self.tokens, self.cache, rem, out, n_out, accepted, proposed, bad,
-        ) = spec_tree.tree_verify_round(
-            self.cfg, self.params, self.tokens, self.cache,
-            torch.tensor(tree.tail, device=self.device),
-            torch.tensor(remaining, device=self.device),
-            parents=tree.parents, mode=mode, max_seq=self.max_seq,
-            sim_accept_p=self.spec_cfg.sim_accept_p, gen=self._spec_gen,
-            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
-        )
+            self.tokens, index, rem, out, n_out, accepted, proposed, bad,
+        ) = self._program(("tree", tree.parents, mode), self._tree_round_fn(tree.parents, mode),
+                          inputs, capture=frozen,
+                          generator=None if mode == "greedy" else self._spec_gen)
+        self.cache = dict(self.cache, index=index)
         b, w = out.shape
         fetched = torch.cat([
             out.reshape(-1), n_out, accepted, proposed, rem, self.cache["index"],

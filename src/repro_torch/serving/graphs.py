@@ -29,6 +29,11 @@ capture freed, which is safe because replays run one at a time on one
 stream and the engine reads or clones every output before the next
 replay.  ``pool_bytes`` reports the pool's size (memory taken from the
 training job's share).
+
+``AddressedGraphs`` serves callers outside the engine (the serve steps'
+``ServeStepArtifacts.jitted``, ``make_collocated_step``'s decode chain):
+their programs have no engine to own their weights and cache, so a graph
+is keyed by the addresses of the tensors it reads and writes in place.
 """
 from __future__ import annotations
 
@@ -113,6 +118,100 @@ class GraphProgram:
         """``fn`` run eagerly on copies of ``inputs`` (what a replay
         computes, for a comparison)."""
         return self.fn({k: v.clone() for k, v in inputs.items()})
+
+
+class AddressedGraphs:
+    """``fn(held, inputs)`` replayed as CUDA graphs keyed by where its
+    operands live.
+
+    ``held``: a tree of tensors (dicts, tuples) the program reads and
+    writes where they live: weights, cache leaves.  ``inputs``: a dict of
+    small tensors (tokens, the cache index, prompt rows) copied into the
+    graph's static buffers at each call.  One graph per addresses, shapes,
+    strides and dtypes of ``held`` and shapes and dtypes of ``inputs``: a
+    call whose weights or cache sit elsewhere captures anew (``captures``
+    counts the captures; all share one pool).  A graph keeps the ``held``
+    it was captured with alive, so a caller passes back the cache it
+    received rather than a fresh copy each call.
+
+    Each capture is preceded by ``fn`` run once on copies of the inputs (a
+    ``GraphProgram`` warm-up), whose in-place writes a replay with the same
+    inputs writes again; ``kept(held)`` lists what it steps that a replay
+    would step again (a recurrent state), put back after the capture.  A
+    replay's output that is a ``held`` tensor (written in place) comes back
+    as the caller's tensor; any other is cloned (the pool's next replay may
+    reuse its memory)."""
+
+    def __init__(self, fn: Callable[[object, dict], object], *,
+                 kept: Optional[Callable[[object], list]] = None):
+        self.fn = fn
+        self.kept = kept
+        self.captures = 0
+        #: key -> (program, output template, {output leaf: held leaf})
+        self.graphs: dict = {}
+        self._pool = self._side = None
+
+    def capture(self, held, inputs: dict) -> tuple:
+        """The graph of this call's key, captured now if it has none; returns
+        the key.  A caller that must not capture while other work is queued
+        calls this first."""
+        leaves = _flat(held)
+        key = (tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in leaves),
+               tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        if key in self.graphs:
+            return key
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(next(iter(inputs.values())).device)
+        template = []
+
+        def flat(inp):
+            out = self.fn(held, inp)
+            template[:] = [out]
+            return tuple(_flat(out))
+
+        kept = self.kept(held) if self.kept is not None else []
+        saved = [t.clone() for t in kept]
+        prog = GraphProgram(flat, inputs, pool=self._pool, side=self._side, warm=flat)
+        for dst, src in zip(kept, saved):
+            dst.copy_(src)
+        at = {t.data_ptr(): i for i, t in enumerate(leaves)}
+        from_held = {j: at[t.data_ptr()] for j, t in enumerate(prog.out)
+                     if t.data_ptr() in at and leaves[at[t.data_ptr()]].shape == t.shape}
+        self.graphs[key] = (prog, template[0], from_held)
+        self.captures += 1
+        return key
+
+    def __call__(self, held, inputs: dict):
+        """``fn(held, inputs)``'s outputs from a replay (captured first if
+        needed)."""
+        prog, template, from_held = self.graphs[self.capture(held, inputs)]
+        leaves = _flat(held)
+        outs = [leaves[from_held[j]] if j in from_held else t.clone()
+                for j, t in enumerate(prog.replay(inputs))]
+        return _unflat(template, iter(outs))
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the graphs' pool (0 before the first capture)."""
+        return 0 if self._pool is None else pool_bytes(self._pool)
+
+
+def _flat(tree) -> list:
+    """The tensors of a tree of dicts, tuples and lists, depth first."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _flat(t)]
+    return [tree]
+
+
+def _unflat(template, leaves):
+    """``template``'s structure over the tensors ``leaves`` yields."""
+    if isinstance(template, dict):
+        return {k: _unflat(v, leaves) for k, v in template.items()}
+    if isinstance(template, (tuple, list)):
+        return type(template)(_unflat(t, leaves) for t in template)
+    return next(leaves)
 
 
 def _launches(before: tuple, after: tuple) -> tuple:

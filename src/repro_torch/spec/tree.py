@@ -22,6 +22,7 @@ the paged or the dense target layout.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -88,6 +89,33 @@ def tree_ancestor_masks(parents: tuple) -> np.ndarray:
     return anc
 
 
+@dataclasses.dataclass(frozen=True)
+class TreeTopology:
+    """A topology's device constants, built once outside a round (a round
+    captured as a CUDA graph may not turn host data into tensors): ``par``
+    [N] each node's parent (the root its own), ``depths`` [N] int32,
+    ``anc`` [B, N] int32 ancestor bitmasks, ``depth_sel`` [N, N] bool
+    (``depth_sel[d, j]``: node j sits at depth d)."""
+
+    par: torch.Tensor
+    depths: torch.Tensor
+    anc: torch.Tensor
+    depth_sel: torch.Tensor
+
+
+def tree_topology(parents: tuple, batch: int, device) -> TreeTopology:
+    """``parents``' device constants for a batch of ``batch`` slots."""
+    n = len(parents)
+    depths = torch.tensor(tree_depths(parents), device=device)
+    anc = torch.tensor(tree_ancestor_masks(parents), device=device)
+    return TreeTopology(
+        par=torch.tensor([max(p, 0) for p in parents], device=device),
+        depths=depths,
+        anc=anc.expand(batch, n).contiguous(),
+        depth_sel=depths[None, :] == torch.arange(n, device=device)[:, None],
+    )
+
+
 # ---------------------------------------------------------------------------
 # Acceptance
 # ---------------------------------------------------------------------------
@@ -100,6 +128,7 @@ def tree_greedy_accept(
     remaining: torch.Tensor,  # [B] int32 token budgets
     *,
     match: Optional[torch.Tensor] = None,  # [B, N] bool override (simulated)
+    topo: Optional[TreeTopology] = None,
 ):
     """Greedy root-to-leaf acceptance over a packed tree.
 
@@ -108,21 +137,22 @@ def tree_greedy_accept(
     token, ``out`` [B, D + 1] the emitted row (D = max depth; entries past
     ``a`` are 0), ``a_match`` the unclamped run, and ``path_idx`` [B, N] the
     node of the accepted path at each depth (identity past the path: the KV
-    compaction map)."""
+    compaction map).  ``topo``: ``parents``' device constants
+    (``tree_topology``; built here when None)."""
     b, n = tree_tokens.shape
     dev = tree_tokens.device
-    depths = tree_depths(parents)
-    d_max = int(depths.max())
+    if topo is None:
+        topo = tree_topology(parents, b, dev)
+    d_max = int(tree_depths(parents).max())
     tgt = torch.argmax(target_logits, dim=-1).to(torch.int32)  # [B, N]
     if match is None:
         # node j extends the path iff its token is the target argmax at its
         # parent
-        par = torch.tensor([max(p, 0) for p in parents], device=dev)
-        match = tree_tokens == tgt[:, par]
+        match = tree_tokens == tgt[:, topo.par]
     # walk in node order: a node is on the path iff its parent is, its token
     # matches, and no earlier sibling claimed the parent
     on = torch.zeros((b, n), dtype=torch.bool, device=dev)
-    on[:, 0] = True
+    on[:, 0].fill_(True)  # (a fill, not a Python value turned into a tensor)
     claimed = torch.zeros((b, n), dtype=torch.bool, device=dev)
     for j in range(1, n):
         p = parents[j]
@@ -132,7 +162,7 @@ def tree_greedy_accept(
     a_match = on.sum(dim=1).to(torch.int32) - 1
     a = torch.clamp(torch.minimum(a_match, remaining - 1), 0, d_max).to(torch.int32)
     # path_at_depth[b, d]: the on-path node at depth d (0 past the leaf)
-    depth_sel = torch.tensor(depths, device=dev)[None, :] == torch.arange(n, device=dev)[:, None]
+    depth_sel = topo.depth_sel
     node_ids = torch.arange(n, dtype=torch.int32, device=dev)
     on_ids = on.to(torch.int32) * node_ids[None, :]  # [B, N]
     path_at_depth = (on_ids[:, None, :] * depth_sel[None].to(torch.int32)).sum(dim=-1)
@@ -227,6 +257,7 @@ def tree_verify_round(
     gen: Optional[torch.Generator] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     attn_impl: str = "auto",
+    topo: Optional[TreeTopology] = None,
 ):
     """ONE verify / accept round over a packed candidate tree from a host
     proposer: embed the N nodes, one tree-verify pass, accept the longest
@@ -235,31 +266,34 @@ def tree_verify_round(
     Returns ``(tokens, cache, remaining, out [B, D + 1], n_out [B],
     accepted [B], proposed [B], bad [B])`` -- the reference's tuple without
     its PRNG key -- with ``spec_round``'s freeze semantics and NaN screen.
-    ``mode="simulated"`` draws the path-extension outcomes from ``gen``."""
+    ``mode="simulated"`` draws the path-extension outcomes from ``gen``.
+    ``topo``: ``parents``' device constants (``tree_topology``), which a
+    round captured as a CUDA graph takes from outside; built here when
+    None."""
     n = len(parents)
     validate_parents(parents)
     dev = tokens.device
     b = tokens.shape[0]
-    depths = torch.tensor(tree_depths(parents), device=dev)
-    anc = torch.tensor(tree_ancestor_masks(parents), device=dev).expand(b, n).contiguous()
+    if topo is None:
+        topo = tree_topology(parents, b, dev)
     idx0 = cache["index"]
     active = (remaining > 0) & (idx0 + (n - 1) < max_seq)
     tree_tokens = torch.cat([tokens[:, None], tail_tokens.to(tokens.dtype)], dim=1)
     logits, cache, _ = T.decode_chunk(
         cfg, params, tree_tokens, cache, compute_dtype=compute_dtype,
-        attn_impl=attn_impl, anc=anc, depths=depths,
+        attn_impl=attn_impl, anc=topo.anc, depths=topo.depths,
     )
     bad = active & ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
     if mode == "greedy":
         a, nxt, out, a_match, path_idx = tree_greedy_accept(
-            parents, tree_tokens, logits, remaining
+            parents, tree_tokens, logits, remaining, topo=topo
         )
     elif mode == "simulated":
         if gen is None:
             raise ValueError("simulated tree verification needs a torch.Generator")
         match = torch.rand((b, n), generator=gen, device=dev) < sim_accept_p
         a, nxt, out, a_match, path_idx = tree_greedy_accept(
-            parents, tree_tokens, logits, remaining, match=match
+            parents, tree_tokens, logits, remaining, match=match, topo=topo
         )
     else:
         raise ValueError(f"unknown tree verification mode {mode!r}")

@@ -5,7 +5,9 @@ length arguments, and the sync-free dense chunk write.
 
 (a) Every program the engine hands to ``InferenceEngine._program`` (the
 chunk wave of the target on both layouts and of the draft, the greedy spec
-loop, the bucket and suffix prefills, the decode loop on both layouts) runs
+loop, the bucket and suffix prefills, the decode loop on both layouts, the
+n-gram lookup's tree round greedy and simulated on both layouts,
+``decode_microstep``'s step on both layouts and the recurrent smokes) runs
 under a ``TorchDispatchMode`` that records host syncs and data-dependent
 shapes (``aten._local_scalar_dense``, ``nonzero``, ``masked_select``,
 ``is_nonzero``, ``unique``, ``repeat_interleave`` without a size, a
@@ -170,6 +172,19 @@ def _serve(engine, prompts, max_new=4):
     assert all(len(r.output_tokens) == max_new for r in reqs)
 
 
+def _serve_microsteps(engine, prompts, max_new=4):
+    """Admit ``prompts`` (prefilled to the end), then ``decode_microstep``
+    until every request has its ``max_new`` tokens."""
+    reqs = [TRequest(prompt=p, max_new_tokens=max_new) for p in prompts]
+    assert all(engine._admit_request(r) for r in reqs)
+    engine._drive_prefill_chunks()
+    guard = 50
+    while engine.num_active and guard:
+        engine.decode_microstep()
+        guard -= 1
+    assert all(len(r.generated) == max_new for r in reqs)
+
+
 def _prompts(vocab, lengths, shared=0, seed=0):
     rng = np.random.default_rng(seed)
     prefix = rng.integers(1, vocab, shared)
@@ -179,6 +194,9 @@ def _prompts(vocab, lengths, shared=0, seed=0):
 
 #: (arch, engine settings, draft paired, prompt lengths, shared prefix,
 #: programs it must run: kind, and model for the prefills)
+#: a host proposer in place of the draft (a tree round per proposal)
+NGRAM = SpecDecodeConfig(proposer="ngram")
+NGRAM_SIM = SpecDecodeConfig(proposer="ngram", mode="simulated")
 CHUNK, DRAFT_CHUNK = "chunk/target", "chunk/draft"
 BUCKET, DRAFT_BUCKET, SUFFIX = "bucket/target", "bucket/draft", "suffix/target"
 CAPTURE_CASES = [
@@ -199,6 +217,16 @@ CAPTURE_CASES = [
     ("zamba2-2.7b", {}, False, (13, 30), 0, {BUCKET, "decode"}),
     # the stub frontend's embedding rows fed inside the bucket program
     ("musicgen-large", {"prefill_chunk": 0}, True, (13, 30), 0, {BUCKET, DRAFT_BUCKET, "spec"}),
+    # the host-proposed tree round (n-gram lookup over prompts that repeat)
+    ("qwen3-1.7b", {}, NGRAM, (21, 9, 40), 0, {CHUNK, "tree"}),
+    ("qwen3-1.7b", {}, NGRAM_SIM, (21, 9, 40), 0, {CHUNK, "tree"}),
+    ("qwen3-1.7b", {"kv_page_size": 0}, NGRAM, (21, 9, 40), 0, {CHUNK, "tree"}),
+    ("qwen3-1.7b", {"kv_page_size": 0}, NGRAM_SIM, (21, 9, 40), 0, {CHUNK, "tree"}),
+    # ``decode_microstep``'s single step
+    ("qwen3-1.7b", {}, False, (21, 9, 40), 0, {CHUNK, "step"}),
+    ("qwen3-1.7b", {"kv_page_size": 0}, False, (21, 9), 0, {CHUNK, "step"}),
+    ("falcon-mamba-7b", {}, False, (13, 30), 0, {BUCKET, "step"}),
+    ("zamba2-2.7b", {}, False, (13, 30), 0, {BUCKET, "step"}),
 ]
 
 
@@ -207,14 +235,23 @@ def test_engine_programs_never_sync_the_host(arch, layout, draft, lengths, share
                                              monkeypatch):
     cfg, params = _smoke(arch)
     kw = dict(layout)
-    if draft:
+    prompts = _prompts(cfg.vocab_size, lengths, shared)
+    if isinstance(draft, SpecDecodeConfig):
+        # a host proposer: prompts of a repeating 5-token period, so the
+        # n-gram lookup proposes
+        kw["spec"] = draft
+        prompts = [np.resize(p[:5], len(p)) for p in prompts]
+    elif draft:
         dcfg = configs.draft_config(cfg)
         kw.update(draft_cfg=dcfg, draft_params=T.init_params(dcfg, torch.Generator().manual_seed(1)),
                   spec=SpecDecodeConfig(proposer="draft"))
     engine = TEngine(cfg, params, compute_dtype=torch.float32, device="cpu", max_slots=4,
                      max_seq=64, **kw)
     with _recorded_programs(monkeypatch) as seen:
-        _serve(engine, _prompts(cfg.vocab_size, lengths, shared))
+        if "step" in kinds:
+            _serve_microsteps(engine, prompts)
+        else:
+            _serve(engine, prompts, max_new=8 if "tree" in kinds else 4)
     assert kinds <= set(seen), sorted(seen)
     assert {kind: events for kind, events in seen.items() if events} == {}
     if "suffix" in kinds:
