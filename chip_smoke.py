@@ -116,7 +116,13 @@ Phases, each printing a line before the last:
                  through the tensor-core body.  One step under
                  ``remat_policy="dots"`` must give the loss and gradient
                  norm of ``"none"`` and launch the flash forward twice per
-                 layer.  Then the training goes on for ``SPEC_COLLOC_ITERS``
+                 layer (run first, before the graph's pool holds the
+                 step's activations).  The step is ``jitted()``: one CUDA
+                 graph, captured at the profile's warm-up call, whose
+                 replays the profile times and the runtime runs (one
+                 capture required; its capture seconds, pool and
+                 hand-written kernels a replay printed).  Then the
+                 training goes on for ``SPEC_COLLOC_ITERS``
                  iterations with the speculating engine under the runtime's
                  gamma controller: online requests must finish, and offline
                  tokens and spec rounds be produced.  This phase runs before
@@ -269,12 +275,14 @@ Phases, each printing a line before the last:
                  two calibration steps included), the plain versions never;
                  step times and peak memory logged.  Then the ``Trainer`` at
                  2 of 16 layers, full width, ``grad_compression="int8_ef"``:
-                 a checkpoint every 2 steps (~3.8 GB each, in a temporary
-                 directory), a failure injected at step 5; the losses after
-                 the restore equal the uninterrupted run's within 1e-6
-                 relative (bit-equality printed); the EF identity
-                 ``deq + err_new == g + err_old`` exact on every leaf; the
-                 saves' and the restore's seconds and bytes logged.
+                 an uninterrupted run on the eager step (the EF identity
+                 ``deq + err_new == g + err_old`` exact on every leaf, read
+                 on the host), then the Trainer's ``jitted()`` step with a
+                 checkpoint every 4 steps (~3.8 GB each, in a temporary
+                 directory) and a failure injected at step 5: one capture,
+                 the losses bit-equal to the uninterrupted run's through
+                 the restore (and within 1e-6 relative); the saves' and the
+                 restore's seconds and bytes logged.
                  Phases 25-27 each free their weights; they run after
                  phase 24 and before phase 7, each timed.
 28. policies  -- right after phase 6, over phase 5's measured DP profile
@@ -313,16 +321,20 @@ Phases, each printing a line before the last:
                  bit-equal; then ``Trainer.remesh`` onto ("pod", "data") =
                  (1, 1) and one more step, bit-equal.  Prints both step
                  times, the peak memory and the collectives of each step.
-31. collocated step -- ``make_collocated_step`` over phase 30's step and
-                 k = 0, 2, 8 greedy bf16 ``decode_step``s of its weights on 8
-                 dense rows (the dense decode #3), the chain a CUDA graph a
-                 k replayed on a second stream (one cache, reset in place
-                 between calls: one capture a k): the train result
-                 bit-equal across k and to the step alone, the tokens equal
-                 to the eager chain's, each chain graph bit-equal to its
-                 eager call.  Prints fused[k]'s time beside the step and the
-                 eager chain alone, each graph's eager and replay ms,
-                 launches, capture s and pool bytes.
+31. collocated step -- ``make_collocated_step`` over phase 30's step (the
+                 trainer's ``jitted()`` one) and k = 0, 2, 8 greedy bf16
+                 ``decode_step``s of its weights on 8 dense rows (the dense
+                 decode #3), the chain a CUDA graph a k replayed on a second
+                 stream, every call on a fresh cache of the one shape (the
+                 graph copies it into its own buffers: one capture a k):
+                 the train result bit-equal across k and to the step alone,
+                 the tokens equal to the eager chain's, each chain graph
+                 bit-equal to its eager call; then ``F1_CYCLES`` more rounds
+                 of fresh caches: tokens equal, one capture and one live
+                 graph a k, device memory flat.  Prints fused[k]'s time
+                 beside the step and the eager chain alone, each graph's
+                 eager and replay ms, launches, capture s and pool bytes,
+                 and the bytes allocated after each round.
 32. model axis kernels -- after phase 31: #3's partial form (the
                  sequence-parallel decode over a model axis) over m = 2, 4
                  and 16 contiguous blocks of qwen3-1.7b's decode cache (B =
@@ -350,10 +362,14 @@ Phases, each printing a line before the last:
                  128-token prompt, seq_len 512): the tokens bit-equal to
                  ``T.prefill`` plus eager ``T.decode_step``, no collective
                  issued; prints each step's time beside the eager step's,
-                 the peak memory, the collectives a step; then the same
-                 prefill and steps through ``jitted()`` (CUDA graphs, one
-                 capture each): logits and tokens equal to the eager
-                 step's, each graph bit-equal to its eager call.  Then the
+                 the peak memory, the collectives a step; then
+                 ``F1_CYCLES`` cycles of the same prefill and steps through
+                 ``jitted()`` (CUDA graphs, one capture each: each
+                 prefill's new cache copied into the decode graph's
+                 buffers): logits and tokens equal to the eager step's in
+                 every cycle, one live graph each, device memory flat
+                 after the first cycle, each graph bit-equal to its eager
+                 call.  Then the
                  same with ``cache_dtype=float8_e4m3fn`` (``jitted()`` too): the prefill's cache bit-equal
                  to ``T.prefill``'s, each step's tokens against the same step
                  on the plain versions (equal in fp32 compute; in bf16 apart
@@ -421,6 +437,30 @@ Phases, each printing a line before the last:
                  replay (counted by ``launch.cost``), capture seconds, the
                  pool's bytes, and phase 28's service probe eager and
                  graphed.
+37. train graphs -- after phase 36, before phase 7: the train step
+                 through ``TrainStepArtifacts.jitted()``, one CUDA graph a
+                 state (forward, backward, collectives, int8 EF, clip,
+                 schedule, AdamW), at 4 x 1024, fp32 params + AdamW:
+                 qwen3-1.7b at full depth (phase 5's step), falcon-mamba-7b
+                 at phase 24's 24 of 64 layers (the scan with checkpoints
+                 and its backward), moonshot-v1-16b-a3b at 2 layers (MoE),
+                 zamba2-2.7b (flash at hd 80, remat "full"), musicgen-large
+                 (embedding inputs; zamba2 at 18 of 54 layers, musicgen at
+                 12 of 48) and olmo-1b under remat "dots": each
+                 step counted by ``launch.cost``, then 3 steps eager, 3
+                 graphed (one capture) and 3 more on the same graph after
+                 the seed's state is copied back in place: losses, grad
+                 norms and every state leaf bit-equal to the eager run's
+                 (where two eager runs differ, within their gap, printed);
+                 olmo-1b's eager and replayed steps timed by section
+                 (forward, backward, clip, AdamW; ``cudaMalloc`` calls).
+                 Then the ``Trainer`` (olmo-1b at 2 layers, int8_ef, two
+                 microbatches) against an eager twin through a failure
+                 and restart and a remesh none -> a one-rank NCCL mesh
+                 (FSDP + ZeRO-1) -> none: losses and state bit-equal, one
+                 capture a state, device memory flat across the round
+                 trip.  Prints eager and replay ms (median), launches a
+                 replay, capture s, pool bytes and peaks.
 
 Then, under ``torch.profiler``, a serving round of phase 12's moonshot
 engine and of phase 16's zamba2 engine (each rebuilt from the same seed),
@@ -441,7 +481,7 @@ the ``*_hd64`` rows' from phases 21 (flash) and 19 (the others), the
 24-layer run, the ``*_g1`` rows' from phase 26, the others' from the
 collocated run; each
 row also gains ``launches_<run>`` for the runs of phases 12-14, 16-17,
-19-21, 22-24, 26-27, 29-31, 33 and 34 that launch it; phase 32's two rows,
+19-21, 22-24, 26-27, 29-31, 33, 34 and 37 that launch it; phase 32's two rows,
 #3's partial form and the merge, report its sequence-parallel serve run's
 launches, phase 34's row its falcon-mamba run's, the two 8-bit rows phase
 33's 8-bit runs'; a row with no launch fails the run)
@@ -3299,16 +3339,31 @@ def phase_collocated():
     engine = InferenceEngine(cfg, params, max_slots=8, max_seq=512)
     state = init_train_state(params)  # a copy: the engine serves the initial weights
     del params
-    step = make_train_step(cfg, tcfg)
+    # the reference's compiled step: one CUDA graph, captured at its first call
+    step = make_train_step(cfg, tcfg).jitted()
     ds = SyntheticDataset(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
     torch.cuda.synchronize()
     log(f"collocated: set-up {time.monotonic() - t0:.1f}s (fp32 params + AdamW "
         f"state, bf16 engine weights)")
+    # the "dots" step before the graph's pool holds the step's activations:
+    # its own and the "none" reference's would not fit beside it
+    _dots_step(cfg, tcfg, state, ds)
 
-    # the profile's units: the train step and the engine microstep (4 offline
+    # the profile's units: the train step (its warm-up call captures the
+    # graph; the timed call replays it) and the engine microstep (4 offline
     # slots running, as the backlog below fills them), measured here
     batches = (ds.next_batch() for _ in iter(int, 1))
+    torch.cuda.reset_peak_memory_stats()
     profile, microstep_s = measure_dp_profile(cfg.name, step, state, batches, engine)
+    if (step.graphs.captures, len(step.graphs.graphs)) != (1, 1):
+        raise AssertionError(f"collocated: the train step's graph captured "
+                             f"{step.graphs.captures} times")
+    (graph,) = step.graphs.graphs.values()
+    log(f"collocated: the train step replayed as one CUDA graph (jitted(); capture "
+        f"{graph.prog.capture_s:.2f}s, pool {step.graphs.pool_bytes() / 1e9:.2f} GB, "
+        f"hand-written kernels a replay {json.dumps({n: c for n, c in graph.prog.launches.items() if c})}, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    del graph
     compute_s = profile.compute_s
     spec_cfg = SpecInFConfig()
     log(f"collocated: train step {compute_s * 1e3:.1f} ms (B={TRAIN_B} x S={TRAIN_S} = "
@@ -3376,7 +3431,6 @@ def phase_collocated():
         f"{k} {counts[k]['cuda'] / COLLOC_ITERS:.1f}"
         for k in ("flash_attention_fwd", "flash_attention_bwd")) + "); bodies "
         f"{json.dumps(bodies)}")
-    _dots_step(cfg, tcfg, state, ds)
     eparams = engine.params  # the initial weights, bf16
     del engine, rt
     _spec_collocated(cfg, eparams, timed_step, state, batches, profile, microstep_s)
@@ -5579,11 +5633,12 @@ def _olmo_cli_runs():
 def _olmo_trainer_cycle():
     """The ``Trainer`` at ``OLMO_CYCLE_LAYERS`` of 16 layers, full width,
     ``grad_compression="int8_ef"``, remat "full", 4 x 1024: an uninterrupted
-    run of ``OLMO_TRAIN_STEPS`` with every EF call checked
-    (``deq + err_new == g + err_old`` exactly), then the same run
-    checkpointing every 2 steps into a temporary directory with a failure
-    injected at step 5: one restore, the losses equal the uninterrupted
-    run's within OLMO_RESUME_RTOL."""
+    run of ``OLMO_TRAIN_STEPS`` on the eager step with every EF call
+    checked (``deq + err_new == g + err_old`` exactly), then the same run
+    on the Trainer's ``jitted()`` step, checkpointing every 4 steps into a
+    temporary directory with a failure injected at step 5: one restore,
+    one capture, the losses bit-equal to the uninterrupted run's (and
+    within OLMO_RESUME_RTOL)."""
     import tempfile
 
     import numpy as np
@@ -5613,6 +5668,10 @@ def _olmo_trainer_cycle():
     step_module.ef_int8_compress_decompress = checked_ef
     try:
         clean = Trainer(cfg, tcfg, **kw)
+        # the check reads each call's error on the host, which a captured
+        # step cannot: the uninterrupted run is the eager step, and the
+        # checkpointed run below the Trainer's graphed one
+        clean.step_fn = clean.art
         clean_report = clean.train(OLMO_TRAIN_STEPS)
     finally:
         step_module.ef_int8_compress_decompress = ef_int8_compress_decompress
@@ -5622,7 +5681,7 @@ def _olmo_trainer_cycle():
                              f"{len(ef_errs)} calls ({n_leaves} leaves x {OLMO_TRAIN_STEPS})")
 
     with tempfile.TemporaryDirectory(prefix="olmo_ckpt_") as ckpt_dir:
-        trainer = Trainer(cfg, tcfg, checkpoint_dir=ckpt_dir, checkpoint_every=2, **kw)
+        trainer = Trainer(cfg, tcfg, checkpoint_dir=ckpt_dir, checkpoint_every=4, **kw)
         ck = trainer.ckpt
         ck.keep = 2  # the disk holds two ~3.8 GB checkpoints and one being written
         saves, restores = [], []
@@ -5661,7 +5720,11 @@ def _olmo_trainer_cycle():
     if not (np.isfinite(ours).all() and rel <= OLMO_RESUME_RTOL):
         raise AssertionError(f"olmo trainer: losses {report.losses} against the "
                              f"uninterrupted {clean_report.losses} ({rel:.2e} relative)")
-    bit_equal = report.losses[5:] == clean_report.losses[4:]
+    bit_equal = report.losses == clean_report.losses[:5] + clean_report.losses[4:]
+    captures = trainer.step_fn.graphs.captures
+    if not bit_equal or captures != 1:
+        raise AssertionError(f"olmo trainer: the graphed run's losses {report.losses} against "
+                             f"the eager {clean_report.losses} ({captures} captures)")
     state_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
                     for a, b in zip(tree_leaves(trainer.state["params"]),
                                     tree_leaves(clean.state["params"])))
@@ -5671,7 +5734,8 @@ def _olmo_trainer_cycle():
         + ", ".join(f"{t * 1e3:.1f}" for t in clean_report.step_times_s)
         + f" ms; EF identity exact over {len(ef_errs)} leaf calls; failure at step 5 -> "
         f"restored step 4, losses after the restore max rel diff {rel:.2e} (tol "
-        f"{OLMO_RESUME_RTOL:g}), bit-equal {bit_equal}; final params max rel diff "
+        f"{OLMO_RESUME_RTOL:g}), bit-equal {bit_equal} (the graphed step, {captures} capture, "
+        f"against the eager); final params max rel diff "
         f"{state_err:.2e}; straggler events {report.straggler_events}")
     log(f"olmo trainer checkpoints: {ckpt_bytes / 1e9:.3f} GB each (arrays.npz); saves "
         + ", ".join(f"step {s} {'blocking' if b else 'async (host copy)'} {t:.2f}s"
@@ -5768,6 +5832,14 @@ SCALE_STEPS = 3
 COLLOC_KS = (0, 2, 8)
 COLLOC_SLOTS, COLLOC_MAX_SEQ = 8, 512
 COLLOC_LENGTHS = (100, 200, 37, 500, 1, 256, 64, 300)
+#: F1's cycles: phase 31's fused calls, each k on a fresh cache of the one
+#: shape, and phase 33's prefill -> decode cycles through ``jitted()``
+F1_CYCLES = 5
+#: device memory allocated after each such cycle (the Trainer's after its
+#: remesh round trip) may differ from the first's by at most this much: a
+#: graph that kept its cache or state alive would leave 0.27-20 GB behind;
+#: a few incidental blocks (a collective's) may come and go
+FLAT_BYTES = 1 << 20
 
 
 def _timed(fn, *args):
@@ -5890,19 +5962,24 @@ def phase_collocated_step(trainer):
     k in ``COLLOC_KS`` greedy ``T.decode_step`` microsteps of the trainer's
     weights cast to bf16 (as an engine casts them) on dense rows
     (``COLLOC_SLOTS`` of ``COLLOC_MAX_SEQ``, random K / V at
-    ``COLLOC_LENGTHS``), the chain on a second stream.  Each k starts from
-    the same state and batch: the train result (metrics, every parameter
-    and moment) is bit-equal across k and to the step run alone, and the
-    k-step tokens equal k eager decode steps'.  Prints fused[k]'s time
-    beside the step alone plus the k decode steps alone (the overlap; not
-    asserted; the second of two rounds, each step and chain also timed
-    alone in it).  Returns the timed round's fused launch counts."""
+    ``COLLOC_LENGTHS``), the chain on a second stream; the train step is
+    the trainer's ``jitted()`` one (a graph replay).  Each k starts from
+    the same state and batch, and each call takes a fresh cache of the one
+    shape (which the chain's graph copies into its buffers): the train
+    result (metrics, every parameter and moment) is bit-equal across k and
+    to the step run alone, and the k-step tokens equal k eager decode
+    steps'.  Then ``F1_CYCLES`` more rounds of fresh caches: the tokens
+    equal, one capture and one live graph a k, device memory flat.
+    Prints fused[k]'s time beside the step alone plus the k decode steps
+    alone (the overlap; not asserted; the second of two rounds, each step
+    and chain also timed alone in it).  Returns the timed round's fused
+    launch counts."""
     import torch
 
     from repro_torch.core import make_collocated_step
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
 
     t_phase = time.monotonic()
     _fresh_phase()
@@ -5924,17 +6001,13 @@ def phase_collocated_step(trainer):
         return T.decode_step(cfg, p, t, c, compute_dtype=torch.bfloat16)
 
     def fresh_cache():
+        """A new cache of the one shape: a chain graph copies it into its
+        own buffers and returns those (the reference's donated cache)."""
         return tree_map(lambda t: t.clone(), cache0)
-
-    # the one cache every fused call takes (the chain's graphs read and
-    # write it where it lives, as the reference's donated cache), reset in
-    # place before each
-    cache = fresh_cache()
 
     @torch.no_grad()
     def reset():
         tree_map(lambda live, b: live.copy_(b), state, base)
-        tree_map(lambda live, b: live.copy_(b), cache, cache0)
 
     def chain(k):
         t, c = tokens0, fresh_cache()
@@ -5956,7 +6029,8 @@ def phase_collocated_step(trainer):
         rows = {}
         for k in COLLOC_KS:
             reset()
-            (_, m, toks, _), rows[k] = _timed(fused[k], state, batch, infer, tokens0, cache)
+            (_, m, toks, _), rows[k] = _timed(fused[k], state, batch, infer, tokens0,
+                                              fresh_cache())
             _equal_trees(f"collocated step k={k} metrics", m, alone_m)
             _equal_trees(f"collocated step k={k} state", state, ref)
             if not torch.equal(toks, chains[k][0]):
@@ -5970,16 +6044,37 @@ def phase_collocated_step(trainer):
     got = {n: counts[n]["cuda"] for n in want}
     if got != want:
         raise AssertionError(f"collocated step: launches {got}, expected {want}")
+    # F1: more calls, each k on a fresh cache of the one shape, the tokens
+    # equal to the eager chain's, one graph a k, device memory flat
+    f1 = []
+    for _ in range(F1_CYCLES):
+        for k in COLLOC_KS:
+            reset()
+            _, _, toks, _ = fused[k](state, batch, infer, tokens0, fresh_cache())
+            if not torch.equal(toks, chains[k][0]):
+                raise AssertionError(f"collocated step k={k}: tokens on a fresh cache "
+                                     f"{toks.tolist()} against {chains[k][0].tolist()}")
+        del toks
+        gc.collect()
+        torch.cuda.synchronize()
+        f1.append((torch.cuda.memory_allocated(),
+                   {k: (fused[k].graphs.captures, len(fused[k].graphs.graphs))
+                    for k in COLLOC_KS if k}))
     captures = {k: fused[k].graphs.captures for k in COLLOC_KS if k}
-    if set(captures.values()) != {1}:
-        raise AssertionError(f"collocated step: chain captures by k {captures}, one each "
-                             "expected (one cache, reset in place)")
+    if any(c != {k: (1, 1) for k in captures} for _, c in f1) or any(
+            abs(b - f1[0][0]) > FLAT_BYTES for b, _ in f1):
+        raise AssertionError(f"collocated step: over {F1_CYCLES} cycles of fresh caches "
+                             f"(allocated bytes, {{k: (captures, live graphs)}}) {f1}")
+    log(f"collocated step F1: {2 + F1_CYCLES} calls a k, each on a fresh cache of one shape: "
+        f"tokens equal to the eager chain's; (captures, live graphs) by k "
+        f"{json.dumps(f1[-1][1])}; device memory allocated after each of the last "
+        f"{F1_CYCLES}: " + ", ".join(str(b) for b, _ in f1) + " bytes")
     chain_rows = []
     for k in captures:
         reset()
-        (prog, _, _), = fused[k].graphs.graphs.values()
-        chain_rows.append(_check_program(f"collocated step k={k}", ("chain", k), prog,
-                                         [(t, False) for t in tree_leaves(cache["layers"])]))
+        graph, = fused[k].graphs.graphs.values()
+        chain_rows.append(_check_program(f"collocated step k={k}", ("chain", k), graph.prog,
+                                         [(t, False) for t in graph.cache]))
     log(f"collocated step ({_card()}; phase 30's sharded olmo-1b step + k greedy bf16 decode "
         f"steps on {COLLOC_SLOTS} dense rows of {COLLOC_MAX_SEQ}, the chain a CUDA graph a "
         f"k): train result bit-equal across k = {list(COLLOC_KS)} and to the step alone, "
@@ -5998,7 +6093,7 @@ def phase_collocated_step(trainer):
     log(f"collocated step: captures by k {json.dumps(captures)}; pools "
         + ", ".join(f"k={k} {fused[k].graphs.pool_bytes() / 1e6:.1f} MB" for k in captures)
         + f" (largest {pool / 1e6:.1f} MB)")
-    del base, ref, infer, cache0, cache
+    del base, ref, infer, cache0, graph
     _end_phase("collocated step")
     log(f"collocated step: {time.monotonic() - t_phase:.1f}s")
     return {n: c["cuda"] for n, c in counts.items()}
@@ -6701,58 +6796,77 @@ def phase_serve_steps(mesh):
 
 def _jitted_serve_steps(label, pre, dec, local, inputs, want_logits, want_toks, want,
                         eager_ms):
-    """The serve steps' ``jitted()`` on the one-rank NCCL mesh: the prefill
-    and ``SERVE_STEP_DECODES`` decode steps replayed as CUDA graphs, one
-    capture each (the decode keeps the prefill's cache, written in place);
-    the prefill's logits bit-equal to ``want_logits`` (the eager step's) and
-    every step's tokens to ``want_toks``'s; the kernels of ``want`` launched
-    as often as by the eager steps.  Each graph is then held to its eager
-    call (``_check_program``: eager and replay ms, launches a replay, capture
-    s).  Returns the replays' launch counts."""
+    """The serve steps' ``jitted()`` on the one-rank NCCL mesh over
+    ``F1_CYCLES`` prefill -> ``SERVE_STEP_DECODES``-step decode cycles, all
+    replayed as CUDA graphs, one capture each: each prefill returns a new
+    cache, which the decode graph copies into its own buffers at the
+    cycle's first step and then writes in place.  Every cycle's prefill
+    logits bit-equal to ``want_logits`` (the eager step's) and every step's
+    tokens to ``want_toks``'s; the kernels of ``want`` launched as often as
+    by the eager steps in every cycle; one live graph each; the device
+    memory allocated after each cycle within ``FLAT_BYTES`` of the
+    first's.  Each graph is then held to its eager call
+    (``_check_program``: eager and replay ms, launches a replay, capture
+    s).  Returns the first cycle's launch counts."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.tree import tree_leaves
 
     pj, dj = pre.jitted(), dec.jitted()
-    ops.reset_launch_counts()
-    logits, cache = pj(local, inputs)
-    tok = torch.argmax(pre.gather_output(logits), -1).to(torch.int32)
-    step_s = []
-    for want_tok in want_toks:
-        (tok, cache), dt = _timed(dj, local, tok, cache)
-        step_s.append(dt)
-        if not torch.equal(tok, want_tok):
-            raise AssertionError(f"serve steps {label}: jitted() tokens differ from the eager "
-                                 f"step's at step {len(step_s)}")
-    counts = ops.launch_counts()
-    got = {n: counts[n]["cuda"] for n in want}
-    if got != want:
-        raise AssertionError(f"serve steps {label}: jitted() launches {got}, expected {want}")
-    if not torch.equal(logits, want_logits):
-        raise AssertionError(f"serve steps {label}: jitted() prefill logits differ from the "
-                             "eager step's")
-    captures = (pj.graphs.captures, dj.graphs.captures)
-    if captures != (1, 1):
-        raise AssertionError(f"serve steps {label}: jitted() captures {captures}, one each "
-                             "expected")
-    (pprog, _, _), = pj.graphs.graphs.values()
-    (dprog, _, _), = dj.graphs.graphs.values()
-    rows = [_check_program(f"serve steps {label} prefill", ("prefill",), pprog, []),
-            _check_program(f"serve steps {label} decode", ("decode",), dprog,
-                           [(t, False) for t in tree_leaves(cache["layers"])])]
-    steady = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
-    log(f"serve steps {label} jitted(): prefill logits and the tokens of "
-        f"{len(want_toks)} steps equal to the eager step's, one capture each; decode step "
-        f"median {steady:.2f} ms after its capture (eager {eager_ms:.2f}); pools prefill "
-        f"{pj.graphs.pool_bytes() / 1e6:.1f} MB, decode {dj.graphs.pool_bytes() / 1e6:.1f} MB")
+    cycles, first = [], None
+    for cycle in range(F1_CYCLES):
+        ops.reset_launch_counts()
+        logits, cache = pj(local, inputs)
+        tok = torch.argmax(pre.gather_output(logits), -1).to(torch.int32)
+        step_s = []
+        for want_tok in want_toks:
+            (tok, cache), dt = _timed(dj, local, tok, cache)
+            step_s.append(dt)
+            if not torch.equal(tok, want_tok):
+                raise AssertionError(f"serve steps {label}: jitted() tokens differ from the "
+                                     f"eager step's at cycle {cycle}, step {len(step_s)}")
+        counts = ops.launch_counts()
+        got = {n: counts[n]["cuda"] for n in want}
+        if got != want:
+            raise AssertionError(f"serve steps {label}: jitted() launches {got} in cycle "
+                                 f"{cycle}, expected {want}")
+        if not torch.equal(logits, want_logits):
+            raise AssertionError(f"serve steps {label}: jitted() prefill logits differ from "
+                                 f"the eager step's in cycle {cycle}")
+        if first is None:
+            first, steady = counts, sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+        del logits, tok
+        gc.collect()
+        torch.cuda.synchronize()
+        cycles.append((torch.cuda.memory_allocated(), (pj.graphs.captures, dj.graphs.captures),
+                       (len(pj.graphs.graphs), len(dj.graphs.graphs))))
+    if any(c[1:] != ((1, 1), (1, 1)) for c in cycles) or any(
+            abs(c[0] - cycles[0][0]) > FLAT_BYTES for c in cycles):
+        raise AssertionError(f"serve steps {label}: jitted() over {F1_CYCLES} prefill -> "
+                             f"decode cycles (allocated bytes, captures, live graphs) {cycles}")
+    pg, = pj.graphs.graphs.values()
+    dg, = dj.graphs.graphs.values()
+    if any(a is not b for a, b in zip(tree_leaves(cache["layers"]), dg.cache, strict=True)):
+        raise AssertionError(f"serve steps {label}: jitted() decode returned a cache other "
+                             "than its graph's buffers")
+    rows = [_check_program(f"serve steps {label} prefill", ("prefill",), pg.prog, []),
+            _check_program(f"serve steps {label} decode", ("decode",), dg.prog,
+                           [(t, False) for t in dg.cache])]
+    log(f"serve steps {label} jitted(): {F1_CYCLES} prefill -> {len(want_toks)}-step decode "
+        f"cycles, prefill logits and every step's tokens equal to the eager step's; "
+        f"(captures, live graphs) prefill / decode {cycles[-1][1]} / {cycles[-1][2]}; device "
+        f"memory allocated after each cycle " + ", ".join(str(c[0]) for c in cycles)
+        + f" bytes; decode step median {steady:.2f} ms after its capture (eager "
+        f"{eager_ms:.2f}); pools prefill {pj.graphs.pool_bytes() / 1e6:.1f} MB, decode "
+        f"{dj.graphs.pool_bytes() / 1e6:.1f} MB")
     for r in rows:
         log(f"serve steps {label} graph {r['program']}: bit-equal to its eager call; eager "
             f"{r['eager_ms']:.3f} ms, replay {r['replay_ms']:.3f} ms "
             f"({r['eager_ms'] / r['replay_ms']:.1f}x), {r['launches']} launches a replay "
             f"(counted), kernels {json.dumps(r['kernels'])}, capture {r['capture_s']:.2f}s")
-    del cache, logits
-    return counts
+    del cache
+    return first
 
 
 def _clone_cache(cache):
@@ -7454,9 +7568,12 @@ def _check_program(label, key, prog, leaves, gen=None):
     want = [t.clone() for t in prog.eager(inputs)]
     want_cache = [t.clone() for t, _ in leaves]
     restore()
-    got = [t.clone() for t in prog.replay(inputs)]
+    # an ``AddressedGraphs`` output that is a held tensor comes back as None
+    # (the caller's tensor, among ``leaves``)
+    got = [None if t is None else t.clone() for t in prog.replay(inputs)]
     torch.cuda.synchronize()
-    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a is not None and not torch.equal(a, b)]
     for j, ((t, pool), w) in enumerate(zip(leaves, want_cache)):
         if not (torch.equal(t[:, 1:], w[:, 1:]) if pool else torch.equal(t, w)):
             bad.append(f"cache leaf {j}")
@@ -7686,6 +7803,434 @@ def phase_graphs(policies):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 37. train graphs: the train step replayed as one CUDA graph
+# ---------------------------------------------------------------------------
+
+#: phase 37's configs: (label, arch, layers (None: full depth), TrainConfig
+#: keywords, whether the step's sections are timed); the cut configs at the
+#: depths of their own train phases (13, 24), zamba2-2.7b at 3 of its 9
+#: cycles and musicgen-large at 12 of 48 layers to keep the run inside its
+#: time limit (both run at full depth in phases 17 and 21, eagerly)
+TRAIN_GRAPH_CASES = (
+    ("qwen3-1.7b", "qwen3-1.7b", None, {}, False),
+    ("falcon-mamba-7b", "falcon-mamba-7b", FALCON_TRAIN_LAYERS, {"remat_policy": "full"},
+     False),
+    ("moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b", 2, {}, False),
+    ("zamba2-2.7b", "zamba2-2.7b", 18, {"remat_policy": "full"}, False),
+    ("musicgen-large", "musicgen-large", 12, {"remat_policy": "full"}, False),
+    ("olmo-1b dots", "olmo-1b", None, {"remat_policy": "dots"}, True),
+)
+#: steps a run: the eager run, the graphed run (its first call the eager
+#: warm-up and the capture, then replays) and the replays after the state
+#: is restored in place
+TRAIN_GRAPH_STEPS = 3
+TRAIN_GRAPH_SEED = 37
+#: the olmo-1b Trainer's settings: int8 EF over two microbatches, FSDP and
+#: ZeRO-1 on the mesh; steps before the injected failure, after it, and on
+#: each layout of the remesh round trip
+TRAINER_GRAPH_KW = dict(remat_policy="full", grad_compression="int8_ef", microbatches=2,
+                        fsdp=True, zero1=True)
+TRAINER_GRAPH_STEPS = 3
+#: leaves are fingerprinted in chunks of this many 4-byte words
+_FP_CHUNK = 1 << 26
+
+
+def _fingerprints(tree):
+    """Each leaf's bits folded into two wrapping int64 sums, its words
+    plain and weighted by position: equal bits give equal sums in any
+    summation order, and a changed word changes them.  So a 20-40 GB state
+    is compared without a second copy of it."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    words_of = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+    out = []
+    for t in tree_leaves(tree):
+        words = t.detach().reshape(-1).view(words_of[t.element_size()])
+        s = torch.zeros(2, dtype=torch.int64, device=t.device)
+        for i in range(0, words.numel(), _FP_CHUNK):
+            w = words[i:i + _FP_CHUNK].to(torch.int64)
+            pos = torch.arange(i + 1, i + 1 + w.numel(), dtype=torch.int64, device=t.device)
+            s[0] += w.sum()
+            s[1] += (w * pos).sum()
+        out.append(s)
+    return torch.stack(out).cpu()
+
+
+class _Sections:
+    """The train step's forward (``T.lm_loss``), backward
+    (``torch.autograd.grad``), clip and AdamW, each under
+    ``torch.profiler.record_function`` and between two CUDA events, while
+    active: ``times()`` gives each section's host (launch) and device ms
+    over the calls since the last ``times()``."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.models import transformer as T
+        from repro_torch.runtime import step as step_module
+
+        self._at = [(T, "lm_loss", "forward"), (torch.autograd, "grad", "backward"),
+                    (step_module, "clip_by_global_norm", "clip"),
+                    (step_module, "adamw_update", "adamw")]
+        self._saved = []
+        self._calls = []
+
+    def __enter__(self):
+        import torch
+
+        def wrap(fn, name):
+            def call(*a, **kw):
+                with torch.profiler.record_function(f"train/{name}"):
+                    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    t0 = time.perf_counter()
+                    e0.record()
+                    out = fn(*a, **kw)
+                    e1.record()
+                    self._calls.append((name, time.perf_counter() - t0, e0, e1))
+                return out
+            return call
+
+        for mod, attr, name in self._at:
+            self._saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, wrap(getattr(mod, attr), name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+    def times(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out: dict = {}
+        for name, host_s, e0, e1 in self._calls:
+            host, dev = out.get(name, (0.0, 0.0))
+            out[name] = (host + host_s * 1e3, dev + e0.elapsed_time(e1))
+        self._calls = []
+        return out
+
+
+def _allocs() -> int:
+    import torch
+
+    return torch.cuda.memory_stats().get("num_device_alloc", 0)
+
+
+def _sectioned_step(label, fn, state, batch, sections):
+    """One call of ``fn`` with its sections timed (``_Sections``): the
+    wall ms, device allocations (``cudaMalloc``s) and retries, and each
+    section's host / device ms, logged.  Returns ``(metrics, seconds)``."""
+    import torch
+
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    allocs = _allocs()
+    (_, m), secs = _timed(fn, state, batch)
+    parts = sections.times()
+    log(f"train graphs {label}: {secs * 1e3:.1f} ms wall; cudaMalloc {_allocs() - allocs}, "
+        f"allocator retries {torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries}"
+        + "".join(f"; {k} host {h:.1f} / device {d:.1f} ms" for k, (h, d) in parts.items()))
+    return m, secs
+
+
+def _train_graph_case(label, arch, layers, kw, sections):
+    """Phase 37, one config: its train step (fp32 params + AdamW, bf16
+    compute, 4 x 1024 from the seed) counted once by ``launch.cost``
+    (kernels priced, not run), then from the seed's state ``TRAIN_GRAPH_STEPS``
+    eager steps, the same steps through ``art.jitted()`` (one capture) and,
+    after the seed's state is copied back into the live tensors (the
+    ``Trainer``'s restore), the same again on the same graph.  The losses,
+    gradient norms and every state leaf (``_fingerprints``) must be
+    bit-equal to the eager run's; where they are not, a second eager run
+    gives the gap between two eager runs, which the graphed runs must stay
+    within.  Returns the row printed in phase 37's table."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cost import CountingMode
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    _fresh_phase()
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    tcfg = TrainConfig(warmup_steps=2, total_steps=TRAIN_GRAPH_STEPS + 8, **kw)
+    state = init_train_state(T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        TRAIN_GRAPH_SEED)), tcfg)
+    # the seed's weights on the host: a restore takes no device memory beside
+    # the graph's pool
+    seed = [t.detach().cpu() for t in tree_leaves(state["params"])]
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
+    ds = SyntheticDataset(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=TRAIN_GRAPH_SEED)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in ds.next_batch().items()}
+               for _ in range(TRAIN_GRAPH_STEPS)]
+    art = make_train_step(cfg, tcfg)
+
+    @torch.no_grad()
+    def restore():
+        """The seed's state copied into the live tensors (the Trainer's
+        restore)."""
+        for live, new in zip(tree_leaves(state["params"]), seed):
+            live.copy_(new)
+        for t in tree_leaves({k: v for k, v in state.items() if k != "params"}):
+            t.zero_()
+
+    def run(fn, sec=None):
+        metrics, secs = [], []
+        for i, b in enumerate(batches):
+            if sec is None:
+                (_, m), dt = _timed(fn, state, b)
+            else:
+                m, dt = _sectioned_step(f"{label} eager step {i}", fn, state, b, sec)
+            metrics.append(torch.stack([m["loss"], m["grad_norm"]]).double().cpu())
+            secs.append(dt)
+        return torch.stack(metrics), secs, _fingerprints(state)
+
+    # the launches of one step, counted (its kernels priced, not run: the
+    # state it leaves is garbage, and restored)
+    with CountingMode() as mode:
+        art(state, batches[0])
+    counted = mode.launches
+    restore()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if sections:  # where an eager step's time goes, the first one too
+        with _Sections() as sec:
+            eager = run(art, sec)
+    else:
+        eager = run(art)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_reserved = torch.cuda.max_memory_reserved() / 1e9
+    restore()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graphed = art.jitted()
+    ops.reset_launch_counts()
+    first = run(graphed)
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    first_reserved = torch.cuda.max_memory_reserved() / 1e9
+    restore()
+    again = run(graphed)
+    counts = ops.launch_counts()
+    graphs = graphed.graphs
+    if (graphs.captures, len(graphs.graphs)) != (1, 1):
+        raise AssertionError(f"train graphs {label}: {graphs.captures} captures, "
+                             f"{len(graphs.graphs)} live graphs (one state: one each)")
+    graph, = graphs.graphs.values()
+    pool, capture_s = graphs.pool_bytes() / 1e9, graph.prog.capture_s
+    # what a replaying step holds: the live tensors and the graph's pool (a
+    # replay allocates nothing, so the allocator's peak does not show it)
+    held_gb = torch.cuda.memory_allocated() / 1e9 + pool
+    kernels = {n: c for n, c in graph.prog.launches.items() if c}
+    if not kernels:
+        raise AssertionError(f"train graphs {label}: the graph launches no hand-written kernel")
+    _require_launches(f"train graphs {label}", counts, tuple(kernels))
+    runs = {"graphed": first, "after restore": again}
+    exact = all(torch.equal(r[0], eager[0]) and torch.equal(r[2], eager[2])
+                for r in runs.values())
+    gap = None
+    if not exact:
+        # two eager runs from the same state: the graphed runs within their gap
+        del graph, graphs, graphed
+        gc.collect()
+        torch.cuda.empty_cache()
+        restore()
+        twin = run(art)
+        rel = lambda a, b: ((a - b).abs() / b.abs()).max(dim=0).values
+        gap = rel(twin[0], eager[0])
+        worst = {name: rel(r[0], eager[0]) for name, r in runs.items()}
+        apart = bool((gap > 0).any()) or not torch.equal(twin[2], eager[2])
+        if not (apart and all(bool((w <= gap).all()) for w in worst.values())):
+            raise AssertionError(
+                f"train graphs {label}: relative loss / grad norm differences from the eager "
+                f"run {json.dumps({k: w.tolist() for k, w in worst.items()})} outside the gap "
+                f"between two eager runs {gap.tolist()}")
+        log(f"train graphs {label}: two eager runs differ (relative loss / grad norm gap "
+            f"{gap.tolist()}, states bit-equal {torch.equal(twin[2], eager[2])}); the graphed "
+            f"runs within it: " + json.dumps({k: w.tolist() for k, w in worst.items()}))
+    med = lambda xs: sorted(xs)[len(xs) // 2] * 1e3
+    replay_s = first[1][1:] + again[1]
+    row = {"config": label, "depth": cfg.num_layers, "remat": tcfg.remat_policy,
+           "eager_ms": med(eager[1]), "replay_ms": med(replay_s),
+           "first_call_ms": first[1][0] * 1e3, "capture_s": capture_s,
+           "launches": counted, "kernels": kernels, "pool_gb": pool,
+           "state_gb": state_gb, "eager_peak_gb": eager_peak, "first_peak_gb": first_peak,
+           "eager_reserved_gb": eager_reserved, "first_reserved_gb": first_reserved,
+           "held_gb": held_gb, "bit_equal": exact,
+           "gap": None if gap is None else gap.tolist()}
+    log(f"train graphs {label} ({_card()}; {cfg.num_layers} layers, remat {tcfg.remat_policy}, "
+        f"fp32 + AdamW, B={TRAIN_B} x S={TRAIN_S}): {TRAIN_GRAPH_STEPS} steps eager, graphed "
+        f"and graphed again after the state's restore: losses "
+        + ", ".join(f"{x:.6f}" for x in eager[0][:, 0].tolist())
+        + f"; losses, grad norms and all {len(eager[2])} state leaves bit-equal {exact}; one "
+        f"capture; eager ms " + ", ".join(f"{t * 1e3:.1f}" for t in eager[1])
+        + "; graphed ms " + ", ".join(f"{t * 1e3:.1f}" for t in first[1] + again[1])
+        + f" (the first: eager warm-up + capture); launches a replay {counted} (counted), "
+        f"hand-written {json.dumps(kernels)}; pool {pool:.2f} GB; state {state_gb:.2f} GB; "
+        f"held while replaying (allocated + pool) {held_gb:.2f} GB; peak allocated eager "
+        f"{eager_peak:.2f} GB, graphed run (warm-up and capture) {first_peak:.2f} GB; peak "
+        f"reserved eager {eager_reserved:.2f} GB, graphed run {first_reserved:.2f} GB")
+    if sections and exact:
+        # eager steps beside the live graph, then a replay (one launch: no
+        # section runs in it), timed between two events
+        with _Sections() as sec:
+            for i in range(2):
+                _sectioned_step(f"{label} eager step {i} after the capture", art, state,
+                                batches[i], sec)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            _, secs = _sectioned_step(f"{label} replayed step", graphed, state, batches[2], sec)
+            e1.record()
+            torch.cuda.synchronize()
+            log(f"train graphs {label} replayed step: {secs * 1e3:.1f} ms wall, device "
+                f"{e0.elapsed_time(e1):.1f} ms between events around the call")
+    del state, batches, art, seed
+    return row, {n: c["cuda"] for n, c in counts.items()}
+
+
+def _trainer_graphs(mesh):
+    """Phase 37, the ``Trainer``: olmo-1b at ``OLMO_CYCLE_LAYERS`` layers,
+    full width, ``TRAINER_GRAPH_KW`` (int8 EF over two microbatches, remat
+    "full", FSDP + ZeRO-1 on a mesh), its step ``art.jitted()``, against a
+    twin whose step is the eager ``art``: ``TRAINER_GRAPH_STEPS`` steps, a
+    failure injected at the next (no checkpoint: the seed's state copied
+    back in place, ``Trainer._restart``) and as many steps again, then
+    ``remesh`` onto ``mesh`` (one NCCL rank), steps, ``remesh(None)``,
+    steps.  The losses bit-equal to the twin's at every step and the
+    states at the end; one capture per state; the live graphs one; device
+    memory allocated equal before and after the round trip."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.runtime import Trainer
+
+    _fresh_phase()
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), num_layers=OLMO_CYCLE_LAYERS)
+    tcfg = TrainConfig(warmup_steps=2, total_steps=8 * TRAINER_GRAPH_STEPS, **TRAINER_GRAPH_KW)
+    kw = dict(seq_len=TRAIN_S, global_batch=TRAIN_B)
+    twin, trainer = Trainer(cfg, tcfg, **kw), Trainer(cfg, tcfg, **kw)
+    twin.step_fn = twin.art
+    fired = []
+
+    def fail_once(step_no):
+        if step_no == TRAINER_GRAPH_STEPS and not fired:
+            fired.append(step_no)
+            return True
+        return False
+
+    trainer.fail_hook = fail_once
+    ours, ref = trainer.train(2 * TRAINER_GRAPH_STEPS), twin.train(2 * TRAINER_GRAPH_STEPS)
+    # the restart replays steps 0 .. TRAINER_GRAPH_STEPS - 1 on the same graph
+    want = ref.losses[:TRAINER_GRAPH_STEPS] + ref.losses
+    if fired != [TRAINER_GRAPH_STEPS] or ours.restores != 1 or ours.losses != want:
+        raise AssertionError(f"trainer graphs: losses {ours.losses} against the eager "
+                             f"{want} (restores {ours.restores})")
+    graphs = trainer.step_fn.graphs
+    if (graphs.captures, len(graphs.graphs)) != (1, 1):
+        raise AssertionError(f"trainer graphs: {graphs.captures} captures before the remesh")
+    del graphs
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    steps = {"none": list(ours.step_times_s)}
+    for label, target in (("mesh", mesh), ("none again", None)):
+        for t in (trainer, twin):
+            t.remesh(target)
+        twin.step_fn = twin.art
+        n0 = len(trainer.report.losses)
+        trainer.train(TRAINER_GRAPH_STEPS)
+        twin.train(TRAINER_GRAPH_STEPS)
+        if trainer.report.losses[n0:] != twin.report.losses[-TRAINER_GRAPH_STEPS:]:
+            raise AssertionError(f"trainer graphs on {label}: losses "
+                                 f"{trainer.report.losses[n0:]} against the eager "
+                                 f"{twin.report.losses[-TRAINER_GRAPH_STEPS:]}")
+        graphs = trainer.step_fn.graphs
+        if (graphs.captures, len(graphs.graphs)) != (1, 1):
+            raise AssertionError(f"trainer graphs on {label}: {graphs.captures} captures, "
+                                 f"{len(graphs.graphs)} live graphs")
+        steps[label] = trainer.report.step_times_s[n0:]
+        del graphs
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if not torch.equal(_fingerprints(trainer.state), _fingerprints(twin.state)):
+        raise AssertionError("trainer graphs: the state after the round trip differs from "
+                             "the eager twin's")
+    # a graph that kept its state alive would leave a whole state behind
+    # (~4 GB here); a few incidental blocks (a collective's) may differ
+    if abs(after - before) > FLAT_BYTES:
+        raise AssertionError(f"trainer graphs: device memory allocated {before} before the "
+                             f"remesh round trip, {after} after")
+    log(f"trainer graphs ({_card()}; olmo-1b at {cfg.num_layers} of 16 layers, full width, "
+        f"int8_ef, 2 microbatches, remat full, FSDP + ZeRO-1 on the mesh, B={TRAIN_B} x "
+        f"S={TRAIN_S}): the Trainer's jitted() step bit-equal to the eager twin's over "
+        f"{TRAINER_GRAPH_STEPS} steps, a failure and restart ({ours.restores} restore), "
+        f"{TRAINER_GRAPH_STEPS} more, then remesh none -> {mesh.shape} -> none, "
+        f"{TRAINER_GRAPH_STEPS} steps on each (losses " + ", ".join(
+            f"{x:.6f}" for x in trainer.report.losses) + "); one capture per state; device "
+        f"memory allocated {before} bytes before the round trip, {after} after; step ms " + "; ".join(
+            f"{k} " + ", ".join(f"{t * 1e3:.1f}" for t in v) for k, v in steps.items())
+        + f" (the first on a state: eager warm-up + capture); pool "
+        f"{trainer.step_fn.graphs.pool_bytes() / 1e9:.3f} GB")
+    del trainer, twin
+    _end_phase("trainer graphs")
+
+
+def phase_train_graphs():
+    """Phase 37: the train step replayed as one CUDA graph
+    (``TrainStepArtifacts.jitted``), each of ``TRAIN_GRAPH_CASES`` against
+    its eager step (``_train_graph_case``), then the ``Trainer``
+    (``_trainer_graphs``) over a one-rank NCCL mesh.  Prints the table of
+    eager and replay ms, launches a replay, capture s, pool and peaks.
+    Returns the graphed runs' launch counts, summed."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    t_phase = time.monotonic()
+    rows, total = [], {}
+    for case in TRAIN_GRAPH_CASES:
+        t0 = time.monotonic()
+        row, counts = _train_graph_case(*case)
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        rows.append(row)
+        _end_phase(f"train graphs {case[0]}")
+        log(f"train graphs {case[0]}: {time.monotonic() - t0:.1f}s")
+    store = tempfile.mkdtemp(prefix="train_graphs_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        _trainer_graphs(make_dev_mesh(device="cuda"))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    log(f"train graphs table ({_card()}): " + json.dumps(rows))
+    for r in rows:
+        capture = "—" if r["capture_s"] is None else f"{r['capture_s']:.2f}"
+        log(f"train graphs | {r['config']} ({r['depth']} layers, {r['remat']}) | eager "
+            f"{r['eager_ms']:.1f} ms | replay {r['replay_ms']:.1f} ms | "
+            f"{r['eager_ms'] / r['replay_ms']:.2f}x | {r['launches']} launches | capture "
+            f"{capture} s | pool {r['pool_gb']:.2f} GB | held replaying {r['held_gb']:.2f} GB, "
+            f"peak reserved {r['first_reserved_gb']:.2f} GB graphed / "
+            f"{r['eager_reserved_gb']:.2f} GB eager (allocated {r['eager_peak_gb']:.2f}) | "
+            f"bit-equal {r['bit_equal']}")
+    log(f"train graphs: phase {time.monotonic() - t_phase:.1f}s")
+    return total
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -7751,6 +8296,9 @@ def main() -> int:
     # phase 36, the serving programs' graphs against their eager calls, also
     # before any profiler session
     phase_graphs(policies)
+    # phase 37, the train step replayed as one CUDA graph, also before any
+    # profiler session
+    slice_launches["train_graphs"] = phase_train_graphs()
     serve_launches = phase_serve()
     spec_launches = phase_spec_serve()
     dense_launches = phase_dense_target_serve()

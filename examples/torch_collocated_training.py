@@ -64,7 +64,8 @@ def main():
                              device=device)
     state = init_train_state(params)
     del params
-    step = make_train_step(cfg, tcfg, device=device)
+    # the reference's compiled step: a CUDA graph replay on the card
+    step = make_train_step(cfg, tcfg, device=device).jitted()
     ds = SyntheticDataset(cfg, seq_len=seq_len, global_batch=batch)
 
     def batches():

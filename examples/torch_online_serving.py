@@ -56,7 +56,8 @@ def run(cfg, device, profile=None, microstep_s=None, *, tcfg=None, seq_len=48,
     engine = InferenceEngine(cfg, params, max_slots=2, max_seq=max_seq, device=device)
     state = init_train_state(params)
     del params
-    step = make_train_step(cfg, tcfg, device=device)
+    # the reference's compiled step: a CUDA graph replay on the card
+    step = make_train_step(cfg, tcfg, device=device).jitted()
     ds = SyntheticDataset(cfg, seq_len=seq_len, global_batch=global_batch)
     batches = (ds.next_batch() for _ in iter(int, 1))
     if profile is None:

@@ -36,7 +36,8 @@ def main(argv=None):
     tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2, total_steps=args.steps)
 
     # ---- train a few steps -------------------------------------------------
-    step = make_train_step(cfg, tcfg, device=device)
+    # the reference's compiled step: a CUDA graph replay on the card
+    step = make_train_step(cfg, tcfg, device=device).jitted()
     state = init_train_state(T.init_params(cfg, torch.Generator(device).manual_seed(0)))
     ds = SyntheticDataset(cfg, seq_len=64, global_batch=8)
     for i in range(args.steps):

@@ -504,19 +504,23 @@ def make_collocated_step(
     and a chain of k greedy decode microsteps that has no data dependence
     on it (the reference's fused program).
 
-    On CUDA the chain is one CUDA graph per k (``serving.graphs.AddressedGraphs``:
-    the weights and the cache's leaves read and written where they live,
-    the tokens and the cache index copied in), replayed on a second stream
-    ordered after the work queued before the call and joined by the current
-    stream before the call returns, so the device can overlap it with the
-    train step's kernels and collectives; the train step runs eagerly on
-    the current stream.  A graph is captured before the train step is
-    launched, so no capture overlaps its kernels (the cache is put back
-    after the capture's warm-up); k = 0 captures nothing.  As the
-    reference donates the cache, the caller passes back the cache it
-    received: a cache at new addresses captures anew.  On the CPU the two
-    run in sequence, eagerly.  The train step is untouched by the chain.
-    Pass ``decode_loop_fn(params, tokens, cache, k) -> (tokens, cache)`` to
+    On CUDA the chain is one CUDA graph per k and cache shapes
+    (``serving.graphs.AddressedGraphs``: the weights read where they live,
+    the tokens and the cache index copied in, the cache the graph's own),
+    replayed on a second stream ordered after the work queued before the
+    call and joined by the current stream before the call returns, so the
+    device can overlap it with the train step's kernels and collectives.
+    The train step runs on the current stream: eagerly, or the graphed
+    step of ``TrainStepArtifacts.jitted()``, whose own capture comes at its
+    first call.  A chain graph is captured before the train step is
+    launched, so no capture overlaps either program's kernels (the cache
+    is put back after the capture's warm-up); k = 0 captures nothing.  As
+    the reference donates the cache, the returned cache is the graph's
+    buffers, which the caller passes back; a fresh cache of the same
+    shapes is copied into them (no new capture), and the graph is dropped
+    when the weights it read die.  On the CPU the two run in sequence,
+    eagerly.  The train step is untouched by the chain.  Pass
+    ``decode_loop_fn(params, tokens, cache, k) -> (tokens, cache)`` to
     supply a custom loop; by default the chain feeds each step's argmax to
     the next ``decode_step_fn(params, tokens, cache) -> (logits, cache)``.
     Each ``fn``'s ``graphs`` attribute holds its chain's graphs (None for
@@ -535,7 +539,7 @@ def make_collocated_step(
     graphs = {k: AddressedGraphs(
         lambda held, inp, k=k: decode_loop_fn(held[0], inp["tokens"],
                                               dict(held[1], index=inp["index"]), k),
-        kept=lambda held: tree_leaves(held[1])) for k in k_buckets if k > 0}
+        kept=lambda held: tree_leaves(held[1]), cache=True) for k in k_buckets if k > 0}
 
     def fused(k):
         def fn(train_state, batch, infer_params, tokens, cache):

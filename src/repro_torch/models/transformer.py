@@ -355,10 +355,13 @@ def forward(
         # the layer is taken inside its checkpointed region, so a gathered
         # layer is gathered again by the recompute rather than kept
         run = lambda x_, i=i: body(cfg, layer_at(i), x_, impl)
+        # the step draws no random numbers, and a captured step may not
+        # save and restore the CUDA generator's state
         if remat_policy == "full":
-            x, aux, dropped = checkpoint(run, x, use_reentrant=False)
+            x, aux, dropped = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
         elif remat_policy == "dots":
-            x, aux, dropped = checkpoint(run, x, use_reentrant=False, context_fn=_dots_context)
+            x, aux, dropped = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                                         context_fn=_dots_context)
         else:
             x, aux, dropped = run(x)
         auxs.append(aux)

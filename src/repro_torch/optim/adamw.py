@@ -28,10 +28,11 @@ def adamw_init(params) -> dict:
 @torch.no_grad()
 def adamw_update(grads, opt_state: dict, params, *, lr, cfg: TrainConfig):
     """One AdamW step at learning rate ``lr`` (a float or a scalar tensor):
-    ``mu``, ``nu``, ``step`` and ``params`` are updated in place; returns
-    ``(params, opt_state)``.  Bias corrections use the incremented step, as
-    the reference does."""
-    step = opt_state["step"] + 1
+    ``mu``, ``nu``, ``step`` and ``params`` are updated in place (the step
+    counter too, so a graph that replays the update keeps the caller's
+    tensor); returns ``(params, opt_state)``.  Bias corrections use the
+    incremented step, as the reference does."""
+    step = opt_state["step"].add_(1)
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
@@ -45,5 +46,4 @@ def adamw_update(grads, opt_state: dict, params, *, lr, cfg: TrainConfig):
         p32 = p.float()
         delta = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * p32
         p.copy_(p32 - lr * delta)
-    opt_state["step"] = step
     return params, opt_state

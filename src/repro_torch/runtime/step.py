@@ -1,7 +1,9 @@
 """The train step: microbatched gradient accumulation in fp32 ->
 global-norm clip -> schedule -> AdamW (``repro.runtime.step``'s
-``make_train_step``), on one device, or over a mesh with explicit
-collectives (``ShardedTrainStep``, below); and the serve steps on a mesh
+``make_train_step`` and its ``TrainStepArtifacts``, whose ``jitted()``
+replays the step as one CUDA graph on the card), on one device, or over a
+mesh with explicit collectives (``ShardedTrainStep``, below); and the
+serve steps on a mesh
 (``make_serve_step`` / ``make_prefill_step``, last), with the reference's
 abstract trees (``abstract_params``, ``abstract_train_state``,
 ``abstract_batch``, ``abstract_cache``: meta tensors).
@@ -137,19 +139,154 @@ def _require_err(state: dict) -> None:
                          "the state with init_train_state(params, tcfg)")
 
 
+#: the step's metrics, each a replicated fp32 scalar (the reference's
+#: ``metric_specs``)
+METRICS = ("loss", "ce", "moe_aux", "grad_norm", "lr")
+
+
+class _OneDevice:
+    """The one-device mesh the reference's rules see without a mesh (its
+    ``launch.mesh.make_dev_mesh()``): the rules read ``shape`` and
+    ``axis_names`` alone."""
+
+    axis_names = ("data", "model")
+    shape = {"data": 1, "model": 1}
+
+
+def _train_specs(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> tuple:
+    """``(abstract params, state specs, batch specs, metric specs)``: the
+    reference's spec trees of a train step on ``mesh``."""
+    shapes = abstract_params(cfg, getattr(torch, tcfg.param_dtype))
+    param_sp = S.param_specs(cfg, shapes, mesh=mesh, fsdp=tcfg.fsdp, layout=tcfg.layout)
+    state = {"params": param_sp,
+             "opt": S.opt_state_specs(cfg, shapes, tcfg.zero1, mesh, fsdp=tcfg.fsdp,
+                                      layout=tcfg.layout)}
+    if tcfg.grad_compression == "int8_ef":
+        state["err"] = param_sp
+    return (shapes, state, S.batch_specs(cfg, None, mesh, layout=tcfg.layout),
+            {k: S.P() for k in METRICS})
+
+
+@dataclasses.dataclass(eq=False)
+class TrainStepArtifacts:
+    """The reference's ``TrainStepArtifacts``: ``step(state, batch) ->
+    (state, metrics)`` with the spec trees of the state, the batch and the
+    metrics (without a mesh, those of the reference's rules on its
+    one-device mesh), the abstract trees, the initial state and the
+    placements (the reference's ``state_shardings`` / ``batch_shardings``:
+    ``shard_state``, ``gather_state``, ``shard_batch``; without a mesh
+    every tree is whole).  Calling the artifacts runs ``step`` eagerly;
+    ``jitted()`` is the reference's compiled step."""
+
+    step: Callable[[dict, dict], tuple[dict, dict]]
+    cfg: ModelConfig
+    tcfg: TrainConfig
+    mesh: Any
+    state_specs: Tree
+    batch_specs: Tree
+    metric_specs: Tree
+    device: Optional[torch.device] = None
+
+    def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        return self.step(state, batch)
+
+    def jitted(self, donate: bool = True) -> Callable[[dict, dict], tuple[dict, dict]]:
+        """The reference's compiled step, with ``step``'s signature.  On a
+        CUDA device (one device, or a CUDA mesh over NCCL) each call
+        replays the whole step as one CUDA graph (``_GraphedTrainStep``);
+        on the CPU, and on a mesh over gloo, the artifacts themselves (the
+        eager step).  ``donate=False`` raises ``NotImplementedError``: the
+        port's step updates the state in place, which is what the
+        reference's donated call does; a step that left its input state
+        intact would copy every leaf each call, and the reference's
+        callers' ``donate=False`` only keeps their state readable, which
+        the in-place state is."""
+        if not donate:
+            raise NotImplementedError(
+                "donate=False: the port's train step updates the state in place (the "
+                "reference's donated call); it keeps no copy of the input state")
+        if self.device.type != "cuda":
+            return self
+        return _GraphedTrainStep(self)
+
+    # -- abstract inputs ----------------------------------------------------
+    def abstract_state(self) -> dict:
+        return abstract_train_state(self.cfg, self.tcfg)
+
+    def abstract_batch(self, shape: ShapeConfig) -> dict:
+        return abstract_batch(self.cfg, shape)
+
+    # -- real initialization and placement ------------------------------------
+    def init_state(self, params: Tree) -> dict:
+        """``init_train_state(params, tcfg)`` (the reference's
+        ``init_state(key)``: the caller draws ``params`` from its seeded
+        ``torch.Generator`` through ``T.init_params``)."""
+        return init_train_state(params, self.tcfg)
+
+    def shard_state(self, full: dict) -> dict:
+        """A copy of a full state (params trainable)."""
+        local = tree_map(lambda t: t.detach().clone(), full)
+        tree_map(lambda p: p.requires_grad_(True), local["params"])
+        return local
+
+    def gather_state(self, local: dict) -> dict:
+        """The full state (detached)."""
+        return tree_map(lambda t: t.detach(), local)
+
+    def shard_batch(self, batch: dict) -> dict:
+        """The batch as tensors on the step's device."""
+        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+
+
+class _GraphedTrainStep:
+    """``TrainStepArtifacts.jitted()`` on a CUDA device: ``(state, batch)
+    -> (state, metrics)``, the whole step (the microbatched forward and
+    backward, the collectives, int8 EF, the clip, the schedule and AdamW)
+    replayed as one CUDA graph (``serving.graphs.AddressedGraphs``,
+    ``graphs``).  The state's leaves are read and written where they live,
+    the batch is copied into static buffers (host data is moved to the
+    device first), the metrics are cloned out, and the state returned is
+    the caller's.  A state's first call is its warm-up: the eager step on
+    the capture stream, whose result the call returns; the capture after
+    it launches nothing.  A state at new addresses (a remesh, a restart
+    that rebinds) captures anew, and a graph is dropped once its state's
+    tensors die.  What the step records in Python
+    (``ShardedTrainStep.last_collectives``, ``max_live_gathered_bytes``,
+    the mesh's collective counts) is recorded by the warm-up and the
+    capture, not by a replay, which does what the capture recorded.  Any
+    other attribute is the artifacts'."""
+
+    def __init__(self, art: TrainStepArtifacts):
+        from repro_torch.serving.graphs import AddressedGraphs
+
+        self.art = art
+        self.graphs = AddressedGraphs(lambda state, batch: art.step(state, batch)[1],
+                                      warm_by_call=True)
+
+    def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        batch = {k: torch.as_tensor(v, device=self.art.device) for k, v in batch.items()}
+        return state, self.graphs(state, batch)
+
+    def __getattr__(self, name: str):
+        if name == "art":  # not set yet (a copy under construction)
+            raise AttributeError(name)
+        return getattr(self.art, name)
+
+
 def make_train_step(
     cfg: ModelConfig,
     tcfg: TrainConfig,
     mesh=None,
     *,
     device: Optional[str | torch.device] = None,
-) -> Callable[[dict, dict], tuple[dict, dict]]:
-    """``(state, batch) -> (state, metrics)`` with metrics ``loss``, ``ce``,
-    ``moe_aux``, ``grad_norm`` and ``lr`` (fp32 scalar tensors).  The device
-    is ``cuda`` unless the caller passes one; attention runs the flash
-    kernels on CUDA and their plain version on the CPU.  With a ``mesh``
-    (``launch.mesh``) the step is a ``ShardedTrainStep``: the state holds
-    this rank's shards and the batch this rank's rows."""
+) -> TrainStepArtifacts:
+    """The train step's ``TrainStepArtifacts``: ``step(state, batch) ->
+    (state, metrics)`` with metrics ``loss``, ``ce``, ``moe_aux``,
+    ``grad_norm`` and ``lr`` (fp32 scalar tensors).  The device is
+    ``cuda`` unless the caller passes one; attention runs the flash kernels
+    on CUDA and their plain version on the CPU.  With a ``mesh``
+    (``launch.mesh``) the artifacts are a ``ShardedTrainStep``: the state
+    holds this rank's shards and the batch this rank's rows."""
     device = resolve_device(device)
     if mesh is not None:
         return ShardedTrainStep(cfg, tcfg, mesh, device=device)
@@ -174,7 +311,10 @@ def make_train_step(
         adamw_update(grads, opt, params, lr=lr, cfg=tcfg)
         return state, {"loss": loss, "ce": ce, "moe_aux": aux, "grad_norm": gnorm, "lr": lr}
 
-    return train_step
+    _, state_sp, batch_sp, metric_sp = _train_specs(cfg, tcfg, _OneDevice())
+    return TrainStepArtifacts(step=train_step, cfg=cfg, tcfg=tcfg, mesh=None,
+                              state_specs=state_sp, batch_specs=batch_sp,
+                              metric_specs=metric_sp, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +374,7 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
 LAYOUTS = ("tp", "dp256")
 
 
-class ShardedTrainStep:
+class ShardedTrainStep(TrainStepArtifacts):
     """The reference's train step over a mesh, with explicit collectives
     (``mesh.all_reduce`` / ``all_gather`` / ``reduce_scatter``):
 
@@ -270,9 +410,11 @@ class ShardedTrainStep:
         on model rank 0 only.  So every rank's gradient of every leaf is its
         block of the single-device gradient.
 
-    ``state_specs`` / ``batch_specs`` are the spec trees; ``init_state``,
-    ``shard_state``, ``gather_state`` and ``shard_batch`` place trees under
-    them.  ``grads`` gives one step's reduced gradients without the update.
+    A ``TrainStepArtifacts`` whose ``step`` is the call itself:
+    ``state_specs`` / ``batch_specs`` / ``metric_specs`` are the spec trees;
+    ``init_state``, ``shard_state``, ``gather_state`` and ``shard_batch``
+    place trees under them.  ``grads`` gives one step's reduced gradients
+    without the update.
     ``last_collectives`` counts the previous call's collectives by kind,
     ``max_live_gathered_bytes`` the most FSDP-gathered bytes alive at once
     in any call."""
@@ -290,16 +432,9 @@ class ShardedTrainStep:
         self.int8_ef = _check_compression(tcfg)
         self.schedule = make_schedule(tcfg)
         self.act_specs = S.activation_specs(cfg, mesh, batch_sharded=True, layout=tcfg.layout)
-        shapes = abstract_params(cfg, getattr(torch, tcfg.param_dtype))
-        param_sp = S.param_specs(cfg, shapes, mesh=mesh, fsdp=tcfg.fsdp, layout=tcfg.layout)
-        self.state_specs = {
-            "params": param_sp,
-            "opt": S.opt_state_specs(cfg, shapes, tcfg.zero1, mesh, fsdp=tcfg.fsdp,
-                                     layout=tcfg.layout),
-        }
-        if self.int8_ef:
-            self.state_specs["err"] = param_sp
-        self.batch_specs = S.batch_specs(cfg, None, mesh, layout=tcfg.layout)
+        shapes, self.state_specs, self.batch_specs, self.metric_specs = _train_specs(
+            cfg, tcfg, mesh)
+        param_sp = self.state_specs["params"]
         self.dp = S.dp_axes(mesh, tcfg.layout)
         self.dp_size = mesh.size(self.dp)
         model = ("model",) if plan.model > 1 else ()
@@ -336,6 +471,10 @@ class ShardedTrainStep:
             self._zero1.append(S.P(*block) if extra else None)
         self.last_collectives: dict = {}
         self.max_live_gathered_bytes = 0
+
+    @property
+    def step(self) -> Callable[[dict, dict], tuple[dict, dict]]:
+        return self.__call__
 
     # -- placement ------------------------------------------------------
     def _place(self, fn, tree, specs):
@@ -499,12 +638,16 @@ class ServeStepArtifacts:
         """The reference's compiled step, with ``step``'s signature.  On a
         CUDA mesh each call replays ``step`` as a CUDA graph
         (``serving.graphs.AddressedGraphs``, counted in the callable's
-        ``graphs.captures``): the weights and a decode's cache leaves are
-        read and written where they live, the tokens, the cache index and
-        the prompt rows copied in, and a call whose weights or cache sit
-        elsewhere captures anew.  The outputs are the graph's, cloned (a
-        prefill's logits and new cache, a decode's tokens and index); a
-        decode's cache leaves are the caller's, written in place.  What the
+        ``graphs.captures``): the weights are read where they live (a call
+        whose weights sit elsewhere captures anew; a graph is dropped when
+        the weights it read die), the tokens, the cache index and the
+        prompt rows copied in.  A decode's cache leaves are the graph's own
+        buffers, one set per cache shapes: the first call's cache becomes
+        them, a cache that sits elsewhere (a new prefill's) is copied in,
+        and the call returns them, written in place (the reference's
+        donated cache: pass back what was returned).  The other outputs
+        are the graph's, cloned (a prefill's logits and new cache, a
+        decode's tokens and index).  What the
         step records in Python (``max_live_gathered_bytes``, the mesh's
         collective counts) is recorded at the capture, not at a replay.  On
         the CPU ``step`` itself.  A stand-in mesh whose ranks meet in Python
@@ -535,7 +678,8 @@ class ServeStepArtifacts:
             states = lambda held: tree_leaves(T.chunk_recurrent_states(cfg, held[1]["layers"])
                                               or {})
             graphs = AddressedGraphs(lambda held, inp: self.step(
-                held[0], inp["tokens"], dict(held[1], index=inp["index"])), kept=states)
+                held[0], inp["tokens"], dict(held[1], index=inp["index"])), kept=states,
+                cache=True)
 
             def call(params, tokens, cache):
                 rest = {k: v for k, v in cache.items() if k != "index"}

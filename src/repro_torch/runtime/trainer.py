@@ -13,6 +13,12 @@
   * elastic re-mesh -- ``remesh(new_mesh)`` rebuilds the step on another
     mesh over the same ranks (or on none) and re-shards the live state
 
+The step is the reference's compiled one: ``art.jitted()`` of the
+``TrainStepArtifacts`` (``art``) that ``make_train_step`` returns, a CUDA
+graph replay on the card (captured at the first step of a state) and the
+eager step on the CPU.  ``art`` places the trees (``init_state``,
+``shard_state``, ``gather_state``, ``shard_batch``).
+
 On a ``mesh`` (``launch.mesh``) every rank runs the loop: each builds the
 same full initial state from the seed and keeps its shards
 (``ShardedTrainStep.init_state``), draws the same global batch and feeds
@@ -24,8 +30,10 @@ in a collective).
 
 The port's step updates the state IN PLACE, and whoever holds the state
 (``SpecInFRuntime``, the CLI) holds its tensors: a restore or a restart
-copies into the live tensors and never rebinds them.  A remesh changes the
-shards' shapes, so it puts the new tensors into the live state's dicts.
+copies into the live tensors and never rebinds them, so the step's graph
+keeps replaying.  A remesh changes the shards' shapes, so it puts the new
+tensors into the live state's dicts; the old tensors die, and the graph
+keyed by them with them.
 
 One deliberate difference from the reference (ROADMAP C11): a failure that
 repeats at the same step right after a restore is raised, not retried.  The
@@ -48,7 +56,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data import SyntheticDataset
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.runtime.step import init_train_state, make_train_step
+from repro_torch.runtime.step import make_train_step
 from repro_torch.tree import tree_map
 
 log = logging.getLogger(__name__)
@@ -105,7 +113,8 @@ class Trainer:
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.seq_len, self.global_batch = seq_len, global_batch
         self.device = resolve_device(device)
-        self.step_fn = make_train_step(cfg, tcfg, mesh, device=self.device)
+        self.art = make_train_step(cfg, tcfg, mesh, device=self.device)
+        self.step_fn = self.art.jitted()
         self.dataset = SyntheticDataset(
             cfg=cfg, seq_len=seq_len, global_batch=global_batch,
             host_index=host_index, host_count=host_count, seed=tcfg.seed,
@@ -125,16 +134,14 @@ class Trainer:
     def _init_state(self) -> dict:
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
         params = T.init_params(self.cfg, gen, dtype=getattr(torch, self.tcfg.param_dtype))
-        if self.mesh is None:
-            return init_train_state(params, self.tcfg)
-        return self.step_fn.init_state(params)
+        return self.art.init_state(params)
 
     def full_state(self) -> dict:
         """The full state: the live one without a mesh, else all-gathered
         from every rank's shards (a collective: every rank calls it)."""
         if self.mesh is None:
             return self.state
-        return self.step_fn.gather_state(self.state)
+        return self.art.gather_state(self.state)
 
     # ------------------------------------------------------------------
     def _snapshot(self) -> dict:
@@ -167,7 +174,7 @@ class Trainer:
         template = {"state": self.state, "data_step": np.int64(self.dataset._step)}
         restored, step = self.ckpt.restore(template)
         full = restored["state"]
-        _copy_into(self.state, full if self.mesh is None else self.step_fn.shard_state(full))
+        _copy_into(self.state, full if self.mesh is None else self.art.shard_state(full))
         self.dataset._step = int(restored["data_step"])
         self.step_no = step
         self.report.restores += 1
@@ -183,10 +190,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def _batch(self) -> dict:
         """The next batch, on a mesh this rank's rows of it."""
-        batch = self.dataset.next_batch()
-        if self.mesh is not None:
-            return self.step_fn.shard_batch(batch)
-        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        return self.art.shard_batch(self.dataset.next_batch())
 
     def train(self, num_steps: int) -> TrainerReport:
         target = self.step_no + num_steps
@@ -233,13 +237,11 @@ class Trainer:
         The state's dicts stay the caller's; their leaves are new tensors
         where the shards' shapes change."""
         full = self.full_state()
-        self.step_fn = make_train_step(self.cfg, self.tcfg, new_mesh, device=self.device)
+        self.art = make_train_step(self.cfg, self.tcfg, new_mesh, device=self.device)
+        self.step_fn = self.art.jitted()
         self.mesh = new_mesh
-        if new_mesh is None:
-            new = tree_map(lambda t: t.detach().clone(), full)
-            tree_map(lambda p: p.requires_grad_(True), new["params"])
-        else:
-            new = self.step_fn.shard_state(full)
+        new = self.art.shard_state(full)
+        del full
         _rebind_into(self.state, new)
 
 

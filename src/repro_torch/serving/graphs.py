@@ -31,15 +31,20 @@ replay.  ``pool_bytes`` reports the pool's size (memory taken from the
 training job's share).
 
 ``AddressedGraphs`` serves callers outside the engine (the serve steps'
-``ServeStepArtifacts.jitted``, ``make_collocated_step``'s decode chain):
-their programs have no engine to own their weights and cache, so a graph
-is keyed by the addresses of the tensors it reads and writes in place.
+``ServeStepArtifacts.jitted``, ``make_collocated_step``'s decode chain,
+the train step's ``TrainStepArtifacts.jitted``): their programs have no
+engine to own their weights, so a graph is keyed by the addresses of the
+tensors it reads and writes in place, holds them only weakly and is
+dropped when one of them dies; a decode cache of known shapes is the
+graph's own buffers, which a new cache is copied into.
 """
 from __future__ import annotations
 
 import gc
+import itertools
 import time
-from typing import Callable, Optional
+import weakref
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -120,80 +125,212 @@ class GraphProgram:
         return self.fn({k: v.clone() for k, v in inputs.items()})
 
 
+#: the warm-up and capture stream of each device shared by the train steps'
+#: graphs (``warm_by_call``).  cuBLAS keeps a workspace for each stream and
+#: thread that uses it, and a graph bakes in its capture stream's: a stream
+#: made for each train step (after every remesh) would leave 64 MiB more
+#: behind each time, while graphs that may replay beside one another (the
+#: collocated chain beside the train step) need streams of their own.
+#: Train steps replay one at a time.
+_CAPTURE_STREAMS: dict = {}
+
+
 class AddressedGraphs:
     """``fn(held, inputs)`` replayed as CUDA graphs keyed by where its
     operands live.
 
     ``held``: a tree of tensors (dicts, tuples) the program reads and
-    writes where they live: weights, cache leaves.  ``inputs``: a dict of
-    small tensors (tokens, the cache index, prompt rows) copied into the
-    graph's static buffers at each call.  One graph per addresses, shapes,
-    strides and dtypes of ``held`` and shapes and dtypes of ``inputs``: a
-    call whose weights or cache sit elsewhere captures anew (``captures``
-    counts the captures; all share one pool).  A graph keeps the ``held``
-    it was captured with alive, so a caller passes back the cache it
-    received rather than a fresh copy each call.
+    writes where they live: weights, a train state.  ``inputs``: a dict of
+    small tensors (tokens, the cache index, prompt rows, a batch) copied
+    into the graph's static buffers at each call.  One graph per addresses,
+    shapes, strides and dtypes of ``held`` and shapes and dtypes of
+    ``inputs`` (``captures`` counts the captures; all share one pool).
 
-    Each capture is preceded by ``fn`` run once on copies of the inputs (a
-    ``GraphProgram`` warm-up), whose in-place writes a replay with the same
-    inputs writes again; ``kept(held)`` lists what it steps that a replay
-    would step again (a recurrent state), put back after the capture.  A
-    replay's output that is a ``held`` tensor (written in place) comes back
-    as the caller's tensor; any other is cloned (the pool's next replay may
-    reuse its memory)."""
+    A graph holds ``held`` through weak references only: once any tensor
+    it was keyed by is collected, the graph is dropped, and its share of
+    the pool with it (at the next call when that happens during a
+    capture).  So a replay never reads memory a dead tensor left behind,
+    and a caller's new weights or state at new addresses capture anew
+    without keeping the old ones alive.
+
+    ``cache=True``: ``held`` is ``(weights, cache)`` and the cache is the
+    graph's own, keyed by its shapes, strides and dtypes alone.  The first
+    call's cache becomes the graph's buffers; a call whose cache sits
+    elsewhere copies it in; every call returns the graph's buffers (the
+    reference's donation: the caller passes back what it received, and a
+    cache it passed in is not read after the call).  So a new cache of
+    known shapes captures nothing, and the graphs stay one per shape set.
+
+    Warm-up.  By default a capture is preceded by ``fn`` run once on copies
+    of the inputs (a ``GraphProgram`` warm-up), whose in-place writes a
+    replay with the same inputs writes again; ``kept(held)`` lists what it
+    steps that a replay would step again (a recurrent state), put back
+    after the capture.  ``warm_by_call=True``: a key's first call runs
+    ``fn`` eagerly on the capture stream as the warm-up and returns that
+    run's result; the capture after it launches nothing, so ``held`` is
+    stepped once (a train step, whose state is too large to copy).  The
+    allocator's cache is emptied before and after the warm-up: blocks
+    cached for one stream serve no other, and the capture takes its own
+    pool.  Such graphs share one capture stream a device
+    (``_CAPTURE_STREAMS``); any other takes a stream of its own.
+
+    A replay's output that is a ``held`` tensor (written in place) comes
+    back as the caller's tensor, a cache leaf as the graph's buffer; any
+    other is cloned (the pool's next replay may reuse its memory)."""
 
     def __init__(self, fn: Callable[[object, dict], object], *,
-                 kept: Optional[Callable[[object], list]] = None):
+                 kept: Optional[Callable[[object], list]] = None, cache: bool = False,
+                 warm_by_call: bool = False):
         self.fn = fn
         self.kept = kept
+        self.owns_cache = cache
+        self.warm_by_call = warm_by_call
         self.captures = 0
-        #: key -> (program, output template, {output leaf: held leaf})
+        #: key -> ``_Graph``
         self.graphs: dict = {}
+        self._dead: set = set()  # keys whose tensors died during a capture
         self._pool = self._side = None
 
+    def _parts(self, held) -> tuple:
+        """(the leaves keyed by address, the cache's leaves)."""
+        if self.owns_cache:
+            return _flat(held[0]), _flat(held[1])
+        return _flat(held), []
+
+    def _key(self, held, inputs: dict) -> tuple:
+        """The graph key of a call."""
+        weights, cache = self._parts(held)
+        return (tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in weights),
+                tuple((tuple(t.shape), t.stride(), t.dtype) for t in cache),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+
+    def drop(self, key) -> None:
+        """Forget ``key``'s graph (its pool share returns to the pool);
+        during a capture, at the next call instead (destroying a graph
+        then would invalidate the capture)."""
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            self._dead.add(key)
+            return
+        graph = self.graphs.pop(key, None)
+        if graph is not None:
+            for f in graph.finalizers:
+                f.detach()
+
+    def _sweep(self) -> None:
+        while self._dead:
+            self.drop(self._dead.pop())
+
     def capture(self, held, inputs: dict) -> tuple:
-        """The graph of this call's key, captured now if it has none; returns
-        the key.  A caller that must not capture while other work is queued
-        calls this first."""
-        leaves = _flat(held)
-        key = (tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in leaves),
-               tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
-        if key in self.graphs:
-            return key
+        """The graph of this call's key, captured now (after a warm-up on
+        copies of the inputs) if it has none; returns the key.  A caller
+        that must not capture while other work is queued calls this
+        first."""
+        self._sweep()
+        key = self._key(held, inputs)
+        if key not in self.graphs:
+            self._capture(key, held, inputs, warm=True)
+        return key
+
+    def _stream(self, inputs: dict) -> torch.cuda.Stream:
         if self._pool is None:
+            device = next(iter(inputs.values())).device
             self._pool = torch.cuda.graph_pool_handle()
-            self._side = torch.cuda.Stream(next(iter(inputs.values())).device)
-        template = []
+            if not self.warm_by_call:
+                self._side = torch.cuda.Stream(device)
+            else:
+                if device not in _CAPTURE_STREAMS:
+                    _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+                self._side = _CAPTURE_STREAMS[device]
+        return self._side
+
+    def _capture(self, key, held, inputs: dict, warm: bool) -> None:
+        side = self._stream(inputs)
+        weights, cache = self._parts(held)
+        refs = [weakref.ref(t) for t in weights]
+        skeleton = _unflat(held, itertools.repeat(None))
+        fn, template = self.fn, []
 
         def flat(inp):
-            out = self.fn(held, inp)
-            template[:] = [out]
+            # the weights through their weak references, the cache the
+            # graph's own: the program keeps neither the caller's weights
+            # nor its state alive
+            out = fn(_unflat(skeleton, iter([r() for r in refs] + cache)), inp)
+            template[:] = [_unflat(out, itertools.repeat(None))]
             return tuple(_flat(out))
 
-        kept = self.kept(held) if self.kept is not None else []
+        kept = self.kept(held) if warm and self.kept is not None else []
         saved = [t.clone() for t in kept]
-        prog = GraphProgram(flat, inputs, pool=self._pool, side=self._side, warm=flat)
+        prog = GraphProgram(flat, inputs, pool=self._pool, side=side,
+                            warm=flat if warm else None)
         for dst, src in zip(kept, saved):
             dst.copy_(src)
+        leaves = weights + cache
         at = {t.data_ptr(): i for i, t in enumerate(leaves)}
-        from_held = {j: at[t.data_ptr()] for j, t in enumerate(prog.out)
-                     if t.data_ptr() in at and leaves[at[t.data_ptr()]].shape == t.shape}
-        self.graphs[key] = (prog, template[0], from_held)
+        back = {j: at[t.data_ptr()] for j, t in enumerate(prog.out)
+                if t.data_ptr() in at and leaves[at[t.data_ptr()]].shape == t.shape}
+        # an output that is a held tensor is handed back as the caller's
+        prog.out = tuple(None if j in back else t for j, t in enumerate(prog.out))
+        me = weakref.ref(self)
+        self.graphs[key] = _Graph(prog, template[0], back, cache,
+                                  [weakref.finalize(t, _drop, me, key) for t in weights])
         self.captures += 1
-        return key
 
     def __call__(self, held, inputs: dict):
         """``fn(held, inputs)``'s outputs from a replay (captured first if
         needed)."""
-        prog, template, from_held = self.graphs[self.capture(held, inputs)]
-        leaves = _flat(held)
-        outs = [leaves[from_held[j]] if j in from_held else t.clone()
-                for j, t in enumerate(prog.replay(inputs))]
-        return _unflat(template, iter(outs))
+        self._sweep()
+        key = self._key(held, inputs)
+        if key not in self.graphs:
+            if self.warm_by_call:
+                torch.cuda.empty_cache()
+                out = self._warm_call(held, inputs)
+                torch.cuda.empty_cache()
+                self._capture(key, held, inputs, warm=False)
+                return out
+            self._capture(key, held, inputs, warm=True)
+        graph = self.graphs[key]
+        weights, cache = self._parts(held)
+        for dst, src in zip(graph.cache, cache):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        leaves = weights + graph.cache
+        outs = [leaves[graph.back[j]] if j in graph.back else t.clone()
+                for j, t in enumerate(graph.prog.replay(inputs))]
+        return _unflat(graph.template, iter(outs))
+
+    def _warm_call(self, held, inputs: dict):
+        """``fn(held, inputs)`` run eagerly on the capture stream."""
+        side = self._stream(inputs)
+        stream = torch.cuda.current_stream(side.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            out = self.fn(held, inputs)
+        stream.wait_stream(side)
+        return out
 
     def pool_bytes(self) -> int:
         """Device bytes of the graphs' pool (0 before the first capture)."""
         return 0 if self._pool is None else pool_bytes(self._pool)
+
+
+class _Graph(NamedTuple):
+    """One ``AddressedGraphs`` graph: its program, its output's structure,
+    ``{output index: index into the keyed leaves + cache}``, the cache
+    buffers it owns, and the finalizers that drop it."""
+
+    prog: GraphProgram
+    template: object
+    back: dict
+    cache: list
+    finalizers: list
+
+
+def _drop(graphs: "weakref.ref", key) -> None:
+    """A keyed tensor died: drop its graph (the ``AddressedGraphs`` held
+    weakly, so a finalizer keeps no graph alive)."""
+    owner = graphs()
+    if owner is not None:
+        owner.drop(key)
 
 
 def _flat(tree) -> list:
